@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA package (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Environment: requires a CUDA device; prints the card's name and power
+   limit, the torch and CUDA versions, and turns TF32 off.
+2. Builds every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each,
+   in parallel) and prints the build time and ptxas' register report.
+3. Holds each kernel against its plain PyTorch version on the card, at the
+   serving path's shapes (C=64, N=256, Fin=512 for layer 0 and 256 inner,
+   Fout=256, 4 heads, E = the engine's edge budget) with inputs from a real
+   batch of the Flickr-sized graph, and on the edge cases of the CPU tests
+   (unaligned f_in=500, self-only, block_f invariance, 64 edges into one
+   vertex, a GAT row with no structure, rows summing to one). Tolerance:
+   rtol = atol = 2e-5 (fp32, as tests/test_kernels.py). Times each kernel,
+   its plain version and the one PyTorch library call that computes the same
+   function (CUDA events, mean of many launches after warm-up) beside the
+   least time the card could take (bytes over 3.35 TB/s or fp32 operations
+   over 67 TFLOP/s, whichever is larger).
+4. Drives ``DecoupledEngine.infer`` for GCN, GraphSAGE and GAT at the
+   paper's width (L=5, N=256, f_hidden=256, 4 heads, C=64, impl="cuda") in
+   forced dense and forced sg mode on Zipf traffic, with random weights from
+   a seed; the kernels' launch counts are zeroed before and read after, and
+   each must match the program's count per batch. Each engine's embeddings
+   are compared with an impl="torch" engine on the same card and params
+   (rtol 1e-4, atol 1e-5).
+5. Prints the ``kernels`` JSON line and, last, the ``ok`` line.
+
+Any failure exits nonzero before the last line.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core.config import ServingConfig  # noqa: E402
+from repro_torch.core.engine import DecoupledEngine  # noqa: E402
+from repro_torch.gnn.layers import dense_init  # noqa: E402
+from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
+from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.fused_gnn import (fused_gnn_layer,  # noqa: E402
+                                           fused_gnn_layer_ref)
+from repro_torch.kernels.gat_attention import (gat_attention,  # noqa: E402
+                                               gat_attention_ref)
+from repro_torch.kernels.scatter_gather import (  # noqa: E402
+    scatter_gather_aggregate, scatter_gather_aggregate_ref)
+
+PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
+ENGINE_TOL = dict(rtol=1e-4, atol=1e-5)
+C, N, F_IN, F_HID, HEADS, LAYERS = 64, 256, 500, 256, 4, 5
+N_BATCHES = 4                    # measured batches per engine (+1 warm-up)
+# kernel launches per batch at L=5 (the program's count, see README)
+EXPECTED = {
+    ("gcn", "dense"): {"fused_gnn_layer": 5},
+    ("sage", "dense"): {"fused_gnn_layer": 5},
+    ("gat", "dense"): {"fused_gnn_layer": 5, "gat_attention": 5},
+    ("gcn", "sg"): {"fused_gnn_layer": 5, "scatter_gather_aggregate": 5},
+    ("sage", "sg"): {"scatter_gather_aggregate": 5},
+    ("gat", "sg"): {"fused_gnn_layer": 5},
+}
+REPLACES = {
+    "fused_gnn_layer": ("src/repro_torch/csrc/fused_gnn.cu",
+                        "src/repro/kernels/fused_gnn.py:65"),
+    "scatter_gather_aggregate": ("src/repro_torch/csrc/scatter_gather.cu",
+                                 "src/repro/kernels/scatter_gather.py:67"),
+    "gat_attention": ("src/repro_torch/csrc/gat_attention.cu",
+                      "src/repro/kernels/gat_attention.py:53"),
+}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of ``fn`` on the current stream (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name, got, want, tol=KERNEL_TOL) -> float:
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, **tol)
+    print(f"  {name}: max_abs_err={err:.3e} "
+          f"(rtol={tol['rtol']}, atol={tol['atol']}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"{name} disagrees with its plain version")
+    return err
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# -- phase 3: kernels against their plain versions ------------------------
+
+
+def kernel_phase(sb, gen, dev, label):
+    """Checks and times every kernel at the serving shapes built from the
+    SubgraphBatch ``sb``; returns {kernel: record} for the JSON line."""
+    rec = {}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    adj, adj_mean, mask = t(sb.adj), t(sb.adj_mean), t(sb.mask)
+    feats = t(np.pad(sb.feats, ((0, 0), (0, 0), (0, 512 - F_IN))))
+
+    print("[kernels] fused_gnn_layer", flush=True)
+    rows = []
+    for fin, h in ((512, feats),
+                   (F_HID, torch.relu(torch.randn(
+                       C, N, F_HID, generator=gen).to(dev))
+                    * mask[..., None])):
+        wn = dense_init(gen, (fin, F_HID)).to(dev)
+        ws = dense_init(gen, (fin, F_HID)).to(dev)
+        b = (0.1 * torch.randn(F_HID, generator=gen)).to(dev)
+        for w_self in (None, ws):
+            args = (adj, h, wn, w_self, b, mask)
+            tag = f"C={C} N={N} Fin={fin} Fout={F_HID} " \
+                  f"{'+w_self' if w_self is not None else 'w_neigh'}"
+            err = compare(f"fused {tag}", fused_gnn_layer(*args),
+                          fused_gnn_layer_ref(*args))
+            ms = cuda_ms(lambda: fused_gnn_layer(*args))
+            plain = cuda_ms(lambda: fused_gnn_layer_ref(*args))
+            wsm = w_self
+
+            def library():
+                acc = torch.baddbmm(b, adj, torch.matmul(h, wn))
+                if wsm is not None:
+                    acc = torch.baddbmm(acc, h, wsm.expand(C, -1, -1))
+                return torch.relu(acc) * mask[..., None]
+            lib = cuda_ms(library)
+            flops = 2.0 * C * N * fin * F_HID * (2 if w_self is not None
+                                                 else 1) \
+                + 2.0 * C * N * N * F_HID
+            bnd, by = bound_ms(nbytes(adj, h, wn, w_self, b, mask)
+                               + 4 * C * N * F_HID, flops)
+            print(f"  fused {tag}: kernel {ms:.4f} ms, plain {plain:.4f} "
+                  f"ms, library {lib:.4f} ms, bound {bnd:.4f} ms ({by}) "
+                  f"[{label}]", flush=True)
+            rows.append((tag, err, ms, plain, lib, bnd, by))
+    tag, err, ms, plain, lib, bnd, by = rows[0]     # gcn layer 0
+    rec["fused_gnn_layer"] = dict(shape=tag, max_abs_err=err, ms=ms,
+                                  plain_ms=plain, bound_ms=bnd,
+                                  bound_by=by, library_ms=lib)
+    # edge cases of the CPU tests
+    h500 = feats[:2, :64, :F_IN].contiguous()
+    a64, m64 = adj[:2, :64, :64].contiguous(), mask[:2, :64].contiguous()
+    w500 = dense_init(gen, (F_IN, F_HID)).to(dev)
+    compare("fused unaligned f_in=500", fused_gnn_layer(
+        a64, h500, w500, None, None, m64),
+        fused_gnn_layer_ref(a64, h500, w500, None, None, m64))
+    compare("fused self-only", fused_gnn_layer(
+        None, h500, None, w500, None, m64, act="none"),
+        fused_gnn_layer_ref(None, h500, None, w500, None, m64, act="none"))
+    wb = dense_init(gen, (512, 512)).to(dev)
+    b128 = fused_gnn_layer(adj, feats, wb, None, None, mask, block_f=128)
+    b256 = fused_gnn_layer(adj, feats, wb, None, None, mask, block_f=256)
+    torch.cuda.synchronize()
+    check(torch.equal(b128, b256), "fused result depends on block_f")
+    print("  fused block_f 128 == 256: bitwise", flush=True)
+
+    print("[kernels] scatter_gather_aggregate", flush=True)
+    src, dst, w = t(sb.edge_src), t(sb.edge_dst), t(sb.edge_w)
+    nnz = int((w != 0).sum())
+    rows = []
+    for f, h in ((512, feats), (F_HID, feats[..., :F_HID].contiguous())):
+        tag = f"C={C} N={N} F={f} E={src.shape[1]} real_edges={nnz}"
+        err = compare(f"sg {tag}", scatter_gather_aggregate(src, dst, w, h),
+                      scatter_gather_aggregate_ref(src, dst, w, h))
+        ms = cuda_ms(lambda: scatter_gather_aggregate(src, dst, w, h))
+        plain = cuda_ms(lambda: scatter_gather_aggregate_ref(src, dst, w,
+                                                             h))
+        off = (torch.arange(C, device=dev) * N)[:, None]
+        fs, fd = (src.long() + off).reshape(-1), (dst.long() + off).reshape(-1)
+        wf = w.reshape(-1, 1)
+
+        def library():
+            out = torch.zeros(C * N, f, device=dev)
+            return out.index_add_(0, fd, h.reshape(C * N, f)[fs] * wf)
+        lib = cuda_ms(library)
+        bnd, by = bound_ms(nbytes(src, dst, w, h) + 4 * C * N * f,
+                           2.0 * nnz * f)
+        print(f"  sg {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib:.4f} ms, bound {bnd:.4f} ms ({by}) [{label}]",
+              flush=True)
+        rows.append((tag, err, ms, plain, lib, bnd, by))
+    tag, err, ms, plain, lib, bnd, by = rows[0]     # layer-0 width
+    rec["scatter_gather_aggregate"] = dict(
+        shape=tag, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+        bound_by=by, library_ms=lib)
+    raw = scatter_gather_aggregate(
+        torch.zeros(1, 64, dtype=torch.int32, device=dev),
+        torch.full((1, 64), 3, dtype=torch.int32, device=dev),
+        torch.ones(1, 64, device=dev), torch.ones(1, 16, 32, device=dev))
+    torch.cuda.synchronize()
+    check(float(raw[0, 3, 0]) == 64.0 and float(raw[0, :3].abs().sum())
+          == 0.0, "64 edges into one vertex do not sum exactly")
+    print("  sg 64 edges into one vertex: exact", flush=True)
+
+    print("[kernels] gat_attention", flush=True)
+    z = torch.randn(C, N, F_HID, generator=gen).to(dev)
+    s_src = torch.randn(C, N, HEADS, generator=gen).to(dev)
+    s_dst = torch.randn(C, N, HEADS, generator=gen).to(dev)
+    eye = torch.eye(N, device=dev)
+    struct = ((torch.sign(adj_mean) + eye) * mask[:, None, :]).contiguous()
+    nnz_s = int((struct > 0).sum())
+    args = (z, s_src, s_dst, struct)
+    tag = f"C={C} N={N} F={F_HID} heads={HEADS} struct_nnz={nnz_s}"
+    err = compare(f"gat {tag}", gat_attention(*args, n_heads=HEADS),
+                  gat_attention_ref(*args, n_heads=HEADS))
+    ms = cuda_ms(lambda: gat_attention(*args, n_heads=HEADS))
+    plain = cuda_ms(lambda: gat_attention_ref(*args, n_heads=HEADS))
+    bnd, by = bound_ms(nbytes(*args) + 4 * C * N * F_HID,
+                       2.0 * nnz_s * F_HID + 6.0 * C * HEADS * N * N)
+    print(f"  gat {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"library none, bound {bnd:.4f} ms ({by}) [{label}]", flush=True)
+    rec["gat_attention"] = dict(shape=tag, max_abs_err=err, ms=ms,
+                                plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                library_ms=None)
+    empty = struct.clone()
+    empty[:, 5, :] = 0.0
+    out = gat_attention(z, s_src, s_dst, empty, n_heads=HEADS)
+    torch.cuda.synchronize()
+    check(float(out[:, 5].abs().max()) == 0.0,
+          "a GAT row with no structure is not zero")
+    ones = gat_attention(torch.ones(1, 32, 64, device=dev),
+                         torch.zeros(1, 32, 1, device=dev),
+                         torch.zeros(1, 32, 1, device=dev),
+                         torch.ones(1, 32, 32, device=dev), n_heads=1)
+    compare("gat rows sum to one", ones, torch.ones_like(ones),
+            dict(rtol=1e-5, atol=0.0))
+    return rec
+
+
+# -- phase 4: the serving path ---------------------------------------------
+
+
+def engine_phase(graph, targets, label):
+    """Serves every (model, mode) through the kernels, then through plain
+    PyTorch, and compares. Returns the main path's launch counts."""
+    outs, params = {}, {}
+    ops.reset_launch_counts()
+    for kind in ("gcn", "sage", "gat"):
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+        params[kind] = init_gnn(cfg, seed=0, device="cuda")
+        for mode in ("dense", "sg"):
+            conf = ServingConfig(device="cuda", batch_size=C, mode=mode,
+                                 impl="cuda")
+            with DecoupledEngine(graph, cfg, params=params[kind],
+                                 config=conf) as eng:
+                before = ops.launch_counts()
+                eng.infer(targets[:C])                   # warm-up batch
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                res = eng.infer(targets)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                after = ops.launch_counts()
+            st = res.stats
+            per = [h + d for h, d in zip(st.host_times, st.device_times)]
+            delta = {k: after[k] - before[k] for k in after}
+            want = {k: EXPECTED[kind, mode].get(k, 0) * (N_BATCHES + 1)
+                    for k in after}
+            check(res.embeddings.shape == (len(targets), F_HID)
+                  and np.isfinite(res.embeddings).all(),
+                  f"{kind}/{mode}: bad embeddings")
+            check(delta == want, f"{kind}/{mode}: launches {delta}, "
+                                 f"expected {want}")
+            print(f"[engine] {kind}/{mode}: {N_BATCHES} batches x C={C}, "
+                  f"p50 batch host+device {statistics.median(per)*1e3:.2f} "
+                  f"ms (p50 device {statistics.median(st.device_times)*1e3:.2f}"
+                  f" ms), wall/batch {st.t_wall/N_BATCHES*1e3:.2f} ms, "
+                  f"overlap {st.overlap_fraction:.3f}, peak device memory "
+                  f"{peak/2**20:.1f} MiB, launches/batch "
+                  f"{ {k: v // (N_BATCHES + 1) for k, v in delta.items()} }, "
+                  f"host stage totals "
+                  f"{ {k: round(v, 4) for k, v in st.stage_times.items()} } "
+                  f"s [{label}]", flush=True)
+            outs[kind, mode] = res.embeddings
+    main_path = ops.launch_counts()
+    for (kind, mode), got in outs.items():
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+        conf = ServingConfig(device="cuda", batch_size=C, mode=mode,
+                             impl="torch")
+        with DecoupledEngine(graph, cfg, params=params[kind],
+                             config=conf) as eng:
+            want = eng.infer(targets).embeddings
+        err = float(np.abs(got - want).max())
+        rel = float((np.abs(got - want) / (np.abs(want) + 1e-6)).max())
+        ok = np.allclose(got, want, **ENGINE_TOL)
+        print(f"[engine] {kind}/{mode} cuda vs torch: max_abs_err "
+              f"{err:.3e}, max_rel_err {rel:.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"{kind}/{mode}: kernels disagree with plain PyTorch")
+    check(ops.launch_counts() == main_path,
+          "the impl='torch' engines launched a kernel")
+    return main_path
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    name_power = card()
+    label = name_power
+    print(f"[env] {name_power}", flush=True)
+    print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[env] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32}"
+          f" cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+    t0 = time.perf_counter()
+    reports = build.build()
+    print(f"[build] {len(reports)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for k, rep in reports.items():
+        for line in rep.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"[build] {k}: {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    graph = get_graph("flickr", scale=1.0)
+    targets = zipf_traffic(graph, N_BATCHES * C, seed=0)
+    print(f"[data] flickr V={graph.num_vertices} E={graph.num_edges} "
+          f"f_in={graph.feature_dim} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    with DecoupledEngine(graph, GNNConfig(
+            kind="gcn", n_layers=LAYERS, receptive_field=N, f_in=F_IN,
+            f_hidden=F_HID), config=ServingConfig(
+            device="cuda", batch_size=C, mode="sg")) as eng:
+        sb = eng.plan(targets[:C]).sb
+        e_pad = eng.e_pad
+    print(f"[data] batch C={C} N={N} e_pad={e_pad} mean real edges "
+          f"{sb.n_edges.mean():.1f}", flush=True)
+    rec = kernel_phase(sb, gen, dev, label)
+    launches = engine_phase(graph, targets, label)
+    for k in REPLACES:
+        check(launches[k] > 0, f"{k} was never launched on the main path")
+    kernels = []
+    for k, (source, replaces) in REPLACES.items():
+        kernels.append(dict(name=k, route="cuda", source=source,
+                            replaces=replaces, launches=launches[k],
+                            **rec[k]))
+    print(name_power, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,93 @@
+"""Build and load the package's CUDA kernels (nvcc + ctypes).
+
+Each ``csrc/<name>.cu`` compiles on its own, with a plain C interface, into
+``build/repro_torch_kernels/<name>-<hash>.so`` under the repository root;
+the hash covers the source and the flags, so a stale library is never
+loaded. ``build()`` starts one ``nvcc`` per missing library, all at once,
+and waits for every one of them; ``load(name)`` builds at first use and
+caches the handle for the process. A missing ``nvcc`` or a failed build
+raises. Nothing here runs at import: the CPU tests import every module of
+the package on machines without a compiler or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+KERNELS = ("fused_gnn", "scatter_gather", "gat_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else the toolkit's default
+    location. Raises when neither exists."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                       "CUDA kernels of repro_torch cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` each, all started together. Returns ``{name: ptxas report}``
+    for the libraries built by this call (the register and shared-memory
+    use ``-Xptxas -v`` prints). Raises on the first failed build, after
+    every compiler has exited."""
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List = []
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs.append((n, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    reports, failed = {}, []
+    for n, out, tmp, p in procs:
+        stdout, stderr = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{stderr}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)            # atomic: readers never see a torn .so
+        reports[n] = stdout + stderr
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

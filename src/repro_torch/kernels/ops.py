@@ -1,0 +1,30 @@
+"""Kernel entry points, as the reference's ``repro.kernels.ops``.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and takes its plain
+version for CPU tensors; ``impl="torch"`` programs call the plain versions
+(``kernels.ref``) directly. ``launch_counts`` / ``reset_launch_counts``
+read and zero the wrappers' launch counters.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import fused_gnn, gat_attention as _gat
+from repro_torch.kernels import scatter_gather
+from repro_torch.kernels.fused_gnn import fused_gnn_layer  # noqa: F401
+from repro_torch.kernels.gat_attention import gat_attention  # noqa: F401
+from repro_torch.kernels.scatter_gather import \
+    scatter_gather_aggregate  # noqa: F401
+
+KERNEL_MODULES = {"fused_gnn_layer": fused_gnn,
+                  "scatter_gather_aggregate": scatter_gather,
+                  "gat_attention": _gat}
+
+
+def launch_counts() -> dict:
+    """Kernel launches so far, by kernel name."""
+    return {k: m.launches for k, m in KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for m in KERNEL_MODULES.values():
+        with m._count_lock:
+            m.launches = 0

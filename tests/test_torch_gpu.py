@@ -1,0 +1,150 @@
+"""CUDA kernels of the PyTorch package on the card: each kernel against its
+plain PyTorch version at the serving shapes (C=64, N=256, Fin=512 and 256,
+Fout=256, 4 heads, a Flickr-like edge budget) at the fp32 tolerance of
+tests/test_kernels.py, and one batch of the engine through the kernels
+against the plain path. Skipped where no CUDA device is present; on the GPU
+machine run ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.config import ServingConfig  # noqa: E402
+from repro_torch.core.engine import DecoupledEngine  # noqa: E402
+from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
+from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
+from repro_torch.kernels import fused_gnn, gat_attention, ops  # noqa: E402
+from repro_torch.kernels import scatter_gather  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+C, N, F_HID, HEADS, E = 64, 256, 256, 4, 18688
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _adj(rng, c, n):
+    a = rng.uniform(size=(c, n, n))
+    a = np.where(a < 0.2, a, 0.0).astype(np.float32)
+    k = rng.integers(n // 2, n + 1, size=c)
+    mask = (np.arange(n)[None, :] < k[:, None]).astype(np.float32)
+    return a * mask[:, :, None] * mask[:, None, :], mask
+
+
+@pytest.mark.parametrize("f_in", [512, 256, 500])
+@pytest.mark.parametrize("self_w", [False, True])
+def test_fused_gnn_layer(dev, f_in, self_w):
+    rng = np.random.default_rng(f_in)
+    adj, mask = _adj(rng, C, N)
+    h = rng.standard_normal((C, N, f_in)).astype(np.float32) \
+        * mask[..., None]
+    w = [(rng.standard_normal((f_in, F_HID)) * 0.1).astype(np.float32)
+         for _ in range(2)]
+    b = (rng.standard_normal(F_HID) * 0.1).astype(np.float32)
+    args = [None if a is None else torch.from_numpy(a).to(dev) for a in
+            (adj, h, w[0], w[1] if self_w else None, b, mask)]
+    before = fused_gnn.launches
+    got = fused_gnn.fused_gnn_layer(*args, act="elu")
+    torch.cuda.synchronize()
+    assert fused_gnn.launches == before + 1
+    torch.testing.assert_close(
+        got, fused_gnn.fused_gnn_layer_ref(*args, act="elu"), **TOL)
+    other = fused_gnn.fused_gnn_layer(*args, act="elu", block_f=64)
+    assert torch.equal(got, other)
+
+
+@pytest.mark.parametrize("c,n,f_in,f_out,block_f", [
+    (3, 37, 45, 48, 16), (2, 8, 16, 16, 256), (1, 70, 130, 200, 100)])
+def test_kernels_at_ragged_shapes(dev, c, n, f_in, f_out, block_f):
+    """Shapes that are no multiple of any tile: every edge guard runs."""
+    rng = np.random.default_rng(n)
+    adj, mask = _adj(rng, c, n)
+    h = rng.standard_normal((c, n, f_in)).astype(np.float32)
+    wn, ws = [(rng.standard_normal((f_in, f_out)) * 0.1).astype(np.float32)
+              for _ in range(2)]
+    t = [torch.from_numpy(a).to(dev) for a in (adj, h, wn, ws, mask)]
+    for w_self in (None, t[3]):
+        args = (t[0], t[1], t[2], w_self, None, t[4])
+        torch.testing.assert_close(
+            fused_gnn.fused_gnn_layer(*args, block_f=block_f),
+            fused_gnn.fused_gnn_layer_ref(*args), **TOL)
+    e = 3 * n + 5
+    src = torch.from_numpy(rng.integers(0, n, (c, e)).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(0, n, (c, e)).astype(np.int32))
+    w = torch.from_numpy(rng.standard_normal((c, e)).astype(np.float32))
+    got = scatter_gather.scatter_gather_aggregate(
+        src.to(dev), dst.to(dev), w.to(dev), t[1])
+    torch.testing.assert_close(
+        got.cpu(), scatter_gather.scatter_gather_aggregate_ref(
+            src, dst, w, t[1].cpu()), **TOL)
+    heads = 4 if f_out % 4 == 0 else 2
+    z = torch.from_numpy(rng.standard_normal((c, n, f_out))
+                         .astype(np.float32)).to(dev)
+    s = torch.from_numpy(rng.standard_normal((2, c, n, heads))
+                         .astype(np.float32)).to(dev)
+    st = (t[0] > 0).float() + torch.eye(n, device=dev)
+    torch.testing.assert_close(
+        gat_attention.gat_attention(z, s[0], s[1], st, n_heads=heads),
+        gat_attention.gat_attention_ref(z, s[0], s[1], st, n_heads=heads),
+        **TOL)
+
+
+def test_scatter_gather_aggregate(dev):
+    rng = np.random.default_rng(1)
+    src = rng.integers(0, N, size=(C, E)).astype(np.int32)
+    dst = rng.integers(0, N, size=(C, E)).astype(np.int32)
+    w = rng.standard_normal((C, E)).astype(np.float32)
+    w[:, 4000:] = 0.0                       # a padding tail
+    h = rng.standard_normal((C, N, 512)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (src, dst, w, h)]
+    got = scatter_gather.scatter_gather_aggregate(*args)
+    torch.cuda.synchronize()
+    want = scatter_gather.scatter_gather_aggregate_ref(
+        *[a.cpu() for a in args])
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    again = scatter_gather.scatter_gather_aggregate(*args)
+    assert torch.equal(got, again)          # no atomics: run-to-run equal
+
+
+def test_gat_attention(dev):
+    rng = np.random.default_rng(2)
+    z = rng.standard_normal((C, N, F_HID)).astype(np.float32)
+    s = rng.standard_normal((2, C, N, HEADS)).astype(np.float32)
+    struct = (rng.uniform(size=(C, N, N)) < 0.3).astype(np.float32)
+    struct += np.eye(N, dtype=np.float32)
+    struct[:, 7, :] = 0.0                   # a row with no structure
+    args = [torch.from_numpy(a).to(dev) for a in (z, s[0], s[1], struct)]
+    got = gat_attention.gat_attention(*args, n_heads=HEADS)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, gat_attention.gat_attention_ref(*args, n_heads=HEADS), **TOL)
+    assert float(got[:, 7].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])
+@pytest.mark.parametrize("mode", ["dense", "sg"])
+def test_engine_batch_through_kernels(dev, kind, mode):
+    g = get_graph("flickr", scale=0.05, seed=0)
+    cfg = GNNConfig(kind=kind, n_layers=3, receptive_field=128,
+                    f_in=g.feature_dim)
+    params = init_gnn(cfg, seed=0, device="cuda")
+    targets = zipf_traffic(g, 16, seed=1)
+    out = {}
+    for impl in ("cuda", "torch"):
+        ops.reset_launch_counts()
+        conf = ServingConfig(device="cuda", batch_size=16, mode=mode,
+                             impl=impl, num_threads=2)
+        with DecoupledEngine(g, cfg, params=params, config=conf) as eng:
+            out[impl] = eng.infer(targets).embeddings
+        launched = sum(ops.launch_counts().values())
+        assert (launched > 0) == (impl == "cuda")
+    np.testing.assert_allclose(out["cuda"], out["torch"], rtol=1e-4,
+                               atol=1e-5)
