@@ -7,30 +7,51 @@
    limit, the torch and CUDA versions, and turns TF32 off.
 2. Builds every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc each,
    in parallel) and prints the build time and ptxas' register report.
-3. Holds each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes (C=64, N=256, Fin=512 for layer 0 and 256 inner,
-   Fout=256, 4 heads, E = the engine's edge budget) with inputs from a real
-   batch of the Flickr-sized graph, and on the edge cases of the CPU tests
-   (unaligned f_in=500, self-only, block_f invariance, 64 edges into one
-   vertex, a GAT row with no structure, rows summing to one). Tolerance:
-   rtol = atol = 2e-5 (fp32, as tests/test_kernels.py). Times each kernel,
-   its plain version and the one PyTorch library call that computes the same
-   function (CUDA events, mean of many launches after warm-up) beside the
-   least time the card could take (bytes over 3.35 TB/s or fp32 operations
-   over 67 TFLOP/s, whichever is larger).
-4. Drives ``DecoupledEngine.infer`` for GCN, GraphSAGE and GAT at the
+3. Holds each GNN kernel against its plain PyTorch version on the card, at
+   the serving path's shapes (C=64, N=256, Fin=512 for layer 0 and 256
+   inner, Fout=256, 4 heads, E = the engine's edge budget) with inputs from
+   a real batch of the Flickr-sized graph, and on the edge cases of the CPU
+   tests (unaligned f_in=500, self-only, block_f invariance, 64 edges into
+   one vertex, a GAT row with no structure, rows summing to one).
+   Tolerance: rtol = atol = 2e-5 (fp32, as tests/test_kernels.py). Times
+   each kernel, its plain version and the one PyTorch library call that
+   computes the same function (CUDA events, mean of many launches after
+   warm-up) beside the least time the card could take (bytes over 3.35 TB/s
+   or operations over the peak for their type, whichever is larger: 67
+   TFLOP/s fp32, 989 TFLOP/s bf16).
+4. Holds ``flash_attention`` against its plain version: fp32 at rtol = atol
+   = 2e-5 on the shapes of tests/test_kernels.py (causal and not, Sq != Sk)
+   and on ragged S=1000 at D=64 and 128; bf16 at the prefill's shape B=1,
+   H=40, S=8192, D=128, causal, to one bf16 ulp (rtol 2^-7, atol 2e-5) with
+   at least 99 % of the outputs bitwise equal (``FLASH_BF16_TOL``; planted
+   faults in the kernel fail it: scripts/flash_fault_check.py). Times the
+   kernel, its plain version and
+   ``scaled_dot_product_attention(is_causal=True)`` (timed only; the
+   package never calls it) there.
+5. Drives ``DecoupledEngine.infer`` for GCN, GraphSAGE and GAT at the
    paper's width (L=5, N=256, f_hidden=256, 4 heads, C=64, impl="cuda") in
    forced dense and forced sg mode on Zipf traffic, with random weights from
    a seed; the kernels' launch counts are zeroed before and read after, and
    each must match the program's count per batch. Each engine's embeddings
    are compared with an impl="torch" engine on the same card and params
    (rtol 1e-4, atol 1e-5).
-5. Prints the ``kernels`` JSON line and, last, the ``ok`` line.
+6. LM serving: phi3-medium-14b at full width (d_model 5120, 40 heads, 10 KV
+   heads, d_ff 17920, vocab 100352, fp32 params, bf16 compute), depth cut
+   to 8 layers, random weights from seed 0, one prompt of 8192 tokens from
+   ``numpy.random.default_rng(0)``. ``prefill(impl="cuda")`` must launch
+   ``flash_attention`` exactly once a layer and no other kernel; its logits
+   are held against ``prefill(impl="torch")`` on the same card and params,
+   and 16 ``decode_step``s from an empty cache against the prefill of the
+   same 16 tokens (tolerances at ``LM_TOL`` and ``DECODE_TOL``, with their
+   reasons). Prints latency, tokens/s and peak device memory on ``[lm]``
+   lines, and the device time by kernel from ``torch.profiler``.
+7. Prints the ``kernels`` JSON line and, last, the ``ok`` line.
 
 Any failure exits nonzero before the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,26 +64,52 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.config import ServingConfig  # noqa: E402
 from repro_torch.core.engine import DecoupledEngine  # noqa: E402
 from repro_torch.gnn.layers import dense_init  # noqa: E402
 from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
 from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_ref, flash_cost)
 from repro_torch.kernels.fused_gnn import (fused_gnn_layer,  # noqa: E402
                                            fused_gnn_layer_ref)
 from repro_torch.kernels.gat_attention import (gat_attention,  # noqa: E402
                                                gat_attention_ref)
 from repro_torch.kernels.scatter_gather import (  # noqa: E402
     scatter_gather_aggregate, scatter_gather_aggregate_ref)
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.common import param_count  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
+# flash_attention in bf16: the kernel and its plain version both compute in
+# fp32 from the same bf16 inputs (agreeing to KERNEL_TOL) and round once on
+# the store, so they may land on neighbouring bf16 values: one ulp, at most
+# 2^-7 of the value. Most elements round alike; a truncating store would
+# not.
+FLASH_BF16_TOL = dict(rtol=2.0 ** -7, atol=2e-5)
+FLASH_BF16_EQUAL = 0.99
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-5)
 C, N, F_IN, F_HID, HEADS, LAYERS = 64, 256, 500, 256, 4, 5
 N_BATCHES = 4                    # measured batches per engine (+1 warm-up)
+# LM phase: phi3-medium-14b at full width, depth cut to 8 of its 40 layers
+# (the fp32 parameters of 40 layers, 58.6 GB, and the plain path's 27 GB of
+# transient scores do not fit one 80 GB card together)
+LM_ARCH, LM_LAYERS, LM_SEQ, LM_DECODE = "phi3-medium-14b", 8, 8192, 16
+# impl="cuda" against impl="torch" (and decode against prefill) in bf16:
+# the paths round at different points (the kernel keeps the probabilities
+# in fp32, the plain path casts them to bf16 before P.V, as JAX does; decode
+# runs other matmul shapes), and every bf16 op after that rounds the
+# residual stream again, 8 layers deep. Held: max |diff| over max |logit|,
+# and the share of positions whose top-1 token agrees.
+LM_TOL = dict(rel=5e-2, top1=0.9)
+DECODE_TOL = dict(rel=5e-2, top1=0.875)
 # kernel launches per batch at L=5 (the program's count, see README)
 EXPECTED = {
     ("gcn", "dense"): {"fused_gnn_layer": 5},
@@ -79,6 +126,8 @@ REPLACES = {
                                  "src/repro/kernels/scatter_gather.py:67"),
     "gat_attention": ("src/repro_torch/csrc/gat_attention.cu",
                       "src/repro/kernels/gat_attention.py:53"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:79"),
 }
 
 
@@ -102,18 +151,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops=PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, got, want, tol=KERNEL_TOL) -> float:
+def closeness(got, want, tol):
+    """(max |got - want|, the largest |got - want| / (atol + rtol |want|),
+    which is <= 1 exactly where allclose holds, and the share of elements
+    that are bitwise equal)."""
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    ok = torch.allclose(got, want, **tol)
-    print(f"  {name}: max_abs_err={err:.3e} "
-          f"(rtol={tol['rtol']}, atol={tol['atol']}) "
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    worst = float(diff.div_(tol["atol"] + tol["rtol"] * w.abs()).max())
+    return err, worst, float((g == w).float().mean())
+
+
+def compare(name, got, want, tol=KERNEL_TOL, equal_share=None) -> float:
+    """Holds ``got`` to ``want`` at ``tol`` and, where ``equal_share`` is
+    given, requires at least that share of elements bitwise equal."""
+    err, worst, share = closeness(got, want, tol)
+    ok = worst <= 1.0 and (equal_share is None or share >= equal_share)
+    print(f"  {name}: max_abs_err={err:.3e} (rtol={tol['rtol']:.4g}, "
+          f"atol={tol['atol']:.4g}; worst {worst:.3f} of the tolerance), "
+          f"bitwise equal {share:.6f}"
+          f"{'' if equal_share is None else f' (at least {equal_share})'} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"{name} disagrees with its plain version")
     return err
@@ -270,7 +334,49 @@ def kernel_phase(sb, gen, dev, label):
     return rec
 
 
-# -- phase 4: the serving path ---------------------------------------------
+# -- phase 4: flash_attention against its plain version --------------------
+
+
+def flash_phase(dev, label):
+    """Checks flash_attention on the CPU tests' shapes (fp32) and at the
+    prefill's shape (bf16), times it there; returns its record."""
+    print("[kernels] flash_attention", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for b, h, sq, sk, d in ((1, 2, 64, 64, 32), (2, 1, 128, 128, 64),
+                            (1, 2, 64, 128, 32), (1, 3, 1000, 1000, 64),
+                            (1, 2, 1000, 1000, 128), (1, 2, 1000, 777, 128)):
+        q, k, v = rnd((b, h, sq, d)), rnd((b, h, sk, d)), rnd((b, h, sk, d))
+        for causal in (True, False):
+            compare(f"flash fp32 B={b} H={h} Sq={sq} Sk={sk} D={d} "
+                    f"causal={causal}", flash_attention(q, k, v,
+                                                        causal=causal),
+                    flash_attention_ref(q, k, v, causal=causal))
+    B, H, S, D = 1, 40, LM_SEQ, 128
+    q, k, v = (rnd((B, H, S, D), torch.bfloat16) for _ in range(3))
+    tag = f"B={B} H={H} S={S} D={D} bf16 causal"
+    err = compare(f"flash {tag}", flash_attention(q, k, v),
+                  flash_attention_ref(q, k, v), FLASH_BF16_TOL,
+                  FLASH_BF16_EQUAL)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), iters=10, warmup=2)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=5,
+                    warmup=1)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    cost = flash_cost(B, H, S, S, D, causal=True, bytes_per=2)
+    bnd, by = bound_ms(cost["hbm_bytes"], cost["flops"], PEAK_BF16_FLOPS)
+    print(f"  flash {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"library {lib:.4f} ms (scaled_dot_product_attention), bound "
+          f"{bnd:.4f} ms ({by}; {cost['flops']:.4g} operations, "
+          f"{cost['hbm_bytes']:.4g} bytes) [{label}]", flush=True)
+    return dict(shape=tag, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=lib)
+
+
+# -- phase 5: the serving path ---------------------------------------------
 
 
 def engine_phase(graph, targets, label):
@@ -337,6 +443,127 @@ def engine_phase(graph, targets, label):
     return main_path
 
 
+# -- phase 6: LM prefill and decode ------------------------------------------
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _agreement(got, want):
+    """(max |got - want| / max |want|, share of equal argmaxes)."""
+    rel = float((got - want).abs().max() / want.abs().max())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return rel, top1
+
+
+def _profile(fn, label, what):
+    """Prints the device time of one call of ``fn`` by kernel, from
+    ``torch.profiler``, and the share of the call's wall time the card
+    was busy (one stream: the kernels' times add up)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = _timed(fn)[1]
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    print(f"[lm] profile of {what}: kernels {busy * 1e3:.2f} ms of "
+          f"{wall * 1e3:.2f} ms wall ({busy / wall:.1%} busy; traced) "
+          f"[{label}]", flush=True)
+    for name, us, count in rows[:8]:
+        print(f"[lm]   {us / 1e3:9.3f} ms  x{count:<4d} {name[:80]}",
+              flush=True)
+
+
+def lm_phase(label):
+    """Serves one 8192-token prompt of phi3-medium-14b (8 layers) through
+    prefill and decode; returns the main path's launch counts."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    params, t_init = _timed(lambda: transformer.init_params(
+        cfg, seed=0, device="cuda"))
+    n_params = param_count(params)
+    print(f"[lm] {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.n_layers} "
+          f"(of 40): {n_params / 1e9:.3f} B parameters, "
+          f"{n_params * 4 / 1e9:.2f} GB fp32, drawn on the card in "
+          f"{t_init:.2f} s", flush=True)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, LM_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+
+    def prefill(impl, b=batch):
+        return _timed(lambda: transformer.prefill(cfg, params, b, impl=impl))
+
+    prefill("cuda")                        # warm-up: cuBLAS, first launches
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits, t_main = prefill("cuda")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: (cfg.n_layers if k == "flash_attention" else 0)
+            for k in launches}
+    check(launches == want, f"prefill launches {launches}, expected {want}")
+    check(tuple(logits.shape) == (1, LM_SEQ, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+    times = [t_main] + [prefill("cuda")[1] for _ in range(2)]
+    print(f"[lm] prefill impl=cuda B=1 S={LM_SEQ}: latency "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms (p50 "
+          f"{statistics.median(times) * 1e3:.2f} ms), "
+          f"{LM_SEQ / statistics.median(times):.0f} tokens/s, peak device "
+          f"memory {peak / 2**30:.2f} GiB, launches {launches} [{label}]",
+          flush=True)
+
+    _profile(lambda: prefill("cuda"), label, "one prefill")
+
+    before = ops.launch_counts()
+    plain, t_plain = prefill("torch")
+    check(ops.launch_counts() == before, "impl='torch' launched a kernel")
+    rel, top1 = _agreement(logits, plain)
+    ok = rel <= LM_TOL["rel"] and top1 >= LM_TOL["top1"]
+    print(f"[lm] prefill impl=cuda vs impl=torch: max abs err / max |logit| "
+          f"{rel:.3e} (max |logit| {float(plain.abs().max()):.3f}), top-1 "
+          f"agreement {top1:.4f} over {LM_SEQ} positions (tolerance "
+          f"{LM_TOL}); impl=torch latency {t_plain * 1e3:.2f} ms "
+          f"{'ok' if ok else 'FAIL'} [{label}]", flush=True)
+    check(ok, "prefill through the kernel disagrees with the plain path")
+    del logits, plain
+
+    cache = transformer.init_cache(cfg, 1, LM_DECODE, device="cuda")
+    steps, step_times = [], []
+    for pos in range(LM_DECODE):
+        (lg, cache), t = _timed(lambda: transformer.decode_step(
+            cfg, params, cache, batch["tokens"][:, pos:pos + 1], pos))
+        steps.append(lg[:, 0])
+        step_times.append(t)
+    dec = torch.stack(steps, dim=1)
+    check(tuple(dec.shape) == (1, LM_DECODE, cfg.vocab_size)
+          and bool(torch.isfinite(dec).all()), "bad decode logits")
+    ref, _ = prefill("cuda", {"tokens": batch["tokens"][:, :LM_DECODE]})
+    rel, top1 = _agreement(dec, ref)
+    ok = rel <= DECODE_TOL["rel"] and top1 >= DECODE_TOL["top1"]
+    p50 = statistics.median(step_times[1:])
+    print(f"[lm] decode {LM_DECODE} steps from an empty cache vs prefill "
+          f"of the same tokens: max abs err / max |logit| {rel:.3e}, top-1 "
+          f"agreement {top1:.4f} (tolerance {DECODE_TOL}); step latency "
+          f"p50 {p50 * 1e3:.2f} ms (first {step_times[0] * 1e3:.2f} ms), "
+          f"{1 / p50:.1f} tokens/s at B=1 {'ok' if ok else 'FAIL'} "
+          f"[{label}]", flush=True)
+    check(ok, "decode disagrees with prefill")
+    _profile(lambda: transformer.decode_step(
+        cfg, params, cache, batch["tokens"][:, LM_DECODE - 1:LM_DECODE],
+        LM_DECODE - 1), label, "one decode step")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -375,7 +602,9 @@ def main() -> int:
     print(f"[data] batch C={C} N={N} e_pad={e_pad} mean real edges "
           f"{sb.n_edges.mean():.1f}", flush=True)
     rec = kernel_phase(sb, gen, dev, label)
+    rec["flash_attention"] = flash_phase(dev, label)
     launches = engine_phase(graph, targets, label)
+    launches["flash_attention"] = lm_phase(label)["flash_attention"]
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     kernels = []

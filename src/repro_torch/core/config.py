@@ -21,9 +21,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
-import torch
-
 from repro_torch.core.program import IMPLS
+from repro_torch.devices import resolve
 from repro_torch.store.policy import StorePolicy
 
 UNPORTED_PLANES = ("trace", "telemetry", "dispatch", "precompute")
@@ -77,13 +76,7 @@ class ServingConfig:
         if self.mode not in ("auto", "dense", "sg"):
             raise ValueError(f"mode={self.mode!r}, expected auto | dense | "
                              f"sg")
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"ServingConfig.device={self.device!r} but no CUDA device "
-                f"is available; pass device='cpu' to run on the CPU")
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"device={self.device!r}: cuda or cpu")
+        resolve(self.device)            # cuda with no card raises
         if self.batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         if self.num_threads < 1:

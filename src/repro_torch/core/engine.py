@@ -89,7 +89,7 @@ class DecoupledEngine:
         # ship only the adjacency arrays the specialized program reads
         self.adj_keys = required_adjacency(self.program)
         if params is None:
-            params = init_gnn(cfg, config.seed)
+            params = init_gnn(cfg, config.seed, device=self.device)
         params = params_to(params, self.device)
         self.params = params
         # the kernels' feature width: f_in padded to a multiple of 128 under

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.program import layer_init_for, lower_and_specialize
+from repro_torch.devices import resolve
 from repro_torch.gnn.layers import dense_init
 
 
@@ -44,10 +45,13 @@ def _init_layer(cfg: GNNConfig, gen, f_in, f_out):
     return layer_init_for(cfg.kind)(cfg, gen, f_in, f_out)
 
 
-def init_gnn(cfg: GNNConfig, seed: int = 0, device="cpu"):
+def init_gnn(cfg: GNNConfig, seed: int = 0, device="cuda"):
     """Random parameters from a ``torch.Generator`` seeded with ``seed``:
     drawn on the CPU (the same numbers on every device), then moved to
-    ``device``. The inner layers are stacked along a leading L-1 axis."""
+    ``device`` (the card unless the caller asks for the CPU; "cuda" with
+    no card raises). The inner layers are stacked along a leading L-1
+    axis."""
+    device = resolve(device)
     gen = torch.Generator().manual_seed(int(seed))
     p = {"layer0": _init_layer(cfg, gen, cfg.f_in, cfg.f_hidden)}
     if cfg.n_layers > 1:

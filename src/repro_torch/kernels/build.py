@@ -23,7 +23,9 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-KERNELS = ("fused_gnn", "scatter_gather", "gat_attention")
+KERNELS = ("fused_gnn", "scatter_gather", "gat_attention",
+           "flash_attention")
+MAX_SMEM = 232_448      # shared memory one block may use on an H100 (bytes)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

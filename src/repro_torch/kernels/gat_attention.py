@@ -26,7 +26,6 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-MAX_SMEM = 232_448
 
 launches = 0
 _count_lock = threading.Lock()
@@ -91,7 +90,7 @@ def gat_attention(z, s_src, s_dst, struct, *, n_heads: int,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gat_attention: inputs must be contiguous")
     lib = _lib()
-    if lib.gat_attention_smem_bytes(N) > MAX_SMEM:
+    if lib.gat_attention_smem_bytes(N) > build.MAX_SMEM:
         raise ValueError(f"gat_attention: N={N} needs more shared memory "
                          f"than a block has")
     out = torch.empty((C, N, F), dtype=torch.float32, device=dev)

@@ -8,7 +8,9 @@ read and zero the wrappers' launch counters.
 from __future__ import annotations
 
 from repro_torch.kernels import fused_gnn, gat_attention as _gat
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import scatter_gather
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.fused_gnn import fused_gnn_layer  # noqa: F401
 from repro_torch.kernels.gat_attention import gat_attention  # noqa: F401
 from repro_torch.kernels.scatter_gather import \
@@ -16,7 +18,8 @@ from repro_torch.kernels.scatter_gather import \
 
 KERNEL_MODULES = {"fused_gnn_layer": fused_gnn,
                   "scatter_gather_aggregate": scatter_gather,
-                  "gat_attention": _gat}
+                  "gat_attention": _gat,
+                  "flash_attention": _flash}
 
 
 def launch_counts() -> dict:

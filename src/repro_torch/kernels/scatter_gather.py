@@ -26,9 +26,6 @@ import torch
 
 from repro_torch.kernels import build
 
-# shared memory an H100 block may use (bytes)
-MAX_SMEM = 232_448
-
 launches = 0
 _count_lock = threading.Lock()
 
@@ -89,7 +86,7 @@ def scatter_gather_aggregate(src, dst, w, h):
         raise ValueError("scatter_gather_aggregate: inputs must be "
                          "contiguous")
     lib = _lib()
-    if lib.scatter_gather_smem_bytes(N) > MAX_SMEM:
+    if lib.scatter_gather_smem_bytes(N) > build.MAX_SMEM:
         raise ValueError(f"scatter_gather_aggregate: N={N} needs more "
                          f"shared memory than a block has")
     out = torch.empty((C, N, F), dtype=torch.float32, device=dev)

@@ -2,19 +2,27 @@
 plain PyTorch version at the serving shapes (C=64, N=256, Fin=512 and 256,
 Fout=256, 4 heads, a Flickr-like edge budget) at the fp32 tolerance of
 tests/test_kernels.py, and one batch of the engine through the kernels
-against the plain path. Skipped where no CUDA device is present; on the GPU
-machine run ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
+against the plain path; flash_attention against its plain version (fp32
+at 2e-5 on ragged and square shapes, bf16 to one ulp) and a reduced dense LM's
+prefill through it against the plain path. Skipped where no CUDA device is
+present; on the GPU machine run
+``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.base import DTypePolicy  # noqa: E402
 from repro_torch.core.config import ServingConfig  # noqa: E402
 from repro_torch.core.engine import DecoupledEngine  # noqa: E402
 from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
 from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import fused_gnn, gat_attention, ops  # noqa: E402
-from repro_torch.kernels import scatter_gather  # noqa: E402
+from repro_torch.kernels import flash_attention, scatter_gather  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -148,3 +156,69 @@ def test_engine_batch_through_kernels(dev, kind, mode):
         assert (launched > 0) == (impl == "cuda")
     np.testing.assert_allclose(out["cuda"], out["torch"], rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [
+    (1, 2, 64, 64, 32, True), (2, 1, 128, 128, 64, False),
+    (1, 2, 64, 128, 32, False), (1, 3, 1000, 1000, 128, True),
+    (2, 2, 130, 77, 16, True), (1, 2, 100, 300, 256, False)])
+def test_flash_attention(dev, b, h, sq, sk, d, causal):
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d))
+                                .astype(np.float32)).to(dev)
+               for s in (sq, sk, sk))
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, flash_attention.flash_attention_ref(
+        q, k, v, causal=causal), **TOL)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = flash_attention.flash_attention(qb, kb, vb, causal=causal)
+    assert got.dtype == torch.bfloat16
+    want = flash_attention.flash_attention_ref(qb, kb, vb, causal=causal)
+    # both sides compute in fp32 and round once: at most one bf16 ulp
+    # apart, and nearly all bitwise equal (as chip_smoke.py holds them)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2e-5)
+    assert float((got == want).float().mean()) >= 0.99
+
+
+def test_flash_attention_refuses_a_head_dim_over_shared_memory(dev):
+    q = torch.zeros(1, 1, 64, 512, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention.flash_attention(q, q, q)
+
+
+def test_lm_head_keeps_the_fp32_hidden_state(dev):
+    """bf16 compute: the card's LM head (hi + lo bf16 halves of the fp32
+    hidden state on the tensor cores) against the CPU's fp32 product."""
+    cfg = dataclasses.replace(
+        get_config("phi3-medium-14b", reduced=True),
+        dtype=DTypePolicy(param_dtype="float32", compute_dtype="bfloat16"))
+    rng = np.random.default_rng(3)
+    h = torch.from_numpy(rng.standard_normal((2, 37, 512))
+                         .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((512, 1000)) / 512 ** 0.5)
+                         .astype(np.float32))
+    want = transformer._unembed(cfg, {"lm_head": w}, h)
+    got = transformer._unembed(cfg, {"lm_head": w.to(dev)}, h.to(dev))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_lm_prefill_through_flash_attention(dev):
+    """A reduced phi3 (fp32, GQA 4:2) over a ragged 40-token prompt: one
+    launch a layer, logits allclose to the plain path on the card."""
+    cfg = get_config("phi3-medium-14b", reduced=True)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(dev)
+    ops.reset_launch_counts()
+    got = transformer.prefill(cfg, params, {"tokens": tokens}, impl="cuda")
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want = transformer.prefill(cfg, params, {"tokens": tokens}, impl="torch")
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)

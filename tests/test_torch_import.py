@@ -3,6 +3,7 @@ imports with ``jax`` blocked and loads nothing of ``repro``; so do
 chip_smoke.py's imports; a CUDA device with no card raises; every
 ServingConfig field of a plane not ported yet raises; kernels are built
 from the repository's sources only."""
+import inspect
 import json
 import re
 import subprocess
@@ -14,8 +15,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.config import ServingConfig  # noqa: E402
+from repro_torch.gnn.model import (  # noqa: E402
+    GNNConfig, init_gnn, params_from_jax as gnn_params_from_jax)
 from repro_torch.graphs.synthetic import get_graph  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.store import StorePolicy, build_feature_source  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,7 +59,9 @@ class TestImportIsolation:
                 "kernels.ops", "kernels.build", "gnn.layers", "core.ack",
                 "core.program", "gnn.lowering", "gnn.model", "core.config",
                 "core.report_schema", "core.scheduler", "core.batchplan",
-                "core.engine")}
+                "core.engine", "devices", "configs.base", "configs.registry",
+                "kernels.flash_attention", "models.common", "models.rope",
+                "models.mlp", "models.attention", "models.transformer")}
         assert slice_modules <= set(MODULES), slice_modules - set(MODULES)
         code = "import repro_torch\n" + "".join(
             f"import {m}\n" for m in MODULES)
@@ -80,11 +86,21 @@ class TestNoSilentFallback:
             ServingConfig()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServingConfig(device="cuda", impl="torch")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_gnn(GNNConfig(kind="gcn", n_layers=1, f_in=8))
 
     def test_defaults_are_cuda(self):
         fields = ServingConfig.__dataclass_fields__
         assert fields["device"].default == "cuda"
         assert fields["impl"].default == "cuda"
+        for fn, arg in ((init_gnn, "device"), (gnn_params_from_jax, "device"),
+                        (transformer.init_params, "device"),
+                        (transformer.init_cache, "device"),
+                        (transformer.params_from_jax, "device"),
+                        (transformer.prefill, "impl"),
+                        (transformer.backbone, "impl")):
+            default = inspect.signature(fn).parameters[arg].default
+            assert default == "cuda", (fn.__qualname__, arg, default)
 
     @pytest.mark.parametrize("field", ["trace", "telemetry", "dispatch",
                                        "precompute"])

@@ -200,7 +200,8 @@ class TestOps:
                            ref.fused_gnn_layer_ref(*args))
         assert ops.launch_counts() == {"fused_gnn_layer": 0,
                                        "scatter_gather_aggregate": 0,
-                                       "gat_attention": 0}
+                                       "gat_attention": 0,
+                                       "flash_attention": 0}
 
     def test_reset_launch_counts(self):
         fused_gnn.launches = 3

@@ -130,18 +130,19 @@ class TestParams:
     def test_init_gnn_matches_reference_layout(self, graph, kind):
         jcfg, tcfg = _cfgs(kind, graph.feature_dim, n_layers=4)
         p, _ = _params(jcfg)
-        tp = init_gnn(tcfg, seed=0)
+        tp = init_gnn(tcfg, seed=0, device="cpu")
         jshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), p)
         tshapes = {k: (tuple(v.shape) if isinstance(v, torch.Tensor)
                        else {kk: tuple(vv.shape) for kk, vv in v.items()})
                    for k, v in tp.items()}
         assert jshapes == tshapes
-        again = init_gnn(tcfg, seed=0)
+        again = init_gnn(tcfg, seed=0, device="cpu")
         assert all(torch.equal(a, b)
                    for a, b in zip(_leaves(tp), _leaves(again)))
 
     def test_lecun_normal_scale(self):
-        tp = init_gnn(GNNConfig(kind="gcn", n_layers=1, f_in=400), seed=1)
+        tp = init_gnn(GNNConfig(kind="gcn", n_layers=1, f_in=400), seed=1,
+                      device="cpu")
         w = tp["layer0"]["w"]
         assert abs(float(w.std()) - 400 ** -0.5) < 0.05 * 400 ** -0.5
 
