@@ -19,15 +19,20 @@
    warm-up) beside the least time the card could take (bytes over 3.35 TB/s
    or operations over the peak for their type, whichever is larger: 67
    TFLOP/s fp32, 989 TFLOP/s bf16).
-4. Holds ``flash_attention`` against its plain version: fp32 at rtol = atol
-   = 2e-5 on the shapes of tests/test_kernels.py (causal and not, Sq != Sk)
-   and on ragged S=1000 at D=64 and 128; bf16 at the prefill's shape B=1,
-   H=40, S=8192, D=128, causal, to one bf16 ulp (rtol 2^-7, atol 2e-5) with
-   at least 99 % of the outputs bitwise equal (``FLASH_BF16_TOL``; planted
+4. Holds ``flash_attention``'s two kernels against their plain version.
+   The CUDA-core kernel (fp32, and bf16 at a head dim the wgmma kernel does
+   not take): fp32 at rtol = atol = 2e-5 on the shapes of
+   tests/test_kernels.py (causal and not, Sq != Sk), on ragged S=1000 at
+   D=64 and 128 and with grouped KV heads; bf16 at D=32 to one bf16 ulp
+   with at least 99 % of the outputs bitwise equal. The wgmma kernel (bf16,
+   D=64 and 128) on small, ragged, non-causal and grouped shapes and at
+   the prefill's shape (B=1, H=40, 10 KV heads, S=8192, D=128, causal):
+   ``flash_bf16_check`` (every element within ``flash_bf16_tol``, the mean
+   signed error within 0.1 bf16 ulp, two launches bitwise equal; planted
    faults in the kernel fail it: scripts/flash_fault_check.py). Times the
-   kernel, its plain version and
-   ``scaled_dot_product_attention(is_causal=True)`` (timed only; the
-   package never calls it) there.
+   kernel, its plain version and ``scaled_dot_product_attention(
+   is_causal=True, enable_gqa=True)`` (timed only; the package never
+   calls it) there, and the kernel once more with K/V repeated to 40 heads.
 5. Drives ``DecoupledEngine.infer`` for GCN, GraphSAGE and GAT at the
    paper's width (L=5, N=256, f_hidden=256, 4 heads, C=64, impl="cuda") in
    forced dense and forced sg mode on Zipf traffic, with random weights from
@@ -39,7 +44,8 @@
    heads, d_ff 17920, vocab 100352, fp32 params, bf16 compute), depth cut
    to 8 layers, random weights from seed 0, one prompt of 8192 tokens from
    ``numpy.random.default_rng(0)``. ``prefill(impl="cuda")`` must launch
-   ``flash_attention`` exactly once a layer and no other kernel; its logits
+   ``flash_attention`` exactly once a layer, every launch the wgmma kernel,
+   and no other kernel; its logits
    are held against ``prefill(impl="torch")`` on the same card and params,
    and 16 ``decode_step``s from an empty cache against the prefill of the
    same 16 tokens (tolerances at ``LM_TOL`` and ``DECODE_TOL``, with their
@@ -73,8 +79,10 @@ from repro_torch.gnn.layers import dense_init  # noqa: E402
 from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
 from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_ref, flash_cost)
+    flash_attention, flash_attention_ref, flash_bf16_check, flash_bf16_tol,
+    flash_cost, flash_variant)
 from repro_torch.kernels.fused_gnn import (fused_gnn_layer,  # noqa: E402
                                            fused_gnn_layer_ref)
 from repro_torch.kernels.gat_attention import (gat_attention,  # noqa: E402
@@ -88,11 +96,12 @@ PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
-# flash_attention in bf16: the kernel and its plain version both compute in
-# fp32 from the same bf16 inputs (agreeing to KERNEL_TOL) and round once on
-# the store, so they may land on neighbouring bf16 values: one ulp, at most
-# 2^-7 of the value. Most elements round alike; a truncating store would
-# not.
+# flash_attention's CUDA-core kernel in bf16: it and its plain version both
+# compute in fp32 from the same bf16 inputs (agreeing to KERNEL_TOL) and
+# round once on the store, so they may land on neighbouring bf16 values: one
+# ulp, at most 2^-7 of the value. Most elements round alike; a truncating
+# store would not. (The wgmma kernel rounds P to bf16 before P.V: it is held
+# by flash_bf16_check instead.)
 FLASH_BF16_TOL = dict(rtol=2.0 ** -7, atol=2e-5)
 FLASH_BF16_EQUAL = 0.99
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -103,11 +112,11 @@ N_BATCHES = 4                    # measured batches per engine (+1 warm-up)
 # transient scores do not fit one 80 GB card together)
 LM_ARCH, LM_LAYERS, LM_SEQ, LM_DECODE = "phi3-medium-14b", 8, 8192, 16
 # impl="cuda" against impl="torch" (and decode against prefill) in bf16:
-# the paths round at different points (the kernel keeps the probabilities
-# in fp32, the plain path casts them to bf16 before P.V, as JAX does; decode
-# runs other matmul shapes), and every bf16 op after that rounds the
-# residual stream again, 8 layers deep. Held: max |diff| over max |logit|,
-# and the share of positions whose top-1 token agrees.
+# the paths round at different points (the kernel rounds the unnormalized
+# probabilities to bf16 before P.V, the plain path the normalized ones, as
+# JAX does; decode runs other matmul shapes), and every bf16 op after that
+# rounds the residual stream again, 8 layers deep. Held: max |diff| over
+# max |logit|, and the share of positions whose top-1 token agrees.
 LM_TOL = dict(rel=5e-2, top1=0.9)
 DECODE_TOL = dict(rel=5e-2, top1=0.875)
 # kernel launches per batch at L=5 (the program's count, see README)
@@ -337,43 +346,91 @@ def kernel_phase(sb, gen, dev, label):
 # -- phase 4: flash_attention against its plain version --------------------
 
 
+def flash_wgmma_check(name, q, k, v, causal=True):
+    """Runs the wgmma kernel twice and holds it to ``flash_bf16_check``;
+    returns the readings."""
+    check(flash_variant(q.dtype, q.shape[-1]) == "wgmma",
+          f"{name}: not a shape of the wgmma kernel")
+    before = flash_kernels.variant_launches["wgmma"]
+    out = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(flash_kernels.variant_launches["wgmma"] == before + 2,
+          f"{name}: the wgmma kernel was not launched")
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               causal=causal)
+    r = flash_bf16_check(out, again, want,
+                         flash_bf16_tol(q, k, v, causal=causal))
+    print(f"  {name}: max_abs_err={r['max_abs_err']:.3e}, worst "
+          f"{r['worst']:.3f} of flash_bf16_tol, mean signed error "
+          f"{r['bias_ulp']:+.4f} ulp, repeatable {r['repeatable']} "
+          f"{'ok' if r['ok'] else 'FAIL'}", flush=True)
+    check(r["ok"], f"{name} disagrees with its plain version")
+    return r
+
+
 def flash_phase(dev, label):
-    """Checks flash_attention on the CPU tests' shapes (fp32) and at the
-    prefill's shape (bf16), times it there; returns its record."""
+    """Checks both flash_attention kernels on the CPU tests' shapes and the
+    wgmma kernel at the prefill's shape, times it there; returns its
+    record."""
     print("[kernels] flash_attention", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    for b, h, sq, sk, d in ((1, 2, 64, 64, 32), (2, 1, 128, 128, 64),
-                            (1, 2, 64, 128, 32), (1, 3, 1000, 1000, 64),
-                            (1, 2, 1000, 1000, 128), (1, 2, 1000, 777, 128)):
-        q, k, v = rnd((b, h, sq, d)), rnd((b, h, sk, d)), rnd((b, h, sk, d))
+    for b, h, kh, sq, sk, d in ((1, 2, 2, 64, 64, 32), (2, 1, 1, 128, 128, 64),
+                                (1, 2, 2, 64, 128, 32),
+                                (1, 3, 3, 1000, 1000, 64),
+                                (1, 2, 2, 1000, 1000, 128),
+                                (1, 2, 2, 1000, 777, 128),
+                                (1, 4, 2, 1000, 1000, 128)):
+        q, k, v = rnd((b, h, sq, d)), rnd((b, kh, sk, d)), rnd((b, kh, sk, d))
         for causal in (True, False):
-            compare(f"flash fp32 B={b} H={h} Sq={sq} Sk={sk} D={d} "
-                    f"causal={causal}", flash_attention(q, k, v,
-                                                        causal=causal),
+            compare(f"flash cuda_core fp32 B={b} H={h} Kh={kh} Sq={sq} "
+                    f"Sk={sk} D={d} causal={causal}",
+                    flash_attention(q, k, v, causal=causal),
                     flash_attention_ref(q, k, v, causal=causal))
-    B, H, S, D = 1, 40, LM_SEQ, 128
-    q, k, v = (rnd((B, H, S, D), torch.bfloat16) for _ in range(3))
-    tag = f"B={B} H={H} S={S} D={D} bf16 causal"
-    err = compare(f"flash {tag}", flash_attention(q, k, v),
-                  flash_attention_ref(q, k, v), FLASH_BF16_TOL,
-                  FLASH_BF16_EQUAL)
-    ms = cuda_ms(lambda: flash_attention(q, k, v), iters=10, warmup=2)
+    q, k, v = (rnd((1, 4, 1000, 32), torch.bfloat16) for _ in range(3))
+    check(flash_variant(q.dtype, 32) == "cuda_core", "bf16 D=32 variant")
+    compare("flash cuda_core bf16 B=1 H=4 S=1000 D=32 causal",
+            flash_attention(q, k, v), flash_attention_ref(q, k, v),
+            FLASH_BF16_TOL, FLASH_BF16_EQUAL)
+    for b, h, kh, sq, sk, d, causal in (
+            (1, 1, 1, 128, 128, 128, True), (1, 2, 1, 128, 128, 64, True),
+            (2, 4, 2, 1000, 1000, 128, True), (1, 4, 1, 1000, 777, 64, True),
+            (1, 2, 2, 130, 300, 128, False), (2, 2, 1, 256, 256, 64, False)):
+        q = rnd((b, h, sq, d), torch.bfloat16)
+        k, v = (rnd((b, kh, sk, d), torch.bfloat16) for _ in range(2))
+        flash_wgmma_check(f"flash wgmma B={b} H={h} Kh={kh} Sq={sq} Sk={sk} "
+                          f"D={d} causal={causal}", q, k, v, causal)
+    B, H, KH, S, D = 1, 40, 10, LM_SEQ, 128
+    q = rnd((B, H, S, D), torch.bfloat16)
+    k, v = (rnd((B, KH, S, D), torch.bfloat16) for _ in range(2))
+    tag = f"B={B} H={H} Kh={KH} S={S} D={D} bf16 causal"
+    r = flash_wgmma_check(f"flash wgmma {tag}", q, k, v)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=5,
                     warmup=1)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), iters=20)
-    cost = flash_cost(B, H, S, S, D, causal=True, bytes_per=2)
-    bnd, by = bound_ms(cost["hbm_bytes"], cost["flops"], PEAK_BF16_FLOPS)
-    print(f"  flash {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"library {lib:.4f} ms (scaled_dot_product_attention), bound "
-          f"{bnd:.4f} ms ({by}; {cost['flops']:.4g} operations, "
-          f"{cost['hbm_bytes']:.4g} bytes) [{label}]", flush=True)
-    return dict(shape=tag, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bnd, bound_by=by, library_ms=lib)
+        q, k, v, is_causal=True, enable_gqa=True), iters=20)
+    flops = flash_cost(B, H, S, S, D, causal=True)["flops"]
+    bnd, by = bound_ms(2 * nbytes(q) + nbytes(k, v), flops, PEAK_BF16_FLOPS)
+    print(f"  flash wgmma {tag}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
+          f"{lib:.4f} ms (scaled_dot_product_attention), bound {bnd:.4f} "
+          f"ms ({by}; {flops:.4g} operations, "
+          f"{2 * nbytes(q) + nbytes(k, v):.4g} bytes) [{label}]", flush=True)
+    k4, v4 = (t.repeat_interleave(H // KH, dim=1) for t in (k, v))
+    ms4 = cuda_ms(lambda: flash_attention(q, k4, v4), iters=20)
+    lib4 = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k4, v4, is_causal=True), iters=20)
+    print(f"  flash wgmma B={B} H={H} Kh={H} S={S} D={D} bf16 causal (K/V "
+          f"repeated, PR 12's shape): kernel {ms4:.4f} ms, library "
+          f"{lib4:.4f} ms [{label}]", flush=True)
+    return dict(shape=tag, variant="wgmma", max_abs_err=r["max_abs_err"],
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib)
 
 
 # -- phase 5: the serving path ---------------------------------------------
@@ -507,10 +564,14 @@ def lm_phase(label):
     ops.reset_launch_counts()
     logits, t_main = prefill("cuda")
     launches = ops.launch_counts()
+    variants = dict(flash_kernels.variant_launches)
     peak = torch.cuda.max_memory_allocated()
     want = {k: (cfg.n_layers if k == "flash_attention" else 0)
             for k in launches}
     check(launches == want, f"prefill launches {launches}, expected {want}")
+    check(variants == {"wgmma": cfg.n_layers, "cuda_core": 0},
+          f"prefill's flash_attention launches by kernel {variants}, "
+          f"expected all {cfg.n_layers} on the wgmma kernel")
     check(tuple(logits.shape) == (1, LM_SEQ, cfg.vocab_size)
           and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()), "bad prefill logits")
@@ -519,7 +580,8 @@ def lm_phase(label):
           f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms (p50 "
           f"{statistics.median(times) * 1e3:.2f} ms), "
           f"{LM_SEQ / statistics.median(times):.0f} tokens/s, peak device "
-          f"memory {peak / 2**30:.2f} GiB, launches {launches} [{label}]",
+          f"memory {peak / 2**30:.2f} GiB, launches {launches} (flash by "
+          f"kernel {variants}) [{label}]",
           flush=True)
 
     _profile(lambda: prefill("cuda"), label, "one prefill")

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Control readings for the checks that hold ``flash_attention`` on a GPU.
+"""Control readings for the checks that hold ``flash_attention``'s wgmma
+kernel on a GPU.
 
     python3 scripts/flash_fault_check.py
 
 Builds copies of ``src/repro_torch/csrc/flash_attention.cu`` with one fault
-planted in each (in a temporary directory; the repository is not written),
-and runs the unchanged kernel and each faulty one through the two checks
-of ``chip_smoke.py`` that reach it, with that script's tolerances:
+planted in the wgmma kernel of each (in a temporary directory; the
+repository is not written), and runs the unchanged kernel and each faulty
+one through the two checks of ``chip_smoke.py`` that reach it:
 
 - the kernel against its plain version at the prefill's shape (B=1, H=40,
-  S=8192, D=128, bf16, causal): ``FLASH_BF16_TOL`` and
-  ``FLASH_BF16_EQUAL``;
+  10 KV heads, S=8192, D=128, bf16, causal): ``flash_bf16_check``, that is
+  (a) every element within ``flash_bf16_tol``, (b) the mean signed error
+  within 0.1 bf16 ulp, (c) two launches bitwise equal;
 - phi3-medium-14b at full width, 8 layers, one 8192-token prompt:
   ``prefill(impl="cuda")`` through the kernel against
   ``prefill(impl="torch")``, at ``LM_TOL``.
 
-Prints one line per kernel and check with the reading and the verdict.
-Exits 1 unless the unchanged kernel passes both checks and every planted
-fault fails the kernel check.
+Prints each fault's prediction (written before its first run), then one
+line per kernel and check with the reading and the verdict. Exits 1 unless
+the unchanged kernel passes both checks and every planted fault fails
+(a), (b) or (c), except a race (``RACES``): whether a race shows in the
+output depends on timing no check controls, so its verdict, caught or not,
+is printed and does not decide the exit code.
 """
 from __future__ import annotations
 
@@ -39,38 +44,57 @@ import chip_smoke as smoke  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_ref)
+    _parts, flash_attention, flash_bf16_check, flash_bf16_tol)
 from repro_torch.models import transformer  # noqa: E402
 
-# name -> (text of the kernel source, what replaces it)
+# name -> (text of the kernel source, what replaces it, prediction)
 FAULTS = {
     "skip the diagonal tile": (
-        "const int k_end = causal ? min(Sk, q_last + 1) : Sk;",
-        "const int k_end = causal ? min(Sk, q0) : Sk;"),
+        "const int n_tiles = (k_end + BK - 1) / BK;",
+        "const int n_tiles = causal ? q0 / BK : (k_end + BK - 1) / BK;",
+        "fails (a) and LM_TOL: the first query block has no keys at all"),
     "p scaled by 0.9 in P.V": (
-        "const float pv[4] = {pa.x, pa.y, pa.z, pa.w};",
-        "const float pv[4] = {0.9f * pa.x, 0.9f * pa.y, 0.9f * pa.z, "
-        "0.9f * pa.w};"),
+        "p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);",
+        "p[i] = pack_bf16(0.9f * sc[2 * i], 0.9f * sc[2 * i + 1]);",
+        "fails (a) (early rows, where |ref| is near A) and (b) (about -18 "
+        "ulp); likely LM_TOL"),
     "no rescale of the accumulator by alpha": (
-        "acc[i][c] *= alpha;", "acc[i][c] *= 1.0f;"),
+        "      o[4 * i] *= alpha0;\n      o[4 * i + 1] *= alpha0;\n"
+        "      o[4 * i + 2] *= alpha1;\n      o[4 * i + 3] *= alpha1;\n",
+        "",
+        "fails (a) and LM_TOL"),
     "truncating bf16 store": (
-        "*p = __float2bfloat16(x);", "*p = __float2bfloat16_rz(x);"),
+        "= __floats2bfloat162_rn(a, b);",
+        "= __halves2bfloat162(__float2bfloat16_rz(a), "
+        "__float2bfloat16_rz(b));",
+        "fails (b) only (about -0.5 ulp); passes (a), (c) and LM_TOL"),
+    "stage released before its P.V wgmma is waited on": (
+        "    wgmma_commit();\n    wgmma_wait_all();\n    fence_regs(o);\n"
+        "    if (tid == 0) mbar_arrive(empty(s));",
+        "    wgmma_commit();\n    if (tid == 0) mbar_arrive(empty(s));\n"
+        "    wgmma_wait_all();\n    fence_regs(o);",
+        "a race: the producer's next TMA may overwrite V while the wgmma "
+        "reads it; caught by (c) only if it lands in some tile of the two "
+        "launches, which is not certain"),
 }
+
+
+RACES = {"stage released before its P.V wgmma is waited on"}
 
 
 def build_faults(tmp: Path):
     """One nvcc per faulty copy, all started together; {name: .so}."""
     src = (build.CSRC / "flash_attention.cu").read_text()
     procs = {}
-    for i, (name, (old, new)) in enumerate(FAULTS.items()):
+    for i, (name, (old, new, _)) in enumerate(FAULTS.items()):
         if src.count(old) != 1:
             raise RuntimeError(f"fault {name!r}: its text is not in the "
                                f"kernel source once")
         cu, so = tmp / f"fault{i}.cu", tmp / f"fault{i}.so"
         cu.write_text(src.replace(old, new))
         procs[name] = (so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            build.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, p) in procs.items():
         _, err = p.communicate()
@@ -81,7 +105,7 @@ def build_faults(tmp: Path):
 
 
 def use(lib) -> None:
-    """Makes ``flash_attention`` launch the kernel of ``lib``."""
+    """Makes ``flash_attention`` launch the kernels of ``lib``."""
     build._libs["flash_attention"] = lib
 
 
@@ -94,27 +118,38 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    for name, (_, _, prediction) in FAULTS.items():
+        print(f"[predicted] {name}: {prediction}", flush=True)
     good = build.load("flash_attention")
     with tempfile.TemporaryDirectory() as tmp:
         kernels = {"unchanged kernel": good, **build_faults(Path(tmp))}
 
         gen = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v = (torch.randn((1, 40, smoke.LM_SEQ, 128), generator=gen,
-                               device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        want = flash_attention_ref(q, k, v)
+        q = torch.randn((1, 40, smoke.LM_SEQ, 128), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((1, 10, smoke.LM_SEQ, 128), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        p, den, vf = _parts(q, k, v, True)
+        want = torch.einsum("bhqk,bhkd->bhqd", p, vf).div_(den)
+        del p, den, vf
+        tol = flash_bf16_tol(q, k, v)
         kernel_ok = {}
         for name, lib in kernels.items():
             use(lib)
-            err, worst, share = smoke.closeness(flash_attention(q, k, v),
-                                                want, smoke.FLASH_BF16_TOL)
-            kernel_ok[name] = ok = (worst <= 1.0
-                                    and share >= smoke.FLASH_BF16_EQUAL)
-            print(f"[kernel] {name}: max_abs_err {err:.3e}, worst "
-                  f"{worst:.3f} of the tolerance, bitwise equal "
-                  f"{share:.6f} -> {'passes' if ok else 'fails'} "
-                  f"[{label}]", flush=True)
-        del q, k, v, want
+            out = flash_attention(q, k, v)
+            again = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            r = flash_bf16_check(out, again, want, tol)
+            kernel_ok[name] = r["ok"]
+            print(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3e}, "
+                  f"(a) worst {r['worst']:.3f} of the tolerance, (b) mean "
+                  f"signed error {r['bias_ulp']:+.4f} ulp, (c) repeatable "
+                  f"{r['repeatable']} -> "
+                  f"{'passes' if r['ok'] else 'fails'} [{label}]",
+                  flush=True)
+            del out, again
+        del q, k, v, want, tol
 
         cfg = dataclasses.replace(get_config(smoke.LM_ARCH),
                                   n_layers=smoke.LM_LAYERS)
@@ -136,14 +171,21 @@ def main() -> int:
             del logits
     use(good)
     faults = [n for n in kernels if n != "unchanged kernel"]
+    gating = [n for n in faults if n not in RACES]
     ok = (kernel_ok["unchanged kernel"] and lm_ok["unchanged kernel"]
-          and not any(kernel_ok[n] for n in faults))
+          and not any(kernel_ok[n] for n in gating))
     print(f"[summary] unchanged kernel passes both: "
           f"{kernel_ok['unchanged kernel'] and lm_ok['unchanged kernel']}; "
           f"faults caught by the kernel check: "
-          f"{sum(not kernel_ok[n] for n in faults)} of {len(faults)}, by "
-          f"LM_TOL: {sum(not lm_ok[n] for n in faults)} of {len(faults)}",
+          f"{sum(not kernel_ok[n] for n in gating)} of {len(gating)}, by "
+          f"LM_TOL: {sum(not lm_ok[n] for n in gating)} of {len(gating)}",
           flush=True)
+    for n in faults:
+        if n in RACES:
+            print(f"[summary] race {n!r}: "
+                  f"{'caught' if not kernel_ok[n] else 'NOT CAUGHT'} by the "
+                  f"kernel check (reported; does not decide the exit code)",
+                  flush=True)
     return 0 if ok else 1
 
 

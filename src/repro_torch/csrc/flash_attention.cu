@@ -1,39 +1,57 @@
-// Flash attention (forward) for Hopper (sm_90a), fp32 arithmetic.
+// Flash attention (forward) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel flash_attention (src/repro/kernels/
-// flash_attention.py, _kernel). For each (batch*head, query row r):
+// flash_attention.py, _kernel). For each (batch, head h, query row r):
 //
-//     s[c]  = (q[r] . k[c]) * scale              scale = 1/sqrt(D), fp32
+//     s[c]  = (q[r] . k[c]) * scale              scale = 1/sqrt(D), fp32 sums
 //     s[c]  = -1e30 where causal and c > r       (top-left aligned)
 //     online softmax over key tiles: m, l running max and sum
-//     out[r] = (sum_c exp(s[c] - m) v[c]) / max(l, 1e-20)
+//     out[r] = (sum_c exp(s[c] - m) v[c]) / max(l, 1e-20)   in q's type
 //
-// q [BH,Sq,D], k/v [BH,Sk,D], out [BH,Sq,D], float32 or bfloat16 (out in
-// q's type); every product and sum is fp32, as in the TPU kernel.
+// q [B,H,Sq,D], k/v [B,Kh,Sk,D] with H % Kh == 0: query head h reads KV
+// head h / (H/Kh) (grouped-query attention, read in place, no copies).
 //
-// Design (a first, simple one): one block of 256 threads per (bh, 64-row
-// query tile), the heaviest causal tiles launched first. The query tile
-// sits in shared memory, transposed, for the block's life; key and value
-// tiles of 64 rows are staged through shared memory one at a time (fp32,
-// zero-padded to a multiple of 64 columns). Thread (g, h) of a 16 x 16
-// grid owns query rows 4g..4g+3: it computes the 4 x 4 score patch of key
-// columns 4h..4h+3 from float4 loads, keeps m and l of its rows in
-// registers (max and sum are shuffles across the 16 threads of a row
-// group), writes its exp'd patch transposed into shared memory over the
-// key tile it no longer needs, and accumulates out[4 rows][64b+4h..+3]
-// for each 64-column slab b in registers. Key tiles wholly above the
-// diagonal are never loaded; ragged tiles are masked (columns >= Sk get
-// p = 0, rows >= Sq are not stored), so any Sq and Sk work.
+// Two kernels; the caller picks one by dtype and D before launch
+// (kernels/flash_attention.py, flash_variant):
 //
-// Bound: at the serving shape (B=1, H=40, S=8192, D=128, bf16, causal)
-// the function moves 335 MB and does 6.87e11 operations, so it is bound
-// by operations: 0.69 ms at the tensor cores' 989 TFLOP/s (bf16), 10.3 ms
-// at the CUDA cores' 67 TFLOP/s (fp32). This kernel runs on the CUDA cores
-// (fp32 FMAs fed by float4 shared-memory loads, 8 FMAs per load); wgmma
-// on bf16 tiles, TMA and a pipelined K/V ring are later work.
+// wgmma (bf16, D in {64, 128}): bound by operations. At the serving shape
+// (B=1, H=40, S=8192, D=128, causal) the function moves 335 MB and does
+// 6.87e11 operations: 0.69 ms at the tensor cores' 989 TFLOP/s (bf16).
+// One block of 384 threads per (b*h, 128 query rows), the heaviest causal
+// tiles launched first. Warpgroup 0 is the producer: one thread issues TMA
+// loads (128-byte swizzle) of Q once and of 128-row K and V tiles into a
+// ring of two stages, each with full barriers for K and V and an empty
+// barrier the consumers release; it gives its registers away (setmaxnreg).
+// Warpgroups 1 and 2 each own 64 query rows: S = Q.K^T by wgmma
+// m64n128k16 from shared memory (fp32 accumulators), the online softmax on
+// the accumulator fragment in registers (row max over the 4 lanes of a row
+// by shuffles, exp2 with scale*log2(e) folded in, the row sums kept per
+// lane and reduced once at the end), P rounded to bf16 in registers and
+// fed as wgmma's A operand for O += P.V (V read MN-major, transpose bit
+// set), O in registers for the block's life. Tiles wholly above the
+// diagonal are never loaded; only the diagonal and ragged tiles are masked
+// (TMA fills rows past Sq or Sk with zeros), so any Sq and Sk work.
+// Rounding P to bf16 before P.V is what the reference's model paths do.
+//
+// CUDA cores (float32 at any D <= 256, bf16 at other D): every product and
+// sum in fp32, as in the TPU kernel, P kept in fp32. One block of 256
+// threads per (b*h, 64 query rows); the query tile sits in shared memory,
+// transposed; key and value tiles of 64 rows are staged through shared
+// memory one at a time (fp32, zero-padded to a multiple of 64 columns).
+// Thread (g, h) of a 16 x 16 grid owns query rows 4g..4g+3 and computes
+// the 4 x 4 score patch of key columns 4h..4h+3 from float4 loads, keeps m
+// and l in registers (shuffles across the 16 threads of a row group),
+// writes its exp'd patch transposed over the key tile it no longer needs,
+// and accumulates out[4 rows][64b+4h..+3] for each 64-column slab b. It
+// runs at the CUDA cores' fp32 rate (67 TFLOP/s), so at the serving shape
+// it would be bound at 10.3 ms.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -75,8 +93,9 @@ constexpr int smem_floats() {
 template <typename T, int NB>
 __global__ void __launch_bounds__(THREADS, NB <= 2 ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int D, float scale, int causal) {
+                       const T* __restrict__ v, T* __restrict__ out, int H,
+                       int Kh, int Sq, int Sk, int D, float scale,
+                       int causal) {
   constexpr int DP = 64 * NB;           // D padded to 64-column slabs
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);
@@ -85,13 +104,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Kt + DP * LDT;
 
   const int bh = blockIdx.y;
+  const int kvh = (bh / H) * Kh + (bh % H) / (H / Kh);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int tid = threadIdx.x;
   const int g = tid / 16;               // rows 4g..4g+3
   const int h = tid % 16;               // columns 4h..4h+3 (of each slab)
   const T* qb = q + (long long)bh * Sq * D;
-  const T* kb = k + (long long)bh * Sk * D;
-  const T* vb = v + (long long)bh * Sk * D;
+  const T* kb = k + (long long)kvh * Sk * D;
+  const T* vb = v + (long long)kvh * Sk * D;
 
   for (int i = tid; i < BQ * DP; i += THREADS) {
     const int r = i / DP, d = i % DP;
@@ -212,8 +232,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NB>
-int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int Sq, int Sk, int D, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int Kh, int Sq, int Sk, int D, float scale, int causal,
            cudaStream_t stream) {
   const int smem = smem_floats<NB>() * static_cast<int>(sizeof(float));
   auto kernel = flash_attention_kernel<T, NB>;
@@ -222,26 +242,338 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, BH);
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, D, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(out), H, Kh, Sq, Sk, D,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int BH,
-             int Sq, int Sk, int D, float scale, int causal,
+int dispatch(const void* q, const void* k, const void* v, void* out, int B,
+             int H, int Kh, int Sq, int Sk, int D, float scale, int causal,
              cudaStream_t s) {
+#define FLASH_LAUNCH(NB) \
+  launch<T, NB>(q, k, v, out, B, H, Kh, Sq, Sk, D, scale, causal, s)
   switch ((D + 63) / 64) {
-    case 1: return launch<T, 1>(q, k, v, out, BH, Sq, Sk, D, scale, causal, s);
-    case 2: return launch<T, 2>(q, k, v, out, BH, Sq, Sk, D, scale, causal, s);
-    case 3: return launch<T, 3>(q, k, v, out, BH, Sq, Sk, D, scale, causal, s);
-    case 4: return launch<T, 4>(q, k, v, out, BH, Sq, Sk, D, scale, causal, s);
+    case 1: return FLASH_LAUNCH(1);
+    case 2: return FLASH_LAUNCH(2);
+    case 3: return FLASH_LAUNCH(3);
+    case 4: return FLASH_LAUNCH(4);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_LAUNCH
 }
+
+
+// -- the wgmma kernel (bf16, D = 64 or 128) ---------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BQ = 128;           // query rows per block (2 x 64)
+constexpr int BK = 128;           // key rows per tile
+constexpr int STAGES = 2;         // K/V ring depth
+constexpr int THREADS = 384;      // producer + 2 consumer warpgroups
+constexpr int BOX_Q = BQ * 128;   // bytes of one 64-column TMA box of Q
+constexpr int BOX_KV = BK * 128;  // ... of K or V
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int Q = BQ * D * 2;
+  static constexpr int KV = BK * D * 2;
+  // 1024 bytes of slack to align the tiles; 3 * STAGES + 1 barriers
+  static constexpr int BYTES =
+      1024 + Q + 2 * STAGES * KV + 8 * (3 * STAGES + 1);
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// 2^x in one instruction (relative error ~2^-22; 2^-inf = 0).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two neighbouring outputs, rounded to the nearest bf16.
+__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float a,
+                                             float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <int D>
+__device__ __forceinline__ void pv_mma(float (&o)[D / 2],
+                                       const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void pv_mma<128>(float (&o)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  wgmma_rs_m64n128k16(o, a, b);
+}
+template <>
+__device__ __forceinline__ void pv_mma<64>(float (&o)[32],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_m64n64k16(o, a, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   __nv_bfloat16* __restrict__ out, int H, int Kh, int Sq,
+                   int Sk, float scale_log2, int causal) {
+  using S = Smem<D>;
+  constexpr int BOXES = D / 64;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sK = sQ + S::Q;                    // + stage * S::KV
+  const uint32_t sV = sK + STAGES * S::KV;
+  const uint32_t bar = sV + STAGES * S::KV;
+  const uint32_t q_full = bar;
+  auto k_full = [&](int s) { return bar + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bar + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bar + 8 * (1 + 2 * STAGES + s); };
+
+  const int bh = blockIdx.x;
+  const int kvh = (bh / H) * Kh + (bh % H) / (H / Kh);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 2);                     // one arrive per consumer
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                        // producer warpgroup
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, S::Q);
+      for (int b = 0; b < BOXES; ++b)
+        tma_load_3d(sQ + b * BOX_Q, &tm_q, q_full, 64 * b, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty(s), (j / STAGES - 1) & 1);
+        mbar_expect_tx(k_full(s), S::KV);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_3d(sK + s * S::KV + b * BOX_KV, &tm_k, k_full(s), 64 * b,
+                      j * BK, kvh);
+        mbar_expect_tx(v_full(s), S::KV);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_3d(sV + s * S::KV + b * BOX_KV, &tm_v, v_full(s), 64 * b,
+                      j * BK, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup cw owns query rows q0 + 64 cw .. + 63; this thread
+  // holds rows r0 and r0 + 8, key (or output) columns 8 j + 2 t + {0, 1}
+  regs_alloc<240>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int t = tid % 4;
+  const int r0 = q0 + 64 * cw + 16 * (tid / 32) + (tid % 32) / 4;
+  const int r1 = r0 + 8;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY;           // running max (raw q.k)
+  float l0 = 0.0f, l1 = 0.0f;                     // this lane's part of l
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    const uint32_t phase = (j / STAGES) & 1;
+    const int k0 = j * BK;
+    float sc[BK / 2];
+    mbar_wait(k_full(s), phase);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;   // 16 columns = 32 bytes
+      const uint64_t da = desc_sw128(
+          sQ + (kk / 4) * BOX_Q + cw * 64 * 128 + col, 16, 1024);
+      const uint64_t db =
+          desc_sw128(sK + s * S::KV + (kk / 4) * BOX_KV + col, 16, 1024);
+      wgmma_ss_m64n128k16(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    if ((causal && k0 + BK - 1 > q0 + 64 * cw) || k0 + BK > Sk) {
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = k0 + 8 * i + 2 * t + e;
+          if ((causal && c > r0) || c >= Sk) sc[4 * i + e] = -INFINITY;
+          if ((causal && c > r1) || c >= Sk) sc[4 * i + 2 + e] = -INFINITY;
+        }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // exp(x*scale - m*scale) = exp2(x*c - m*c), c = scale*log2(e)
+    const float ms0 = mx0 == -INFINITY ? 0.0f : mx0 * scale_log2;
+    const float ms1 = mx1 == -INFINITY ? 0.0f : mx1 * scale_log2;
+    const float alpha0 = exp2_fast(m0 * scale_log2 - ms0);
+    const float alpha1 = exp2_fast(m1 * scale_log2 - ms1);
+    m0 = mx0;
+    m1 = mx1;
+    float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * i + e] = exp2_fast(fmaf(sc[4 * i + e], scale_log2, -ms0));
+        sc[4 * i + 2 + e] =
+            exp2_fast(fmaf(sc[4 * i + 2 + e], scale_log2, -ms1));
+        rs0 += sc[4 * i + e];
+        rs1 += sc[4 * i + 2 + e];
+      }
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i] *= alpha0;
+      o[4 * i + 1] *= alpha0;
+      o[4 * i + 2] *= alpha1;
+      o[4 * i + 3] *= alpha1;
+    }
+    // P in bf16 as wgmma's A fragment: k-step kk takes p[4 kk .. 4 kk + 3]
+    uint32_t p[BK / 4];
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+
+    mbar_wait(v_full(s), phase);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                             p[4 * kk + 3]};
+      pv_mma<D>(o, a, desc_sw128(sV + s * S::KV + kk * 16 * 128, BOX_KV, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    if (tid == 0) mbar_arrive(empty(s));          // release the stage
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-20f), den1 = fmaxf(l1, 1e-20f);
+  __nv_bfloat16* ob = out + (long long)bh * Sq * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int c = 8 * i + 2 * t;
+    if (r0 < Sq)
+      store_bf16x2(&ob[(long long)r0 * D + c], o[4 * i] / den0,
+                   o[4 * i + 1] / den0);
+    if (r1 < Sq)
+      store_bf16x2(&ob[(long long)r1 * D + c], o[4 * i + 2] / den1,
+                   o[4 * i + 3] / den1);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [heads, rows, D] bf16, boxes of 64 columns x `box_rows` rows x 1 head,
+// 128-byte swizzle; rows past the end read as zeros. Returns 0 or an error.
+int make_map(CUtensorMap* map, const void* ptr, int heads, int rows, int D,
+             int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int Kh, int Sq, int Sk, float scale, int causal,
+           cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, q, B * H, Sq, D, BQ);
+  if (!err) err = make_map(&mk, k, B * Kh, Sk, D, BK);
+  if (!err) err = make_map(&mv, v, B * Kh, Sk, D, BK);
+  if (err) return err;
+  auto kernel = flash_wgmma_kernel<D>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, Kh, Sq, Sk,
+      scale * LOG2E, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -254,19 +586,36 @@ int flash_attention_smem_bytes(int D) {
   return (64 * nb * LDT * 2 + BK * 64 * nb) * static_cast<int>(sizeof(float));
 }
 
-// q [BH,Sq,D], k/v [BH,Sk,D], out [BH,Sq,D], contiguous; dtype 0 = float32,
-// 1 = bfloat16 (all four alike); scale multiplies q.k (1/sqrt(D), rounded
-// to fp32 by the caller as the TPU kernel's Python float is). Returns
-// cudaGetLastError.
+// q [B,H,Sq,D], k/v [B,Kh,Sk,D], out [B,H,Sq,D], contiguous, H % Kh == 0;
+// scale multiplies q.k (1/sqrt(D), rounded to fp32 by the caller as the
+// TPU kernel's Python float is). Each returns 0 or the error of the launch
+// (cudaError_t, or 10000 + CUresult where a tensor map could not be made).
+
+// The CUDA-core kernel: dtype 0 = float32, 1 = bfloat16 (all four alike),
+// D <= 256.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, int BH, int Sq, int Sk, int D,
-                        float scale, int causal, int dtype, void* stream) {
+                        void* out, int B, int H, int Kh, int Sq, int Sk,
+                        int D, float scale, int causal, int dtype,
+                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, BH, Sq, Sk, D, scale, causal, s);
+    return dispatch<float>(q, k, v, out, B, H, Kh, Sq, Sk, D, scale, causal,
+                           s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, BH, Sq, Sk, D, scale,
+    return dispatch<__nv_bfloat16>(q, k, v, out, B, H, Kh, Sq, Sk, D, scale,
                                    causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wgmma kernel: bfloat16, D = 64 or 128, pointers 16-byte aligned.
+int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
+                              void* out, int B, int H, int Kh, int Sq, int Sk,
+                              int D, float scale, int causal, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return wg::launch<128>(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s);
+  if (D == 64)
+    return wg::launch<64>(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

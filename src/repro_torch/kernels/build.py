@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own, with a plain C interface, into
 ``build/repro_torch_kernels/<name>-<hash>.so`` under the repository root;
-the hash covers the source and the flags, so a stale library is never
-loaded. ``build()`` starts one ``nvcc`` per missing library, all at once,
+the hash covers the source, every ``csrc`` header it includes (``#include
+"x.cuh"``, followed into headers) and the flags, so a stale library is
+never loaded. ``build()`` starts one ``nvcc`` per missing library, all at once,
 and waits for every one of them; ``load(name)`` builds at first use and
 caches the handle for the process. A missing ``nvcc`` or a failed build
 raises. Nothing here runs at import: the CPU tests import every module of
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +48,35 @@ def nvcc_path() -> str:
                        "CUDA kernels of repro_torch cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through other headers, in the order first reached."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(
+            path.read_bytes()) if (CSRC / inc.decode()).exists()]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(source: Path, out: Path) -> List[str]:
+    """The compiler's command line for one library (headers from csrc)."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
+            str(source)]
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
@@ -61,16 +88,15 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
     if not todo:
         return {}
-    nvcc = nvcc_path()
+    nvcc_path()                         # raises before anything starts
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List = []
     for n in todo:
         out = library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs.append((n, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)))
+            nvcc_command(CSRC / f"{n}.cu", tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
     reports, failed = {}, []
     for n, out, tmp, p in procs:
         stdout, stderr = p.communicate()

@@ -1,22 +1,33 @@
-"""Flash attention (forward): the CUDA kernel ``csrc/flash_attention.cu``
-and its plain PyTorch version.
+"""Flash attention (forward): the CUDA kernels ``csrc/flash_attention.cu``
+and their plain PyTorch version.
 
-Per (batch, head): scores ``q . k^T * (1/sqrt(D))`` in fp32; when causal,
-``row >= col`` (top-left aligned, counted from 0) or -1e30; softmax with
-the denominator clamped at 1e-20; ``@ v`` in fp32; the result in q's type.
+Per (batch, head): scores ``q . k^T * (1/sqrt(D))`` summed in fp32; when
+causal, ``row >= col`` (top-left aligned, counted from 0) or -1e30;
+softmax with the denominator clamped at 1e-20; ``@ v``; the result in q's
+type. Grouped-query attention is read in place: k and v carry Kh heads,
+H % Kh == 0, and query head h reads KV head h // (H // Kh).
 
 Replaces the TPU kernel ``flash_attention`` (src/repro/kernels/
 flash_attention.py, ``_kernel``), which walks key blocks in a sequential
 grid dimension with the online-softmax statistics in VMEM scratch. Bound
 on an H100: operations (causal S=8192, D=128 does ~2,050 operations a
-byte). The kernel takes one block per (batch*head, 64 query rows) and
-loops over 64-row key tiles staged through shared memory, with the
-running max, sum and accumulator in registers; tiles wholly above the
-diagonal are skipped and ragged tiles masked, so, unlike the TPU
-wrapper, any sequence length works.
+byte). Two kernels, chosen by ``flash_variant`` from the dtype and head
+dim before launch:
+
+- ``"wgmma"`` (bf16, D in {64, 128}: every attention config of the
+  registry): tensor-core products for Q.K^T and P.V, K/V tiles fed by TMA
+  through a two-stage ring, P rounded to bf16 before P.V (as the
+  reference's model paths and SDPA do).
+- ``"cuda_core"`` (fp32 at any D up to 256, bf16 at other D): fp32
+  products and sums on the CUDA cores, P kept in fp32.
+
+Both skip tiles wholly above the diagonal and mask ragged tiles, so,
+unlike the TPU wrapper, any sequence length works.
 
 The wrapper takes the plain version for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. ``launches`` counts launches.
+tensors it launches the chosen kernel or raises. ``launches`` counts all
+launches, ``variant_launches`` each kernel's. ``flash_bf16_tol`` and
+``flash_bf16_check`` hold the wgmma kernel to its plain version;
 ``flash_cost`` is the reference's analytic cost model, kept beside it.
 """
 from __future__ import annotations
@@ -30,50 +41,117 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("wgmma", "cuda_core")
+WGMMA_HEAD_DIMS = (64, 128)
+MAX_Q_BLOCKS = 65535        # grid limit in y: query blocks (wgmma), B*H
 
 launches = 0
+variant_launches = dict.fromkeys(VARIANTS, 0)
 _count_lock = threading.Lock()
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """Plain PyTorch version with the kernel's arithmetic, fp32
-    throughout: unnormalized exp(s - max), then ``(p @ v) / max(l,
-    1e-20)``, cast to q's type."""
+def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes inputs of ``dtype`` at head dim ``head_dim``."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
+def _parts(q, k, v, causal):
+    """fp32 unnormalized probabilities exp(s - max) [B,H,Sq,Sk], their
+    clamped row sums [B,H,Sq,1] and v in fp32 with each KV head repeated
+    for its query heads [B,H,Sk,D]."""
     D = q.shape[-1]
     Sq, Sk = q.shape[2], k.shape[2]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    G = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf)
     s.mul_(1.0 / D ** 0.5)
     if causal:
         keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
         s.masked_fill_(~keep, NEG_INF)
     p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
     den = p.sum(dim=-1, keepdim=True).clamp_min_(1e-20)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).div_(den)
-    return out.to(q.dtype)
+    return p, den, vf
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Plain PyTorch version, fp32 throughout: unnormalized exp(s - max),
+    then ``(p @ v) / max(l, 1e-20)``, cast to q's type."""
+    p, den, vf = _parts(q, k, v, causal)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).div_(den).to(q.dtype)
+
+
+def flash_bf16_tol(q, k, v, *, causal: bool = True):
+    """Per-element tolerance of the wgmma kernel against the fp32 plain
+    version: ``2^-7 (A + |ref|) + 2e-5`` with ``A = sum_c p |v| / l``.
+    Rounding each p to bf16 moves it by at most 2^-8 of itself, so the
+    output by at most 2^-8 A: the 2^-7 A term is twice that; 2^-7 |ref| is
+    one output ulp."""
+    p, den, vf = _parts(q, k, v, causal)
+    ref = torch.einsum("bhqk,bhkd->bhqd", p, vf).div_(den)
+    a = torch.einsum("bhqk,bhkd->bhqd", p, vf.abs()).div_(den)
+    return a.add_(ref.abs_()).mul_(2.0 ** -7).add_(2e-5)
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (2^-133 at 0)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+BIAS_ULP = 0.1              # largest |mean signed error| in ulps
+
+
+def flash_bf16_check(out, again, ref, tol) -> dict:
+    """The wgmma kernel's three checks against the fp32 plain version
+    ``ref`` (float32, unrounded) at the per-element ``tol``:
+
+    (a) every element within ``tol`` (``worst`` <= 1);
+    (b) the mean signed error ``sign(ref) (out - ref)`` over the elements,
+        in units of their mean bf16 ulp, within +-0.1 (a truncating store
+        reads about -0.5). The mean of each element's error in its own ulp
+        is not used: where ref is near 0 that ratio is unbounded, and the
+        mean of 10^7 such terms is set by a few of them;
+    (c) ``again``, a second launch on the same inputs, bitwise equal.
+    """
+    got, want = out.float(), ref.float()
+    diff = got - want
+    worst = float((diff.abs() / tol).max())
+    bias = float((torch.sign(want) * diff).sum() / bf16_ulp(want).sum())
+    same = bool(torch.equal(out, again))
+    ok = worst <= 1.0 and abs(bias) <= BIAS_ULP and same
+    return dict(max_abs_err=float(diff.abs().max()), worst=worst,
+                bias_ulp=bias, repeatable=same, ok=ok)
 
 
 def _lib():
     lib = build.load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i,
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                         ctypes.c_float, i, i, p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_wgmma_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                              ctypes.c_float, i, p]
+    lib.flash_attention_wgmma_fwd.restype = i
     lib.flash_attention_smem_bytes.argtypes = [i]
     lib.flash_attention_smem_bytes.restype = i
     return lib
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """q [B,H,Sq,D]; k/v [B,H,Sk,D] (GQA broadcast by the caller), all
-    float32 or all bfloat16. Returns [B,H,Sq,D] in q's type."""
+    """q [B,H,Sq,D]; k/v [B,Kh,Sk,D] with H % Kh == 0, all float32 or all
+    bfloat16. Returns [B,H,Sq,D] in q's type."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B,H,S,D]")
     B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    if tuple(k.shape) != (B, H, Sk, D) or tuple(v.shape) != (B, H, Sk, D):
+    Kh, Sk = k.shape[1], k.shape[2]
+    if (tuple(k.shape) != (B, Kh, Sk, D) or tuple(v.shape) != tuple(k.shape)
+            or Kh == 0 or H % Kh):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} and v {tuple(v.shape)} do not "
-                         f"match (k and v must be [B,H,Sk,D])")
+                         f"match (k and v must be [B,Kh,Sk,D], H % Kh == 0)")
     if Sq == 0 or Sk == 0 or D == 0:
         raise ValueError("flash_attention: empty sequence or head dim")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -89,28 +167,41 @@ def flash_attention(q, k, v, *, causal: bool = True):
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B*H={B * H} exceeds the grid's "
-                         f"65535 blocks in y")
+    variant = flash_variant(q.dtype, D)
     lib = _lib()
-    if lib.flash_attention_smem_bytes(D) > build.MAX_SMEM:
-        raise ValueError(f"flash_attention: D={D} needs "
-                         f"{lib.flash_attention_smem_bytes(D)} bytes of "
-                         f"shared memory, more than a block has "
-                         f"({build.MAX_SMEM})")
     out = torch.empty_like(q)
+    scale = 1.0 / D ** 0.5
+    if variant == "wgmma":
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention: the wgmma kernel needs "
+                             "16-byte aligned inputs")
+        if -(-Sq // 128) > MAX_Q_BLOCKS:
+            raise ValueError(f"flash_attention: Sq={Sq} exceeds the grid's "
+                             f"{MAX_Q_BLOCKS} query blocks")
+        launch = lambda s: lib.flash_attention_wgmma_fwd(  # noqa: E731
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            Kh, Sq, Sk, D, scale, int(bool(causal)), s)
+    else:
+        if B * H > MAX_Q_BLOCKS:
+            raise ValueError(f"flash_attention: B*H={B * H} exceeds the "
+                             f"grid's {MAX_Q_BLOCKS} blocks in y")
+        if lib.flash_attention_smem_bytes(D) > build.MAX_SMEM:
+            raise ValueError(f"flash_attention: D={D} needs "
+                             f"{lib.flash_attention_smem_bytes(D)} bytes of "
+                             f"shared memory, more than a block has "
+                             f"({build.MAX_SMEM})")
+        launch = lambda s: lib.flash_attention_fwd(  # noqa: E731
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            Kh, Sq, Sk, D, scale, int(bool(causal)), DTYPES[q.dtype], s)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B * H, Sq, Sk, D, 1.0 / D ** 0.5, int(bool(causal)),
-            DTYPES[q.dtype], stream)
+        err = launch(torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention: CUDA launch failed "
-                           f"(cudaError {err})")
+        raise RuntimeError(f"flash_attention: {variant} kernel launch "
+                           f"failed (error {err})")
     global launches
     with _count_lock:
         launches += 1
+        variant_launches[variant] += 1
     return out
 
 

@@ -3,7 +3,8 @@
 Each wrapper launches its CUDA kernel for CUDA tensors and takes its plain
 version for CPU tensors; ``impl="torch"`` programs call the plain versions
 (``kernels.ref``) directly. ``launch_counts`` / ``reset_launch_counts``
-read and zero the wrappers' launch counters.
+read and zero the wrappers' launch counters (``flash_attention`` also
+counts each of its two kernels: ``flash_attention.variant_launches``).
 """
 from __future__ import annotations
 
@@ -31,3 +32,5 @@ def reset_launch_counts() -> None:
     for m in KERNEL_MODULES.values():
         with m._count_lock:
             m.launches = 0
+            if hasattr(m, "variant_launches"):
+                m.variant_launches = dict.fromkeys(m.variant_launches, 0)

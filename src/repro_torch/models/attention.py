@@ -109,11 +109,9 @@ def chunked_gqa_attention(q, k, v, *, causal=True, block_q=1024):
 
 def _flash_core(q, k, v, causal):
     """q [B,S,H,Dh], k/v [B,S,Kh,Dh] through ``flash_attention``: heads
-    to the front, each KV head repeated for its G query heads."""
-    G = q.shape[2] // k.shape[2]
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    to the front; the kernel reads KV head h // (H // Kh) for query head
+    h itself."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     return flash_attention(qt, kt, vt, causal=causal).transpose(1, 2)
 
 

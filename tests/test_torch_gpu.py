@@ -3,8 +3,10 @@ plain PyTorch version at the serving shapes (C=64, N=256, Fin=512 and 256,
 Fout=256, 4 heads, a Flickr-like edge budget) at the fp32 tolerance of
 tests/test_kernels.py, and one batch of the engine through the kernels
 against the plain path; flash_attention against its plain version (fp32
-at 2e-5 on ragged and square shapes, bf16 to one ulp) and a reduced dense LM's
-prefill through it against the plain path. Skipped where no CUDA device is
+at 2e-5 on ragged and square shapes on the CUDA-core kernel; bf16 to one
+ulp there, and to ``flash_bf16_check`` on the wgmma kernel, which rounds P
+to bf16), with grouped KV heads, and a reduced dense LM's prefill through
+it against the plain path. Skipped where no CUDA device is
 present; on the GPU machine run
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
@@ -167,21 +169,61 @@ def test_flash_attention(dev, b, h, sq, sk, d, causal):
     q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d))
                                 .astype(np.float32)).to(dev)
                for s in (sq, sk, sk))
-    before = flash_attention.launches
+    before = dict(flash_attention.variant_launches)
     got = flash_attention.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert flash_attention.variant_launches["cuda_core"] == \
+        before["cuda_core"] + 1
     torch.testing.assert_close(got, flash_attention.flash_attention_ref(
         q, k, v, causal=causal), **TOL)
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    variant = flash_attention.flash_variant(torch.bfloat16, d)
     got = flash_attention.flash_attention(qb, kb, vb, causal=causal)
     assert got.dtype == torch.bfloat16
+    if variant == "wgmma":
+        # P rounded to bf16 before P.V: (a) within flash_bf16_tol, (b) mean
+        # signed error within 0.1 ulp, (c) two launches bitwise equal
+        again = flash_attention.flash_attention(qb, kb, vb, causal=causal)
+        r = flash_attention.flash_bf16_check(
+            got, again, flash_attention.flash_attention_ref(
+                qb.float(), kb.float(), vb.float(), causal=causal),
+            flash_attention.flash_bf16_tol(qb, kb, vb, causal=causal))
+        assert r["ok"], r
+        assert flash_attention.variant_launches["wgmma"] == \
+            before["wgmma"] + 2
+        return
     want = flash_attention.flash_attention_ref(qb, kb, vb, causal=causal)
     # both sides compute in fp32 and round once: at most one bf16 ulp
     # apart, and nearly all bitwise equal (as chip_smoke.py holds them)
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
                                atol=2e-5)
     assert float((got == want).float().mean()) >= 0.99
+    assert flash_attention.variant_launches["cuda_core"] == \
+        before["cuda_core"] + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kh,d", [(1, 128), (2, 64), (4, 128)])
+def test_flash_attention_reads_grouped_kv_heads(dev, dtype, kh, d):
+    """k/v with Kh of 8 heads against the plain version on K/V repeated."""
+    rng = np.random.default_rng(kh * d)
+    q = torch.from_numpy(rng.standard_normal((2, 8, 300, d))
+                         .astype(np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((2, kh, 300, d))
+                             .astype(np.float32)).to(dev, dtype)
+            for _ in range(2))
+    got = flash_attention.flash_attention(q, k, v)
+    k8, v8 = (t.repeat_interleave(8 // kh, dim=1) for t in (k, v))
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            got, flash_attention.flash_attention_ref(q, k8, v8), **TOL)
+        return
+    r = flash_attention.flash_bf16_check(
+        got, flash_attention.flash_attention(q, k, v),
+        flash_attention.flash_attention_ref(q.float(), k8.float(),
+                                            v8.float()),
+        flash_attention.flash_bf16_tol(q, k8, v8))
+    assert r["ok"], r
 
 
 def test_flash_attention_refuses_a_head_dim_over_shared_memory(dev):

@@ -150,8 +150,8 @@ class TestFlashAttention:
     def test_rejects_what_the_kernel_does_not_take(self):
         q = torch.zeros(1, 2, 8, 16)
         with pytest.raises(ValueError, match="do not match"):
-            t_flash.flash_attention(q, torch.zeros(1, 1, 8, 16),
-                                    torch.zeros(1, 1, 8, 16))
+            t_flash.flash_attention(q, torch.zeros(1, 3, 8, 16),
+                                    torch.zeros(1, 3, 8, 16))
         with pytest.raises(TypeError, match="float32 or"):
             t_flash.flash_attention(q, q.double(), q)
         with pytest.raises(ValueError, match="empty"):
