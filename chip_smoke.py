@@ -11,14 +11,24 @@
    the serving path's shapes (C=64, N=256, Fin=512 for layer 0 and 256
    inner, Fout=256, 4 heads, E = the engine's edge budget) with inputs from
    a real batch of the Flickr-sized graph, and on the edge cases of the CPU
-   tests (unaligned f_in=500, self-only, block_f invariance, 64 edges into
-   one vertex, a GAT row with no structure, rows summing to one).
-   Tolerance: rtol = atol = 2e-5 (fp32, as tests/test_kernels.py). Times
-   each kernel, its plain version and the one PyTorch library call that
-   computes the same function (CUDA events, mean of many launches after
-   warm-up) beside the least time the card could take (bytes over 3.35 TB/s
-   or operations over the peak for their type, whichever is larger: 67
-   TFLOP/s fp32, 989 TFLOP/s bf16).
+   tests (unaligned f_in=500 in all three forms, block_f invariance, 64
+   edges into one vertex, a GAT row with no structure, rows summing to
+   one). Tolerance: rtol = atol = 2e-5 (fp32, as tests/test_kernels.py).
+   ``fused_gnn_layer``: its four serving rows and the self-only Transform
+   (Fin 256), each launched twice (bitwise equal, both on the tf32x3
+   kernel). ``scatter_gather_aggregate``: F 512 and 256 (bitwise equal over
+   two launches), and inf and NaN on the source row of the weight-0 padding
+   edges: NaN exactly where the plain version puts it (the oracle's
+   0 * h[src]), the rest within the tolerance. The checks are lists
+   (``fused_checks``, ``sg_checks``) that scripts/gnn_fault_check.py runs
+   on planted faults. Times each kernel, its plain version and the one
+   PyTorch library call that computes the same function (CUDA events, mean
+   of many launches after warm-up) beside the least time the card could
+   take (bytes over 3.35 TB/s or operations over the peak for their type,
+   whichever is larger: 67 TFLOP/s fp32, 989 TFLOP/s bf16; the fused
+   layer's three tf32 products of each multiply-add at 494.7 TFLOP/s), and
+   requires the fused layer at Fin=512 to be no slower than the
+   ``baddbmm`` chain.
 4. Holds ``flash_attention``'s two kernels against their plain version.
    The CUDA-core kernel (fp32, and bf16 at a head dim the wgmma kernel does
    not take): fp32 at rtol = atol = 2e-5 on the shapes of
@@ -37,7 +47,8 @@
    paper's width (L=5, N=256, f_hidden=256, 4 heads, C=64, impl="cuda") in
    forced dense and forced sg mode on Zipf traffic, with random weights from
    a seed; the kernels' launch counts are zeroed before and read after, and
-   each must match the program's count per batch. Each engine's embeddings
+   each must match the program's count per batch; every ``fused_gnn_layer``
+   launch must be the tf32x3 kernel. Each engine's embeddings
    are compared with an impl="torch" engine on the same card and params
    (rtol 1e-4, atol 1e-5).
 6. LM serving: phi3-medium-14b at full width (d_model 5120, 40 heads, 10 KV
@@ -80,10 +91,12 @@ from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
 from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernels  # noqa: E402
+from repro_torch.kernels import fused_gnn as fused_kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref, flash_bf16_check, flash_bf16_tol,
     flash_cost, flash_variant)
-from repro_torch.kernels.fused_gnn import (fused_gnn_layer,  # noqa: E402
+from repro_torch.kernels.fused_gnn import (ACTS,  # noqa: E402
+                                           fused_gnn_layer,
                                            fused_gnn_layer_ref)
 from repro_torch.kernels.gat_attention import (gat_attention,  # noqa: E402
                                                gat_attention_ref)
@@ -95,6 +108,7 @@ from repro_torch.models.common import param_count  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 494.7e12       # H100 SXM tf32 tensor cores, dense
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 # flash_attention's CUDA-core kernel in bf16: it and its plain version both
 # compute in fp32 from the same bf16 inputs (agreeing to KERNEL_TOL) and
@@ -207,80 +221,215 @@ def card() -> str:
 # -- phase 3: kernels against their plain versions ------------------------
 
 
-def kernel_phase(sb, gen, dev, label):
+def nan_reading(got, want, tol=KERNEL_TOL):
+    """(ok, text): NaN in the same places, infinities equal, and the finite
+    elements within ``tol`` (allclose with equal_nan)."""
+    torch.cuda.synchronize()
+    same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    ok = same_nan and bool(torch.allclose(got, want, equal_nan=True, **tol))
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    return ok, (f"NaN {int(torch.isnan(got).sum())} (plain "
+                f"{int(torch.isnan(want).sum())}), same places {same_nan}, "
+                f"finite max_abs_err={err:.3e}")
+
+
+def reading(got, want, tol=KERNEL_TOL):
+    """(ok, text, max |got - want|) at ``tol``."""
+    err, worst, share = closeness(got, want, tol)
+    return worst <= 1.0, (f"max_abs_err={err:.3e} (rtol={tol['rtol']:.4g}, "
+                          f"atol={tol['atol']:.4g}; worst {worst:.3f} of the "
+                          f"tolerance), bitwise equal {share:.6f}"), err
+
+
+def gnn_inputs(sb, dev):
+    """The serving path's inputs from the SubgraphBatch ``sb`` (features
+    padded to 512 columns, adjacency, mask, edge lists) and seed-0 weights:
+    Fin 512 (layer 0) and 256 (inner layers), Fout 256."""
+    gen = torch.Generator().manual_seed(0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    x = dict(adj=t(sb.adj), adj_mean=t(sb.adj_mean), mask=t(sb.mask),
+             src=t(sb.edge_src), dst=t(sb.edge_dst), w=t(sb.edge_w))
+    x["feats"] = t(np.pad(sb.feats, ((0, 0), (0, 0), (0, 512 - F_IN))))
+    x["h256"] = torch.relu(torch.randn(C, N, F_HID, generator=gen).to(dev)) \
+        * x["mask"][..., None]
+    for fin in (512, F_HID):
+        x[f"wn{fin}"] = dense_init(gen, (fin, F_HID)).to(dev)
+        x[f"ws{fin}"] = dense_init(gen, (fin, F_HID)).to(dev)
+    x["b"] = (0.1 * torch.randn(F_HID, generator=gen)).to(dev)
+    x["w500"] = dense_init(gen, (F_IN, F_HID)).to(dev)
+    x["wb"] = dense_init(gen, (512, 512)).to(dev)
+    x["gen"] = gen
+    return x
+
+
+def fused_rows(x):
+    """The fused layer's serving-shape rows: (tag, args, kwargs)."""
+    rows = []
+    for fin, h in ((512, x["feats"]), (F_HID, x["h256"])):
+        for self_w in (False, True):
+            args = (x["adj"], h, x[f"wn{fin}"],
+                    x[f"ws{fin}"] if self_w else None, x["b"], x["mask"])
+            rows.append((f"C={C} N={N} Fin={fin} Fout={F_HID} "
+                         f"{'+w_self' if self_w else 'w_neigh'}", args, {}))
+    rows.append((f"C={C} N={N} Fin={F_HID} Fout={F_HID} self-only",
+                 (None, x["h256"], None, x[f"ws{F_HID}"], x["b"], x["mask"]),
+                 dict(act="none")))
+    return rows
+
+
+def fused_checks(x):
+    """Every check of ``fused_gnn_layer`` against its plain version:
+    [(name, ok, text)]. The serving rows (each launched twice: bitwise
+    equal, and all on the tf32x3 kernel), the CPU tests' edge cases and
+    block_f invariance."""
+    out = []
+    for tag, args, kw in fused_rows(x):
+        before = fused_kernels.variant_launches["tf32x3"]
+        got = fused_gnn_layer(*args, **kw)
+        again = fused_gnn_layer(*args, **kw)
+        ok, text, _ = reading(got, fused_gnn_layer_ref(*args, **kw))
+        same = bool(torch.equal(got, again))
+        tf32 = fused_kernels.variant_launches["tf32x3"] == before + 2
+        out.append((f"fused {tag}", ok and same and tf32,
+                    f"{text}, repeat bitwise {same}, tf32x3 {tf32}"))
+    h500 = x["feats"][:2, :64, :F_IN].contiguous()
+    a64 = x["adj"][:2, :64, :64].contiguous()
+    m64 = x["mask"][:2, :64].contiguous()
+    for name, args, kw in (
+            ("fused unaligned f_in=500", (a64, h500, x["w500"], None, None,
+                                          m64), {}),
+            ("fused f_in=500 +w_self", (a64, h500, x["w500"], x["w500"],
+                                        x["b"], m64), dict(act="elu")),
+            ("fused self-only f_in=500", (None, h500, None, x["w500"], None,
+                                          m64), dict(act="none"))):
+        ok, text, _ = reading(fused_gnn_layer(*args, **kw),
+                              fused_gnn_layer_ref(*args, **kw))
+        out.append((name, ok, text))
+    b128 = fused_gnn_layer(x["adj"], x["feats"], x["wb"], None, None,
+                           x["mask"], block_f=128)
+    b256 = fused_gnn_layer(x["adj"], x["feats"], x["wb"], None, None,
+                           x["mask"], block_f=256)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(b128, b256))
+    out.append(("fused block_f 128 == 256", same, f"bitwise {same}"))
+    return out
+
+
+def sg_rows(x):
+    """The scatter-gather's serving rows: (tag, (src, dst, w, h))."""
+    nnz = int((x["w"] != 0).sum())
+    return [(f"C={C} N={N} F={f} E={x['src'].shape[1]} real_edges={nnz}",
+             (x["src"], x["dst"], x["w"], h))
+            for f, h in ((512, x["feats"]),
+                         (F_HID, x["feats"][..., :F_HID].contiguous()))]
+
+
+def sg_checks(x):
+    """Every check of ``scatter_gather_aggregate`` against its plain
+    version: [(name, ok, text)]. The serving rows (two launches bitwise
+    equal), inf and NaN on the source row of the weight-0 padding edges
+    (the oracle's 0 * h[src]: NaN where the plain version has it), and 64
+    edges into one vertex (exact)."""
+    out = []
+    for tag, args in sg_rows(x):
+        got = scatter_gather_aggregate(*args)
+        again = scatter_gather_aggregate(*args)
+        ok, text, _ = reading(got, scatter_gather_aggregate_ref(*args))
+        same = bool(torch.equal(got, again))
+        out.append((f"sg {tag}", ok and same,
+                    f"{text}, repeat bitwise {same}"))
+    h = x["feats"].clone()
+    h[0, N - 1, 1] = float("inf")       # the padding edges' source is N - 1
+    h[3, N - 1, 7] = float("nan")
+    h[5, N - 1, 300] = float("-inf")
+    args = (x["src"], x["dst"], x["w"], h)
+    ok, text = nan_reading(scatter_gather_aggregate(*args),
+                           scatter_gather_aggregate_ref(*args))
+    out.append(("sg weight-0 edges from inf/NaN sources", ok, text))
+    raw = scatter_gather_aggregate(
+        torch.zeros(1, 64, dtype=torch.int32, device=h.device),
+        torch.full((1, 64), 3, dtype=torch.int32, device=h.device),
+        torch.ones(1, 64, device=h.device),
+        torch.ones(1, 16, 32, device=h.device))
+    torch.cuda.synchronize()
+    ok = float(raw[0, 3, 0]) == 64.0 and float(raw[0, :3].abs().sum()) == 0.0
+    out.append(("sg 64 edges into one vertex", ok, f"out[3] = "
+                f"{float(raw[0, 3, 0])}, rows 0-2 sum "
+                f"{float(raw[0, :3].abs().sum())}"))
+    return out
+
+
+def run_checks(checks):
+    for name, ok, text in checks:
+        print(f"  {name}: {text} {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{name} disagrees with its plain version")
+
+
+def fused_bound(args):
+    """(ms, 'bytes' or 'operations'): inputs read once and the output
+    written once over 3.35 TB/s, or three tf32 products of every
+    multiply-add over 494.7 TFLOP/s (dense TF32), whichever is larger."""
+    adj, h, wn, ws, b, mask = args
+    Cc, Nn, fin = h.shape
+    fout = (wn if wn is not None else ws).shape[1]
+    flops = 2.0 * Cc * Nn * fin * fout * ((wn is not None) + (ws is not None))
+    if wn is not None:
+        flops += 2.0 * Cc * Nn * Nn * fout
+    nb = nbytes(adj if wn is not None else None, h, wn, ws, b, mask) \
+        + 4 * Cc * Nn * fout
+    return bound_ms(nb, 3 * flops, PEAK_TF32_FLOPS)
+
+
+def kernel_phase(sb, dev, label):
     """Checks and times every kernel at the serving shapes built from the
     SubgraphBatch ``sb``; returns {kernel: record} for the JSON line."""
     rec = {}
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
-    adj, adj_mean, mask = t(sb.adj), t(sb.adj_mean), t(sb.mask)
-    feats = t(np.pad(sb.feats, ((0, 0), (0, 0), (0, 512 - F_IN))))
+    x = gnn_inputs(sb, dev)
+    gen, adj_mean, mask = x["gen"], x["adj_mean"], x["mask"]
 
     print("[kernels] fused_gnn_layer", flush=True)
+    run_checks(fused_checks(x))
     rows = []
-    for fin, h in ((512, feats),
-                   (F_HID, torch.relu(torch.randn(
-                       C, N, F_HID, generator=gen).to(dev))
-                    * mask[..., None])):
-        wn = dense_init(gen, (fin, F_HID)).to(dev)
-        ws = dense_init(gen, (fin, F_HID)).to(dev)
-        b = (0.1 * torch.randn(F_HID, generator=gen)).to(dev)
-        for w_self in (None, ws):
-            args = (adj, h, wn, w_self, b, mask)
-            tag = f"C={C} N={N} Fin={fin} Fout={F_HID} " \
-                  f"{'+w_self' if w_self is not None else 'w_neigh'}"
-            err = compare(f"fused {tag}", fused_gnn_layer(*args),
-                          fused_gnn_layer_ref(*args))
-            ms = cuda_ms(lambda: fused_gnn_layer(*args))
-            plain = cuda_ms(lambda: fused_gnn_layer_ref(*args))
-            wsm = w_self
+    for tag, args, kw in fused_rows(x):
+        err = closeness(fused_gnn_layer(*args, **kw),
+                        fused_gnn_layer_ref(*args, **kw), KERNEL_TOL)[0]
+        ms = cuda_ms(lambda: fused_gnn_layer(*args, **kw))
+        plain = cuda_ms(lambda: fused_gnn_layer_ref(*args, **kw))
+        adj, h, wn, ws, b, m = args
+        act = ACTS[kw.get("act", "relu")]
 
-            def library():
+        def library():
+            if wn is None:
+                acc = torch.baddbmm(b, h, ws.expand(C, -1, -1))
+            else:
                 acc = torch.baddbmm(b, adj, torch.matmul(h, wn))
-                if wsm is not None:
-                    acc = torch.baddbmm(acc, h, wsm.expand(C, -1, -1))
-                return torch.relu(acc) * mask[..., None]
-            lib = cuda_ms(library)
-            flops = 2.0 * C * N * fin * F_HID * (2 if w_self is not None
-                                                 else 1) \
-                + 2.0 * C * N * N * F_HID
-            bnd, by = bound_ms(nbytes(adj, h, wn, w_self, b, mask)
-                               + 4 * C * N * F_HID, flops)
-            print(f"  fused {tag}: kernel {ms:.4f} ms, plain {plain:.4f} "
-                  f"ms, library {lib:.4f} ms, bound {bnd:.4f} ms ({by}) "
-                  f"[{label}]", flush=True)
-            rows.append((tag, err, ms, plain, lib, bnd, by))
+                if ws is not None:
+                    acc = torch.baddbmm(acc, h, ws.expand(C, -1, -1))
+            return act(acc) * m[..., None]
+        lib = cuda_ms(library)
+        bnd, by = fused_bound(args)
+        print(f"  fused {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib:.4f} ms, bound {bnd:.4f} ms ({by}) [{label}]",
+              flush=True)
+        rows.append((tag, err, ms, plain, lib, bnd, by))
     tag, err, ms, plain, lib, bnd, by = rows[0]     # gcn layer 0
+    check(ms <= lib, f"fused {tag}: the kernel ({ms:.4f} ms) is slower than "
+                     f"the baddbmm chain ({lib:.4f} ms)")
     rec["fused_gnn_layer"] = dict(shape=tag, max_abs_err=err, ms=ms,
                                   plain_ms=plain, bound_ms=bnd,
                                   bound_by=by, library_ms=lib)
-    # edge cases of the CPU tests
-    h500 = feats[:2, :64, :F_IN].contiguous()
-    a64, m64 = adj[:2, :64, :64].contiguous(), mask[:2, :64].contiguous()
-    w500 = dense_init(gen, (F_IN, F_HID)).to(dev)
-    compare("fused unaligned f_in=500", fused_gnn_layer(
-        a64, h500, w500, None, None, m64),
-        fused_gnn_layer_ref(a64, h500, w500, None, None, m64))
-    compare("fused self-only", fused_gnn_layer(
-        None, h500, None, w500, None, m64, act="none"),
-        fused_gnn_layer_ref(None, h500, None, w500, None, m64, act="none"))
-    wb = dense_init(gen, (512, 512)).to(dev)
-    b128 = fused_gnn_layer(adj, feats, wb, None, None, mask, block_f=128)
-    b256 = fused_gnn_layer(adj, feats, wb, None, None, mask, block_f=256)
-    torch.cuda.synchronize()
-    check(torch.equal(b128, b256), "fused result depends on block_f")
-    print("  fused block_f 128 == 256: bitwise", flush=True)
 
     print("[kernels] scatter_gather_aggregate", flush=True)
-    src, dst, w = t(sb.edge_src), t(sb.edge_dst), t(sb.edge_w)
-    nnz = int((w != 0).sum())
+    run_checks(sg_checks(x))
     rows = []
-    for f, h in ((512, feats), (F_HID, feats[..., :F_HID].contiguous())):
-        tag = f"C={C} N={N} F={f} E={src.shape[1]} real_edges={nnz}"
-        err = compare(f"sg {tag}", scatter_gather_aggregate(src, dst, w, h),
-                      scatter_gather_aggregate_ref(src, dst, w, h))
-        ms = cuda_ms(lambda: scatter_gather_aggregate(src, dst, w, h))
-        plain = cuda_ms(lambda: scatter_gather_aggregate_ref(src, dst, w,
-                                                             h))
+    for tag, args in sg_rows(x):
+        src, dst, w, h = args
+        f = h.shape[-1]
+        err = closeness(scatter_gather_aggregate(*args),
+                        scatter_gather_aggregate_ref(*args), KERNEL_TOL)[0]
+        ms = cuda_ms(lambda: scatter_gather_aggregate(*args))
+        plain = cuda_ms(lambda: scatter_gather_aggregate_ref(*args))
         off = (torch.arange(C, device=dev) * N)[:, None]
         fs, fd = (src.long() + off).reshape(-1), (dst.long() + off).reshape(-1)
         wf = w.reshape(-1, 1)
@@ -289,6 +438,7 @@ def kernel_phase(sb, gen, dev, label):
             out = torch.zeros(C * N, f, device=dev)
             return out.index_add_(0, fd, h.reshape(C * N, f)[fs] * wf)
         lib = cuda_ms(library)
+        nnz = int((w != 0).sum())
         bnd, by = bound_ms(nbytes(src, dst, w, h) + 4 * C * N * f,
                            2.0 * nnz * f)
         print(f"  sg {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -299,14 +449,6 @@ def kernel_phase(sb, gen, dev, label):
     rec["scatter_gather_aggregate"] = dict(
         shape=tag, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
         bound_by=by, library_ms=lib)
-    raw = scatter_gather_aggregate(
-        torch.zeros(1, 64, dtype=torch.int32, device=dev),
-        torch.full((1, 64), 3, dtype=torch.int32, device=dev),
-        torch.ones(1, 64, device=dev), torch.ones(1, 16, 32, device=dev))
-    torch.cuda.synchronize()
-    check(float(raw[0, 3, 0]) == 64.0 and float(raw[0, :3].abs().sum())
-          == 0.0, "64 edges into one vertex do not sum exactly")
-    print("  sg 64 edges into one vertex: exact", flush=True)
 
     print("[kernels] gat_attention", flush=True)
     z = torch.randn(C, N, F_HID, generator=gen).to(dev)
@@ -480,6 +622,13 @@ def engine_phase(graph, targets, label):
                   f"s [{label}]", flush=True)
             outs[kind, mode] = res.embeddings
     main_path = ops.launch_counts()
+    variants = dict(fused_kernels.variant_launches)
+    print(f"[engine] fused_gnn_layer launches by kernel over the six "
+          f"engines: {variants} [{label}]", flush=True)
+    check(variants == {"tf32x3": main_path["fused_gnn_layer"],
+                       "cuda_core": 0},
+          f"fused_gnn_layer launches by kernel {variants}, expected all "
+          f"{main_path['fused_gnn_layer']} on the tf32x3 kernel")
     for (kind, mode), got in outs.items():
         cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
                         f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
@@ -626,6 +775,26 @@ def lm_phase(label):
     return launches
 
 
+def serving_batch():
+    """The Flickr-sized graph, the Zipf targets of every measured batch,
+    and the first batch as the engine plans it (SubgraphBatch)."""
+    t0 = time.perf_counter()
+    graph = get_graph("flickr", scale=1.0)
+    targets = zipf_traffic(graph, N_BATCHES * C, seed=0)
+    print(f"[data] flickr V={graph.num_vertices} E={graph.num_edges} "
+          f"f_in={graph.feature_dim} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    with DecoupledEngine(graph, GNNConfig(
+            kind="gcn", n_layers=LAYERS, receptive_field=N, f_in=F_IN,
+            f_hidden=F_HID), config=ServingConfig(
+            device="cuda", batch_size=C, mode="sg")) as eng:
+        sb = eng.plan(targets[:C]).sb
+        e_pad = eng.e_pad
+    print(f"[data] batch C={C} N={N} e_pad={e_pad} mean real edges "
+          f"{sb.n_edges.mean():.1f}", flush=True)
+    return graph, targets, sb
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -647,23 +816,9 @@ def main() -> int:
         for line in rep.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[build] {k}: {line.strip()}", flush=True)
-    t0 = time.perf_counter()
-    graph = get_graph("flickr", scale=1.0)
-    targets = zipf_traffic(graph, N_BATCHES * C, seed=0)
-    print(f"[data] flickr V={graph.num_vertices} E={graph.num_edges} "
-          f"f_in={graph.feature_dim} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    graph, targets, sb = serving_batch()
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    with DecoupledEngine(graph, GNNConfig(
-            kind="gcn", n_layers=LAYERS, receptive_field=N, f_in=F_IN,
-            f_hidden=F_HID), config=ServingConfig(
-            device="cuda", batch_size=C, mode="sg")) as eng:
-        sb = eng.plan(targets[:C]).sb
-        e_pad = eng.e_pad
-    print(f"[data] batch C={C} N={N} e_pad={e_pad} mean real edges "
-          f"{sb.n_edges.mean():.1f}", flush=True)
-    rec = kernel_phase(sb, gen, dev, label)
+    rec = kernel_phase(sb, dev, label)
     rec["flash_attention"] = flash_phase(dev, label)
     launches = engine_phase(graph, targets, label)
     launches["flash_attention"] = lm_phase(label)["flash_attention"]

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory
-// addresses, mbarriers, TMA tile loads, wgmma descriptors and instructions,
-// register reallocation. Header-only; included by the kernels of csrc/.
+// addresses, mbarriers, named barriers, proxy fences, TMA tile loads and
+// the host side of their tensor maps, wgmma descriptors and instructions
+// (bf16 and tf32), tf32 rounding, register reallocation. Header-only;
+// included by the kernels of csrc/.
 #pragma once
 #include <cuda.h>              // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -41,6 +43,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a multiple
+// of 32: synchronises a subset of the block's warps.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// Orders this thread's ordinary writes to shared memory before later reads
+// of it by the async proxy (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -- TMA --------------------------------------------------------------------
@@ -89,6 +102,22 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+// The same for a wgmma's A fragment in registers, which must stay unchanged
+// (and allocated) until the wgmma that reads it has been waited on.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// x rounded to the nearest tf32 (10 mantissa bits, ties away from zero),
+// as an fp32 bit pattern whose low 13 bits are zero. The tensor cores
+// ignore those bits of a tf32 operand; they do not round.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y & 0xFFFFE000u;
+}
 
 // Register reallocation between warpgroups (all 128 threads execute it).
 template <int N>
@@ -136,6 +165,77 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T in tf32 with fp32 accumulators
+// (the tensor cores truncate each sum rather than round it): A in
+// registers (thread (warp w, lane l) holds rows 16 w + l/4 and + 8, columns
+// l%4 and l%4 + 4: a0 = (r, c), a1 = (r + 8, c), a2 = (r, c + 4),
+// a3 = (r + 8, c + 4)), B K-major in shared memory (tf32 has no transpose).
+__device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// -- tensor maps (host) -----------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A contiguous [d2, d1, d0] tensor of `elem` bytes per element, in boxes of
+// box0 x box1 x 1 with 128-byte swizzle (box0 * elem must be 128 bytes at
+// most); elements past any end read as zeros. Returns 0, or 10000 + the
+// CUresult, or a cudaError_t where the driver's encoder is missing.
+inline int make_map_3d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                       const void* ptr, int d0, int d1, int d2, int box0,
+                       int box1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(d0) * elem,
+      static_cast<cuuint64_t>(d1) * d0 * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
+                             static_cast<cuuint32_t>(box1), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, type, 3, const_cast<void*>(ptr), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
 }
 
 }  // namespace hopper

@@ -4,16 +4,24 @@ PyTorch version.
     out[c] = act(A[c] @ (H[c] @ W_neigh) + H[c] @ W_self + b) * mask[c]
 
 Replaces the TPU kernel ``fused_gnn_layer`` (src/repro/kernels/fused_gnn.py,
-``_kernel``). Bound on an H100: fp32 operations at the serving shapes (N=256,
-Fin=512, Fout=256 do ~64 FLOP a byte, above the CUDA cores' ridge of 20);
-the kernel is a register-blocked, double-buffered shared-memory GEMM on the
-CUDA cores, in two passes (H @ W_neigh into a scratch buffer, then
-A @ HW + H @ W_self with bias, activation and row mask in the epilogue). TF32 is not used: the fp32
-tolerance is 2e-5. Keeping HW on chip, as the TPU kernel does, is later work.
+``_kernel``). Two kernels, chosen by ``fused_variant`` from the shapes before
+launch:
+
+- ``"tf32x3"`` (N <= 256, Fin a multiple of 4 and, with W_neigh, N too;
+  16-byte aligned h and adj: every shape of the serving path): the tensor
+  cores (``wgmma`` tf32) at about fp32 accuracy by the 3xTF32 split
+  x = hi + lo, a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi; one launch a call,
+  HW kept in shared memory as the TPU kernel keeps it in VMEM. Bound on an
+  H100 at the serving shape: tensor-core operations (3 x 6.44 GFLOP over
+  494.7 TFLOP/s dense TF32).
+- ``"cuda_core"`` (the rest): fp32 on the CUDA cores, a register-blocked
+  shared-memory GEMM in two passes (H @ W_neigh into a scratch buffer, then
+  A @ HW + H @ W_self with bias, activation and row mask in the epilogue).
 
 The wrapper takes the plain version for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. ``launches`` counts kernel
-launches (one a call, whatever the passes).
+tensors it launches the chosen kernel or raises (it never switches to the
+other kernel after a failure). ``launches`` counts launches (one a call,
+whatever the passes), ``variant_launches`` each kernel's.
 """
 from __future__ import annotations
 
@@ -28,14 +36,27 @@ ACTS = {"none": lambda x: x, "relu": torch.relu,
         "elu": torch.nn.functional.elu}
 ACT_CODES = {"none": 0, "relu": 1, "elu": 2}
 
-# the kernel's output tile is 64 columns wide; block_f (the reference's
+# both kernels' output tiles are 64 columns wide; block_f (the reference's
 # output-feature block) is rounded up to whole tiles and groups column
-# tiles per thread block, so it never changes a result. The default of one
-# tile per block gives the most blocks (1,024 at C=64, N=256, Fout=256)
+# tiles per thread block of the cuda_core kernel (the tf32x3 kernel takes
+# one tile a block), so it never changes a result
 _TILE_N = 64
+VARIANTS = ("tf32x3", "cuda_core")
+TF32X3_MAX_N = 256          # the tf32x3 kernel keeps all N rows in a block
 
 launches = 0
+variant_launches = dict.fromkeys(VARIANTS, 0)
 _count_lock = threading.Lock()
+
+
+def fused_variant(N: int, Fin: int, neigh: bool, aligned: bool = True) -> str:
+    """The kernel that takes h [C,N,Fin] (and adj [C,N,N] when ``neigh``);
+    ``aligned``: h and adj start on 16-byte boundaries. The tf32x3 kernel
+    reads them with TMA, whose row strides must be multiples of 16 bytes."""
+    if (aligned and N <= TF32X3_MAX_N and Fin % 4 == 0
+            and (not neigh or N % 4 == 0)):
+        return "tf32x3"
+    return "cuda_core"
 
 
 def fused_gnn_layer_ref(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
@@ -64,6 +85,9 @@ def _lib():
     lib.fused_gnn_layer_f32.argtypes = [p, p, p, p, p, p, p, p,
                                         i, i, i, i, i, i, p]
     lib.fused_gnn_layer_f32.restype = i
+    lib.fused_gnn_layer_tf32x3.argtypes = [p, p, p, p, p, p, p,
+                                           i, i, i, i, i, p]
+    lib.fused_gnn_layer_tf32x3.restype = i
     return lib
 
 
@@ -119,20 +143,31 @@ def fused_gnn_layer(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
     for t in args:
         if t is not None and not t.is_contiguous():
             raise ValueError("fused_gnn_layer: inputs must be contiguous")
+    neigh = w_neigh is not None
+    aligned = h.data_ptr() % 16 == 0 and (not neigh
+                                          or adj.data_ptr() % 16 == 0)
+    variant = fused_variant(N, Fin, neigh, aligned)
+    lib = _lib()
     out = torch.empty((C, N, Fout), dtype=torch.float32, device=dev)
-    hw = torch.empty((C, N, Fout), dtype=torch.float32, device=dev) \
-        if w_neigh is not None else None
-    col_block = -(-bf // _TILE_N) * _TILE_N
-    ptr = [t.data_ptr() if t is not None else None
-           for t in (*args, hw, out)]
+    if variant == "tf32x3":
+        ptr = [t.data_ptr() if t is not None else None for t in (*args, out)]
+        launch = lambda s: lib.fused_gnn_layer_tf32x3(  # noqa: E731
+            *ptr, C, N, Fin, Fout, ACT_CODES[act], s)
+    else:
+        hw = torch.empty((C, N, Fout), dtype=torch.float32, device=dev) \
+            if neigh else None
+        col_block = -(-bf // _TILE_N) * _TILE_N
+        ptr = [t.data_ptr() if t is not None else None
+               for t in (*args, hw, out)]
+        launch = lambda s: lib.fused_gnn_layer_f32(  # noqa: E731
+            *ptr, C, N, Fin, Fout, col_block, ACT_CODES[act], s)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().fused_gnn_layer_f32(*ptr, C, N, Fin, Fout, col_block,
-                                         ACT_CODES[act], stream)
+        err = launch(torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"fused_gnn_layer: CUDA launch failed "
-                           f"(cudaError {err})")
+        raise RuntimeError(f"fused_gnn_layer: {variant} kernel launch failed "
+                           f"(error {err})")
     global launches
     with _count_lock:
         launches += 1
+        variant_launches[variant] += 1
     return out

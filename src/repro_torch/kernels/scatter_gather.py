@@ -5,14 +5,18 @@
 
 Replaces the TPU kernel ``scatter_gather_aggregate``
 (src/repro/kernels/scatter_gather.py, ``_kernel``), which routes edges
-through one-hot matmuls. Bound on an H100: bytes (2 FLOP per real edge and
-column). The kernel gives one warp each (c, 32-column tile), keeps an
-[N, 32] accumulator in shared memory and walks the edges in order
-(skipping the weight-0 padding, which adds nothing for finite h), so each
-destination sums its edges in edge order with no atomics: the result is
-the same on every run, and many edges into one vertex sum exactly. The
-serial walk leaves it latency-bound; a dst-sorted segmented reduction is
-later work.
+through one-hot matmuls, with the semantics of its oracle
+(``repro.kernels.ref.scatter_gather_aggregate_ref``). Bound on an H100:
+bytes (2 FLOP per live edge and column). One block per (c, tile of 128
+columns, or 64 or 32 where shared memory is short) stages its tile of h[c]
+in shared memory and sorts the live edges (w != 0) by destination there,
+stably, then gives each destination row to one warp, which sums the row's
+edges in edge order in registers and writes the row once: no atomics, the
+same result on every run, many edges into one vertex summed exactly.
+Weight-0 edges (the padding) are not walked, yet keep the oracle's
+0 * h[src]: where such an edge's source row holds inf or NaN in a column,
+its destination gets NaN there. Edges with an index outside [0, N) are
+skipped.
 
 The wrapper takes the plain version for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. ``launches`` counts launches.
@@ -25,6 +29,8 @@ import threading
 import torch
 
 from repro_torch.kernels import build
+
+MAX_EDGES = 65536           # the kernel sorts 16-bit edge indices
 
 launches = 0
 _count_lock = threading.Lock()
@@ -50,8 +56,8 @@ def _lib():
     lib.scatter_gather_aggregate_f32.argtypes = [p, p, p, p, p,
                                                  i, i, i, i, p]
     lib.scatter_gather_aggregate_f32.restype = i
-    lib.scatter_gather_smem_bytes.argtypes = [i]
-    lib.scatter_gather_smem_bytes.restype = i
+    lib.scatter_gather_block_cols.argtypes = [i, i]
+    lib.scatter_gather_block_cols.restype = i
     return lib
 
 
@@ -85,10 +91,14 @@ def scatter_gather_aggregate(src, dst, w, h):
     if not all(t.is_contiguous() for t in (src, dst, w, h)):
         raise ValueError("scatter_gather_aggregate: inputs must be "
                          "contiguous")
+    if E > MAX_EDGES:
+        raise ValueError(f"scatter_gather_aggregate: E={E} edge slots, the "
+                         f"kernel takes at most {MAX_EDGES}")
     lib = _lib()
-    if lib.scatter_gather_smem_bytes(N) > build.MAX_SMEM:
-        raise ValueError(f"scatter_gather_aggregate: N={N} needs more "
-                         f"shared memory than a block has")
+    if not lib.scatter_gather_block_cols(N, E):
+        raise ValueError(f"scatter_gather_aggregate: N={N}, E={E} need "
+                         f"more shared memory than a block has, even at 32 "
+                         f"columns a block")
     out = torch.empty((C, N, F), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,7 +1,10 @@
 """CUDA kernels of the PyTorch package on the card: each kernel against its
 plain PyTorch version at the serving shapes (C=64, N=256, Fin=512 and 256,
 Fout=256, 4 heads, a Flickr-like edge budget) at the fp32 tolerance of
-tests/test_kernels.py, and one batch of the engine through the kernels
+tests/test_kernels.py (the fused layer's three forms on its tf32x3 kernel
+at serving and ragged shapes, bitwise repeatable and block_f invariant;
+the scatter-gather's weight-0 edges from inf/NaN sources giving NaN where
+the plain version does), and one batch of the engine through the kernels
 against the plain path; flash_attention against its plain version (fp32
 at 2e-5 on ragged and square shapes on the CUDA-core kernel; bf16 to one
 ulp there, and to ``flash_bf16_check`` on the wgmma kernel, which rounds P
@@ -62,6 +65,7 @@ def test_fused_gnn_layer(dev, f_in, self_w):
     args = [None if a is None else torch.from_numpy(a).to(dev) for a in
             (adj, h, w[0], w[1] if self_w else None, b, mask)]
     before = fused_gnn.launches
+    tf32 = fused_gnn.variant_launches["tf32x3"]
     got = fused_gnn.fused_gnn_layer(*args, act="elu")
     torch.cuda.synchronize()
     assert fused_gnn.launches == before + 1
@@ -69,6 +73,39 @@ def test_fused_gnn_layer(dev, f_in, self_w):
         got, fused_gnn.fused_gnn_layer_ref(*args, act="elu"), **TOL)
     other = fused_gnn.fused_gnn_layer(*args, act="elu", block_f=64)
     assert torch.equal(got, other)
+    assert fused_gnn.variant_launches["tf32x3"] == tf32 + 2
+
+
+@pytest.mark.parametrize("n,f_in", [(256, 512), (256, 256), (100, 500),
+                                    (64, 500), (8, 16)])
+@pytest.mark.parametrize("form", ["neigh", "neigh+self", "self"])
+def test_fused_tf32x3_forms(dev, n, f_in, form):
+    """The three forms of the serving path (A.(H.Wn); + H.Ws; the
+    self-only Transform) on the tf32x3 kernel, at serving and ragged shapes:
+    within 2e-5, two launches bitwise equal, block_f changes nothing."""
+    rng = np.random.default_rng(n + f_in)
+    c = 64 if n == 256 else 5
+    adj, mask = _adj(rng, c, n)
+    h = rng.standard_normal((c, n, f_in)).astype(np.float32) \
+        * mask[..., None]
+    wn, ws = [(rng.standard_normal((f_in, F_HID)) * 0.1).astype(np.float32)
+              for _ in range(2)]
+    b = (rng.standard_normal(F_HID) * 0.1).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (adj, h, wn, ws, b, mask)]
+    args = {"neigh": (t[0], t[1], t[2], None, t[4], t[5]),
+            "neigh+self": (t[0], t[1], t[2], t[3], t[4], t[5]),
+            "self": (None, t[1], None, t[3], t[4], t[5])}[form]
+    assert fused_gnn.fused_variant(n, f_in, form != "self") == "tf32x3"
+    before = dict(fused_gnn.variant_launches)
+    got = fused_gnn.fused_gnn_layer(*args, act="elu")
+    again = fused_gnn.fused_gnn_layer(*args, act="elu")
+    wide = fused_gnn.fused_gnn_layer(*args, act="elu", block_f=128)
+    torch.cuda.synchronize()
+    assert fused_gnn.variant_launches == {
+        "tf32x3": before["tf32x3"] + 3, "cuda_core": before["cuda_core"]}
+    torch.testing.assert_close(
+        got, fused_gnn.fused_gnn_layer_ref(*args, act="elu"), **TOL)
+    assert torch.equal(got, again) and torch.equal(got, wide)
 
 
 @pytest.mark.parametrize("c,n,f_in,f_out,block_f", [
@@ -122,6 +159,37 @@ def test_scatter_gather_aggregate(dev):
     torch.testing.assert_close(got.cpu(), want, **TOL)
     again = scatter_gather.scatter_gather_aggregate(*args)
     assert torch.equal(got, again)          # no atomics: run-to-run equal
+
+
+def test_scatter_gather_weight0_edges_from_nonfinite_sources(dev):
+    """The oracle's 0 * h[src] on weight-0 edges: NaN exactly where the
+    plain version puts it, the rest within 2e-5."""
+    rng = np.random.default_rng(4)
+    src = rng.integers(0, N, size=(C, E)).astype(np.int32)
+    dst = rng.integers(0, N, size=(C, E)).astype(np.int32)
+    w = rng.standard_normal((C, E)).astype(np.float32)
+    src[:, 4000:] = dst[:, 4000:] = N - 1   # the padding, as the engine's
+    w[:, 4000:] = 0.0
+    w[1, 17] = 0.0                          # and one inside the list
+    h = rng.standard_normal((C, N, 512)).astype(np.float32)
+    h[0, N - 1, 1], h[2, N - 1, 511] = np.inf, np.nan
+    h[1, src[1, 17], 9] = -np.inf
+    args = [torch.from_numpy(a).to(dev) for a in (src, dst, w, h)]
+    got = scatter_gather.scatter_gather_aggregate(*args)
+    torch.cuda.synchronize()
+    want = scatter_gather.scatter_gather_aggregate_ref(
+        *[a.cpu() for a in args])
+    assert torch.isnan(want).sum() >= 3
+    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(want))
+    torch.testing.assert_close(got.cpu(), want, equal_nan=True, **TOL)
+
+
+def test_scatter_gather_refuses_more_edges_than_16_bit_indices(dev):
+    src = torch.zeros((1, 65537), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most 65536"):
+        scatter_gather.scatter_gather_aggregate(
+            src, src, torch.zeros((1, 65537), device=dev),
+            torch.zeros((1, 8, 4), device=dev))
 
 
 def test_gat_attention(dev):

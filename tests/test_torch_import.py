@@ -1,6 +1,6 @@
 """The PyTorch package stands alone and never falls back silently: it
 imports with ``jax`` blocked and loads nothing of ``repro``; so do
-chip_smoke.py's imports; a CUDA device with no card raises; every
+chip_smoke.py's and the fault-check scripts' imports; a CUDA device with no card raises; every
 ServingConfig field of a plane not ported yet raises; kernels are built
 from the repository's sources only."""
 import inspect
@@ -70,9 +70,16 @@ class TestImportIsolation:
     def test_chip_smoke_imports_without_jax_or_repro(self):
         assert _loaded_after("import chip_smoke") == []
 
+    @pytest.mark.parametrize("script", ["gnn_fault_check",
+                                        "flash_fault_check"])
+    def test_fault_checks_import_without_jax_or_repro(self, script):
+        assert _loaded_after(f"sys.path.insert(0, {str(ROOT / 'scripts')!r})"
+                             f"\nimport {script}") == []
+
     def test_no_source_imports_jax_or_repro(self):
         bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
-        for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+                  *(ROOT / "scripts").glob("*_fault_check.py")]:
             for line in p.read_text().splitlines():
                 assert not bad.match(line), (p, line)
 
