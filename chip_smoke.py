@@ -12,23 +12,29 @@
    inner, Fout=256, 4 heads, E = the engine's edge budget) with inputs from
    a real batch of the Flickr-sized graph, and on the edge cases of the CPU
    tests (unaligned f_in=500 in all three forms, block_f invariance, 64
-   edges into one vertex, a GAT row with no structure, rows summing to
-   one). Tolerance: rtol = atol = 2e-5 (fp32, as tests/test_kernels.py).
-   ``fused_gnn_layer``: its four serving rows and the self-only Transform
-   (Fin 256), each launched twice (bitwise equal, both on the tf32x3
-   kernel). ``scatter_gather_aggregate``: F 512 and 256 (bitwise equal over
-   two launches), and inf and NaN on the source row of the weight-0 padding
-   edges: NaN exactly where the plain version puts it (the oracle's
-   0 * h[src]), the rest within the tolerance. The checks are lists
-   (``fused_checks``, ``sg_checks``) that scripts/gnn_fault_check.py runs
-   on planted faults. Times each kernel, its plain version and the one
-   PyTorch library call that computes the same function (CUDA events, mean
-   of many launches after warm-up) beside the least time the card could
-   take (bytes over 3.35 TB/s or operations over the peak for their type,
-   whichever is larger: 67 TFLOP/s fp32, 989 TFLOP/s bf16; the fused
-   layer's three tf32 products of each multiply-add at 494.7 TFLOP/s), and
-   requires the fused layer at Fin=512 to be no slower than the
-   ``baddbmm`` chain.
+   edges into one vertex, GAT rows that are empty, dense, or whose scores
+   are all -inf, rows summing to one). Tolerance: rtol = atol = 2e-5
+   (fp32, as tests/test_kernels.py). ``fused_gnn_layer``: its four serving
+   rows and the self-only Transform (Fin 256), each launched twice (bitwise
+   equal, both on the tf32x3 kernel). ``scatter_gather_aggregate``: F 512
+   and 256 (bitwise equal over two launches), and inf and NaN on the source
+   row of the weight-0 padding edges: NaN exactly where the plain version
+   puts it (the oracle's 0 * h[src]), the rest within the tolerance.
+   ``gat_attention``: the real structure at 4, 1, 2 and 8 heads (head
+   widths 64, 256, 128, 32), N=200 on the slab kernel and N=320 on the row
+   kernel, each launched twice (bitwise equal, on the kernel named), and
+   inf and NaN in z behind a weight of 0 (outside the structure, or a
+   structural exp that underflows) and behind a subnormal weight: NaN
+   exactly where the plain version puts it (the oracle's attn @ z). The
+   checks are lists (``fused_checks``, ``sg_checks``, ``gat_checks``) that
+   scripts/gnn_fault_check.py runs on planted faults. Times each kernel,
+   its plain version and the one PyTorch library call that computes the
+   same function (CUDA events, mean of many launches after warm-up)
+   beside the least time the card could take (bytes over 3.35 TB/s or
+   operations over the peak for their type, whichever is larger: 67
+   TFLOP/s fp32, 989 TFLOP/s bf16; the fused layer's three tf32 products
+   of each multiply-add at 494.7 TFLOP/s), and requires the fused layer at
+   Fin=512 to be no slower than the ``baddbmm`` chain.
 4. Holds ``flash_attention``'s two kernels against their plain version.
    The CUDA-core kernel (fp32, and bf16 at a head dim the wgmma kernel does
    not take): fp32 at rtol = atol = 2e-5 on the shapes of
@@ -48,9 +54,12 @@
    forced dense and forced sg mode on Zipf traffic, with random weights from
    a seed; the kernels' launch counts are zeroed before and read after, and
    each must match the program's count per batch; every ``fused_gnn_layer``
-   launch must be the tf32x3 kernel. Each engine's embeddings
-   are compared with an impl="torch" engine on the same card and params
-   (rtol 1e-4, atol 1e-5).
+   launch must be the tf32x3 kernel and every ``gat_attention`` launch the
+   slab kernel. Each engine's embeddings are compared with an impl="torch"
+   engine on the same card and params (rtol 1e-4, atol 1e-5). Then one
+   traced device step (``run_device``: the copy and the program) of a
+   gat/dense and a gcn/sg batch: device time by kernel and copy, and the
+   card's busy share (``torch.profiler``).
 6. LM serving: phi3-medium-14b at full width (d_model 5120, 40 heads, 10 KV
    heads, d_ff 17920, vocab 100352, fp32 params, bf16 compute), depth cut
    to 8 layers, random weights from seed 0, one prompt of 8192 tokens from
@@ -92,14 +101,15 @@ from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernels  # noqa: E402
 from repro_torch.kernels import fused_gnn as fused_kernels  # noqa: E402
+from repro_torch.kernels import gat_attention as gat_kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref, flash_bf16_check, flash_bf16_tol,
     flash_cost, flash_variant)
 from repro_torch.kernels.fused_gnn import (ACTS,  # noqa: E402
                                            fused_gnn_layer,
                                            fused_gnn_layer_ref)
-from repro_torch.kernels.gat_attention import (gat_attention,  # noqa: E402
-                                               gat_attention_ref)
+from repro_torch.kernels.gat_attention import (  # noqa: E402
+    gat_attention, gat_attention_ref, gat_variant)
 from repro_torch.kernels.scatter_gather import (  # noqa: E402
     scatter_gather_aggregate, scatter_gather_aggregate_ref)
 from repro_torch.models import transformer  # noqa: E402
@@ -259,7 +269,6 @@ def gnn_inputs(sb, dev):
     x["b"] = (0.1 * torch.randn(F_HID, generator=gen)).to(dev)
     x["w500"] = dense_init(gen, (F_IN, F_HID)).to(dev)
     x["wb"] = dense_init(gen, (512, 512)).to(dev)
-    x["gen"] = gen
     return x
 
 
@@ -360,6 +369,117 @@ def sg_checks(x):
     return out
 
 
+def gat_rows(x):
+    """GAT's serving rows, 4 heads first, then 1, 2 and 8 (head widths 64,
+    256, 128, 32): (tag, (z, s_src, s_dst, struct)). z and the scores are
+    seed-1 normals; the structure is the real batch's (in-edges plus self
+    loops, real columns only, as core/program.py builds it)."""
+    if "gat" not in x:
+        dev = x["mask"].device
+        gen = torch.Generator().manual_seed(1)
+        z = torch.randn(C, N, F_HID, generator=gen).to(dev)
+        s = torch.randn(2, C, N, 8, generator=gen).to(dev)
+        eye = torch.eye(N, device=dev)
+        st = ((torch.sign(x["adj_mean"]) + eye)
+              * x["mask"][:, None, :]).contiguous()
+        x["gat"] = (z, s, st)
+    z, s, st = x["gat"]
+    nnz = int((st > 0).sum())
+    return [(f"C={C} N={N} F={F_HID} heads={h} struct_nnz={nnz}",
+             (z, s[0, ..., :h].contiguous(), s[1, ..., :h].contiguous(), st))
+            for h in (HEADS, 1, 2, 8)]
+
+
+def gat_checks(x):
+    """Every check of ``gat_attention`` against its plain version:
+    [(name, ok, text)]. The serving rows (each launched twice: bitwise
+    equal, both on the slab kernel), N=200 on the slab kernel and N=320 on
+    the row kernel, an empty row, a dense row, a row whose structural
+    scores are all -inf (0) and a dense one (NaN), rows summing to one, and
+    inf and NaN in z: outside the structure, behind a structural weight
+    that underflows to 0, and behind one that is subnormal (the oracle's
+    attn @ z: NaN exactly where the plain version has it)."""
+    out = []
+    dev = x["mask"].device
+
+    def held(name, args, heads, variant, nan=False):
+        before = gat_kernels.variant_launches[variant]
+        got = gat_attention(*args, n_heads=heads)
+        again = gat_attention(*args, n_heads=heads)
+        want = gat_attention_ref(*args, n_heads=heads)
+        if nan:
+            ok, text = nan_reading(got, want)
+        else:
+            ok, text, _ = reading(got, want)
+        same = bool(torch.equal(got.isnan(), again.isnan())
+                    and torch.equal(got.nan_to_num(), again.nan_to_num()))
+        on = gat_kernels.variant_launches[variant] == before + 2
+        out.append((name, ok and same and on, f"{text}, repeat bitwise "
+                    f"{same}, {variant} {on}"))
+        return got
+
+    rows = gat_rows(x)
+    for tag, args in rows:
+        held(f"gat {tag}", args, args[1].shape[-1], "slab")
+    z, ss, sd, st = rows[0][1]
+    cut = tuple(t[:8, :200, :200].contiguous() if t is st
+                else t[:8, :200].contiguous() for t in (z, ss, sd, st))
+    held("gat C=8 N=200 heads=4 (slab)", cut, HEADS, "slab")
+    gen = torch.Generator().manual_seed(2)
+    big = (torch.randn(4, 320, F_HID, generator=gen).to(dev),
+           torch.randn(4, 320, HEADS, generator=gen).to(dev),
+           torch.randn(4, 320, HEADS, generator=gen).to(dev),
+           ((torch.rand(4, 320, 320, generator=gen) < 0.06).float()
+            + torch.eye(320)).to(dev))
+    held("gat C=4 N=320 heads=4 (row)", big, HEADS, "row")
+
+    st2, sd2 = st.clone(), sd.clone()
+    st2[:, 5, :] = 0.0                  # empty
+    st2[:, 9, :] = 1.0                  # dense
+    sd2[:, 11, :] = float("-inf")       # structural scores all -inf
+    st2[:, 13, :] = 1.0                 # dense, all -inf: NaN
+    sd2[:, 13, :] = float("-inf")
+    got = held("gat empty, dense and all -inf rows", (z, ss, sd2, st2),
+               HEADS, "slab", nan=True)
+    zero = float(got[:, 5].abs().max()) == 0.0 \
+        and float(got[:, 11].abs().max()) == 0.0
+    nan13 = bool(torch.isnan(got[:, 13]).all())
+    out.append(("gat empty and all -inf rows are 0, the dense all -inf row "
+                "NaN", zero and nan13, f"rows 5, 11 zero {zero}, row 13 NaN "
+                f"{nan13}"))
+
+    ones = gat_attention(torch.ones(1, 32, 64, device=dev),
+                         torch.zeros(1, 32, 1, device=dev),
+                         torch.zeros(1, 32, 1, device=dev),
+                         torch.ones(1, 32, 32, device=dev), n_heads=1)
+    ok, text, _ = reading(ones, torch.ones_like(ones),
+                          dict(rtol=1e-5, atol=0.0))
+    out.append(("gat rows sum to one", ok, text))
+
+    zb, ssb = z.clone(), ss.clone()
+    zb[0, 7, 1] = float("inf")          # rows outside the structure
+    zb[3, 100, 70] = float("nan")
+    zb[5, N - 1, 200] = float("-inf")
+    edges = torch.nonzero((st > 0) & ~torch.eye(N, dtype=torch.bool,
+                                                device=dev))
+    c, i, j = [int(v) for v in edges[len(edges) // 2]]
+    ssb[c, j, 0] = -1e4                 # e ~ -2000 at (i, j): weight 0
+    zb[c, j, 3] = float("inf")
+    held(f"gat inf/NaN in z outside the structure and behind a weight that "
+         f"underflows to 0 (subgraph {c}, {j} -> {i})", (zb, ssb, sd, st),
+         HEADS, "slab", nan=True)
+
+    zs = torch.randn(1, 32, 64, generator=gen).to(dev)
+    s_src = torch.zeros(1, 32, 1, device=dev)
+    s_src[0, 3, 0] = -475.0             # e = -95: exp subnormal, not 0
+    zs[0, 3, :] = float("inf")
+    st3 = torch.eye(32, device=dev)[None].contiguous()
+    st3[0, 0, 3] = 1.0
+    held("gat inf in z behind a subnormal weight", (zs, s_src,
+         torch.zeros(1, 32, 1, device=dev), st3), 1, "slab", nan=True)
+    return out
+
+
 def run_checks(checks):
     for name, ok, text in checks:
         print(f"  {name}: {text} {'ok' if ok else 'FAIL'}", flush=True)
@@ -386,7 +506,6 @@ def kernel_phase(sb, dev, label):
     SubgraphBatch ``sb``; returns {kernel: record} for the JSON line."""
     rec = {}
     x = gnn_inputs(sb, dev)
-    gen, adj_mean, mask = x["gen"], x["adj_mean"], x["mask"]
 
     print("[kernels] fused_gnn_layer", flush=True)
     run_checks(fused_checks(x))
@@ -451,37 +570,24 @@ def kernel_phase(sb, dev, label):
         bound_by=by, library_ms=lib)
 
     print("[kernels] gat_attention", flush=True)
-    z = torch.randn(C, N, F_HID, generator=gen).to(dev)
-    s_src = torch.randn(C, N, HEADS, generator=gen).to(dev)
-    s_dst = torch.randn(C, N, HEADS, generator=gen).to(dev)
-    eye = torch.eye(N, device=dev)
-    struct = ((torch.sign(adj_mean) + eye) * mask[:, None, :]).contiguous()
-    nnz_s = int((struct > 0).sum())
-    args = (z, s_src, s_dst, struct)
-    tag = f"C={C} N={N} F={F_HID} heads={HEADS} struct_nnz={nnz_s}"
-    err = compare(f"gat {tag}", gat_attention(*args, n_heads=HEADS),
-                  gat_attention_ref(*args, n_heads=HEADS))
+    run_checks(gat_checks(x))
+    tag, args = gat_rows(x)[0]                      # 4 heads
+    err = closeness(gat_attention(*args, n_heads=HEADS),
+                    gat_attention_ref(*args, n_heads=HEADS), KERNEL_TOL)[0]
+    before = dict(gat_kernels.variant_launches)
     ms = cuda_ms(lambda: gat_attention(*args, n_heads=HEADS))
+    variant = ",".join(k for k, n in gat_kernels.variant_launches.items()
+                       if n > before[k])
     plain = cuda_ms(lambda: gat_attention_ref(*args, n_heads=HEADS))
+    nnz_s = int((args[3] > 0).sum())
     bnd, by = bound_ms(nbytes(*args) + 4 * C * N * F_HID,
                        2.0 * nnz_s * F_HID + 6.0 * C * HEADS * N * N)
-    print(f"  gat {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"library none, bound {bnd:.4f} ms ({by}) [{label}]", flush=True)
-    rec["gat_attention"] = dict(shape=tag, max_abs_err=err, ms=ms,
-                                plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                library_ms=None)
-    empty = struct.clone()
-    empty[:, 5, :] = 0.0
-    out = gat_attention(z, s_src, s_dst, empty, n_heads=HEADS)
-    torch.cuda.synchronize()
-    check(float(out[:, 5].abs().max()) == 0.0,
-          "a GAT row with no structure is not zero")
-    ones = gat_attention(torch.ones(1, 32, 64, device=dev),
-                         torch.zeros(1, 32, 1, device=dev),
-                         torch.zeros(1, 32, 1, device=dev),
-                         torch.ones(1, 32, 32, device=dev), n_heads=1)
-    compare("gat rows sum to one", ones, torch.ones_like(ones),
-            dict(rtol=1e-5, atol=0.0))
+    print(f"  gat {tag}: kernel {ms:.4f} ms ({variant}), plain {plain:.4f} "
+          f"ms, library none, bound {bnd:.4f} ms ({by}) [{label}]",
+          flush=True)
+    rec["gat_attention"] = dict(shape=tag, variant=variant, max_abs_err=err,
+                                ms=ms, plain_ms=plain, bound_ms=bnd,
+                                bound_by=by, library_ms=None)
     return rec
 
 
@@ -629,6 +735,14 @@ def engine_phase(graph, targets, label):
                        "cuda_core": 0},
           f"fused_gnn_layer launches by kernel {variants}, expected all "
           f"{main_path['fused_gnn_layer']} on the tf32x3 kernel")
+    gat_split = dict(gat_kernels.variant_launches)
+    print(f"[engine] gat_attention launches by kernel over the six engines: "
+          f"{gat_split} (gat_variant({N}, {F_HID}, {HEADS}, aligned=True) "
+          f"= {gat_variant(N, F_HID, HEADS, aligned=True)!r}) [{label}]",
+          flush=True)
+    check(gat_split == {"slab": main_path["gat_attention"], "row": 0},
+          f"gat_attention launches by kernel {gat_split}, expected all "
+          f"{main_path['gat_attention']} on the slab kernel")
     for (kind, mode), got in outs.items():
         cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
                         f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
@@ -667,10 +781,10 @@ def _agreement(got, want):
     return rel, top1
 
 
-def _profile(fn, label, what):
+def _profile(fn, label, what, tag="lm", top=8):
     """Prints the device time of one call of ``fn`` by kernel, from
     ``torch.profiler``, and the share of the call's wall time the card
-    was busy (one stream: the kernels' times add up)."""
+    was busy (one stream: the kernels' and copies' times add up)."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -680,12 +794,35 @@ def _profile(fn, label, what):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
-    print(f"[lm] profile of {what}: kernels {busy * 1e3:.2f} ms of "
-          f"{wall * 1e3:.2f} ms wall ({busy / wall:.1%} busy; traced) "
+    print(f"[{tag}] profile of {what}: device {busy * 1e3:.3f} ms of "
+          f"{wall * 1e3:.3f} ms wall ({busy / wall:.1%} busy; traced) "
           f"[{label}]", flush=True)
-    for name, us, count in rows[:8]:
-        print(f"[lm]   {us / 1e3:9.3f} ms  x{count:<4d} {name[:80]}",
+    for name, us, count in rows[:top]:
+        print(f"[{tag}]   {us / 1e3:9.3f} ms  x{count:<4d} {name[:80]}",
               flush=True)
+    if len(rows) > top:
+        rest, count = (sum(r[k] for r in rows[top:]) for k in (1, 2))
+        print(f"[{tag}]   {rest / 1e3:9.3f} ms  x{count:<4d} "
+              f"{len(rows) - top} other kernels and copies", flush=True)
+
+
+def profile_phase(graph, targets, label):
+    """One traced device step (``DecoupledEngine.run_device``: the batch's
+    copy to the card and the program) of a gat/dense and a gcn/sg batch,
+    planned on the host first, after one untraced warm-up step: the device
+    time by kernel and copy, and the card's busy share of the step."""
+    for kind, mode in (("gat", "dense"), ("gcn", "sg")):
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+        conf = ServingConfig(device="cuda", batch_size=C, mode=mode,
+                             impl="cuda")
+        with DecoupledEngine(graph, cfg, params=init_gnn(
+                cfg, seed=0, device="cuda"), config=conf) as eng:
+            plan = eng.plan(targets[:C])
+            _timed(lambda: eng.run_device(plan))
+            _profile(lambda: eng.run_device(plan), label,
+                     f"one {kind}/{mode} engine batch's device step (C={C}, "
+                     f"L={LAYERS})", tag="engine", top=12)
 
 
 def lm_phase(label):
@@ -821,6 +958,7 @@ def main() -> int:
     rec = kernel_phase(sb, dev, label)
     rec["flash_attention"] = flash_phase(dev, label)
     launches = engine_phase(graph, targets, label)
+    profile_phase(graph, targets, label)
     launches["flash_attention"] = lm_phase(label)["flash_attention"]
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")

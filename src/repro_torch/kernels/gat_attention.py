@@ -1,20 +1,33 @@
-"""Dense GAT attention: the CUDA kernel ``csrc/gat_attention.cu`` and its
+"""Dense GAT attention: the CUDA kernels ``csrc/gat_attention.cu`` and their
 plain PyTorch version.
 
 Per subgraph c and head hh: e = LeakyReLU(s_dst_i + s_src_j), masked to
 -1e30 where ``struct <= 0``; a row softmax whose exp is masked again after
 the max and whose denominator is clamped at 1e-20 (rows with no structure
-give 0); then ``attn @ z_head``.
+give 0); then ``attn @ z_head`` over all N rows, so a weight of 0 times an
+inf or NaN in z gives NaN, as the oracle (``repro.kernels.ref.
+gat_attention_ref``) does.
 
 Replaces the TPU kernel ``gat_attention`` (src/repro/kernels/
 gat_attention.py, ``_kernel``), which holds a head's whole [N, N] score
-matrix on chip. Bound on an H100: fp32 operations where the structure is
-dense, bytes where it is sparse. The kernel gives one warp each destination
-row: its N scores sit in shared memory, max and sum are warp reductions,
-and the weighted sum skips entries outside the structure.
+matrix on chip. Bound on an H100: bytes (z and struct read once, out
+written once). Two kernels, chosen by ``gat_variant`` from the shapes
+before launch:
+
+- ``"slab"`` (N <= 256, N and the head width multiples of 4, 16-byte
+  aligned z and struct: every serving shape): one block per (subgraph, up
+  to 64 columns of one head) stages its z slab in shared memory, packs the
+  structure into a bitmap in one pass, and gives each destination row to a
+  warp that compacts the row's structural columns into a list, takes the
+  softmax over the list and sums the listed z rows from shared memory;
+  non-finite z rows outside a row's structure make NaN in their columns.
+- ``"row"`` (the rest): one warp per destination row over all N columns,
+  z read from L2.
 
 The wrapper takes the plain version for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. ``launches`` counts launches.
+tensors it launches the chosen kernel or raises (it never switches to the
+other kernel after a failure). ``launches`` counts launches,
+``variant_launches`` each kernel's.
 """
 from __future__ import annotations
 
@@ -26,9 +39,24 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+VARIANTS = ("slab", "row")
+SLAB_MAX_N = 256            # two 16-byte structure loads a lane a row;
+                            # the library's gat_slab_max_n() must agree
 
 launches = 0
+variant_launches = dict.fromkeys(VARIANTS, 0)
 _count_lock = threading.Lock()
+
+
+def gat_variant(N: int, F: int, n_heads: int, *, aligned: bool) -> str:
+    """The kernel that takes z [C,N,F] with ``n_heads`` heads (F divisible
+    by n_heads); ``aligned``: z and struct start on 16-byte boundaries. The
+    slab kernel copies z and reads struct 16 bytes at a time, so its rows
+    and head slices must be whole 16-byte units."""
+    if aligned and N <= SLAB_MAX_N and N % 4 == 0 \
+            and (F // n_heads) % 4 == 0:
+        return "slab"
+    return "row"
 
 
 def gat_attention_ref(z, s_src, s_dst, struct, *, n_heads,
@@ -51,11 +79,17 @@ def gat_attention_ref(z, s_src, s_dst, struct, *, n_heads,
 def _lib():
     lib = build.load("gat_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gat_attention_f32.argtypes = [p, p, p, p, p, i, i, i, i,
-                                      ctypes.c_float, p]
-    lib.gat_attention_f32.restype = i
-    lib.gat_attention_smem_bytes.argtypes = [i]
-    lib.gat_attention_smem_bytes.restype = i
+    for fn in (lib.gat_attention_slab_f32, lib.gat_attention_row_f32):
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
+    for fn in (lib.gat_slab_smem_bytes, lib.gat_row_smem_bytes):
+        fn.argtypes = [i]
+        fn.restype = i
+    lib.gat_slab_max_n.restype = i
+    if lib.gat_slab_max_n() != SLAB_MAX_N:
+        raise RuntimeError(f"gat_attention: the library's slab kernel takes "
+                           f"N <= {lib.gat_slab_max_n()}, the wrapper routes "
+                           f"N <= {SLAB_MAX_N} to it")
     return lib
 
 
@@ -89,21 +123,27 @@ def gat_attention(z, s_src, s_dst, struct, *, n_heads: int,
         raise ValueError(f"gat_attention: unsupported device {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gat_attention: inputs must be contiguous")
+    variant = gat_variant(N, F, n_heads, aligned=z.data_ptr() % 16 == 0
+                          and struct.data_ptr() % 16 == 0)
     lib = _lib()
-    if lib.gat_attention_smem_bytes(N) > build.MAX_SMEM:
+    smem = (lib.gat_slab_smem_bytes if variant == "slab"
+            else lib.gat_row_smem_bytes)(N)
+    if smem > build.MAX_SMEM:
         raise ValueError(f"gat_attention: N={N} needs more shared memory "
                          f"than a block has")
+    launch = (lib.gat_attention_slab_f32 if variant == "slab"
+              else lib.gat_attention_row_f32)
     out = torch.empty((C, N, F), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gat_attention_f32(
-            z.data_ptr(), s_src.data_ptr(), s_dst.data_ptr(),
-            struct.data_ptr(), out.data_ptr(), C, N, F, n_heads,
-            float(negative_slope), stream)
+        err = launch(z.data_ptr(), s_src.data_ptr(), s_dst.data_ptr(),
+                     struct.data_ptr(), out.data_ptr(), C, N, F, n_heads,
+                     float(negative_slope), stream)
     if err:
-        raise RuntimeError(f"gat_attention: CUDA launch failed "
+        raise RuntimeError(f"gat_attention: {variant} kernel launch failed "
                            f"(cudaError {err})")
     global launches
     with _count_lock:
         launches += 1
+        variant_launches[variant] += 1
     return out

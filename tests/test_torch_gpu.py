@@ -4,7 +4,10 @@ Fout=256, 4 heads, a Flickr-like edge budget) at the fp32 tolerance of
 tests/test_kernels.py (the fused layer's three forms on its tf32x3 kernel
 at serving and ragged shapes, bitwise repeatable and block_f invariant;
 the scatter-gather's weight-0 edges from inf/NaN sources giving NaN where
-the plain version does), and one batch of the engine through the kernels
+the plain version does; gat_attention's slab kernel at 1, 2, 4 and 8 heads
+and N=200, its row kernel at N=320, empty, dense and all -inf rows, and
+inf/NaN in z behind weights of 0 giving NaN where the plain version does),
+and one batch of the engine through the kernels
 against the plain path; flash_attention against its plain version (fp32
 at 2e-5 on ragged and square shapes on the CUDA-core kernel; bf16 to one
 ulp there, and to ``flash_bf16_check`` on the wgmma kernel, which rounds P
@@ -205,6 +208,70 @@ def test_gat_attention(dev):
     torch.testing.assert_close(
         got, gat_attention.gat_attention_ref(*args, n_heads=HEADS), **TOL)
     assert float(got[:, 7].abs().max()) == 0.0
+
+
+def _gat_inputs(rng, c, n, f, heads):
+    """A sparse structure with self loops (~16 entries a row, as served),
+    an empty row 5, a dense row 9, row 11's scores all -inf and the dense
+    row 13's too."""
+    z = rng.standard_normal((c, n, f)).astype(np.float32)
+    s = rng.standard_normal((2, c, n, heads)).astype(np.float32)
+    struct = (rng.uniform(size=(c, n, n)) < 16 / n).astype(np.float32)
+    struct += np.eye(n, dtype=np.float32)
+    struct[:, 5, :] = 0.0
+    struct[:, 9, :] = struct[:, 13, :] = 1.0
+    s[1, :, 11, :] = s[1, :, 13, :] = -np.inf
+    return z, s[0], s[1], struct
+
+
+def _gat_held(dev, args, heads, variant):
+    """Two launches on ``variant``: bitwise equal, NaN where the plain
+    version has it, the rest within TOL."""
+    t = [torch.from_numpy(a).to(dev) for a in args]
+    before = gat_attention.variant_launches[variant]
+    got = gat_attention.gat_attention(*t, n_heads=heads)
+    again = gat_attention.gat_attention(*t, n_heads=heads)
+    torch.cuda.synchronize()
+    assert gat_attention.variant_launches[variant] == before + 2
+    want = gat_attention.gat_attention_ref(*[a.cpu() for a in t],
+                                           n_heads=heads)
+    got = got.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(), again.cpu().nan_to_num())
+    torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+    return got
+
+
+@pytest.mark.parametrize("n,heads,variant", [
+    (256, 4, "slab"), (256, 1, "slab"), (256, 2, "slab"), (256, 8, "slab"),
+    (200, 4, "slab"), (320, 4, "row")])
+def test_gat_attention_kernels(dev, n, heads, variant):
+    assert gat_attention.gat_variant(n, F_HID, heads,
+                                      aligned=True) == variant
+    rng = np.random.default_rng(n + heads)
+    got = _gat_held(dev, _gat_inputs(rng, 8, n, F_HID, heads), heads,
+                    variant)
+    assert float(got[:, 5].abs().max()) == 0.0      # empty
+    assert float(got[:, 11].abs().max()) == 0.0     # scores all -inf
+    assert bool(torch.isnan(got[:, 13]).all())      # dense, all -inf
+
+
+def test_gat_attention_nonfinite_z_behind_zero_weights(dev):
+    """inf/NaN in z rows outside destinations' structure and behind a
+    structural weight that underflows to 0: NaN where the plain version
+    (the oracle's attn @ z) has it; behind a subnormal weight: inf."""
+    rng = np.random.default_rng(9)
+    z, s_src, s_dst, struct = _gat_inputs(rng, 4, N, F_HID, HEADS)
+    z[0, 20, 1], z[1, 30, 100], z[3, N - 1, 255] = np.inf, np.nan, -np.inf
+    struct[2, 40, 41] = 1.0
+    s_src[2, 41, 0] = -1e4                  # e ~ -2000 at 41 -> 40
+    z[2, 41, 3] = np.inf
+    struct[2, 50, 51] = 1.0
+    s_dst[2, 50, 0], s_src[2, 50, 0], s_src[2, 51, 0] = 0.0, 0.0, -475.0
+    z[2, 51, 5] = np.inf                    # behind e^-95, subnormal
+    got = _gat_held(dev, (z, s_src, s_dst, struct), HEADS, "slab")
+    assert bool(torch.isnan(got[2, 40, 3]))
+    assert bool(torch.isnan(got[0, :, 1]).any())
 
 
 @pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])

@@ -71,7 +71,8 @@ class TestImportIsolation:
         assert _loaded_after("import chip_smoke") == []
 
     @pytest.mark.parametrize("script", ["gnn_fault_check",
-                                        "flash_fault_check"])
+                                        "flash_fault_check",
+                                        "gat_phase_probe"])
     def test_fault_checks_import_without_jax_or_repro(self, script):
         assert _loaded_after(f"sys.path.insert(0, {str(ROOT / 'scripts')!r})"
                              f"\nimport {script}") == []
@@ -79,7 +80,8 @@ class TestImportIsolation:
     def test_no_source_imports_jax_or_repro(self):
         bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
         for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-                  *(ROOT / "scripts").glob("*_fault_check.py")]:
+                  *(ROOT / "scripts").glob("*_fault_check.py"),
+                  ROOT / "scripts" / "gat_phase_probe.py"]:
             for line in p.read_text().splitlines():
                 assert not bad.match(line), (p, line)
 
