@@ -71,7 +71,32 @@
    same 16 tokens (tolerances at ``LM_TOL`` and ``DECODE_TOL``, with their
    reasons). Prints latency, tokens/s and peak device memory on ``[lm]``
    lines, and the device time by kernel from ``torch.profiler``.
-7. Prints the ``kernels`` JSON line and, last, the ``ok`` line.
+7. The scatter-gather's bucket kernel (32-bit edge indices, scratch in
+   device memory) against its plain version at ``KERNEL_TOL``: on a real
+   forced-sg batch of the Flickr-sized graph at N=1024 (74,496 edge
+   slots, C cut to 8, F=256), NaN in the same places on the weight-0
+   probe, and on the serving batch's edge lists padded to E = 65,537. The
+   three GNN kernels in bf16 at the serving shapes (fused: cuda_core; GAT:
+   row; sg: sort, and bucket at N=1024), each within one bf16 ulp of its
+   plain version's fp32 result rounded to bf16 (``bf16_reading``) and
+   within the reference's 2e-2; each timed beside its bound, plain and
+   library times. The [engine] phase's 50 sg launches must all be on the
+   sort kernel.
+8. ``[serve]``: one ``GNNServer`` on the Flickr-sized graph registers GCN
+   (mode sg), GraphSAGE (dense, resident feature store) and GAT (dense)
+   at the [engine] phase's width and depth under one H100 DSE plan, and
+   answers 3 x 192 Zipf(1.1) requests; every embedding is held to the same
+   engine's ``infer`` (``ENGINE_TOL``), the launch counts (zeroed just
+   before) to the lanes' batches, every launch on the serving kernels
+   (tf32x3, sort, slab); a GAT at N=8192 raises PlanViolation at
+   register. Prints the plan, each lane's p50/p90/p99 and overlap, and the
+   bytes the resident lane ships against a dense lane.
+9. ``[repeat]``: two device steps of one gat/sg and one gcn/sg batch under
+   impl="torch" and impl="cuda": bitwise equal or not, and the largest
+   difference (the plain sg paths sum with ``index_add_``).
+10. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
+   the bucket scatter-gather and the bf16 kernels) and, last, the ``ok``
+   line.
 
 Any failure exits nonzero before the last line.
 """
@@ -94,6 +119,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.config import ServingConfig  # noqa: E402
+from repro_torch.core.dse import (H100Spec, PlanViolation,  # noqa: E402
+                                  plan_covers)
 from repro_torch.core.engine import DecoupledEngine  # noqa: E402
 from repro_torch.gnn.layers import dense_init  # noqa: E402
 from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
@@ -102,6 +129,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernels  # noqa: E402
 from repro_torch.kernels import fused_gnn as fused_kernels  # noqa: E402
 from repro_torch.kernels import gat_attention as gat_kernels  # noqa: E402
+from repro_torch.kernels import scatter_gather as sg_kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref, flash_bf16_check, flash_bf16_tol,
     flash_cost, flash_variant)
@@ -110,10 +138,13 @@ from repro_torch.kernels.fused_gnn import (ACTS,  # noqa: E402
                                            fused_gnn_layer_ref)
 from repro_torch.kernels.gat_attention import (  # noqa: E402
     gat_attention, gat_attention_ref, gat_variant)
+from repro_torch.kernels.ref import bf16_reading  # noqa: E402
 from repro_torch.kernels.scatter_gather import (  # noqa: E402
-    scatter_gather_aggregate, scatter_gather_aggregate_ref)
+    scatter_gather_aggregate, scatter_gather_aggregate_ref, sg_variant)
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
+from repro_torch.serve.gnn_server import GNNServer  # noqa: E402
+from repro_torch.store import StorePolicy  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -131,6 +162,19 @@ FLASH_BF16_EQUAL = 0.99
 ENGINE_TOL = dict(rtol=1e-4, atol=1e-5)
 C, N, F_IN, F_HID, HEADS, LAYERS = 64, 256, 500, 256, 4, 5
 N_BATCHES = 4                    # measured batches per engine (+1 warm-up)
+# the scatter-gather's bucket kernel on a real forced-sg batch of the
+# Flickr-sized graph at N=1024 (its edge budget: 74,496 slots); C cut from
+# 64 to 8 (a host Build of 64 subgraphs at N=1024 would take tens of
+# seconds), and on the serving batch's edge lists padded past the sort
+# kernel's 16-bit indices to 65,537 slots
+BIG_N, BIG_C, WIDE_E = 1024, 8, 65537
+# [serve]: requests a lane (3 batches of C), and GCN, GraphSAGE and GAT
+# at the [engine] phase's width and depth, each lane's mode fixed so that
+# all three GNN kernels run on the server path
+SERVE_REQUESTS = 3 * C
+SERVE_LANES = {"gcn": dict(mode="sg"),
+               "sage": dict(mode="dense", features="resident"),
+               "gat": dict(mode="dense")}
 # LM phase: phi3-medium-14b at full width, depth cut to 8 of its 40 layers
 # (the fp32 parameters of 40 layers, 58.6 GB, and the plain path's 27 GB of
 # transient scores do not fit one 80 GB card together)
@@ -501,11 +545,10 @@ def fused_bound(args):
     return bound_ms(nb, 3 * flops, PEAK_TF32_FLOPS)
 
 
-def kernel_phase(sb, dev, label):
-    """Checks and times every kernel at the serving shapes built from the
-    SubgraphBatch ``sb``; returns {kernel: record} for the JSON line."""
+def kernel_phase(x, dev, label):
+    """Checks and times every kernel at the serving shapes of ``x``
+    (``gnn_inputs``); returns {kernel: record} for the JSON line."""
     rec = {}
-    x = gnn_inputs(sb, dev)
 
     print("[kernels] fused_gnn_layer", flush=True)
     run_checks(fused_checks(x))
@@ -589,6 +632,230 @@ def kernel_phase(sb, dev, label):
                                 ms=ms, plain_ms=plain, bound_ms=bnd,
                                 bound_by=by, library_ms=None)
     return rec
+
+
+# -- phase 3b: the scatter-gather's bucket kernel and the bf16 kernels -------
+
+
+def big_batch(graph, targets):
+    """A forced-sg batch of the Flickr-sized graph at N=1024 and C=8, as the
+    engine plans it (its edge budget is default_edge_pad's 74,496 slots)."""
+    with DecoupledEngine(graph, GNNConfig(
+            kind="gcn", n_layers=LAYERS, receptive_field=BIG_N, f_in=F_IN,
+            f_hidden=F_HID), config=ServingConfig(
+            device="cuda", batch_size=BIG_C, mode="sg")) as eng:
+        sb = eng.plan(targets[:BIG_C]).sb
+        e_pad = eng.e_pad
+    print(f"[data] batch C={BIG_C} N={BIG_N} e_pad={e_pad} mean real edges "
+          f"{sb.n_edges.mean():.1f}", flush=True)
+    return sb
+
+
+def sg_wide_rows(x, big, dev):
+    """The bucket kernel's rows, (tag, (src, dst, w, h)): the serving batch's
+    edge lists padded to 65,537 slots with weight-0 edges at N-1 (F=256),
+    and the N=1024 batch (F=256: its first 256 feature columns)."""
+    if "wide" not in x:
+        pad = WIDE_E - x["src"].shape[1]
+        fill = torch.full((C, pad), N - 1, dtype=torch.int32, device=dev)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+        x["wide"] = [
+            (f"C={C} N={N} F={F_HID} E={WIDE_E} (serving batch, padded)",
+             (torch.cat([x["src"], fill], 1), torch.cat([x["dst"], fill], 1),
+              torch.cat([x["w"], torch.zeros((C, pad), device=dev)], 1),
+              x["feats"][..., :F_HID].contiguous())),
+            (f"C={BIG_C} N={BIG_N} F={F_HID} E={big.edge_src.shape[1]} "
+             f"real_edges={int((big.edge_w != 0).sum())}",
+             (t(big.edge_src), t(big.edge_dst), t(big.edge_w),
+              t(big.feats[..., :F_HID])))]
+    return x["wide"]
+
+
+def sg_bucket_checks(x, big, dev):
+    """The bucket kernel against its plain version: [(name, ok, text)]. Its
+    rows (two launches bitwise equal, both on the bucket kernel), and inf
+    and NaN on the source row of the N=1024 batch's weight-0 padding edges
+    (NaN exactly where the plain version puts it)."""
+    out = []
+    rows = sg_wide_rows(x, big, dev)
+    for tag, args in rows:
+        check(sg_variant(args[3].shape[1], args[0].shape[1]) == "bucket",
+              f"sg {tag}: not a shape of the bucket kernel")
+        before = sg_kernels.variant_launches["bucket"]
+        got = scatter_gather_aggregate(*args)
+        again = scatter_gather_aggregate(*args)
+        ok, text, _ = reading(got, scatter_gather_aggregate_ref(*args))
+        same = bool(torch.equal(got, again))
+        on = sg_kernels.variant_launches["bucket"] == before + 2
+        out.append((f"sg bucket {tag}", ok and same and on,
+                    f"{text}, repeat bitwise {same}, bucket {on}"))
+    src, dst, w, h = rows[1][1]
+    h = h.clone()
+    h[0, BIG_N - 1, 1] = float("inf")    # the padding edges' source
+    h[3, BIG_N - 1, 7] = float("nan")
+    h[5, BIG_N - 1, 200] = float("-inf")
+    ok, text = nan_reading(scatter_gather_aggregate(src, dst, w, h),
+                           scatter_gather_aggregate_ref(src, dst, w, h))
+    out.append((f"sg bucket N={BIG_N} weight-0 edges from inf/NaN sources",
+                ok, text))
+    return out
+
+
+def bf16_rows(x, big, dev):
+    """The three GNN kernels' bf16 rows at the serving shapes: (kernel, tag,
+    args, kwargs); h, z, the weights and b in bf16, the rest fp32."""
+    bf = lambda t: None if t is None else t.to(torch.bfloat16)  # noqa: E731
+    rows = []
+    for tag, (adj, h, wn, ws, b, m), kw in fused_rows(x):
+        rows.append(("fused_gnn_layer", f"{tag} bf16",
+                     (adj, bf(h), bf(wn), bf(ws), bf(b), m), kw))
+    for tag, (src, dst, w, h) in sg_rows(x) + sg_wide_rows(x, big, dev)[1:]:
+        rows.append(("scatter_gather_aggregate", f"{tag} bf16",
+                     (src, dst, w, bf(h)), {}))
+    tag, (z, ss, sd, st) = gat_rows(x)[0]
+    rows.append(("gat_attention", f"{tag} bf16", (bf(z), ss, sd, st),
+                 dict(n_heads=HEADS)))
+    return rows
+
+
+def widened(args):
+    """``args`` with every floating tensor in fp32 (the plain version's
+    fp32 result on a bf16 row's inputs)."""
+    return [a.float() if a is not None and a.is_floating_point() else a
+            for a in args]
+
+
+KERNELS_BY_NAME = {"fused_gnn_layer": (fused_gnn_layer, fused_gnn_layer_ref,
+                                       fused_kernels),
+                   "scatter_gather_aggregate": (
+                       scatter_gather_aggregate,
+                       scatter_gather_aggregate_ref, sg_kernels),
+                   "gat_attention": (gat_attention, gat_attention_ref,
+                                     gat_kernels)}
+
+
+def bf16_checks(x, big, dev):
+    """Each bf16 row against its plain version's fp32 result on the same
+    (bf16) inputs: within one bf16 ulp of it rounded to bf16 outside the
+    fp32 kernels' 2e-5 (``bf16_reading``), within the reference's 2e-2,
+    output in bf16, two launches bitwise equal. [(name, ok, text)]"""
+    out = []
+    for kernel, tag, args, kw in bf16_rows(x, big, dev):
+        fn, ref, mod = KERNELS_BY_NAME[kernel]
+        before = dict(mod.variant_launches)
+        got = fn(*args, **kw)
+        again = fn(*args, **kw)
+        variant = ",".join(k for k, n in mod.variant_launches.items()
+                           if n > before[k])
+        ok, worst, err = bf16_reading(got, ref(*widened(args), **kw))
+        same = bool(torch.equal(got.isnan(), again.isnan())
+                    and torch.equal(got.nan_to_num(), again.nan_to_num()))
+        out.append((f"{kernel} {tag}", ok and same
+                    and got.dtype == torch.bfloat16,
+                    f"max_abs_err={err:.3e} against the fp32 result, worst "
+                    f"{worst} bf16 ulp outside 2e-5, repeat bitwise {same}, "
+                    f"{variant}"))
+    return out
+
+
+def fused_bf16_bound(args):
+    """(ms, by) of a bf16 fused call: its bytes, or its bf16 products over
+    989 TFLOP/s plus A.HW's fp32 product (three tf32 products) over 494.7
+    TFLOP/s, whichever is larger."""
+    adj, h, wn, ws, b, mask = args
+    Cc, Nn, fin = h.shape
+    fout = (wn if wn is not None else ws).shape[1]
+    t_ops = 2.0 * Cc * Nn * fin * fout * ((wn is not None) + (ws is not None)) \
+        / PEAK_BF16_FLOPS
+    if wn is not None:
+        t_ops += 3 * 2.0 * Cc * Nn * Nn * fout / PEAK_TF32_FLOPS
+    nb = nbytes(adj if wn is not None else None, h, wn, ws, b, mask) \
+        + h.element_size() * Cc * Nn * fout
+    t_bytes = nb / PEAK_BYTES_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
+        else (t_ops * 1e3, "operations")
+
+
+def sg_bound(args):
+    src, dst, w, h = args
+    Cc, Nn, f = h.shape
+    return bound_ms(nbytes(src, dst, w, h) + h.element_size() * Cc * Nn * f,
+                    2.0 * int((w != 0).sum()) * f)
+
+
+def sg_library(args):
+    """``index_add_`` of the weighted source rows, in h's dtype."""
+    src, dst, w, h = args
+    Cc, Nn, f = h.shape
+    off = (torch.arange(Cc, device=h.device) * Nn)[:, None]
+    fs, fd = (src.long() + off).reshape(-1), (dst.long() + off).reshape(-1)
+    wf = w.reshape(-1, 1).to(h.dtype)
+    return lambda: torch.zeros(Cc * Nn, f, dtype=h.dtype,
+                               device=h.device).index_add_(
+        0, fd, h.reshape(Cc * Nn, f)[fs] * wf)
+
+
+def variant_phase(graph, targets, x, dev, label):
+    """Checks and times the scatter-gather's bucket kernel and the three GNN
+    kernels in bf16; returns {kernel: [variant record]} for the JSON
+    line."""
+    big = big_batch(graph, targets)
+    print("[kernels] scatter_gather_aggregate bucket", flush=True)
+    run_checks(sg_bucket_checks(x, big, dev))
+    print("[kernels] bf16", flush=True)
+    run_checks(bf16_checks(x, big, dev))
+    recs = {k: [] for k in KERNELS_BY_NAME}
+    timed = [("scatter_gather_aggregate", f"bucket {tag}", args, {})
+             for tag, args in sg_wide_rows(x, big, dev)] + \
+        bf16_rows(x, big, dev)
+    for kernel, tag, args, kw in timed:
+        fn, ref, mod = KERNELS_BY_NAME[kernel]
+        before = dict(mod.variant_launches)
+        ms = cuda_ms(lambda: fn(*args, **kw))
+        variant = ",".join(k for k, n in mod.variant_launches.items()
+                           if n > before[k])
+        plain = cuda_ms(lambda: ref(*args, **kw))
+        got = fn(*args, **kw)
+        if got.dtype == torch.bfloat16:
+            err = bf16_reading(got, ref(*widened(args), **kw))[2]
+        else:
+            err = closeness(got, ref(*args, **kw), KERNEL_TOL)[0]
+        if kernel == "fused_gnn_layer":
+            adj, h, wn, ws, b, m = args
+            act = ACTS[kw.get("act", "relu")]
+            a16 = adj.to(h.dtype) if adj is not None else None
+
+            def library():
+                if wn is None:
+                    acc = torch.baddbmm(b, h, ws.expand(h.shape[0], -1, -1))
+                else:
+                    acc = torch.baddbmm(b, a16, torch.matmul(h, wn))
+                    if ws is not None:
+                        acc = torch.baddbmm(acc, h,
+                                            ws.expand(h.shape[0], -1, -1))
+                return act(acc) * m[..., None].to(h.dtype)
+            lib = cuda_ms(library)
+            bnd, by = fused_bf16_bound(args)
+            lib_name = "baddbmm chain, bf16"
+        elif kernel == "scatter_gather_aggregate":
+            lib = cuda_ms(sg_library(args))
+            bnd, by = sg_bound(args)
+            lib_name = f"index_add_, {str(args[3].dtype)[6:]}"
+        else:
+            z, ss, sd, st = args
+            lib, lib_name = None, "none"
+            nnz_s = int((st > 0).sum())
+            bnd, by = bound_ms(nbytes(*args) + z.element_size() * z.numel(),
+                               2.0 * nnz_s * z.shape[-1]
+                               + 6.0 * z.shape[0] * HEADS * z.shape[1] ** 2)
+        print(f"  {kernel} {tag}: kernel {ms:.4f} ms ({variant}), plain "
+              f"{plain:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'} ({lib_name}), "
+              f"bound {bnd:.4f} ms ({by}) [{label}]", flush=True)
+        recs[kernel].append(dict(
+            variant=variant, shape=tag, max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
+    return recs
 
 
 # -- phase 4: flash_attention against its plain version --------------------
@@ -743,6 +1010,13 @@ def engine_phase(graph, targets, label):
     check(gat_split == {"slab": main_path["gat_attention"], "row": 0},
           f"gat_attention launches by kernel {gat_split}, expected all "
           f"{main_path['gat_attention']} on the slab kernel")
+    sg_split = dict(sg_kernels.variant_launches)
+    print(f"[engine] scatter_gather_aggregate launches by kernel over the six "
+          f"engines: {sg_split} [{label}]", flush=True)
+    check(sg_split == {"sort": main_path["scatter_gather_aggregate"],
+                       "bucket": 0},
+          f"scatter_gather_aggregate launches by kernel {sg_split}, expected "
+          f"all {main_path['scatter_gather_aggregate']} on the sort kernel")
     for (kind, mode), got in outs.items():
         cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
                         f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
@@ -761,6 +1035,139 @@ def engine_phase(graph, targets, label):
     check(ops.launch_counts() == main_path,
           "the impl='torch' engines launched a kernel")
     return main_path
+
+
+# -- phase 5b: the multi-model server ----------------------------------------
+
+
+def serve_phase(graph, label):
+    """One GNNServer on the Flickr-sized graph serving GCN (sg:
+    scatter_gather_aggregate), GraphSAGE (dense, resident store: the fused
+    layer's A.(H.W)+H.Ws form) and GAT (dense: gat_attention) under one H100
+    DSE plan; 3 x 192 Zipf(1.1) requests routed by model. Checks every
+    embedding against the same engine's infer, the launch counts against the
+    lanes' batches, and that a model outside the plan raises PlanViolation
+    at register. Returns the server path's launch counts."""
+    engines = {}
+    for kind, lane in SERVE_LANES.items():
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+        engines[kind] = DecoupledEngine(graph, cfg, config=ServingConfig(
+            device="cuda", batch_size=C, mode=lane["mode"], impl="cuda",
+            store=StorePolicy(features=lane.get("features", "dense"))))
+    srv = GNNServer()
+    for kind, eng in engines.items():
+        srv.register(kind, eng)
+    plan = srv.plan
+    print(f"[serve] plan (H100 DSE over {', '.join(engines)}): block_f="
+          f"{plan.block_f} c_core={plan.c_core} smem_used={plan.smem_used} "
+          f"bytes a block, ops_ok={plan.ops_ok} [{label}]", flush=True)
+    refused = GNNConfig(kind="gat", n_layers=2, receptive_field=8192,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+    reasons = plan_covers(plan, refused, H100Spec())
+    check(bool(reasons), "plan_covers takes GAT at N=8192")
+    with DecoupledEngine(graph, refused, config=ServingConfig(
+            device="cuda", batch_size=1)) as eng:
+        try:
+            srv.register("gat-8192", eng)
+        except PlanViolation as e:
+            print(f"[serve] register GAT N=8192: PlanViolation ({e}) ok",
+                  flush=True)
+        else:
+            check(False, "register took a model outside the plan")
+    rng = np.random.default_rng(3)
+    traffic = {k: zipf_traffic(graph, SERVE_REQUESTS, a=1.1,
+                               seed=int(rng.integers(1 << 30)))
+               for k in engines}
+    order = [(k, int(t)) for i in range(SERVE_REQUESTS)
+             for k, ts in traffic.items() for t in ts[i:i + 1]]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv.start()
+    reqs = [srv.submit(t, model=k) for k, t in order]
+    srv.drain(reqs, timeout=600)
+    srv.stop()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    served = ops.launch_counts()
+    variants = {name: dict(m.variant_launches) for name, m in
+                (("fused", fused_kernels), ("sg", sg_kernels),
+                 ("gat", gat_kernels))}
+    rep = srv.report()
+    batches = {k: srv.model_stats(k).n_batches for k in engines}
+    want = {k: 0 for k in served}
+    for kind, lane in SERVE_LANES.items():
+        for kname, n in EXPECTED[kind, lane["mode"]].items():
+            want[kname] += n * batches[kind]
+    print(f"[serve] {len(reqs)} requests in {wall:.2f} s wall; batches "
+          f"{batches}; launches {served} (expected {want}); by kernel "
+          f"{variants} [{label}]", flush=True)
+    check(served == want, f"server launches {served}, expected {want}")
+    check(variants["fused"]["tf32x3"] == served["fused_gnn_layer"]
+          and variants["sg"]["sort"] == served["scatter_gather_aggregate"]
+          and variants["gat"]["slab"] == served["gat_attention"],
+          f"server launches by kernel {variants}: expected every fused "
+          f"launch on tf32x3, every sg launch on sort, every GAT on slab")
+    for kind in engines:
+        m = rep["models"][kind]
+        lat, st = m["latency"], m["store"]
+        print(f"[serve] {kind} ({SERVE_LANES[kind]['mode']}, "
+              f"{st['features']['strategy']} store): n={lat['n']} p50 "
+              f"{lat['p50'] * 1e3:.2f} ms p90 {lat['p90'] * 1e3:.2f} ms p99 "
+              f"{lat['p99'] * 1e3:.2f} ms, overlap "
+              f"{m['stages']['overlap']:.3f}, bytes shipped "
+              f"{st['bytes_shipped']} of {st['bytes_dense']} dense "
+              f"({st['bytes_shipped'] / max(1, m['stages']['batches']):.0f}"
+              f" a batch, transfer ratio {st['transfer_ratio']}) [{label}]",
+              flush=True)
+        check(lat["n"] == SERVE_REQUESTS, f"{kind}: {lat['n']} answered")
+    res = rep["models"]["sage"]["store"]
+    dense = rep["models"]["gat"]["store"]
+    print(f"[serve] resident store (sage): {res['features']['device_bytes']}"
+          f" bytes on the card, hit rate "
+          f"{res['features']['resident_hit_rate']}; a batch ships "
+          f"{res['bytes_shipped'] / rep['models']['sage']['stages']['batches']:.0f}"
+          f" bytes against "
+          f"{dense['bytes_shipped'] / rep['models']['gat']['stages']['batches']:.0f}"
+          f" for the dense store (gat) [{label}]", flush=True)
+    for kind, eng in engines.items():
+        mine = [r for r in reqs if r.model == kind]
+        got = np.stack([r.embedding for r in mine])
+        want_emb = eng.infer(np.array([r.target for r in mine])).embeddings
+        err = float(np.abs(got - want_emb).max())
+        ok = got.shape == (SERVE_REQUESTS, F_HID) \
+            and np.isfinite(got).all() \
+            and np.allclose(got, want_emb, **ENGINE_TOL)
+        print(f"[serve] {kind} server vs the engine's infer: max_abs_err "
+              f"{err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{kind}: served embeddings disagree with infer")
+        eng.close()
+    return served
+
+
+def repeatability_phase(graph, targets, label):
+    """Two device steps of one planned gat/sg and gcn/sg batch, under
+    impl="torch" and impl="cuda": whether the two are bitwise equal, and
+    their largest difference. The plain sg paths (gnn/layers.py agg_sg,
+    core/program.py's sg softmax, which both impls run for gat/sg) sum with
+    ``index_add_``."""
+    for kind, impl in (("gat", "torch"), ("gcn", "torch"), ("gat", "cuda"),
+                       ("gcn", "cuda")):
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+        with DecoupledEngine(graph, cfg, params=init_gnn(
+                cfg, seed=0, device="cuda"), config=ServingConfig(
+                device="cuda", batch_size=C, mode="sg", impl=impl)) as eng:
+            plan = eng.plan(targets[:C])
+            a = eng.run_device(plan).clone()
+            b = eng.run_device(plan).clone()
+            torch.cuda.synchronize()
+        same = bool(torch.equal(a, b))
+        diff = float((a - b).abs().max())
+        print(f"[repeat] {kind}/sg impl={impl}: two device steps of one "
+              f"batch bitwise equal {same}, max |difference| {diff:.3e}, "
+              f"share of elements equal {float((a == b).float().mean()):.6f}"
+              f" [{label}]", flush=True)
 
 
 # -- phase 6: LM prefill and decode ------------------------------------------
@@ -955,18 +1362,26 @@ def main() -> int:
                 print(f"[build] {k}: {line.strip()}", flush=True)
     graph, targets, sb = serving_batch()
     dev = torch.device("cuda")
-    rec = kernel_phase(sb, dev, label)
+    x = gnn_inputs(sb, dev)
+    rec = kernel_phase(x, dev, label)
+    variants = variant_phase(graph, targets, x, dev, label)
+    del x
     rec["flash_attention"] = flash_phase(dev, label)
     launches = engine_phase(graph, targets, label)
     profile_phase(graph, targets, label)
+    served = serve_phase(graph, label)
+    repeatability_phase(graph, targets, label)
     launches["flash_attention"] = lm_phase(label)["flash_attention"]
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")
+    for k in KERNELS_BY_NAME:
+        check(served[k] > 0, f"{k} was never launched on the server path")
     kernels = []
     for k, (source, replaces) in REPLACES.items():
         kernels.append(dict(name=k, route="cuda", source=source,
-                            replaces=replaces, launches=launches[k],
-                            **rec[k]))
+                            replaces=replaces,
+                            launches=launches[k] + served.get(k, 0),
+                            **rec[k], variants=variants.get(k, [])))
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

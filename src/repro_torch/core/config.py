@@ -5,16 +5,19 @@ package has ported so far:
 
   * device program:  device, batch_size, mode, impl, e_pad, seed
   * host pipeline:   num_threads, depth (triple buffering),
-                     max_inflight (backpressure)
-  * store:           ``StorePolicy`` (dense or packed features; local
-                     neighborhood and subgraph-row caches)
+                     max_inflight (backpressure), max_wait_s (the
+                     server's micro-batch deadline)
+  * store:           ``StorePolicy`` (dense, packed or device-resident
+                     features; local neighborhood and subgraph-row
+                     caches)
 
 ``device`` defaults to ``"cuda"`` and ``impl`` to ``"cuda"`` (the hand
 kernels), so a default deployment on a card always runs the kernels; a
 CUDA device with no card raises, and nothing continues on the CPU
 unasked. The reference's other planes — ``trace``, ``telemetry``,
 ``dispatch``, ``precompute`` and a ``transport`` other than ``"local"`` —
-are not ported yet: setting one raises NotImplementedError naming it.
+are not ported yet: setting one raises NotImplementedError naming it,
+and so does the sharded feature store.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ class ServingConfig:
     num_threads: int = 8
     depth: int = 3                     # paper's triple buffering
     max_inflight: Optional[int] = None  # backpressure; None = 2 * depth
+    max_wait_s: float = 0.005          # micro-batcher deadline (server)
     # planes of the reference not ported yet: anything but the default
     # raises NotImplementedError
     transport: str = "local"
@@ -66,11 +70,11 @@ class ServingConfig:
             raise TypeError(
                 f"store must be a StorePolicy, got "
                 f"{type(self.store).__name__}")
-        if self.store.features in ("resident", "sharded"):
+        if self.store.features == "sharded":
             raise NotImplementedError(
-                f"StorePolicy.features={self.store.features!r}: the "
-                f"device-resident feature stores are not ported to "
-                f"repro_torch yet (use 'dense' or 'packed')")
+                "StorePolicy.features='sharded': the sharded feature store "
+                "is not ported to repro_torch yet (ROADMAP queue 1, item 7; "
+                "use 'dense', 'packed' or 'resident')")
         if self.impl not in IMPLS:
             raise ValueError(f"impl={self.impl!r}, expected one of {IMPLS}")
         if self.mode not in ("auto", "dense", "sg"):
@@ -85,6 +89,8 @@ class ServingConfig:
             raise ValueError("depth must be >= 1")
         if self.max_inflight is not None and self.max_inflight < 1:
             raise ValueError("max_inflight must be >= 1 (or None)")
+        if self.max_wait_s < 0:
+            raise ValueError("max_wait_s must be >= 0")
 
 
 __all__ = ["ServingConfig"]

@@ -15,12 +15,16 @@ device execution of batch i via core.scheduler (paper Fig. 7). The engine
 owns ONE persistent ``PipelineScheduler`` for its whole lifetime.
 
 This is the local path of the reference's engine: remote transports,
-tracing, telemetry, adaptive dispatch, the precompute tier and the
-device-resident feature stores are not ported yet (ServingConfig refuses
-them).
+tracing, telemetry, adaptive dispatch, the precompute tier and the sharded
+feature store are not ported yet (ServingConfig refuses them). The
+single-device resident store is, with its automatic repin triggers
+(``StorePolicy.repin_every`` / ``repin_hit_floor``) on the completion path.
 """
 from __future__ import annotations
 
+import logging
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -124,9 +128,27 @@ class DecoupledEngine:
         # Pack); prepare() runs the same stages serially, so the staged
         # path is the monolithic one by construction
         self.stages = [SelectStage(self), BuildStage(self), PackStage(self)]
+        # auto-repin trigger state (StorePolicy.repin_every / _hit_floor)
+        self._repin_auto = bool(store.repin_every or store.repin_hit_floor)
+        self._repin_lock = threading.Lock()
+        self._repin_batches = 0
+        self._repin_base = (0, 0)       # (lookups, resident) at last repin
+        # floor-trigger backoff: while the hit rate stays below the floor
+        # even after a repin (working set > budget), checks space out
+        # exponentially instead of rebuilding the table every batch
+        self._floor_batches = 0
+        self._floor_wait = 1
+        # repins run on their own single worker, never on the scheduler's
+        # dispatcher thread, where a table rebuild would stall completion
+        # of every batch in flight
+        self._repin_pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="repin") \
+            if self._repin_auto else None
+        self.auto_repins = 0
         self.scheduler = PipelineScheduler(
             self.stages, self.run_device, depth=config.depth,
-            max_inflight=config.max_inflight)
+            max_inflight=config.max_inflight,
+            on_batch=self._on_batch_done if self._repin_auto else None)
         # graph-update streaming: cached neighborhoods / rows never serve
         # stale state
         if hasattr(graph, "register_listener"):
@@ -246,13 +268,74 @@ class DecoupledEngine:
     def invalidate(self, vertices) -> int:
         """Graph-update hook: drop every cached neighborhood AND every
         cached subgraph row whose push FRONTIER contains any of
-        ``vertices``. Returns the number of NEIGHBORHOOD entries dropped
-        (row-cache drops are visible in store_report())."""
+        ``vertices``, and re-upload those vertices' device-resident feature
+        rows from ``graph.features``. Returns the number of NEIGHBORHOOD
+        entries dropped (row-cache drops are visible in
+        store_report())."""
+        if hasattr(self._fsource, "refresh_features"):
+            self._fsource.refresh_features(vertices)
         if self.sg_cache is not None:
             self.sg_cache.invalidate(vertices)
         if self.nbr_cache is None:
             return 0
         return self.nbr_cache.invalidate(vertices)
+
+    def _on_batch_done(self, ticket=None):
+        """Pipeline completion hook: evaluate the policy's automatic repin
+        triggers and hand the rebalance to the engine's single repin
+        worker. The completion path stays light, and batches in flight
+        keep their residency snapshot (the payload carries its
+        generation), so a repin landing mid-stream never changes them.
+
+        The hit-floor trigger backs off exponentially while the rate stays
+        below the floor (a working set larger than the budget can never
+        satisfy it) and re-arms as soon as a check passes."""
+        pol = self.store_policy
+        src = self._fsource
+        with self._repin_lock:
+            self._repin_batches += 1
+            self._floor_batches += 1
+            due = bool(pol.repin_every
+                       and self._repin_batches >= pol.repin_every)
+            if not due and pol.repin_hit_floor \
+                    and self._floor_batches >= self._floor_wait:
+                lk = src.lookups - self._repin_base[0]
+                res = src.resident_lookups - self._repin_base[1]
+                self._floor_batches = 0
+                if lk > 0 and (res / lk) < pol.repin_hit_floor:
+                    due = True
+                    self._floor_wait = min(64, self._floor_wait * 2)
+                else:
+                    self._floor_wait = 1
+            if not due:
+                return
+            self._repin_batches = 0
+            self._repin_base = (src.lookups, src.resident_lookups)
+            self.auto_repins += 1
+        self._repin_pool.submit(self._auto_repin_job)
+
+    def _auto_repin_job(self):
+        try:
+            self.repin()
+        except Exception:            # a failed rebalance must not kill the
+            # worker (serving goes on with the current residency)
+            logging.getLogger(__name__).exception("automatic repin failed")
+
+    def drain_repins(self, timeout: Optional[float] = 60.0):
+        """Block until every triggered auto-repin has run (tests and
+        orderly shutdown; serving never needs this)."""
+        if self._repin_pool is not None:
+            self._repin_pool.submit(lambda: None).result(timeout)
+
+    def repin(self, **kwargs) -> dict:
+        """Online residency rebalance of the resident store: re-derive
+        the device-resident set from the PPR mass observed since start.
+        Batches in flight keep their residency snapshot."""
+        if not hasattr(self._fsource, "repin"):
+            raise ValueError(
+                f"store strategy {self._fsource.name!r} has no repin(); "
+                "use StorePolicy(features='resident', ...)")
+        return self._fsource.repin(**kwargs)
 
     def store_report(self) -> dict:
         """Cache/transfer state of this deployment's store subsystem."""
@@ -264,12 +347,16 @@ class DecoupledEngine:
             r["nbr_cache"] = self.nbr_cache.stats()
         if self.sg_cache is not None:
             r["subgraph_cache"] = self.sg_cache.stats()
+        if self._repin_auto:
+            r["auto_repins"] = self.auto_repins
         return r
 
     def close(self):
         if hasattr(self.graph, "unregister_listener"):
             self.graph.unregister_listener(self.invalidate)
         self.scheduler.close()
+        if self._repin_pool is not None:
+            self._repin_pool.shutdown(wait=True)
         for stage in self.stages:
             stage.close()
 

@@ -2,13 +2,26 @@
 
 The PyTorch counterpart of ``repro.core.report_schema``, limited to the
 sections this package emits: ``latency.*``, ``stages.*`` and ``store.*``
-keep the reference's names, so a dashboard reads both packages alike. The
+keep the reference's names, so a dashboard reads both packages alike
+(``SCHEMA``, the reference's key map of those sections). The
 reference's ``shards``/``rpc``/``trace``/``precompute``/``telemetry``/
 ``dispatch`` sections belong to planes not ported yet.
 """
 from __future__ import annotations
 
 SCHEMA_VERSION = 5
+
+# the documented key map of the sections this package emits (the
+# reference's, less the sections of planes not ported yet)
+SCHEMA = {
+    "latency": ("t_wall", "t_host", "t_device", "t_init",
+                "p50", "p90", "p99", "mean", "batch_mean", "n", "hist"),
+    "stages": ("times", "overlap", "batches", "build_hit_rate",
+               "batch_edges"),
+    "store": ("bytes_shipped", "bytes_dense", "transfer_ratio",
+              "cache_hit_rate", "dedup_ratio", "policy", "features",
+              "nbr_cache", "subgraph_cache", "auto_repins"),
+}
 
 
 def stages_section(stats) -> dict:
@@ -41,5 +54,5 @@ def scheduler_summary(stats) -> dict:
             "store": store_section(stats)}
 
 
-__all__ = ["SCHEMA_VERSION", "scheduler_summary",
+__all__ = ["SCHEMA_VERSION", "SCHEMA", "scheduler_summary",
            "stages_section", "store_section"]

@@ -173,6 +173,10 @@ class PipelineScheduler:
     max_inflight    -> bound on submitted-but-incomplete batches;
                       ``submit()`` blocks past it (backpressure), default
                       2 * depth.
+    on_batch        -> optional ``on_batch(ticket)`` completion hook,
+                      fired on the dispatcher thread after stats are
+                      recorded (the engine's auto-repin trigger point);
+                      exceptions are swallowed.
 
     Lifecycle: lazily started on first submit/run; ``close()`` drains and
     tears down threads (the stage objects are owned — and closed — by
@@ -181,13 +185,15 @@ class PipelineScheduler:
     """
 
     def __init__(self, stages: Sequence, device_fn: Callable,
-                 depth: int = 3, max_inflight: Optional[int] = None):
+                 depth: int = 3, max_inflight: Optional[int] = None,
+                 on_batch: Optional[Callable] = None):
         self.stages = list(stages)
         if not self.stages:
             raise ValueError("empty stage sequence")
         self.device_fn = device_fn
         self.depth = max(1, depth)
         self.max_inflight = max_inflight or 2 * self.depth
+        self.on_batch = on_batch
         self.stats = SchedulerStats()
         self._lock = threading.Lock()
         self._idle = threading.Condition(self._lock)
@@ -342,6 +348,11 @@ class PipelineScheduler:
                 ticket.on_done(ticket)
             except Exception:        # callback errors must not kill pipeline
                 pass
+        if self.on_batch is not None:
+            try:                     # completion hook (e.g. auto-repin) —
+                self.on_batch(ticket)            # never kills the pipeline
+            except Exception:
+                pass
         # in-flight accounting last, so flush() implies callbacks finished
         with self._idle:
             self._inflight -= 1
@@ -434,6 +445,11 @@ class PipelineScheduler:
                     self.stats.record(th, td)
                     self.stats.merge_stage_times(st_times)
                     self.stats.t_wall += th + td
+                if self.on_batch is not None:
+                    try:             # completion hook fires on the serial
+                        self.on_batch(None)      # path too (no ticket)
+                    except Exception:
+                        pass
                 outs.append(out)
         else:
             tickets = [self.submit(it) for it in items]

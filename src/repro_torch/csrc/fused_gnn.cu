@@ -1,4 +1,6 @@
-// Fused GNN layer for Hopper (sm_90a), fp32 in and out.
+// Fused GNN layer for Hopper (sm_90a): fp32 in and out, or (cuda_core only)
+// bf16 h, weights, bias and out with fp32 adj and mask, as the reference
+// takes them (every product and sum in fp32, the output rounded once).
 //
 // Replaces the TPU kernel fused_gnn_layer (src/repro/kernels/fused_gnn.py,
 // _kernel):
@@ -52,7 +54,8 @@
 //   a k-tile's partial: 192) and the split A fragments of two k-steps (32)
 //   in the consumers (setmaxnreg 232); the producer keeps 40.
 //
-// cuda_core (every other shape): fp32 on the CUDA cores, one tiled
+// cuda_core (every other shape, and every bf16 call: the tf32x3 layout is
+// fp32's): fp32 on the CUDA cores, one tiled
 // shared-memory GEMM with a fused epilogue, batched over C through
 // blockIdx.z. A launch computes
 //
@@ -77,6 +80,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "elem.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -111,14 +115,32 @@ __host__ __device__ __forceinline__ bool aligned16(const float* p, int ld) {
   return (ld % 4) == 0 && (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
+// The same four elements of a bf16 matrix, widened to fp32 (scalar loads).
+__device__ __forceinline__ float4 load4(const elem::bf16* __restrict__ p,
+                                        int r, int c, int R, int Cc, int ld,
+                                        bool) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (r >= R) return v;
+  const elem::bf16* q = p + (long long)r * ld + c;
+  if (c < Cc) v.x = __bfloat162float(q[0]);
+  if (c + 1 < Cc) v.y = __bfloat162float(q[1]);
+  if (c + 2 < Cc) v.z = __bfloat162float(q[2]);
+  if (c + 3 < Cc) v.w = __bfloat162float(q[3]);
+  return v;
+}
+__host__ __device__ __forceinline__ bool aligned16(const elem::bf16*, int) {
+  return false;
+}
+
 // acc[TM][TN] += X[m0:m0+BM, :K] @ Y[:K, n0:n0+BN] for this thread's
 // 4x4 sub-tile; X is [M, K] row-major, Y is [K, Nc] row-major. Two shared
 // stages: the global loads of K-step t+1 are issued into registers before
 // the FMAs of step t and stored to the other stage after them, so one
 // barrier a step suffices and the loads' latency hides under the FMAs.
 // Every output sums its products in increasing k.
+template <typename TX, typename TY>
 __device__ __forceinline__ void mainloop(
-    const float* __restrict__ x, const float* __restrict__ y, int M,
+    const TX* __restrict__ x, const TY* __restrict__ y, int M,
     int K, int Nc, int m0, int n0, float (*xs)[BK][BM],
     float (*ys)[BK][BN], float acc[TM][TN]) {
   const int t = threadIdx.x;
@@ -173,13 +195,16 @@ __device__ __forceinline__ void mainloop(
   }
 }
 
+// X1, Y1: the first product's operands; X2: the second's (both h and the
+// weight); O: the bias and the output.
+template <typename X1, typename Y1, typename X2, typename O>
 __global__ void __launch_bounds__(THREADS) gemm_epilogue_kernel(
-    const float* __restrict__ x1, long long sx1,
-    const float* __restrict__ y1, long long sy1, int k1,
-    const float* __restrict__ x2, long long sx2,
-    const float* __restrict__ y2, long long sy2, int k2,
-    const float* __restrict__ bias, const float* __restrict__ mask,
-    float* __restrict__ out, int M, int Nc, int col_block, int act) {
+    const X1* __restrict__ x1, long long sx1,
+    const Y1* __restrict__ y1, long long sy1, int k1,
+    const X2* __restrict__ x2, long long sx2,
+    const X2* __restrict__ y2, long long sy2, int k2,
+    const O* __restrict__ bias, const float* __restrict__ mask,
+    O* __restrict__ out, int M, int Nc, int col_block, int act) {
   __shared__ __align__(16) float xs[2][BK][BM];
   __shared__ __align__(16) float ys[2][BK][BN];
   const int c = blockIdx.z;
@@ -206,10 +231,10 @@ __global__ void __launch_bounds__(THREADS) gemm_epilogue_kernel(
         const int n = n0 + tx * TN + j;
         if (n >= n_end) continue;
         float v = acc[i][j];
-        if (bias != nullptr) v += bias[n];
+        if (bias != nullptr) v += elem::to_f32(bias[n]);
         if (act == ACT_RELU) v = fmaxf(v, 0.0f);
         else if (act == ACT_ELU) v = v > 0.0f ? v : expm1f(v);
-        out[((long long)c * M + m) * Nc + n] = v * mk;
+        out[((long long)c * M + m) * Nc + n] = elem::from_f32<O>(v * mk);
       }
     }
   }
@@ -552,6 +577,34 @@ int launch(const float* adj, const float* h, const float* wn, const float* ws,
 
 }  // namespace tc
 
+// The cuda_core kernel's passes for element type T of h, the weights, b and
+// out (HW and adj stay fp32).
+template <typename T>
+int core_launch(const float* adj, const T* h, const T* w_neigh,
+                const T* w_self, const T* b, const float* mask, float* hw,
+                T* out, int C, int N, int Fin, int Fout, int col_block,
+                int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + BM - 1) / BM, (Fout + col_block - 1) / col_block, C);
+  const long long sh = (long long)N * Fin;
+  if (w_neigh == nullptr) {
+    gemm_epilogue_kernel<T, T, T, T><<<grid, THREADS, 0, s>>>(
+        h, sh, w_self, 0, Fin, nullptr, 0, nullptr, 0, 0, b, mask, out, N,
+        Fout, col_block, act);
+    return static_cast<int>(cudaGetLastError());
+  }
+  gemm_epilogue_kernel<T, T, T, float><<<grid, THREADS, 0, s>>>(
+      h, sh, w_neigh, 0, Fin, nullptr, 0, nullptr, 0, 0, nullptr, nullptr,
+      hw, N, Fout, col_block, ACT_NONE);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gemm_epilogue_kernel<float, float, T, T><<<grid, THREADS, 0, s>>>(
+      adj, (long long)N * N, hw, (long long)N * Fout, N,
+      w_self != nullptr ? h : nullptr, sh, w_self, 0, Fin, b, mask, out, N,
+      Fout, col_block, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -561,6 +614,9 @@ extern "C" {
 // mask [C,N] or null, out [C,N,Fout], all contiguous fp32. Each returns 0
 // or the error of the launch (cudaError_t, or 10000 + CUresult where a
 // tensor map could not be made).
+
+// Shared memory of one tf32x3 block (the wrapper's table checks it).
+int fused_tf32x3_smem_bytes() { return tc::SMEM; }
 
 // The tf32x3 kernel: N <= 256; Fin % 4 == 0 and h 16-byte aligned; with
 // w_neigh also N % 4 == 0 and adj 16-byte aligned.
@@ -581,32 +637,24 @@ int fused_gnn_layer_tf32x3(const float* adj, const float* h,
                                  Fin, Fout, act, s);
 }
 
-// The cuda_core kernel, any shape: hw [C,N,Fout] scratch (unused when
-// w_neigh is null); col_block is a multiple of 64.
+// The cuda_core kernel, any shape: hw [C,N,Fout] fp32 scratch (unused when
+// w_neigh is null); col_block is a multiple of 64. _f32: every tensor fp32;
+// _bf16: h, the weights, b and out bf16, adj and mask fp32.
 int fused_gnn_layer_f32(const float* adj, const float* h,
                         const float* w_neigh, const float* w_self,
                         const float* b, const float* mask, float* hw,
                         float* out, int C, int N, int Fin, int Fout,
                         int col_block, int act, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + BM - 1) / BM, (Fout + col_block - 1) / col_block, C);
-  const long long sh = (long long)N * Fin;
-  if (w_neigh == nullptr) {
-    gemm_epilogue_kernel<<<grid, THREADS, 0, s>>>(
-        h, sh, w_self, 0, Fin, nullptr, 0, nullptr, 0, 0, b, mask, out, N,
-        Fout, col_block, act);
-    return static_cast<int>(cudaGetLastError());
-  }
-  gemm_epilogue_kernel<<<grid, THREADS, 0, s>>>(
-      h, sh, w_neigh, 0, Fin, nullptr, 0, nullptr, 0, 0, nullptr, nullptr,
-      hw, N, Fout, col_block, ACT_NONE);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gemm_epilogue_kernel<<<grid, THREADS, 0, s>>>(
-      adj, (long long)N * N, hw, (long long)N * Fout, N,
-      w_self != nullptr ? h : nullptr, sh, w_self, 0, Fin, b, mask, out, N,
-      Fout, col_block, act);
-  return static_cast<int>(cudaGetLastError());
+  return core_launch<float>(adj, h, w_neigh, w_self, b, mask, hw, out, C, N,
+                            Fin, Fout, col_block, act, stream);
+}
+int fused_gnn_layer_bf16(const float* adj, const elem::bf16* h,
+                         const elem::bf16* w_neigh, const elem::bf16* w_self,
+                         const elem::bf16* b, const float* mask, float* hw,
+                         elem::bf16* out, int C, int N, int Fin, int Fout,
+                         int col_block, int act, void* stream) {
+  return core_launch<elem::bf16>(adj, h, w_neigh, w_self, b, mask, hw, out, C,
+                                 N, Fin, Fout, col_block, act, stream);
 }
 
 }  // extern "C"

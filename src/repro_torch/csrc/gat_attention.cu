@@ -67,14 +67,19 @@
 //   Shared memory: 64 KB slab, N*N/8 bitmap, a list of N + 8 pairs a warp:
 //   111,888 bytes at N=256.
 //
-// "row" (the rest: N > 256, odd widths, unaligned tensors). One warp per
-// destination row: its N scores live in shared memory, a block of 8 warps
-// takes 8 rows of one (c, head); the weighted sum walks all N rows j in
-// order, each lane owning up to four of the head's columns from L2.
+// "row" (the rest: N > 256, odd widths, unaligned tensors, and every bf16
+// call: the slab's cp.async staging and float4 list walk are fp32's). One
+// warp per destination row: its N scores live in shared memory, a block of
+// 8 warps takes 8 rows of one (c, head); the weighted sum walks all N rows
+// j in order, each lane owning up to four of the head's columns from L2. z
+// and out are fp32 or bf16 (z widened on load, sums in fp32, out rounded
+// once); the scores and the structure are fp32.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -374,10 +379,11 @@ __global__ void __launch_bounds__(SLAB_THREADS, 2) gat_slab_kernel(
 
 constexpr int ROW_WARPS = 8;           // destination rows per block
 
+template <typename T>
 __global__ void __launch_bounds__(ROW_WARPS * 32) gat_row_kernel(
-    const float* __restrict__ z, const float* __restrict__ s_src,
+    const T* __restrict__ z, const float* __restrict__ s_src,
     const float* __restrict__ s_dst, const float* __restrict__ st,
-    float* __restrict__ out, int N, int F, int H, float slope) {
+    T* __restrict__ out, int N, int F, int H, float slope) {
   extern __shared__ float smem_f[];
   float* ssrc = smem_f;                        // [N] this head's s_src
   const int c = blockIdx.z;
@@ -411,21 +417,45 @@ __global__ void __launch_bounds__(ROW_WARPS * 32) gat_row_kernel(
   const float denom = fmaxf(warp_sum(sum), 1e-20f);
   for (int j = lane; j < N; j += 32) e[j] = e[j] / denom;
   __syncwarp();
-  const float* zc = z + (long long)c * N * F + hh * fh;
-  float* orow = out + ((long long)c * N + i) * F + hh * fh;
+  const T* zc = z + (long long)c * N * F + hh * fh;
+  T* orow = out + ((long long)c * N + i) * F + hh * fh;
   for (int f0 = 0; f0 < fh; f0 += 128) {
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int j = 0; j < N; ++j) {              // weight 0 included
       const float a = e[j];
-      const float* zr = zc + (long long)j * F + f0 + lane;
+      const T* zr = zc + (long long)j * F + f0 + lane;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        if (f0 + q * 32 + lane < fh) acc[q] = fmaf(a, zr[q * 32], acc[q]);
+        if (f0 + q * 32 + lane < fh)
+          acc[q] = fmaf(a, elem::to_f32(zr[q * 32]), acc[q]);
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      if (f0 + q * 32 + lane < fh) orow[f0 + q * 32 + lane] = acc[q];
+      if (f0 + q * 32 + lane < fh)
+        orow[f0 + q * 32 + lane] = elem::from_f32<T>(acc[q]);
   }
+}
+
+int row_smem_bytes(int N) {
+  return (1 + ROW_WARPS) * N * static_cast<int>(sizeof(float));
+}
+
+template <typename T>
+int row_launch(const T* z, const float* s_src, const float* s_dst,
+               const float* st, T* out, int C, int N, int F, int H,
+               float slope, void* stream) {
+  const int smem = row_smem_bytes(N);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gat_row_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((N + ROW_WARPS - 1) / ROW_WARPS, H, C);
+  gat_row_kernel<T><<<grid, ROW_WARPS * 32, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      z, s_src, s_dst, st, out, N, F, H, slope);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -437,9 +467,7 @@ extern "C" {
 int gat_slab_smem_bytes(int N) { return SlabLayout(N).bytes; }
 // The largest N the slab kernel takes (the wrapper's routing checks it).
 int gat_slab_max_n() { return SLAB_MAX_N; }
-int gat_row_smem_bytes(int N) {
-  return (1 + ROW_WARPS) * N * static_cast<int>(sizeof(float));
-}
+int gat_row_smem_bytes(int N) { return row_smem_bytes(N); }
 
 // z [C,N,F], s_src/s_dst [C,N,H], struct [C,N,N], out [C,N,F]; F % H == 0.
 // The slab kernel also needs N <= 256, N and F/H multiples of 4, and z,
@@ -463,21 +491,20 @@ int gat_attention_slab_f32(const float* z, const float* s_src,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The row kernel: z and out fp32 (_f32) or bf16 (_bf16).
 int gat_attention_row_f32(const float* z, const float* s_src,
                           const float* s_dst, const float* st, float* out,
                           int C, int N, int F, int H, float slope,
                           void* stream) {
-  const int smem = gat_row_smem_bytes(N);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gat_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((N + ROW_WARPS - 1) / ROW_WARPS, H, C);
-  gat_row_kernel<<<grid, ROW_WARPS * 32, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      z, s_src, s_dst, st, out, N, F, H, slope);
-  return static_cast<int>(cudaGetLastError());
+  return row_launch<float>(z, s_src, s_dst, st, out, C, N, F, H, slope,
+                           stream);
+}
+int gat_attention_row_bf16(const elem::bf16* z, const float* s_src,
+                           const float* s_dst, const float* st,
+                           elem::bf16* out, int C, int N, int F, int H,
+                           float slope, void* stream) {
+  return row_launch<elem::bf16>(z, s_src, s_dst, st, out, C, N, F, H, slope,
+                                stream);
 }
 
 }  // extern "C"

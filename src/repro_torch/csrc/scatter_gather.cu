@@ -1,4 +1,6 @@
-// Edge-list scatter-gather aggregation for Hopper (sm_90a), fp32.
+// Edge-list scatter-gather aggregation for Hopper (sm_90a); h and out fp32
+// or bf16 (widened to fp32 on load, every sum in fp32, rounded once on the
+// store), w fp32.
 //
 // Replaces the TPU kernel scatter_gather_aggregate
 // (src/repro/kernels/scatter_gather.py, _kernel), with the semantics of its
@@ -18,11 +20,15 @@
 // each block stages its column tile of h[c] in shared memory once and
 // gathers from there.
 //
-// Design: one block of 16 warps per (c, tile of BF columns), BF = 128 where
+// Two variants; the caller picks one by shape before launch
+// (kernels/scatter_gather.py, sg_variant).
+//
+// "sort" (E <= 65,536 and its shared memory fits at (N, E): every serving
+// launch at N=256). One block of 16 warps per (c, tile of BF columns), BF = 128 where
 // shared memory allows, else 64 or 32 (the caller picks the widest that
 // fits at (N, E)); a lane owns BF/32 consecutive columns.
 //   Staging: cp.async copies h[c, :, tile] (N x BF fp32, 128 KB at N=256)
-//   into shared memory while phase 1 runs.
+//   into shared memory while phase 1 runs (bf16 h: plain loads, widened).
 //   Phase 1, a stable counting sort of the live edges (w != 0, src and dst
 //   in [0, N)) by destination, in shared memory: each warp counts its
 //   contiguous range of edges into its own histogram; one scan over
@@ -54,8 +60,28 @@
 // bucket starts, two N x 16-byte column masks, N flags, a counter, and a
 // 16-bit index per edge slot (so E <= 65,536): 195,104 bytes at N=256,
 // E=18,688, BF=128; one block an SM.
+//
+// "bucket" (the rest: E > 65,536, or N too large for the sort's shared
+// memory, as forced sg on the Flickr-sized graph at N=1024 with its edge
+// budget of 74,496 slots). The same sort with 32-bit indices and its
+// scratch in device memory, in two launches. bucket_sort_kernel, one block
+// of 16 warps a subgraph: the per-warp counts, the bucket starts and the
+// weight-0 marks in a [C]-sliced scratch, the live edges written stably
+// by destination as (src, w) pairs into a [C, E] scratch, and each
+// weight-0 edge from a source row with non-finite columns ORing that row's
+// column mask (one bit a column) into its destination's. bucket_gather_
+// kernel, a warp per (destination row, 128 columns): the row's pairs in
+// bucket (edge) order, h[c, src] read from device memory (L2), acc =
+// __fadd_rn(acc, __fmul_rn(h, w)) in registers, NaN where the mask says,
+// the row written once. The same sums in the same order as "sort": no
+// atomics in any sum, the same result on every run. Bound: as "sort", by
+// bytes; it re-reads a source row from L2 for every live edge.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -105,11 +131,11 @@ __device__ __forceinline__ void lds(const float* p, float (&x)[V]) {
   }
 }
 
-template <int V>
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS, 1) scatter_gather_kernel(
     const int* __restrict__ src, const int* __restrict__ dst,
-    const float* __restrict__ w, const float* __restrict__ h,
-    float* __restrict__ out, int N, int E, int F, int vec) {
+    const float* __restrict__ w, const T* __restrict__ h,
+    T* __restrict__ out, int N, int E, int F, int vec) {
   constexpr int BF = 32 * V;
   extern __shared__ __align__(16) uint8_t smem[];
   const Layout L(N, E, BF);
@@ -129,20 +155,21 @@ __global__ void __launch_bounds__(THREADS, 1) scatter_gather_kernel(
   const int* sc = src + (long long)c * E;
   const int* dc = dst + (long long)c * E;
   const float* wc = w + (long long)c * E;
-  const float* hc = h + (long long)c * N * F;
+  const T* hc = h + (long long)c * N * F;
   const int per = (E + WARPS - 1) / WARPS;
   const int e_begin = min(E, warp * per), e_end = min(E, e_begin + per);
 
   // staging of h[c, :, col0 : col0 + BF], zeros past F
   for (int i = threadIdx.x; i < N * BF / 4; i += THREADS) {
     const int r = i / (BF / 4), q = 4 * (i % (BF / 4));
-    const float* g = hc + (long long)r * F + col0 + q;
+    const T* g = hc + (long long)r * F + col0 + q;
     float* s = tile + r * BF + q;
-    if (vec && col0 + q + 3 < F) {
+    if (std::is_same<T, float>::value && vec && col0 + q + 3 < F) {
       cp_async16(s, g);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[j] = col0 + q + j < F ? __ldg(g + j) : 0.0f;
+      for (int j = 0; j < 4; ++j)
+        s[j] = col0 + q + j < F ? elem::to_f32(g[j]) : 0.0f;
     }
   }
   for (int i = threadIdx.x; i < WARPS * N; i += THREADS) cnt[i] = 0;
@@ -310,25 +337,23 @@ __global__ void __launch_bounds__(THREADS, 1) scatter_gather_kernel(
 #pragma unroll
     for (int j = 0; j < V; ++j)
       if ((poison[4 * row + j] >> lane) & 1u) acc[j] = nan;
-    float* o = out + ((long long)c * N + row) * F;
-    if (V == 4 && vec && f + 3 < F) {
-      *reinterpret_cast<float4*>(o + f) =
-          make_float4(acc[0], acc[V > 1 ? 1 : 0], acc[V > 2 ? 2 : 0],
-                      acc[V > 3 ? 3 : 0]);
+    T* o = out + ((long long)c * N + row) * F;
+    if constexpr (V == 4) {
+      elem::store4(o + f, F - f, vec, acc);
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        if (f + j < F) o[f + j] = acc[j];
+        if (f + j < F) o[f + j] = elem::from_f32<T>(acc[j]);
     }
   }
 }
 
-template <int V>
-int launch(const int* src, const int* dst, const float* w, const float* h,
-           float* out, int C, int N, int E, int F, int vec,
+template <typename T, int V>
+int launch(const int* src, const int* dst, const float* w, const T* h,
+           T* out, int C, int N, int E, int F, int vec,
            cudaStream_t stream) {
   const int smem = Layout(N, E, 32 * V).bytes;
-  auto kernel = scatter_gather_kernel<V>;
+  auto kernel = scatter_gather_kernel<T, V>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -339,33 +364,270 @@ int launch(const int* src, const int* dst, const float* w, const float* h,
 
 constexpr int MAX_SMEM = 232448;       // bytes a block may have (H100)
 
-}  // namespace
-
-extern "C" {
-
-// The columns a block takes at (N, E): 128, 64 or 32, the widest whose
-// shared memory fits a block; 0 where none does.
-int scatter_gather_block_cols(int N, int E) {
+int block_cols(int N, int E) {
+  if (E > 65536) return 0;             // 16-bit edge indices
   for (int bf = 128; bf >= 32; bf /= 2)
     if (Layout(N, E, bf).bytes <= MAX_SMEM) return bf;
   return 0;
 }
 
-// src/dst [C,E] int32, w [C,E], h [C,N,F], out [C,N,F], contiguous,
-// E <= 65,536. Returns cudaGetLastError (cudaErrorInvalidValue where no
-// block width fits shared memory).
-int scatter_gather_aggregate_f32(const int* src, const int* dst,
-                                 const float* w, const float* h, float* out,
-                                 int C, int N, int E, int F, void* stream) {
+// -- "bucket" ----------------------------------------------------------------
+
+constexpr int GROWS = 8;               // destination rows (warps) a block
+
+// Per-subgraph slices of the bucket variant's int32 scratch.
+struct Scratch {
+  int *cnt, *start, *zsrc;             // [WARPS][N], [N + 2], [N]
+  uint32_t *bad, *poison;              // [N][FW] each: one bit a column
+  int2* pairs;                         // [E]: (src, w bits) by destination
+  __host__ __device__ static long long words(int N, int E, int FW) {
+    // N + 2 starts (one of padding): the pairs stay 8-byte aligned
+    return (long long)WARPS * N + (N + 2) + N + 2LL * N * FW + 2LL * E;
+  }
+  __device__ Scratch(int* base, int c, int N, int E, int FW) {
+    int* p = base + (long long)c * words(N, E, FW);
+    cnt = p;
+    start = cnt + WARPS * N;
+    zsrc = start + N + 2;
+    bad = reinterpret_cast<uint32_t*>(zsrc + N);
+    poison = bad + (long long)N * FW;
+    pairs = reinterpret_cast<int2*>(poison + (long long)N * FW);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) bucket_sort_kernel(
+    const int* __restrict__ src, const int* __restrict__ dst,
+    const float* __restrict__ w, const T* __restrict__ h,
+    int* __restrict__ scratch, int N, int E, int F) {
+  const int c = blockIdx.x;
+  const int FW = (F + 31) / 32;
+  Scratch S(scratch, c, N, E, FW);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int* sc = src + (long long)c * E;
+  const int* dc = dst + (long long)c * E;
+  const float* wc = w + (long long)c * E;
+  const T* hc = h + (long long)c * N * F;
+  const int per = (E + WARPS - 1) / WARPS;
+  const int lo = min(E, warp * per), hi = min(E, lo + per);
+
+  for (int i = threadIdx.x; i < WARPS * N; i += THREADS) S.cnt[i] = 0;
+  for (int i = threadIdx.x; i < N; i += THREADS) S.zsrc[i] = 0;
+  for (int i = threadIdx.x; i < N * FW; i += THREADS)
+    S.bad[i] = S.poison[i] = 0;
+  __syncthreads();
+
+  // per-warp counts of live edges by destination; weight-0 sources marked
+  for (int e = lo + lane; e < hi; e += 32) {
+    const int s = sc[e], d = dc[e];
+    if (static_cast<unsigned>(s) >= static_cast<unsigned>(N) ||
+        static_cast<unsigned>(d) >= static_cast<unsigned>(N))
+      continue;
+    if (wc[e] != 0.0f) atomicAdd(&S.cnt[warp * N + d], 1);
+    else S.zsrc[s] = 1;
+  }
+  __syncthreads();
+
+  // the non-finite columns of each marked source row (a warp a row); the
+  // mark becomes 2 where the row has any
+  for (int s = warp; s < N; s += WARPS) {
+    if (!S.zsrc[s]) continue;
+    unsigned any = 0;
+    for (int k = 0; k < FW; ++k) {
+      const int f = 32 * k + lane;
+      const float x = f < F ? elem::to_f32(hc[(long long)s * F + f]) : 0.0f;
+      const unsigned m = __ballot_sync(FULL, !isfinite(x));
+      any |= m;
+      if (lane == 0) S.bad[s * FW + k] = m;
+    }
+    if (lane == 0 && any) S.zsrc[s] = 2;
+  }
+  // each destination's total and each warp's offset inside its bucket
+  for (int d = threadIdx.x; d < N; d += THREADS) {
+    int run = 0;
+    for (int k = 0; k < WARPS; ++k) {
+      const int n = S.cnt[k * N + d];
+      S.cnt[k * N + d] = run;
+      run += n;
+    }
+    S.start[d] = run;
+  }
+  __syncthreads();
+  if (warp == 0) {                     // exclusive scan of the totals
+    const int chunk = (N + 31) / 32;
+    const int a = min(N, lane * chunk), b = min(N, a + chunk);
+    int sum = 0;
+    for (int d = a; d < b; ++d) sum += S.start[d];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - sum;
+    for (int d = a; d < b; ++d) {
+      const int n = S.start[d];
+      S.start[d] = run;
+      run += n;
+    }
+    if (lane == 31) S.start[N] = incl;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < WARPS * N; i += THREADS)
+    S.cnt[i] += S.start[i % N];
+  __syncthreads();
+
+  // each warp writes its live edges in edge order (lanes of a 32-edge
+  // chunk that share a destination ranked by match.any); weight-0 edges
+  // from marked rows OR the row's mask into their destination's
+  const unsigned below = (1u << lane) - 1u;
+  for (int e0 = lo; e0 < hi; e0 += 32) {
+    const int e = e0 + lane;
+    int s = -1, d = -1;
+    float we = 0.0f;
+    if (e < hi) {
+      s = sc[e];
+      d = dc[e];
+      we = wc[e];
+    }
+    const bool ok = static_cast<unsigned>(s) < static_cast<unsigned>(N) &&
+                    static_cast<unsigned>(d) < static_cast<unsigned>(N);
+    const bool take = ok && we != 0.0f;
+    const unsigned peers = __match_any_sync(FULL, take ? d : -1);
+    const int rank = __popc(peers & below);
+    int* cur = take ? &S.cnt[warp * N + d] : nullptr;
+    if (take) S.pairs[*cur + rank] = make_int2(s, __float_as_int(we));
+    __syncwarp();
+    if (take && rank == 0) *cur += __popc(peers);
+    __syncwarp();
+    if (ok && !take && S.zsrc[s] == 2)
+      for (int k = 0; k < FW; ++k) {
+        const uint32_t m = S.bad[s * FW + k];
+        if (m) atomicOr(&S.poison[d * FW + k], m);
+      }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * GROWS) bucket_gather_kernel(
+    const T* __restrict__ h, const int* __restrict__ scratch,
+    T* __restrict__ out, int N, int E, int F, int vec) {
+  const int c = blockIdx.z;
+  const int FW = (F + 31) / 32;
+  Scratch S(const_cast<int*>(scratch), c, N, E, FW);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.x * GROWS + warp;
+  if (i >= N) return;
+  const int f = blockIdx.y * 128 + 4 * lane;   // this lane's 4 columns
+  const T* hc = h + (long long)c * N * F;
+  const int first = S.start[i], last = S.start[i + 1];
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j0 = first; j0 < last; j0 += 32) {
+    const int n = min(32, last - j0);
+    const int2 mine = lane < n ? S.pairs[j0 + lane] : make_int2(0, 0);
+    for (int q0 = 0; q0 < n; q0 += GATHER) {
+      float v[GATHER][4];
+#pragma unroll
+      for (int u = 0; u < GATHER; ++u) {
+        const int sj = __shfl_sync(FULL, mine.x, q0 + u);
+        if (q0 + u < n) {
+          elem::load4(hc + (long long)sj * F + f, F - f, vec, v[u]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[u][j] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GATHER; ++u) {
+        const float wj = __int_as_float(__shfl_sync(FULL, mine.y, q0 + u));
+        if (q0 + u < n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[j] = __fadd_rn(acc[j], __fmul_rn(v[u][j], wj));
+      }
+    }
+  }
+  const float nan = __int_as_float(0x7fffffff);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (f + j < F && ((S.poison[i * FW + (f + j) / 32] >> ((f + j) % 32)) & 1u))
+      acc[j] = nan;
+  elem::store4(out + ((long long)c * N + i) * F + f, F - f, vec, acc);
+}
+
+template <typename T>
+int launch_sort(const int* src, const int* dst, const float* w, const T* h,
+                T* out, int C, int N, int E, int F, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = F % 4 == 0 && (reinterpret_cast<uintptr_t>(h) & 15) == 0 &&
                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  switch (scatter_gather_block_cols(N, E)) {
-    case 128: return launch<4>(src, dst, w, h, out, C, N, E, F, vec, s);
-    case 64: return launch<2>(src, dst, w, h, out, C, N, E, F, vec, s);
-    case 32: return launch<1>(src, dst, w, h, out, C, N, E, F, vec, s);
+  switch (block_cols(N, E)) {
+    case 128: return launch<T, 4>(src, dst, w, h, out, C, N, E, F, vec, s);
+    case 64: return launch<T, 2>(src, dst, w, h, out, C, N, E, F, vec, s);
+    case 32: return launch<T, 1>(src, dst, w, h, out, C, N, E, F, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int launch_bucket(const int* src, const int* dst, const float* w, const T* h,
+                  T* out, int* scratch, int C, int N, int E, int F,
+                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = F % 4 == 0 && (reinterpret_cast<uintptr_t>(h) & 15) == 0 &&
+                  (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  bucket_sort_kernel<T><<<C, THREADS, 0, s>>>(src, dst, w, h, scratch, N, E,
+                                               F);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + GROWS - 1) / GROWS, (F + 127) / 128, C);
+  bucket_gather_kernel<T><<<grid, 32 * GROWS, 0, s>>>(h, scratch, out, N, E,
+                                                       F, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The columns a block of the sort variant takes at (N, E): 128, 64 or 32,
+// the widest whose shared memory fits a block; 0 where none does or E >
+// 65,536 (then the bucket variant takes the shape).
+int scatter_gather_block_cols(int N, int E) { return block_cols(N, E); }
+
+// int32 words of scratch the bucket variant needs for C subgraphs.
+long long scatter_gather_bucket_scratch_words(int C, int N, int E, int F) {
+  return (long long)C * Scratch::words(N, E, (F + 31) / 32);
+}
+
+// src/dst [C,E] int32, w [C,E] fp32, h [C,N,F] and out [C,N,F] fp32 (_f32)
+// or bf16 (_bf16), contiguous. The sort variant needs
+// scatter_gather_block_cols(N, E) != 0; the bucket variant takes any shape
+// and `scratch` of scatter_gather_bucket_scratch_words int32. Each returns
+// cudaGetLastError (cudaErrorInvalidValue where the sort's shared memory
+// does not fit).
+int scatter_gather_sort_f32(const int* src, const int* dst, const float* w,
+                            const float* h, float* out, int C, int N, int E,
+                            int F, void* stream) {
+  return launch_sort<float>(src, dst, w, h, out, C, N, E, F, stream);
+}
+int scatter_gather_sort_bf16(const int* src, const int* dst, const float* w,
+                             const elem::bf16* h, elem::bf16* out, int C,
+                             int N, int E, int F, void* stream) {
+  return launch_sort<elem::bf16>(src, dst, w, h, out, C, N, E, F, stream);
+}
+int scatter_gather_bucket_f32(const int* src, const int* dst, const float* w,
+                              const float* h, float* out, int* scratch, int C,
+                              int N, int E, int F, void* stream) {
+  return launch_bucket<float>(src, dst, w, h, out, scratch, C, N, E, F,
+                              stream);
+}
+int scatter_gather_bucket_bf16(const int* src, const int* dst,
+                               const float* w, const elem::bf16* h,
+                               elem::bf16* out, int* scratch, int C, int N,
+                               int E, int F, void* stream) {
+  return launch_bucket<elem::bf16>(src, dst, w, h, out, scratch, C, N, E, F,
+                                   stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """Feature shipping and host neighborhood caches (see policy.py for the
-knobs). Only the dense and packed feature strategies are ported."""
+knobs). The sharded feature store is not ported yet."""
 from repro_torch.store.feature_store import (DenseFeatureShipper,
+                                             DeviceFeatureStore,
                                              PackedFeatureShipper,
+                                             ResidencySnapshot,
                                              build_feature_source)
 from repro_torch.store.nbr_cache import (FrontierCache, NeighborhoodCache,
                                          SubgraphRowCache, nbr_key)
@@ -9,4 +11,5 @@ from repro_torch.store.policy import StorePolicy
 
 __all__ = ["StorePolicy", "NeighborhoodCache", "SubgraphRowCache",
            "FrontierCache", "nbr_key", "PackedFeatureShipper",
-           "DenseFeatureShipper", "build_feature_source"]
+           "DenseFeatureShipper", "DeviceFeatureStore", "ResidencySnapshot",
+           "build_feature_source"]

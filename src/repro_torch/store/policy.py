@@ -5,8 +5,8 @@ The paper's end-to-end latency (Eq. 2) is t_pre + t_load + t_compute.
 and t_load (host->device feature shipping) is traded for memory:
 
   features:  "dense"    ship [C, N, f] feature rows every batch (baseline)
-             (only "dense" and "packed" are ported; the device-resident
-             strategies raise NotImplementedError in build_feature_source)
+             (the sharded strategy is not ported yet and raises
+             NotImplementedError in build_feature_source)
              "packed"   cross-target dedup: unique rows + int32 index map
              "resident" device feature store: rows pinned in device memory
                         at engine start; batches ship int32 slot maps plus

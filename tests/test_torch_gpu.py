@@ -12,7 +12,11 @@ against the plain path; flash_attention against its plain version (fp32
 at 2e-5 on ragged and square shapes on the CUDA-core kernel; bf16 to one
 ulp there, and to ``flash_bf16_check`` on the wgmma kernel, which rounds P
 to bf16), with grouped KV heads, and a reduced dense LM's prefill through
-it against the plain path. Skipped where no CUDA device is
+it against the plain path. The scatter-gather's bucket kernel past the
+sort kernel's 16-bit edge indices (E = 65,537) and at N=1024 with the
+Flickr-sized graph's 74,496 edge slots; the three GNN kernels in bf16
+within one bf16 ulp of their plain versions' fp32 results; and a
+multi-model server answering through the kernels. Skipped where no CUDA device is
 present; on the GPU machine run
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
@@ -187,12 +191,103 @@ def test_scatter_gather_weight0_edges_from_nonfinite_sources(dev):
     torch.testing.assert_close(got.cpu(), want, equal_nan=True, **TOL)
 
 
-def test_scatter_gather_refuses_more_edges_than_16_bit_indices(dev):
-    src = torch.zeros((1, 65537), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="at most 65536"):
-        scatter_gather.scatter_gather_aggregate(
-            src, src, torch.zeros((1, 65537), device=dev),
-            torch.zeros((1, 8, 4), device=dev))
+@pytest.mark.parametrize("c,n,e,f", [(2, 256, 65537, 64),
+                                     (8, 1024, 74496, 256)])
+def test_scatter_gather_refuses_more_edges_than_16_bit_indices(dev, c, n, e,
+                                                               f):
+    """Edge budgets past the sort kernel's 16-bit indices (E = 65,537) and
+    past its shared memory (forced sg on the Flickr-sized graph at N=1024,
+    74,496 slots) were refused before launch; the bucket kernel now takes
+    them: the plain version's result, NaN from weight-0 edges included,
+    bitwise equal over two launches."""
+    assert scatter_gather.sg_variant(n, e) == "bucket"
+    rng = np.random.default_rng(5)
+    live = e // 5
+    src = rng.integers(0, n, size=(c, e)).astype(np.int32)
+    dst = rng.integers(0, n, size=(c, e)).astype(np.int32)
+    w = rng.standard_normal((c, e)).astype(np.float32)
+    src[:, live:] = dst[:, live:] = n - 1   # the padding, as the engine's
+    w[:, live:] = 0.0
+    dst[0, :64] = 3                         # many edges into one vertex
+    h = rng.standard_normal((c, n, f)).astype(np.float32)
+    h[0, n - 1, 1], h[1, n - 1, f - 1] = np.inf, np.nan
+    args = [torch.from_numpy(a).to(dev) for a in (src, dst, w, h)]
+    before = scatter_gather.variant_launches["bucket"]
+    got = scatter_gather.scatter_gather_aggregate(*args)
+    again = scatter_gather.scatter_gather_aggregate(*args)
+    torch.cuda.synchronize()
+    assert scatter_gather.variant_launches["bucket"] == before + 2
+    want = scatter_gather.scatter_gather_aggregate_ref(
+        *[a.cpu() for a in args])
+    assert torch.isnan(want).sum() >= 2
+    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(want))
+    torch.testing.assert_close(got.cpu(), want, equal_nan=True, **TOL)
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+
+
+def _bf16_held(got, want_fp32):
+    """A bf16 kernel output against its plain version's fp32 result: within
+    one bf16 ulp of it rounded to bf16 (``bf16_reading``), and within the
+    reference's 2e-2."""
+    from repro_torch.kernels.ref import bf16_reading
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    ok, worst, err = bf16_reading(got, want_fp32)
+    assert ok, (worst, err)
+
+
+@pytest.mark.parametrize("form", ["neigh", "neigh+self", "self"])
+def test_fused_gnn_layer_bf16(dev, form):
+    rng = np.random.default_rng(6)
+    adj, mask = _adj(rng, C, N)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    h = t(rng.standard_normal((C, N, 512)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    wn, ws = (t(0.05 * rng.standard_normal((512, F_HID)).astype(np.float32))
+              .to(torch.bfloat16) for _ in range(2))
+    b = t(0.1 * rng.standard_normal(F_HID).astype(np.float32)) \
+        .to(torch.bfloat16)
+    args = (t(adj) if form != "self" else None, h,
+            wn if form != "self" else None,
+            ws if form != "neigh" else None, b, t(mask))
+    before = fused_gnn.variant_launches["cuda_core"]
+    got = fused_gnn.fused_gnn_layer(*args)
+    assert fused_gnn.variant_launches["cuda_core"] == before + 1
+    want = fused_gnn.fused_gnn_layer_ref(
+        *[a.float() if a is not None else None for a in args])
+    _bf16_held(got, want)
+
+
+@pytest.mark.parametrize("n,e", [(N, E), (1024, 74496)])
+def test_scatter_gather_aggregate_bf16(dev, n, e):
+    rng = np.random.default_rng(7)
+    c = C if n == N else 8
+    src = rng.integers(0, n, size=(c, e)).astype(np.int32)
+    dst = rng.integers(0, n, size=(c, e)).astype(np.int32)
+    w = rng.standard_normal((c, e)).astype(np.float32)
+    w[:, e // 5:] = 0.0
+    h = torch.from_numpy(rng.standard_normal((c, n, F_HID))
+                         .astype(np.float32)).to(dev).to(torch.bfloat16)
+    args = [torch.from_numpy(a).to(dev) for a in (src, dst, w)] + [h]
+    variant = scatter_gather.sg_variant(n, e)
+    before = scatter_gather.variant_launches[variant]
+    got = scatter_gather.scatter_gather_aggregate(*args)
+    assert scatter_gather.variant_launches[variant] == before + 1
+    want = scatter_gather.scatter_gather_aggregate_ref(*args[:3], h.float())
+    _bf16_held(got, want)
+
+
+def test_gat_attention_bf16(dev):
+    rng = np.random.default_rng(8)
+    z, s_src, s_dst, struct = _gat_inputs(rng, C, N, F_HID, HEADS)
+    t = [torch.from_numpy(a).to(dev) for a in (z, s_src, s_dst, struct)]
+    t[0] = t[0].to(torch.bfloat16)
+    before = gat_attention.variant_launches["row"]
+    got = gat_attention.gat_attention(*t, n_heads=HEADS)
+    assert gat_attention.variant_launches["row"] == before + 1
+    want = gat_attention.gat_attention_ref(t[0].float(), *t[1:],
+                                           n_heads=HEADS)
+    _bf16_held(got, want)
 
 
 def test_gat_attention(dev):
@@ -293,6 +388,41 @@ def test_engine_batch_through_kernels(dev, kind, mode):
         assert (launched > 0) == (impl == "cuda")
     np.testing.assert_allclose(out["cuda"], out["torch"], rtol=1e-4,
                                atol=1e-5)
+
+
+def test_server_round_trip_through_kernels(dev):
+    """A GNNServer with a GCN (sg), GraphSAGE (dense, resident store) and
+    GAT (dense) lane answers through the three GNN kernels, each request
+    equal to its engine's infer."""
+    from repro_torch.serve.gnn_server import GNNServer
+    from repro_torch.store import StorePolicy
+    g = get_graph("flickr", scale=0.05, seed=0)
+    lanes = {"gcn": ("sg", "dense"), "sage": ("dense", "resident"),
+             "gat": ("dense", "dense")}
+    srv = GNNServer(max_wait_s=0.01)
+    for kind, (mode, features) in lanes.items():
+        cfg = GNNConfig(kind=kind, n_layers=3, receptive_field=128,
+                        f_in=g.feature_dim)
+        srv.register(kind, DecoupledEngine(g, cfg, config=ServingConfig(
+            device="cuda", batch_size=16, mode=mode, num_threads=2,
+            store=StorePolicy(features=features))))
+    ops.reset_launch_counts()
+    srv.start()
+    reqs = [srv.submit(int(t), model=k)
+            for k in lanes for t in zipf_traffic(g, 32, seed=2)]
+    srv.drain(reqs, timeout=300)
+    srv.stop()
+    counts = ops.launch_counts()
+    for k in ("fused_gnn_layer", "scatter_gather_aggregate",
+              "gat_attention"):
+        assert counts[k] > 0, counts
+    for kind in lanes:
+        mine = [r for r in reqs if r.model == kind]
+        eng = srv.engine_for(kind)
+        want = eng.infer(np.array([r.target for r in mine])).embeddings
+        np.testing.assert_allclose(np.stack([r.embedding for r in mine]),
+                                   want, rtol=1e-4, atol=1e-5)
+        eng.close()
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [

@@ -61,7 +61,8 @@ class TestImportIsolation:
                 "core.report_schema", "core.scheduler", "core.batchplan",
                 "core.engine", "devices", "configs.base", "configs.registry",
                 "kernels.flash_attention", "models.common", "models.rope",
-                "models.mlp", "models.attention", "models.transformer")}
+                "models.mlp", "models.attention", "models.transformer",
+                "obs.hist", "core.dse", "serve.gnn_server", "launch.serve")}
         assert slice_modules <= set(MODULES), slice_modules - set(MODULES)
         code = "import repro_torch\n" + "".join(
             f"import {m}\n" for m in MODULES)
@@ -125,10 +126,17 @@ class TestNoSilentFallback:
     @pytest.mark.parametrize("features,extra", [
         ("resident", {}), ("sharded", {"num_shards": 2})])
     def test_resident_store_raises(self, features, extra):
+        """The sharded store is not ported and raises, naming itself; the
+        single-device resident store is ported and is accepted."""
         pol = StorePolicy(features=features, **extra)
+        g = get_graph("flickr", scale=0.02, seed=1)
+        if features == "resident":
+            ServingConfig(device="cpu", store=pol)
+            assert build_feature_source(g, pol, 512, "cpu").name == \
+                "resident"
+            return
         with pytest.raises(NotImplementedError, match="features"):
             ServingConfig(device="cpu", store=pol)
-        g = get_graph("flickr", scale=0.02, seed=1)
         with pytest.raises(NotImplementedError, match="features"):
             build_feature_source(g, pol, 512, "cpu")
 
