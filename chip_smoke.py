@@ -19,8 +19,13 @@
    equal, both on the tf32x3 kernel). ``scatter_gather_aggregate``: F 512
    and 256 (bitwise equal over two launches), and inf and NaN on the source
    row of the weight-0 padding edges: NaN exactly where the plain version
-   puts it (the oracle's 0 * h[src]), the rest within the tolerance.
-   ``gat_attention``: the real structure at 4, 1, 2 and 8 heads (head
+   puts it (the oracle's 0 * h[src]), the rest within the tolerance; and
+   at the shape of gat/sg's softmax sums (256 (subgraph, head) items, the
+   edge lists with the self loops, F 68: a head's 64 columns, the ones
+   column and padding), on the sort kernel, bitwise equal over two
+   launches and at every ``block_cols`` width; the sort kernel timed at
+   each width at F 512, 256 and 68 beside its default (``sort_block_cols``,
+   which follows F). ``gat_attention``: the real structure at 4, 1, 2 and 8 heads (head
    widths 64, 256, 128, 32), N=200 on the slab kernel and N=320 on the row
    kernel, each launched twice (bitwise equal, on the kernel named), and
    inf and NaN in z behind a weight of 0 (outside the structure, or a
@@ -58,8 +63,8 @@
    slab kernel. Each engine's embeddings are compared with an impl="torch"
    engine on the same card and params (rtol 1e-4, atol 1e-5). Then one
    traced device step (``run_device``: the copy and the program) of a
-   gat/dense and a gcn/sg batch: device time by kernel and copy, and the
-   card's busy share (``torch.profiler``).
+   gat/dense, a gcn/sg and a gat/sg batch: device time by kernel and copy,
+   and the card's busy share (``torch.profiler``).
 6. LM serving: phi3-medium-14b at full width (d_model 5120, 40 heads, 10 KV
    heads, d_ff 17920, vocab 100352, fp32 params, bf16 compute), depth cut
    to 8 layers, random weights from seed 0, one prompt of 8192 tokens from
@@ -80,7 +85,7 @@
    row; sg: sort, and bucket at N=1024), each within one bf16 ulp of its
    plain version's fp32 result rounded to bf16 (``bf16_reading``) and
    within the reference's 2e-2; each timed beside its bound, plain and
-   library times. The [engine] phase's 50 sg launches must all be on the
+   library times. The [engine] phase's 75 sg launches must all be on the
    sort kernel.
 8. ``[serve]``: one ``GNNServer`` on the Flickr-sized graph registers GCN
    (mode sg), GraphSAGE (dense, resident feature store) and GAT (dense)
@@ -92,9 +97,40 @@
    register. Prints the plan, each lane's p50/p90/p99 and overlap, and the
    bytes the resident lane ships against a dense lane.
 9. ``[repeat]``: two device steps of one gat/sg and one gcn/sg batch under
-   impl="torch" and impl="cuda": bitwise equal or not, and the largest
-   difference (the plain sg paths sum with ``index_add_``).
-10. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
+   impl="torch" and impl="cuda". Under impl="cuda" they must be bitwise
+   equal (the sg Aggregates and the sg softmax's segment sums run on the
+   scatter-gather kernel, which sums in one order); the impl="torch"
+   lines report whether they are and the largest difference (the plain sg
+   paths sum with ``index_add_``, whose order on a card varies).
+10. ``[dispatch]``: for GCN, GraphSAGE and GAT at the [engine] phase's width
+   and graph (impl="cuda", random weights from seed 0), an engine with
+   ``trace=TraceConfig(calibrate_every=1)`` and ``dispatch=DispatchConfig(
+   warmup_passes=2, autotune_blocks=True, artifact=...)`` serves
+   ``DISPATCH_BATCHES`` Zipf(1.1) batches: the warm-up, then at least 3
+   batches on measured decisions. Required: (1) each batch's embeddings are
+   bitwise equal to an untraced engine with dispatch off whose program is
+   ``respecialize``d to the mode vector the policy chose for that batch
+   (the trace's device spans carry the choice); (2) an engine restarted
+   from the saved calibration artifact serves the same bits traced and
+   untraced; (3) the table has every mux op's ``cuda/dense`` and
+   ``cuda/sg`` cells and the sort kernel's cell at every ``block_cols``
+   that fits; (4) no exploration pass failed (``explore_failures`` 0);
+   (5) the exported trace passes ``validate_chrome_trace`` and every traced
+   batch has select, build, pack and device spans; (6) the restarted
+   engine's first decision is measured; (7) its launch counts equal what
+   its served variants launch, every fused launch on tf32x3 and every GAT
+   launch on slab; (8) the measured decisions being all-dense at this
+   width, one more engine serves a batch from a table that prices every
+   sg step and the sort kernel's 32-column width cheapest: it must decide
+   all-sg with ``block_cols=32`` (measured), serve the bits of the engine
+   with dispatch off respecialized all-sg at the default widths, and
+   launch what that variant launches, sort launches width by width
+   (``scatter_gather.width_launches``). Prints each op's dense and sg p50
+   by size bucket, each batch's decision, the variant cache's hits and
+   evictions, and the device step's time with dispatch on and off (host
+   clock around ``run_device`` and a synchronize, on batches planned
+   once).
+11. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
    the bucket scatter-gather and the bf16 kernels) and, last, the ``ok``
    line.
 
@@ -104,6 +140,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -119,9 +156,14 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.config import ServingConfig  # noqa: E402
+from repro_torch.core.dispatch import DispatchConfig  # noqa: E402
 from repro_torch.core.dse import (H100Spec, PlanViolation,  # noqa: E402
                                   plan_covers)
 from repro_torch.core.engine import DecoupledEngine  # noqa: E402
+from repro_torch.core.program import (Aggregate,  # noqa: E402
+                                      AttentionSoftmax, Transform,
+                                      compile_steps, lower, mux_sites,
+                                      required_adjacency, respecialize)
 from repro_torch.gnn.layers import dense_init  # noqa: E402
 from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
 from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
@@ -143,6 +185,9 @@ from repro_torch.kernels.scatter_gather import (  # noqa: E402
     scatter_gather_aggregate, scatter_gather_aggregate_ref, sg_variant)
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
+from repro_torch.obs.calib import op_label, op_mode, size_bucket  # noqa: E402
+from repro_torch.obs.export import validate_chrome_trace  # noqa: E402
+from repro_torch.obs.trace import TraceConfig  # noqa: E402
 from repro_torch.serve.gnn_server import GNNServer  # noqa: E402
 from repro_torch.store import StorePolicy  # noqa: E402
 
@@ -194,8 +239,16 @@ EXPECTED = {
     ("gat", "dense"): {"fused_gnn_layer": 5, "gat_attention": 5},
     ("gcn", "sg"): {"fused_gnn_layer": 5, "scatter_gather_aggregate": 5},
     ("sage", "sg"): {"scatter_gather_aggregate": 5},
-    ("gat", "sg"): {"fused_gnn_layer": 5},
+    # the sg softmax's segment sums (denominator and numerator) run on the
+    # scatter-gather kernel: one launch a layer
+    ("gat", "sg"): {"fused_gnn_layer": 5, "scatter_gather_aggregate": 5},
 }
+# [dispatch]: batches an adaptive engine serves (warm-up ends within two:
+# both mode columns of the table are full after one pass a side) and the
+# device-step timings a batch with dispatch on and off; the calibration
+# artifacts go under build/ (ignored by git)
+DISPATCH_BATCHES, DISPATCH_TIMED = 6, 5
+CALIB_DIR = ROOT / "build" / "chip_smoke_calib"
 REPLACES = {
     "fused_gnn_layer": ("src/repro_torch/csrc/fused_gnn.cu",
                         "src/repro/kernels/fused_gnn.py:65"),
@@ -413,6 +466,61 @@ def sg_checks(x):
     return out
 
 
+def sg_softmax_rows(x):
+    """The scatter-gather at the shape gat/sg's softmax gives it (its
+    segment sums, in one launch): one item a (subgraph, head), the serving
+    edge lists with the N self loops appended, w like ex (seed-3 uniforms
+    on the live edges and the loops, 0 on the padding), h a head's 64
+    columns of z (seed-3 normals), a ones column and zeros to 68 columns:
+    [(tag, (src, dst, w, h))]."""
+    if "softmax" not in x:
+        dev = x["mask"].device
+        gen = torch.Generator().manual_seed(3)
+        iota = torch.arange(N, dtype=torch.int32, device=dev).expand(C, N)
+        e_all = x["src"].shape[1] + N
+        live = torch.cat([x["w"] != 0, torch.ones(C, N, dtype=torch.bool,
+                                                  device=dev)], 1)
+
+        def per_head(t):
+            return t.unsqueeze(1).expand(C, HEADS, e_all).reshape(
+                C * HEADS, e_all).contiguous()
+        src = per_head(torch.cat([x["src"], iota], 1))
+        dst = per_head(torch.cat([x["dst"], iota], 1))
+        w = torch.rand(C * HEADS, e_all, generator=gen).to(dev) \
+            * per_head(live)
+        fh = F_HID // HEADS
+        h = torch.zeros(C * HEADS, N, fh // 4 * 4 + 4)
+        h[..., :fh] = torch.randn(C * HEADS, N, fh, generator=gen)
+        h[..., fh] = 1
+        x["softmax"] = [
+            (f"gat sg softmax sums C*heads={C * HEADS} N={N} "
+             f"F={h.shape[2]} E={e_all}", (src, dst, w, h.to(dev)))]
+    return x["softmax"]
+
+
+def sg_softmax_checks(x):
+    """The scatter-gather at the sg softmax's shapes against its plain
+    version: two launches bitwise equal, both on the sort kernel, and every
+    block_cols width that fits bitwise equal to the default.
+    [(name, ok, text)]"""
+    out = []
+    for tag, args in sg_softmax_rows(x):
+        before = sg_kernels.variant_launches["sort"]
+        got = scatter_gather_aggregate(*args)
+        again = scatter_gather_aggregate(*args)
+        on = sg_kernels.variant_launches["sort"] == before + 2
+        ok, text, _ = reading(got, scatter_gather_aggregate_ref(*args))
+        widths = {bc: bool(torch.equal(got, scatter_gather_aggregate(
+            *args, block_cols=bc)))
+            for bc in sg_kernels.BLOCK_COLS_CANDIDATES
+            if sg_kernels.sort_block_fits(N, args[0].shape[1], bc)}
+        same = bool(torch.equal(got, again))
+        out.append((f"sg {tag}", ok and same and on and all(
+            widths.values()), f"{text}, repeat bitwise {same}, sort {on}, "
+            f"block_cols bitwise {widths}"))
+    return out
+
+
 def gat_rows(x):
     """GAT's serving rows, 4 heads first, then 1, 2 and 8 (head widths 64,
     256, 128, 32): (tag, (z, s_src, s_dst, struct)). z and the scores are
@@ -584,33 +692,41 @@ def kernel_phase(x, dev, label):
 
     print("[kernels] scatter_gather_aggregate", flush=True)
     run_checks(sg_checks(x))
+    run_checks(sg_softmax_checks(x))
     rows = []
-    for tag, args in sg_rows(x):
-        src, dst, w, h = args
-        f = h.shape[-1]
+    for tag, args in sg_rows(x) + sg_softmax_rows(x):
         err = closeness(scatter_gather_aggregate(*args),
                         scatter_gather_aggregate_ref(*args), KERNEL_TOL)[0]
         ms = cuda_ms(lambda: scatter_gather_aggregate(*args))
         plain = cuda_ms(lambda: scatter_gather_aggregate_ref(*args))
-        off = (torch.arange(C, device=dev) * N)[:, None]
-        fs, fd = (src.long() + off).reshape(-1), (dst.long() + off).reshape(-1)
-        wf = w.reshape(-1, 1)
-
-        def library():
-            out = torch.zeros(C * N, f, device=dev)
-            return out.index_add_(0, fd, h.reshape(C * N, f)[fs] * wf)
-        lib = cuda_ms(library)
-        nnz = int((w != 0).sum())
-        bnd, by = bound_ms(nbytes(src, dst, w, h) + 4 * C * N * f,
-                           2.0 * nnz * f)
+        lib = cuda_ms(sg_library(args))
+        bnd, by = sg_bound(args)
         print(f"  sg {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib:.4f} ms, bound {bnd:.4f} ms ({by}) [{label}]",
               flush=True)
         rows.append((tag, err, ms, plain, lib, bnd, by))
+    # the sort kernel at every block_cols that fits (autotune's knob), at
+    # the serving widths and the sg softmax's
+    by_cols = {}
+    for tag, args in sg_rows(x)[:2] + sg_softmax_rows(x):
+        e, f = args[0].shape[1], args[3].shape[2]
+        by_cols[tag] = {
+            bc: cuda_ms(lambda: scatter_gather_aggregate(
+                *args, block_cols=bc))
+            for bc in sg_kernels.BLOCK_COLS_CANDIDATES
+            if sg_kernels.sort_block_fits(N, e, bc)}
+        print(f"  sg {tag} by block_cols: " + ", ".join(
+            f"{bc}: {t:.4f} ms" for bc, t in by_cols[tag].items())
+            + f" (default {sg_kernels.sort_block_cols(N, e, f)}) "
+            f"[{label}]",
+            flush=True)
     tag, err, ms, plain, lib, bnd, by = rows[0]     # layer-0 width
     rec["scatter_gather_aggregate"] = dict(
         shape=tag, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-        bound_by=by, library_ms=lib)
+        bound_by=by, library_ms=lib, block_cols_ms=by_cols)
+    rec["softmax"] = [dict(shape=t, max_abs_err=e, ms=m, plain_ms=p,
+                           bound_ms=b, bound_by=y, library_ms=l)
+                      for t, e, m, p, l, b, y in rows[2:]]
 
     print("[kernels] gat_attention", flush=True)
     run_checks(gat_checks(x))
@@ -1148,9 +1264,10 @@ def serve_phase(graph, label):
 def repeatability_phase(graph, targets, label):
     """Two device steps of one planned gat/sg and gcn/sg batch, under
     impl="torch" and impl="cuda": whether the two are bitwise equal, and
-    their largest difference. The plain sg paths (gnn/layers.py agg_sg,
-    core/program.py's sg softmax, which both impls run for gat/sg) sum with
-    ``index_add_``."""
+    their largest difference. Under impl="cuda" every sg sum runs on the
+    scatter-gather kernel, and the two steps must be bitwise equal; the
+    plain sg paths (gnn/layers.py agg_sg, core/program.py's sg softmax)
+    sum with ``index_add_``, reported only."""
     for kind, impl in (("gat", "torch"), ("gcn", "torch"), ("gat", "cuda"),
                        ("gcn", "cuda")):
         cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
@@ -1162,12 +1279,316 @@ def repeatability_phase(graph, targets, label):
             a = eng.run_device(plan).clone()
             b = eng.run_device(plan).clone()
             torch.cuda.synchronize()
+            step = statistics.median(
+                _timed(lambda: eng.run_device(plan))[1] for _ in range(5))
         same = bool(torch.equal(a, b))
         diff = float((a - b).abs().max())
         print(f"[repeat] {kind}/sg impl={impl}: two device steps of one "
               f"batch bitwise equal {same}, max |difference| {diff:.3e}, "
               f"share of elements equal {float((a == b).float().mean()):.6f}"
-              f" [{label}]", flush=True)
+              f"{' ok' if same else (' FAIL' if impl == 'cuda' else '')}; "
+              f"device step (run_device + synchronize) p50 of 5 "
+              f"{step * 1e3:.3f} ms [{label}]", flush=True)
+        if impl == "cuda":
+            check(same, f"{kind}/sg impl=cuda: two device steps differ")
+
+
+# -- phase 5d: per-batch adaptive dispatch -----------------------------------
+
+
+def program_launches(prog) -> dict:
+    """Kernel launches of one batch through the specialized ``prog`` under
+    impl="cuda", read off its step list: a fused group or a Transform
+    without w_self is one fused launch, an sg Aggregate one scatter-gather,
+    a dense AttentionSoftmax one gat_attention, an sg one scatter-gather
+    (its segment sums)."""
+    out = dict.fromkeys(REPLACES, 0)
+    for seq, times in ((prog.layer0, 1), (prog.inner, prog.n_layers - 1)):
+        for ops_, _ in compile_steps(seq, "cuda"):
+            head = ops_[0]
+            if len(ops_) > 1 or (isinstance(head, Transform)
+                                 and head.w_self is None):
+                out["fused_gnn_layer"] += times
+            elif isinstance(head, Aggregate) and head.mode == "sg":
+                out["scatter_gather_aggregate"] += times
+            elif isinstance(head, AttentionSoftmax):
+                if head.mode == "dense":
+                    out["gat_attention"] += times
+                else:
+                    out["scatter_gather_aggregate"] += times
+    return out
+
+
+def sort_widths(prog, block_cols, e_slots) -> dict:
+    """The sort kernel's launches of one batch through ``prog`` under
+    impl="cuda" with ``blocks={"block_cols": block_cols}``, by columns a
+    block: the sg Aggregates take ``block_cols``, the sg softmax's sums
+    the default at their width (a head's columns and the ones column,
+    padded to a multiple of 4)."""
+    out = dict.fromkeys(sg_kernels.BLOCK_COLS_CANDIDATES, 0)
+    fh = F_HID // HEADS
+    soft = sg_kernels.sort_block_cols(N, e_slots + N, fh // 4 * 4 + 4)
+    for seq, times in ((prog.layer0, 1), (prog.inner, prog.n_layers - 1)):
+        for ops_, _ in compile_steps(seq, "cuda"):
+            head = ops_[0]
+            if isinstance(head, Aggregate) and head.mode == "sg":
+                out[block_cols] += times
+            elif isinstance(head, AttentionSoftmax) and head.mode == "sg":
+                out[soft] += times
+    return out
+
+
+def span_decisions(spans) -> list:
+    """Each traced batch's dispatch, in submission order, from its device
+    span: (source, {site: mode}, blocks text)."""
+    dev = sorted((s for s in spans if s["name"] == "device"),
+                 key=lambda s: s["args"]["seq"])
+    return [(s["args"]["dispatch_source"],
+             dict(kv.split("=") for kv in
+                  s["args"]["dispatch_modes"].split(",")),
+             s["args"]["dispatch_blocks"]) for s in dev]
+
+
+def dispatch_checks(kind, program, table, bucket, e_slots, spans, tree,
+                    reports):
+    """Checks (3)-(5) of the [dispatch] phase on the exploring engine:
+    [(name, ok, text)]."""
+    out = []
+    missing = []
+    sites = mux_sites(program)
+    for sec, _ in program.layer_sections():
+        for mode in ("dense", "sg"):
+            seq = getattr(respecialize(program, {
+                s: mode for s in sites if s.startswith(sec)}), sec)
+            for ops_, _ in compile_steps(seq, "cuda"):
+                if any(o.mux for o in ops_) and table.lookup(
+                        op_label(ops_), op_mode(ops_, "cuda"),
+                        bucket) is None:
+                    missing.append(f"{sec}:{op_label(ops_)}/{mode}")
+    fitting = [bc for bc in sg_kernels.BLOCK_COLS_CANDIDATES
+               if sg_kernels.sort_block_fits(N, e_slots, bc)]
+    bc_missing = [bc for bc in fitting if table.lookup(
+        "scatter_gather", f"cuda/bc={bc}", bucket) is None]
+    out.append((f"{kind} calibration cells", not missing and not bc_missing
+                and bool(fitting), f"mux op cells missing {missing}, sort "
+                f"bc cells missing {bc_missing} of {fitting}"))
+    fails = [r["explore_failures"] for r in reports]
+    out.append((f"{kind} explore_failures", fails == [0] * len(fails),
+                f"{fails} (dispatch, trace)"))
+    problems = validate_chrome_trace(tree)
+    lacking = []
+    for tid in sorted({s["trace_id"] for s in spans
+                       if s["name"] == "batch"}):
+        names = {s["name"] for s in spans if s["trace_id"] == tid}
+        if not {"select", "build", "pack", "device"} <= names:
+            lacking.append(sorted(names))
+    out.append((f"{kind} trace export", not problems and not lacking,
+                f"validator problems {problems[:3]}, batches lacking a "
+                f"station span {lacking}"))
+    return out
+
+
+def served_sg_checks(kind, graph, cfg, params, static, e_slots, chunk,
+                     twin_sg):
+    """An sg variant served through the variant cache with a block_cols
+    that is not the default: an adaptive engine whose table prices every
+    sg step below its dense twin and the sort kernel's narrowest width
+    below the others serves ``chunk`` all-sg at that width. Its embeddings
+    must equal ``twin_sg`` (the engine with dispatch off, respecialized
+    all-sg, default widths) bitwise, and its launches the variant's, width
+    by width. [(name, ok, text)]"""
+    narrow = sg_kernels.BLOCK_COLS_CANDIDATES[-1]
+    sites = mux_sites(static)
+    bucket = size_bucket({"mask": torch.empty(C, N)})
+    with DecoupledEngine(graph, cfg, params=params, config=ServingConfig(
+            device="cuda", batch_size=C, impl="cuda",
+            dispatch=DispatchConfig(warmup_passes=0, autotune_blocks=True,
+                                    save_on_close=False))) as eng:
+        table = eng.dispatch.table
+        for sec, _ in static.layer_sections():
+            for mode, cost in (("dense", 1e-3), ("sg", 1e-6)):
+                seq = getattr(respecialize(static, {
+                    s: mode for s in sites if s.startswith(sec)}), sec)
+                for ops_, _ in compile_steps(seq, "cuda"):
+                    table.record(op_label(ops_), op_mode(ops_, "cuda"),
+                                 bucket, cost)
+        for bc in sg_kernels.BLOCK_COLS_CANDIDATES:
+            if sg_kernels.sort_block_fits(N, e_slots, bc):
+                table.record("scatter_gather", f"cuda/bc={bc}", bucket,
+                             1e-6 if bc == narrow else 1e-3)
+        ops.reset_launch_counts()
+        got = eng.infer(chunk).embeddings
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()
+        widths = dict(sg_kernels.width_launches)
+        rep = eng.dispatch_report()
+    variant = respecialize(static, {s: "sg" for s in sites})
+    want = program_launches(variant)
+    want_w = sort_widths(variant, narrow, e_slots)
+    served = (rep["sources"]["measured"] == 1 and rep["blocks"]
+              == {"block_cols": narrow})
+    print(f"[dispatch] {kind} served sg variant: sources {rep['sources']}, "
+          f"blocks {rep['blocks']}, launches {launched}, sort launches by "
+          f"width {widths}", flush=True)
+    return [(f"{kind} served sg variant at block_cols={narrow} == forced sg",
+             served and bool(np.array_equal(got, twin_sg)),
+             f"decision {rep['sources']} {rep['blocks']}, bitwise "
+             f"{bool(np.array_equal(got, twin_sg))}"),
+            (f"{kind} served sg variant's launches",
+             launched == want and widths == want_w,
+             f"{launched} (variant's {want}), widths {widths} (variant's "
+             f"{want_w})")]
+
+
+def dispatch_phase(graph, label):
+    """Per-batch adaptive dispatch on the card for GCN, GraphSAGE and GAT
+    (see the module docstring, 10); returns the phase's launch counts."""
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    CALIB_DIR.mkdir(parents=True)
+    tgt = zipf_traffic(graph, DISPATCH_BATCHES * C, a=1.1, seed=5)
+    chunks = [tgt[i:i + C] for i in range(0, len(tgt), C)]
+    total = dict.fromkeys(REPLACES, 0)
+
+    def take():
+        """Add the launches since the last reset to the phase's total and
+        zero the counters."""
+        for k, n in ops.launch_counts().items():
+            total[k] += n
+        ops.reset_launch_counts()
+
+    ops.reset_launch_counts()
+    for kind in ("gcn", "sage", "gat"):
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+        params = init_gnn(cfg, seed=0, device="cuda")
+        art = str(CALIB_DIR / kind)
+
+        def engine(trace=None, save=True):
+            return DecoupledEngine(graph, cfg, params=params,
+                                   config=ServingConfig(
+                device="cuda", batch_size=C, impl="cuda", trace=trace,
+                dispatch=DispatchConfig(warmup_passes=2,
+                                        autotune_blocks=True, artifact=art,
+                                        save_on_close=save)))
+
+        # the exploring engine: calibration on every traced batch, warm-up
+        # passes, block autotune; its close() saves the table
+        with engine(TraceConfig(calibrate_every=1)) as eng:
+            t0 = time.perf_counter()
+            res = eng.infer(tgt).embeddings
+            wall = time.perf_counter() - t0
+            spans = eng.tracer.export_spans()
+            tree = eng.export_trace(str(CALIB_DIR / f"{kind}.trace.json"))
+            drep, trep = eng.dispatch_report(), eng.trace_report()
+            table, program = eng.dispatch.table, eng.program
+            bucket = size_bucket({"mask": torch.empty(C, N)})
+            e_slots = eng.e_pad
+        for mode in ("dense", "sg"):
+            got = program_launches(respecialize(
+                program, {s: mode for s in mux_sites(program)}))
+            want = {k: EXPECTED[kind, mode].get(k, 0) for k in got}
+            check(got == want, f"{kind}/{mode}: program_launches {got}, "
+                               f"EXPECTED {want}")
+        run_checks(dispatch_checks(kind, program, table, bucket, e_slots,
+                                   spans, tree, (drep, trep)))
+        decisions = span_decisions(spans)
+        for i, (src, asg, blocks) in enumerate(decisions):
+            print(f"[dispatch] {kind} batch {i}: {src} "
+                  f"{','.join(f'{k}={v}' for k, v in sorted(asg.items()))}"
+                  f" blocks {{{blocks}}} [{label}]", flush=True)
+        measured = sum(src == "measured" for src, _, _ in decisions)
+        check(len(decisions) == DISPATCH_BATCHES and measured >= 3,
+              f"{kind}: {measured} of {len(decisions)} batches on measured "
+              f"decisions, expected at least 3")
+        for row in table.rows():
+            print(f"[dispatch] {kind} cell {row['op']} {row['mode']} bucket "
+                  f"{row['size_bucket']}: p50 {row['p50_s'] * 1e3:.4f} ms "
+                  f"(n={row['count']}) [{label}]", flush=True)
+        print(f"[dispatch] {kind} exploring engine: {DISPATCH_BATCHES} "
+              f"batches in {wall:.2f} s, sources {drep['sources']}, "
+              f"variants {drep['variants']}, blocks {drep['blocks']}, "
+              f"table {drep['table_cells']} cells, "
+              f"{drep['table_passes']} passes [{label}]", flush=True)
+
+        # the twin: untraced, dispatch off, its program respecialized per
+        # batch; it ships the adaptive engine's payload union (unused
+        # arrays change nothing)
+        twin = DecoupledEngine(graph, cfg, params=params, config=ServingConfig(
+            device="cuda", batch_size=C, impl="cuda"))
+        static = twin.program
+        twin.adj_keys = required_adjacency(lower(cfg))
+        twin.needs_edges = True
+        twin_out = {}
+
+        def forced(i, asg):
+            key = (i, tuple(sorted(asg.items())))
+            if key not in twin_out:
+                twin.program = respecialize(static, asg)
+                twin_out[key] = twin.infer(chunks[i]).embeddings
+            return twin_out[key]
+
+        same = [bool(np.array_equal(res[i * C:(i + 1) * C], forced(i, asg)))
+                for i, (_, asg, _) in enumerate(decisions)]
+        run_checks([(f"{kind} adaptive == forced, batch by batch",
+                     all(same), f"bitwise {same}")])
+
+        # restarted from the artifact: untraced and traced (no calibration,
+        # so neither table moves and both take the same decisions)
+        take()
+        with engine(save=False) as eng:
+            res_b = eng.infer(tgt).embeddings
+            torch.cuda.synchronize()
+            launched = ops.launch_counts()
+            by_kernel = {n: dict(m.variant_launches) for n, m in
+                         (("fused", fused_kernels), ("sg", sg_kernels),
+                          ("gat", gat_kernels))}
+            rep_b = eng.dispatch_report()
+            with engine(TraceConfig(), save=False) as traced:
+                res_c = traced.infer(tgt).embeddings
+                dec_c = span_decisions(traced.tracer.export_spans())
+            plans = [eng.plan(ch) for ch in chunks[:DISPATCH_TIMED]]
+            times = {"on": [], "off": []}
+            twin.program = static
+            for p in plans:
+                for which in ("on", "off", "off", "on"):
+                    e = eng if which == "on" else twin
+                    times[which].append(_timed(lambda: e.run_device(p))[1])
+        want = dict.fromkeys(launched, 0)
+        for _, asg, _ in dec_c:
+            for k, n in program_launches(respecialize(static, asg)).items():
+                want[k] += n
+        first = rep_b["sources"]
+        run_checks([
+            (f"{kind} restarted from the artifact: first decision measured",
+             first["measured"] == rep_b["decisions"] == DISPATCH_BATCHES,
+             f"sources {first}"),
+            (f"{kind} traced == untraced", bool(np.array_equal(res_b, res_c))
+             and all(src == "measured" for src, _, _ in dec_c),
+             f"bitwise {bool(np.array_equal(res_b, res_c))}, traced "
+             f"sources {[src for src, _, _ in dec_c]}"),
+            (f"{kind} restarted engine == forced", all(
+                np.array_equal(res_c[i * C:(i + 1) * C], forced(i, asg))
+                for i, (_, asg, _) in enumerate(dec_c)), "bitwise"),
+            (f"{kind} launches of the served variants",
+             launched == want
+             and by_kernel["fused"]["tf32x3"] == launched["fused_gnn_layer"]
+             and by_kernel["gat"]["slab"] == launched["gat_attention"],
+             f"{launched} (variants' {want}), by kernel {by_kernel}")])
+        twin_sg = forced(0, {s: "sg" for s in mux_sites(static)})
+        take()
+        run_checks(served_sg_checks(kind, graph, cfg, params, static, e_slots,
+                                    chunks[0], twin_sg))
+        twin.close()
+        on, off = (statistics.median(times[k]) for k in ("on", "off"))
+        print(f"[dispatch] {kind} device step (run_device + synchronize, "
+              f"{len(plans)} planned batches x 2 each): dispatch on "
+              f"{on * 1e3:.3f} ms p50 (served {dec_c[0][1]}), off "
+              f"{off * 1e3:.3f} ms p50 (static "
+              f"{dict((s, m.mode) for s, m in static.ops if m.mux)}); "
+              f"restarted engine's variants {rep_b['variants']} [{label}]",
+              flush=True)
+    take()
+    return total
 
 
 # -- phase 6: LM prefill and decode ------------------------------------------
@@ -1215,10 +1636,11 @@ def _profile(fn, label, what, tag="lm", top=8):
 
 def profile_phase(graph, targets, label):
     """One traced device step (``DecoupledEngine.run_device``: the batch's
-    copy to the card and the program) of a gat/dense and a gcn/sg batch,
+    copy to the card and the program) of a gat/dense, a gcn/sg and a gat/sg
+    batch,
     planned on the host first, after one untraced warm-up step: the device
     time by kernel and copy, and the card's busy share of the step."""
-    for kind, mode in (("gat", "dense"), ("gcn", "sg")):
+    for kind, mode in (("gat", "dense"), ("gcn", "sg"), ("gat", "sg")):
         cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
                         f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
         conf = ServingConfig(device="cuda", batch_size=C, mode=mode,
@@ -1365,22 +1787,28 @@ def main() -> int:
     x = gnn_inputs(sb, dev)
     rec = kernel_phase(x, dev, label)
     variants = variant_phase(graph, targets, x, dev, label)
+    variants["scatter_gather_aggregate"][:0] = [
+        dict(r, variant="sort") for r in rec.pop("softmax")]
     del x
     rec["flash_attention"] = flash_phase(dev, label)
     launches = engine_phase(graph, targets, label)
     profile_phase(graph, targets, label)
     served = serve_phase(graph, label)
     repeatability_phase(graph, targets, label)
+    dispatched = dispatch_phase(graph, label)
     launches["flash_attention"] = lm_phase(label)["flash_attention"]
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in KERNELS_BY_NAME:
         check(served[k] > 0, f"{k} was never launched on the server path")
+        check(dispatched[k] > 0,
+              f"{k} was never launched on the dispatch path")
     kernels = []
     for k, (source, replaces) in REPLACES.items():
         kernels.append(dict(name=k, route="cuda", source=source,
                             replaces=replaces,
-                            launches=launches[k] + served.get(k, 0),
+                            launches=launches[k] + served.get(k, 0)
+                            + dispatched.get(k, 0),
                             **rec[k], variants=variants.get(k, [])))
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

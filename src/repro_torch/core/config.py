@@ -10,14 +10,20 @@ package has ported so far:
   * store:           ``StorePolicy`` (dense, packed or device-resident
                      features; local neighborhood and subgraph-row
                      caches)
+  * observability:   ``trace`` (an ``obs.TraceConfig``: per-batch spans,
+                     histograms, the flight recorder and the sampled
+                     calibration pass)
+  * dispatch:        ``dispatch`` (a ``core.dispatch.DispatchConfig``:
+                     per-batch measured-cost dense/sg dispatch, the
+                     bounded variant cache, kernel block autotune)
 
 ``device`` defaults to ``"cuda"`` and ``impl`` to ``"cuda"`` (the hand
 kernels), so a default deployment on a card always runs the kernels; a
 CUDA device with no card raises, and nothing continues on the CPU
-unasked. The reference's other planes — ``trace``, ``telemetry``,
-``dispatch``, ``precompute`` and a ``transport`` other than ``"local"`` —
-are not ported yet: setting one raises NotImplementedError naming it,
-and so does the sharded feature store.
+unasked. The reference's other planes — ``telemetry``, ``precompute``
+and a ``transport`` other than ``"local"`` — are not ported yet: setting
+one raises NotImplementedError naming it and its ROADMAP item, and so does
+the sharded feature store.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from repro_torch.core.program import IMPLS
 from repro_torch.devices import resolve
 from repro_torch.store.policy import StorePolicy
 
-UNPORTED_PLANES = ("trace", "telemetry", "dispatch", "precompute")
+# planes of the reference not ported yet, with their ROADMAP queue-1 item
+UNPORTED_PLANES = {"telemetry": 12, "precompute": 10}
 
 
 @dataclass(frozen=True)
@@ -48,24 +55,43 @@ class ServingConfig:
     depth: int = 3                     # paper's triple buffering
     max_inflight: Optional[int] = None  # backpressure; None = 2 * depth
     max_wait_s: float = 0.005          # micro-batcher deadline (server)
+    # observability: None (default) = tracing off, zero-cost; a
+    # TraceConfig enables per-ticket spans + histograms (obs package)
+    trace: Optional[object] = None
+    # dispatch: None (default) = static mode selection at engine init; a
+    # DispatchConfig enables per-batch measured-cost dense/sg dispatch.
+    # Only meaningful with mode="auto" — a forced mode pins the mux.
+    dispatch: Optional[object] = None
     # planes of the reference not ported yet: anything but the default
     # raises NotImplementedError
     transport: str = "local"
-    trace: Optional[object] = None
     precompute: Optional[object] = None
     telemetry: Optional[object] = None
-    dispatch: Optional[object] = None
 
     def __post_init__(self):
-        for name in UNPORTED_PLANES:
+        for name, item in UNPORTED_PLANES.items():
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"ServingConfig.{name}: this plane is not ported to "
-                    f"repro_torch yet (leave it None)")
+                    f"repro_torch yet (ROADMAP queue 1, item {item}; leave "
+                    f"it None)")
+        if self.trace is not None:
+            from repro_torch.obs.trace import TraceConfig
+            if not isinstance(self.trace, TraceConfig):
+                raise TypeError(
+                    f"trace must be an obs.TraceConfig or None, got "
+                    f"{type(self.trace).__name__}")
+        if self.dispatch is not None:
+            from repro_torch.core.dispatch import DispatchConfig
+            if not isinstance(self.dispatch, DispatchConfig):
+                raise TypeError(
+                    f"dispatch must be a core.DispatchConfig or None, "
+                    f"got {type(self.dispatch).__name__}")
         if self.transport != "local":
             raise NotImplementedError(
                 f"ServingConfig.transport={self.transport!r}: only the "
-                f"local transport is ported to repro_torch")
+                f"local transport is ported to repro_torch (ROADMAP queue "
+                f"1, item 11)")
         if not isinstance(self.store, StorePolicy):
             raise TypeError(
                 f"store must be a StorePolicy, got "
@@ -91,6 +117,17 @@ class ServingConfig:
             raise ValueError("max_inflight must be >= 1 (or None)")
         if self.max_wait_s < 0:
             raise ValueError("max_wait_s must be >= 0")
+
+    def describe(self) -> dict:
+        d = {"device": self.device, "batch_size": self.batch_size,
+             "mode": self.mode, "impl": self.impl, "depth": self.depth,
+             "num_threads": self.num_threads,
+             "transport": self.transport}
+        if self.trace is not None:
+            d["trace"] = self.trace.describe()
+        if self.dispatch is not None:
+            d["dispatch"] = self.dispatch.describe()
+        return d
 
 
 __all__ = ["ServingConfig"]

@@ -14,16 +14,29 @@ Shapes are fixed per (model, N, C), so one program serves every batch.
 device execution of batch i via core.scheduler (paper Fig. 7). The engine
 owns ONE persistent ``PipelineScheduler`` for its whole lifetime.
 
+Tracing (``ServingConfig.trace``) gives every sampled batch a span tree
+(stations, store gather, sampled calibration passes) and feeds the per-op
+calibration table; adaptive dispatch (``ServingConfig.dispatch``) picks
+each batch's dense/sg mode vector from that table's measured p50s
+(core.dispatch) and serves it through a bounded cache of compiled
+variants. Both are off by default, and neither changes what a batch
+serves: a traced run is bitwise equal to an untraced one, and an adaptive
+run to the engine forced to the mode vector it chose. Exploration passes
+(calibration, warm-up, block autotune) never break serving: a failure is
+logged and counted (``explore_failures`` in ``trace_report`` and
+``dispatch_report``) where the reference swallows it.
+
 This is the local path of the reference's engine: remote transports,
-tracing, telemetry, adaptive dispatch, the precompute tier and the sharded
-feature store are not ported yet (ServingConfig refuses them). The
-single-device resident store is, with its automatic repin triggers
-(``StorePolicy.repin_every`` / ``repin_hit_floor``) on the completion path.
+telemetry, the precompute tier and the sharded feature store are not
+ported yet (ServingConfig refuses them). The single-device resident store
+is, with its automatic repin triggers (``StorePolicy.repin_every`` /
+``repin_hit_floor``) on the completion path.
 """
 from __future__ import annotations
 
 import logging
 import threading
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -34,9 +47,10 @@ import torch
 from repro_torch.core.batchplan import (BatchPlan, BuildStage, PackStage,
                                         SelectStage)
 from repro_torch.core.config import ServingConfig
-from repro_torch.core.program import (ProgramDecision, execute,
-                                      input_width_params, lower,
-                                      required_adjacency, specialize)
+from repro_torch.core.program import (ProgramDecision, compile_program,
+                                      execute, input_width_params, lower,
+                                      required_adjacency, respecialize,
+                                      specialize)
 from repro_torch.core.scheduler import (PipelineScheduler, SchedulerStats,
                                         StreamTicket)
 from repro_torch.core.subgraph import SubgraphBatch, default_edge_pad
@@ -70,6 +84,20 @@ class DecoupledEngine:
         config = config if config is not None else ServingConfig()
         self.config = config
         self.graph, self.cfg = graph, cfg
+        # observability (off by default, zero-cost when off: every site
+        # downstream guards on ``tracer is None``)
+        if config.trace is not None:
+            from repro_torch.obs.calib import CalibrationTable
+            from repro_torch.obs.trace import Tracer
+            self.tracer = Tracer(config.trace)
+            self._calib = CalibrationTable()
+        else:
+            self.tracer = None
+            self._calib = None
+        self._calib_count = 0
+        # calibration / warm-up / autotune passes that raised (serving
+        # went on; the reference swallows these)
+        self.explore_failures = 0
         self.device = torch.device(config.device)
         self.batch_size = config.batch_size
         self.num_threads = config.num_threads
@@ -92,6 +120,42 @@ class DecoupledEngine:
         self.needs_edges = any(d.mode == "sg" for d in self.decision)
         # ship only the adjacency arrays the specialized program reads
         self.adj_keys = required_adjacency(self.program)
+        # per-batch adaptive dispatch (core.dispatch): only meaningful
+        # with mode="auto" — a forced mode pins the mux, so the policy
+        # never runs there (its batches are reported "forced")
+        dconf = config.dispatch
+        self.dispatch = None
+        self._variants = None
+        self._forced_dispatch = 0
+        self._last_blocks: Dict[str, int] = {}
+        self._static_assignment = {d.site: d.mode
+                                   for d in self.decision if d.mux}
+        if dconf is not None and mode == "auto":
+            from repro_torch.core.dispatch import DispatchPolicy, VariantCache
+            from repro_torch.obs.calib import CalibrationTable
+            table = self._calib if self._calib is not None \
+                else CalibrationTable()
+            if dconf.artifact is not None:
+                from repro_torch.ckpt.checkpoint import committed_steps
+                from repro_torch.obs.calib import load_calibration
+                if committed_steps(dconf.artifact):
+                    # a committed table dispatches MEASURED from the first
+                    # batch (its cells are populated, so no warm-up runs);
+                    # stale stamps raise here
+                    table = load_calibration(dconf.artifact, graph=graph,
+                                             cfg=cfg, impl=self.impl)
+            self._calib = table
+            self.dispatch = DispatchPolicy(
+                self.program, self.impl, table, n=n, f_in=cfg.f_in,
+                f_hidden=cfg.f_hidden,
+                warmup_passes=dconf.warmup_passes, seed=dconf.seed,
+                autotune_blocks=dconf.autotune_blocks)
+            self._variants = VariantCache(dconf.variant_capacity)
+            # adaptive payload union: ANY per-batch mode vector must find
+            # its arrays in the device batch, so ship the unspecialized
+            # adjacency set + the edge list (unused keys change nothing)
+            self.adj_keys = required_adjacency(lower(cfg))
+            self.needs_edges = True
         if params is None:
             params = init_gnn(cfg, config.seed, device=self.device)
         params = params_to(params, self.device)
@@ -148,7 +212,8 @@ class DecoupledEngine:
         self.scheduler = PipelineScheduler(
             self.stages, self.run_device, depth=config.depth,
             max_inflight=config.max_inflight,
-            on_batch=self._on_batch_done if self._repin_auto else None)
+            on_batch=self._on_batch_done if self._repin_auto else None,
+            tracer=self.tracer)
         # graph-update streaming: cached neighborhoods / rows never serve
         # stale state
         if hasattr(graph, "register_listener"):
@@ -215,21 +280,179 @@ class DecoupledEngine:
     def run_device(self, device_batch) -> torch.Tensor:
         """Copy one batch to the device and launch its program; returns
         the [C, f] embeddings without waiting for the device."""
-        if isinstance(device_batch, BatchPlan):   # staged pipeline output
-            device_batch = device_batch.device
+        plan = device_batch if isinstance(device_batch, BatchPlan) \
+            else None                             # staged pipeline output
+        if plan is not None:
+            device_batch = plan.device
         db = dict(device_batch)
         src = self._fsource
+        tr = self.tracer
         if all(k in db for k in src.payload_keys):
             payload = {k: db.pop(k) for k in src.payload_keys}
-            feats = src.device_feats(payload)
+            if tr is None:
+                feats = src.device_feats(payload)
+            else:
+                # child of the scheduler's "device" span (this thread's
+                # current span); records nothing on an untraced batch
+                with tr.span("store.gather", cat="store", store=src.name):
+                    feats = src.device_feats(payload)
         else:       # externally built dense batch (e.g. device_batch())
             feats = to_device(db.pop("feats"), self.device)
         batch = {k: to_device(v, self.device) for k, v in db.items()}
         batch["feats"] = pad_feature_dim(feats, self.f_pad)
         with torch.inference_mode():
+            if tr is not None and tr.config.calibrate_every \
+                    and tr.current() is not None:
+                # sampled instrumented per-op pass (obs.calib): its
+                # outputs are DISCARDED — the program below is what gets
+                # served, so outputs stay bitwise equal
+                self._calib_count += 1
+                if self._calib_count % tr.config.calibrate_every == 0:
+                    from repro_torch.obs.calib import run_instrumented
+                    with tr.span("calibrate", cat="calib"):
+                        self._explore(run_instrumented, self.program,
+                                      self.params, batch, self.impl,
+                                      self._calib)
+            if self.dispatch is not None and plan is not None \
+                    and plan.n_edges is not None:
+                return self._dispatch_infer(plan, batch)
+            if self.config.dispatch is not None and self.dispatch is None:
+                self._forced_dispatch += 1      # forced mode: policy inert
             emb, _ = execute(self.program, self.params, batch,
                              impl=self.impl)
         return emb
+
+    # -- per-batch adaptive dispatch ----------------------------------------
+    def _explore(self, fn, *args) -> None:
+        """Run one exploration pass (calibration, warm-up, autotune): its
+        failure must never break serving, so it is logged and counted in
+        ``explore_failures`` instead of raised."""
+        try:
+            fn(*args)
+        except Exception:
+            self.explore_failures += 1
+            logging.getLogger(__name__).exception(
+                "exploration pass %s failed", getattr(fn, "__name__", fn))
+
+    def _build_variant(self, assignment, blocks):
+        """One compiled variant: the engine's program re-specialized to
+        this mode vector (+ kernel block overrides), lowered to its step
+        list once. The op stream never changes — only the per-site dense/sg
+        mux — so every variant serves from the same fixed shapes."""
+        prog = respecialize(self.program, dict(assignment))
+        return compile_program(prog, self.impl, dict(blocks) or None)
+
+    def _dispatch_infer(self, plan: BatchPlan, batch) -> torch.Tensor:
+        """The adaptive device step: consult the policy with THIS batch's
+        measured density, run the warm-up/autotune exploration pass when
+        scheduled (outputs discarded), then serve through the bounded
+        variant cache."""
+        from repro_torch.core.dispatch import variant_key
+        from repro_torch.obs.calib import (run_block_autotune,
+                                           run_instrumented, size_bucket)
+        pol = self.dispatch
+        bucket = size_bucket(batch)
+        avg_e = min(float(plan.n_edges), float(self.e_pad))
+        dec = pol.decide(avg_e, bucket)
+        if dec.blocks:
+            self._last_blocks = dict(dec.blocks)
+        if dec.warm_mode is not None:
+            # instrumented exploration pass in the scheduled forced mode —
+            # its outputs are DISCARDED (serving stays on dec.assignment
+            # below), so warm-up batches serve what the engine with
+            # dispatch off would
+            warm = {s: dec.warm_mode for s in pol.sites}
+            self._explore(run_instrumented,
+                          respecialize(self.program, warm), self.params,
+                          batch, self.impl, pol.table)
+            if pol.autotune_blocks and self.impl == "cuda":
+                self._explore(run_block_autotune, self.program, self.params,
+                              batch, pol.table)
+        tr = self.tracer
+        if tr is not None and tr.current() is not None:
+            tr.annotate(dispatch_source=dec.source,
+                        dispatch_bucket=dec.bucket,
+                        dispatch_modes=",".join(
+                            f"{s}={m}" for s, m
+                            in sorted(dec.assignment.items())),
+                        dispatch_blocks=",".join(
+                            f"{k}={v}" for k, v
+                            in sorted(dec.blocks.items())),
+                        batch_avg_edges=round(dec.avg_edges, 1))
+        fn = self._variants.get(
+            variant_key(dec.assignment, dec.blocks),
+            lambda: self._build_variant(dec.assignment, dec.blocks))
+        emb, _ = fn(self.params, batch)
+        return emb
+
+    def dispatch_report(self) -> Optional[dict]:
+        """Adaptive-dispatch state (the ``dispatch.*`` schema section):
+        decision/source counters, warm-up schedule, variant-cache bounds
+        and hit/evict counters, resolved block overrides, failed
+        exploration passes. None when the deployment was built without
+        ``ServingConfig(dispatch=...)`` — the section is omitted."""
+        dconf = self.config.dispatch
+        if dconf is None:
+            return None
+        if self.dispatch is None:    # forced mode: policy inert
+            return {"enabled": True, "policy": "forced",
+                    "impl": self.impl,
+                    "mux_sites": sorted(self._static_assignment),
+                    "decisions": self._forced_dispatch,
+                    "sources": {"forced": self._forced_dispatch},
+                    "artifact": dconf.artifact,
+                    "explore_failures": self.explore_failures}
+        d = self.dispatch.report()
+        d.update(enabled=True, variants=self._variants.stats(),
+                 blocks=dict(self._last_blocks),
+                 artifact=dconf.artifact,
+                 explore_failures=self.explore_failures)
+        return d
+
+    def save_calibration(self, path: Optional[str] = None) -> str:
+        """Persist the live calibration table (per-op p50 cells + block
+        autotune cells) as a committed artifact at ``path`` (default:
+        ``DispatchConfig.artifact``); a later engine with the same
+        graph/model/impl loads it and dispatches measured from the first
+        batch."""
+        from repro_torch.obs.calib import save_calibration
+        dconf = self.config.dispatch
+        path = path or (dconf.artifact if dconf is not None else None)
+        if path is None:
+            raise ValueError(
+                "no artifact path: pass save_calibration(path=...) or set "
+                "DispatchConfig(artifact=...)")
+        if self._calib is None:
+            raise ValueError(
+                "no calibration table on this engine; enable "
+                "ServingConfig(dispatch=...) or trace calibration")
+        return save_calibration(path, self._calib, graph=self.graph,
+                                cfg=self.cfg, impl=self.impl)
+
+    def trace_report(self) -> dict:
+        """Observability state of this deployment: tracing counters,
+        per-span-name latency histograms, flight-recorder summary, the
+        per-op calibration table and the failed exploration passes (the
+        ``trace.*`` schema section). ``{"enabled": False}`` when the
+        deployment was built without ``ServingConfig(trace=...)``."""
+        if self.tracer is None:
+            return {"enabled": False}
+        from repro_torch.core.report_schema import trace_section
+        d = trace_section(self.tracer, self._calib)
+        d["explore_failures"] = self.explore_failures
+        return d
+
+    def export_trace(self, path: str) -> dict:
+        """Write this deployment's finished spans (export ring + flight
+        recorder trees) as a Perfetto-loadable chrome trace."""
+        if self.tracer is None:
+            raise ValueError(
+                "tracing is off; construct the engine with "
+                "ServingConfig(trace=TraceConfig(...)) to record spans")
+        from repro_torch.obs.export import write_chrome_trace
+        return write_chrome_trace(path, self.tracer.export_spans(),
+                                  metadata={"config":
+                                            self.config.describe()})
 
     # -- end-to-end ----------------------------------------------------------
     def pad_targets(self, targets: np.ndarray) -> np.ndarray:
@@ -352,6 +575,14 @@ class DecoupledEngine:
         return r
 
     def close(self):
+        dconf = self.config.dispatch
+        if self.dispatch is not None and dconf.save_on_close \
+                and dconf.artifact:
+            try:                     # a failed save must not block
+                self.save_calibration()      # shutdown
+            except Exception as e:
+                warnings.warn(f"calibration save failed: {e}",
+                              RuntimeWarning, stacklevel=2)
         if hasattr(self.graph, "unregister_listener"):
             self.graph.unregister_listener(self.invalidate)
         self.scheduler.close()

@@ -16,10 +16,13 @@ the reference.
   ``lower(cfg)``        GNNConfig -> AckProgram, via a model *registry*
                         (``@register_lowering("gat")``).
   ``specialize(prog)``  sets the per-op mode mux from each kernel's FLOP
-                        model (core.ack.choose_mode) or the caller's force.
+                        model (core.ack.choose_mode), from measured p50s
+                        (``measured=``, a calibration table) or the
+                        caller's force.
   ``execute(prog)``     one executor runs any specialized program; the
                         inner layers loop over index ``l`` of the stacked
                         ``params["layers"]`` (the reference's ``lax.scan``).
+                        ``blocks=`` passes tuned kernel block sizes.
 
 The op vocabulary is the paper's kernel taxonomy: Aggregate (FA),
 Transform (FT), AttentionScore + AttentionSoftmax (Attention), Residual,
@@ -446,6 +449,16 @@ class ProgramDecision:
 
 ForceSpec = Union[None, str, Dict[str, str]]
 
+# kernel block overrides threaded through the executor: {"block_f":
+# int|None, "block_cols": int|None} (the fused layer's output-column
+# grouping and the sort scatter-gather's columns a block, the port's
+# counterparts of the reference's block_f and block_e). None / missing keys
+# keep the kernels' defaults, so blocks=None is exactly the path without
+# autotune. block_cols reaches the sg Aggregates, whose width autotune
+# times; the sg softmax's sums (one head's columns) keep the kernel's
+# default, which follows their width.
+BlockSpec = Optional[Dict[str, Optional[int]]]
+
 
 def mux_sites(prog: AckProgram) -> Tuple[str, ...]:
     """Site labels of every EXECUTED op with a dense/sg mux — the keys a
@@ -498,16 +511,38 @@ def _forced(force: ForceSpec, site: str, opname: str) -> Optional[str]:
 
 def specialize(prog: AckProgram, *, n: int, avg_edges: float = 0.0,
                f_in: Optional[int] = None, f_hidden: int = 256,
-               force: ForceSpec = None
+               force: ForceSpec = None, measured=None,
+               measured_impl: str = "torch",
+               measured_bucket: Optional[int] = None
                ) -> Tuple[AckProgram, ProgramDecision]:
     """Set every op's mode mux. Mux'd ops (Aggregate, AttentionSoftmax)
     each get their own dense/sg decision from their kernel's FLOP model at
     that op's feature width; Transform and friends are recorded as dense.
     ``force`` is None (auto), "dense"/"sg" (all mux'd ops), or a dict keyed
-    by site ("layer0[0]") or op class name ("Aggregate"). (The reference's
-    measured-cost override belongs to the calibration plane, which is not
-    ported yet.)"""
+    by site ("layer0[0]") or op class name ("Aggregate").
+
+    ``measured`` is an optional ``obs.calib.CalibrationTable``: when BOTH
+    the dense and sg cells for a mux'd op are populated (keyed by op class
+    name, at ``measured_impl`` / ``measured_bucket``), their measured p50s
+    override the static FLOP model for that op. Partially populated or
+    absent cells fall back to the FLOP model per op; an explicit ``force``
+    always wins."""
     f_in = f_in if f_in is not None else f_hidden
+
+    def _measured_mode(op):
+        """(mode, reason) from measured p50s, or None to use the FLOP
+        model for this op."""
+        if measured is None:
+            return None
+        cls = type(op).__name__
+        td = measured.lookup(cls, f"{measured_impl}/dense",
+                             measured_bucket)
+        ts = measured.lookup(cls, f"{measured_impl}/sg", measured_bucket)
+        if td is None or ts is None:
+            return None
+        mode = "dense" if td <= ts else "sg"
+        return mode, (f"measured p50 {measured_impl} dense={td:.3e}s vs "
+                      f"sg={ts:.3e}s -> {mode}")
 
     decisions = []
     new_secs: Dict[str, Tuple[AckOp, ...]] = {}
@@ -529,6 +564,10 @@ def specialize(prog: AckProgram, *, n: int, avg_edges: float = 0.0,
                 d = choose_mode(n, avg_edges, f_cur,
                                 force=_forced(force, site, name))
                 mode, reason = d.mode, d.reason
+                if _forced(force, site, name) is None:
+                    m = _measured_mode(op)
+                    if m is not None:
+                        mode, reason = m
                 op = replace(op, mode=mode)
                 if executed:
                     decisions.append(OpDecision(
@@ -576,8 +615,16 @@ def _struct(batch, mask, n, like):
     return (torch.sign(batch["adj_mean"]) + eye) * mask[:, None, :]
 
 
-def _step_aggregate(op: Aggregate, impl: str):
+def _block_kw(blocks: BlockSpec, key: str) -> dict:
+    """Kernel kwargs for a tuned block size (empty = the defaults)."""
+    if blocks and blocks.get(key):
+        return {key: int(blocks[key])}
+    return {}
+
+
+def _step_aggregate(op: Aggregate, impl: str, blocks: BlockSpec = None):
     from repro_torch.kernels import ops as kops
+    bkw = _block_kw(blocks, "block_cols")
 
     def step(p, regs, batch):
         h = regs[op.src]
@@ -587,7 +634,8 @@ def _step_aggregate(op: Aggregate, impl: str):
         w = _sg_weights(op.norm, batch)
         if impl == "cuda":
             z = kops.scatter_gather_aggregate(batch["edge_src"],
-                                              batch["edge_dst"], w, h)
+                                              batch["edge_dst"], w, h,
+                                              **bkw)
         else:
             z = agg_sg(batch["edge_src"], batch["edge_dst"], w, h,
                        h.shape[1])
@@ -607,8 +655,9 @@ def _step_residual(op: Residual):
     return step
 
 
-def _step_transform(op: Transform, impl: str):
+def _step_transform(op: Transform, impl: str, blocks: BlockSpec = None):
     from repro_torch.kernels import ops as kops
+    bkw = _block_kw(blocks, "block_f")
 
     if impl == "cuda" and op.w_self is None:
         # pure single-input transform through the fused kernel's W_self
@@ -620,7 +669,7 @@ def _step_transform(op: Transform, impl: str):
             h = regs[op.src]
             regs[op.out] = kops.fused_gnn_layer(
                 None, h, None, p[op.w], p[op.b] if op.b else None,
-                batch["mask"], act=op.act)
+                batch["mask"], act=op.act, **bkw)
         return step
 
     def step(p, regs, batch):
@@ -637,10 +686,12 @@ def _step_transform(op: Transform, impl: str):
     return step
 
 
-def _fused_step(agg: Aggregate, res: Optional[Residual], tf: Transform):
+def _fused_step(agg: Aggregate, res: Optional[Residual], tf: Transform,
+                blocks: BlockSpec = None):
     """Kernel peephole: dense Aggregate [+ Residual] + Transform as ONE
     fused kernel call (A @ (H @ W) association, see kernels/fused_gnn.py)."""
     from repro_torch.kernels import ops as kops
+    bkw = _block_kw(blocks, "block_f")
 
     def step(p, regs, batch):
         h = regs[agg.src]
@@ -651,7 +702,7 @@ def _fused_step(agg: Aggregate, res: Optional[Residual], tf: Transform):
             a = a + scale * torch.eye(n, dtype=h.dtype, device=h.device)
         regs[tf.out] = kops.fused_gnn_layer(
             a, h, p[tf.w], p[tf.w_self] if tf.w_self else None,
-            p[tf.b] if tf.b else None, batch["mask"], act=tf.act)
+            p[tf.b] if tf.b else None, batch["mask"], act=tf.act, **bkw)
     return step
 
 
@@ -700,9 +751,14 @@ def _step_attention_softmax(op: AttentionSoftmax, impl: str):
             regs[op.out] = finish(out.reshape(C, N, F), p, batch)
         return step
 
-    # sg mode: edge-parallel segment softmax (no kernel for this — the
-    # plain segment path is the sparse overlay on both impls). Subgraph c's
-    # vertices are rows c*N..c*N+N-1 of one flat segment axis.
+    # sg mode: edge-parallel segment softmax. Subgraph c's vertices are
+    # rows c*N..c*N+N-1 of one flat segment axis. The segment max is
+    # order-free; the segment sums (the softmax's denominator and
+    # numerator) run under impl="cuda" in one launch of the scatter-gather
+    # kernel with the (subgraph, head) pairs on its batch axis, which sums
+    # each destination's edges in edge order: no atomics, one answer on
+    # every run. The plain path sums with index_add_ (the reference's
+    # segment_sum), whose order on a card is not fixed.
     def step(p, regs, batch):
         z = regs[op.src]
         C, N, F = z.shape
@@ -711,14 +767,15 @@ def _step_attention_softmax(op: AttentionSoftmax, impl: str):
         dev = z.device
         valid = (batch["edge_w"] != 0).to(z.dtype)
         # self-loop handled by appending implicit (i, i) edges
-        iota = torch.arange(N, device=dev).expand(C, N)
-        s_all = torch.cat([batch["edge_src"].long(), iota], dim=1)
-        d_all = torch.cat([batch["edge_dst"].long(), iota], dim=1)
+        iota = torch.arange(N, device=dev, dtype=batch["edge_src"].dtype
+                            ).expand(C, N)
+        s_all = torch.cat([batch["edge_src"], iota], dim=1)
+        d_all = torch.cat([batch["edge_dst"], iota], dim=1)
         v_all = torch.cat([valid, torch.ones((C, N), dtype=z.dtype,
                                              device=dev)], dim=1)
         off = (torch.arange(C, device=dev) * N)[:, None]
-        fs = (s_all + off).reshape(-1)
-        fd = (d_all + off).reshape(-1)
+        fs = (s_all.long() + off).reshape(-1)
+        fd = (d_all.long() + off).reshape(-1)
         ss = regs["s_src"].reshape(C * N, nh)
         sd = regs["s_dst"].reshape(C * N, nh)
         e = TF.leaky_relu(sd[fd] + ss[fs], op.negative_slope)
@@ -728,21 +785,59 @@ def _step_attention_softmax(op: AttentionSoftmax, impl: str):
         m = m.scatter_reduce(0, fd[:, None].expand(-1, nh), e, "amax",
                              include_self=False)
         ex = torch.exp(e - m[fd]) * v
-        den = torch.zeros((C * N, nh), dtype=z.dtype,
-                          device=dev).index_add_(0, fd, ex)
-        alpha = ex / torch.clamp(den[fd], min=1e-20)
-        upd = alpha[:, :, None] * z.reshape(C * N, nh, fh)[fs]
-        out = torch.zeros((C * N, nh, fh), dtype=z.dtype,
-                          device=dev).index_add_(0, fd, upd)
+        if impl == "cuda":
+            out = _sg_softmax_sums(s_all, d_all, ex, z, nh)
+        else:
+            den = torch.zeros((C * N, nh), dtype=z.dtype,
+                              device=dev).index_add_(0, fd, ex)
+            alpha = ex / torch.clamp(den[fd], min=1e-20)
+            upd = alpha[:, :, None] * z.reshape(C * N, nh, fh)[fs]
+            out = torch.zeros((C * N, nh, fh), dtype=z.dtype,
+                              device=dev).index_add_(0, fd, upd)
         regs[op.out] = finish(out.reshape(C, N, F), p, batch)
     return step
 
 
-def compile_steps(seq: Sequence[AckOp], impl: str):
+def _sg_softmax_sums(s_all, d_all, ex, z, nh):
+    """The sg softmax's segment sums in one scatter-gather launch, one item
+    a (subgraph, head) pair: h = [z_head | 1 | 0...] (padded to a multiple
+    of 4 columns) and w = ex give the numerator sum_e ex_e z[src_e] in the
+    head's columns and the denominator sum_e ex_e in the ones column; the
+    output is their quotient (denominator clamped at 1e-20, as the plain
+    path's). A weight-0 edge is not walked but poisons its destination's
+    numerator where z[src] is non-finite, as the plain path's 0 * z does.
+    ``s_all``/``d_all`` [C, E'] int32 (the self loops appended), ``ex``
+    [C*E', nh], z [C, N, F]; returns [C*N, nh, F/nh]."""
+    from repro_torch.kernels import ops as kops
+    C, N, F = z.shape
+    fh = F // nh
+    e_all = s_all.shape[1]
+    src = s_all.unsqueeze(1).expand(C, nh, e_all).reshape(C * nh, e_all)
+    dst = d_all.unsqueeze(1).expand(C, nh, e_all).reshape(C * nh, e_all)
+    w = ex.float().reshape(C, e_all, nh).permute(0, 2, 1).reshape(
+        C * nh, e_all)
+    h = torch.zeros((C * nh, N, fh // 4 * 4 + 4), dtype=z.dtype,
+                    device=z.device)
+    h[..., :fh] = z.reshape(C, N, nh, fh).permute(0, 2, 1, 3).reshape(
+        C * nh, N, fh)
+    h[..., fh] = 1
+    sums = kops.scatter_gather_aggregate(
+        src.int().contiguous(), dst.int().contiguous(), w.contiguous(), h)
+    out = sums[..., :fh] / torch.clamp(sums[..., fh:fh + 1], min=1e-20)
+    return out.reshape(C, nh, N, fh).permute(0, 2, 1, 3).reshape(
+        C * N, nh, fh)
+
+
+def compile_steps(seq: Sequence[AckOp], impl: str,
+                  blocks: BlockSpec = None):
     """Lower an op stream to labeled step closures: a list of
     ``(ops, step)`` pairs where ``ops`` is the tuple of AckOps the step
     executes (a singleton, or the Aggregate[+Residual]+Transform group the
-    kernel peephole fused into one kernel call)."""
+    kernel peephole fused into one kernel call). ``_compile_section``
+    strips the labels for serving; ``obs.calib`` keeps them to time each
+    step of a sampled pass. ``blocks`` threads autotuned block sizes into
+    the kernel calls (``{"block_f": ..., "block_cols": ...}``; None = the
+    kernels' defaults)."""
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r}, expected one of {IMPLS}")
     steps = []
@@ -768,15 +863,16 @@ def compile_steps(seq: Sequence[AckOp], impl: str):
                     and seq[j].src == op.out):
                 group = tuple(o for o in (op, res, seq[j])
                               if o is not None)
-                steps.append((group, _fused_step(op, res, seq[j])))
+                steps.append((group, _fused_step(op, res, seq[j],
+                                                 blocks)))
                 i = j + 1
                 continue
         if isinstance(op, Aggregate):
-            steps.append(((op,), _step_aggregate(op, impl)))
+            steps.append(((op,), _step_aggregate(op, impl, blocks)))
         elif isinstance(op, Residual):
             steps.append(((op,), _step_residual(op)))
         elif isinstance(op, Transform):
-            steps.append(((op,), _step_transform(op, impl)))
+            steps.append(((op,), _step_transform(op, impl, blocks)))
         elif isinstance(op, AttentionScore):
             steps.append(((op,), _step_attention_score(op)))
         elif isinstance(op, AttentionSoftmax):
@@ -787,8 +883,9 @@ def compile_steps(seq: Sequence[AckOp], impl: str):
     return steps
 
 
-def _compile_section(seq: Sequence[AckOp], impl: str):
-    steps = [step for _, step in compile_steps(seq, impl)]
+def _compile_section(seq: Sequence[AckOp], impl: str,
+                     blocks: BlockSpec = None):
+    steps = [step for _, step in compile_steps(seq, impl, blocks)]
 
     def apply(p, h, batch, h0=None):
         # "h0" is the propagation ENTRY state: the layer input for
@@ -801,36 +898,51 @@ def _compile_section(seq: Sequence[AckOp], impl: str):
     return apply
 
 
-def execute(prog: AckProgram, params, batch, impl: str = "cuda"):
-    """Run a specialized AckProgram: layer0, then the L-1 inner layers (one
-    per index ``l`` of the stacked ``params["layers"]``), then the tail.
-    Returns ``(embeddings [C, f], final h [C, N, f])``."""
+def compile_program(prog: AckProgram, impl: str = "cuda",
+                    blocks: BlockSpec = None):
+    """Lower a specialized AckProgram once to ``run(params, batch) ->
+    (embeddings [C, f], final h [C, N, f])``: layer0, then the L-1 inner
+    layers (one per index ``l`` of the stacked ``params["layers"]``), then
+    the tail. A per-batch dispatch variant is one such callable."""
     if not prog.specialized:
         raise ValueError(
             "program has unspecialized mux ops — call specialize() first")
-    apply0 = _compile_section(prog.layer0, impl)
-    h = apply0(params["layer0"], batch["feats"], batch)
-    if prog.n_layers > 1:
-        apply_i = _compile_section(prog.inner, impl)
-        h0 = h                      # inner-entry prediction, teleport anchor
-        layers = params["layers"]
-        depth = {int(v.shape[0]) for v in layers.values()}
-        if depth != {prog.n_layers - 1}:
-            raise ValueError(f"params['layers'] stacks {sorted(depth)} "
-                             f"layers, the program runs "
-                             f"{prog.n_layers - 1}")
-        for l in range(prog.n_layers - 1):
-            h = apply_i({k: v[l] for k, v in layers.items()}, h, batch,
-                        h0=h0)
-    emb = h
-    for op in prog.tail:
-        if isinstance(op, Readout):
-            emb = readout(h, batch["mask"], op.kind)
-        elif isinstance(op, Classify):
-            emb = emb @ params[op.w] + params[op.b]
-        else:
-            raise TypeError(f"op {op!r} is not a tail op")
-    return emb, h
+    apply0 = _compile_section(prog.layer0, impl, blocks)
+    apply_i = _compile_section(prog.inner, impl, blocks) \
+        if prog.n_layers > 1 else None
+
+    def run(params, batch):
+        h = apply0(params["layer0"], batch["feats"], batch)
+        if apply_i is not None:
+            h0 = h                  # inner-entry prediction, teleport anchor
+            layers = params["layers"]
+            depth = {int(v.shape[0]) for v in layers.values()}
+            if depth != {prog.n_layers - 1}:
+                raise ValueError(f"params['layers'] stacks {sorted(depth)} "
+                                 f"layers, the program runs "
+                                 f"{prog.n_layers - 1}")
+            for l in range(prog.n_layers - 1):
+                h = apply_i({k: v[l] for k, v in layers.items()}, h, batch,
+                            h0=h0)
+        emb = h
+        for op in prog.tail:
+            if isinstance(op, Readout):
+                emb = readout(h, batch["mask"], op.kind)
+            elif isinstance(op, Classify):
+                emb = emb @ params[op.w] + params[op.b]
+            else:
+                raise TypeError(f"op {op!r} is not a tail op")
+        return emb, h
+    return run
+
+
+def execute(prog: AckProgram, params, batch, impl: str = "cuda",
+            blocks: BlockSpec = None):
+    """Run a specialized AckProgram (``compile_program`` then one call).
+    Returns ``(embeddings [C, f], final h [C, N, f])``; ``blocks`` carries
+    autotuned kernel block sizes (see ``compile_steps``), None keeps the
+    kernels' defaults."""
+    return compile_program(prog, impl, blocks)(params, batch)
 
 
 def lower_and_specialize(cfg, *, avg_edges: float = 0.0,

@@ -1,13 +1,18 @@
 """The versioned key schema behind the scheduler's summary.
 
 The PyTorch counterpart of ``repro.core.report_schema``, limited to the
-sections this package emits: ``latency.*``, ``stages.*`` and ``store.*``
-keep the reference's names, so a dashboard reads both packages alike
-(``SCHEMA``, the reference's key map of those sections). The
-reference's ``shards``/``rpc``/``trace``/``precompute``/``telemetry``/
-``dispatch`` sections belong to planes not ported yet.
+sections this package emits: ``latency.*``, ``stages.*``, ``store.*``,
+``trace.*`` (traced deployments) and ``dispatch.*`` (adaptively
+dispatched ones) keep the reference's names, so a dashboard reads both
+packages alike (``SCHEMA``, the reference's key map of those sections).
+``trace`` and ``dispatch`` add one key the reference lacks,
+``explore_failures``: the calibration, warm-up and autotune passes that
+raised, which the reference swallows. The reference's ``shards``/``rpc``/
+``precompute``/``telemetry`` sections belong to planes not ported yet.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 SCHEMA_VERSION = 5
 
@@ -21,6 +26,14 @@ SCHEMA = {
     "store": ("bytes_shipped", "bytes_dense", "transfer_ratio",
               "cache_hit_rate", "dedup_ratio", "policy", "features",
               "nbr_cache", "subgraph_cache", "auto_repins"),
+    "trace": ("enabled", "sample_every", "ring_capacity", "flight_k",
+              "calibrate_every", "tickets_traced", "spans",
+              "spans_dropped", "remote_spans", "host", "hists",
+              "flight", "clock_sync", "calibration", "explore_failures"),
+    "dispatch": ("enabled", "policy", "impl", "mux_sites", "decisions",
+                 "sources", "warmup", "variants", "blocks",
+                 "table_cells", "table_passes", "artifact",
+                 "explore_failures"),
 }
 
 
@@ -43,6 +56,27 @@ def store_section(stats) -> dict:
             "dedup_ratio": stats.last_dedup_ratio}
 
 
+def trace_section(tracer, calibration=None) -> Optional[dict]:
+    """The ``trace.*`` section of a traced deployment (None when tracing
+    is off — the section is omitted)."""
+    if tracer is None:
+        return None
+    d = tracer.report()
+    if calibration is not None and len(calibration):
+        d["calibration"] = calibration.to_dict()
+    return d
+
+
+def dispatch_section(engine) -> Optional[dict]:
+    """The ``dispatch.*`` section of an adaptively dispatched deployment
+    (None when ServingConfig(dispatch=...) is unset — omitted, like
+    ``trace``)."""
+    rep = getattr(engine, "dispatch_report", None)
+    if rep is None:
+        return None
+    return rep()
+
+
 def scheduler_summary(stats) -> dict:
     """The nested summary a ``SchedulerStats`` emits."""
     return {"schema_version": SCHEMA_VERSION,
@@ -55,4 +89,5 @@ def scheduler_summary(stats) -> dict:
 
 
 __all__ = ["SCHEMA_VERSION", "SCHEMA", "scheduler_summary",
-           "stages_section", "store_section"]
+           "stages_section", "store_section", "trace_section",
+           "dispatch_section"]

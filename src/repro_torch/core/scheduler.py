@@ -19,7 +19,15 @@ the device function has finished when it returns.
 once per deployment, then ``submit()`` micro-batches as they arrive or
 ``run()`` a list of them. ``SchedulerStats`` reports the paper's §5.4
 quantities: t_initialization (first-batch host latency), per-stage sums,
-and the achieved overlap fraction. (The reference's tracing and telemetry
+and the achieved overlap fraction.
+
+Tracing (``tracer=``, an ``obs.Tracer``): sampled tickets carry a
+``TraceContext`` and get one span per station — each host stage, and
+"device", which opens when the device function is called and closes when
+``_drain`` has waited on the batch's CUDA event (the wait serving does
+anyway: a trace adds no synchronize). Device spans of pipelined batches
+overlap on the dispatcher thread, so each takes the lane of its sequence
+number, as the reference's batch roots do. (The reference's telemetry
 hooks are not ported yet.)
 """
 from __future__ import annotations
@@ -129,8 +137,8 @@ class StreamTicket:
     (complete: its event has been waited on)."""
 
     __slots__ = ("item", "seq", "on_done", "t_submit", "t_host", "t_device",
-                 "stage_times", "output", "cuda_event", "error", "_event",
-                 "_host_future")
+                 "stage_times", "output", "cuda_event", "error", "trace",
+                 "device_span", "_event", "_host_future")
 
     def __init__(self, item: Any, seq: int,
                  on_done: Optional[Callable] = None):
@@ -144,6 +152,8 @@ class StreamTicket:
         self.output: Any = None
         self.cuda_event = None       # recorded after the device step
         self.error: Optional[BaseException] = None
+        self.trace = None            # obs.TraceContext when sampled
+        self.device_span = None      # open "device" span until drained
         self._event = threading.Event()
         self._host_future = None
 
@@ -177,6 +187,10 @@ class PipelineScheduler:
                       fired on the dispatcher thread after stats are
                       recorded (the engine's auto-repin trigger point);
                       exceptions are swallowed.
+    tracer          -> optional ``obs.Tracer``; sampled tickets get a
+                      TraceContext and every stage/device step runs
+                      under a span. None (default) = tracing off —
+                      each hot-path site pays one ``is None`` test.
 
     Lifecycle: lazily started on first submit/run; ``close()`` drains and
     tears down threads (the stage objects are owned — and closed — by
@@ -186,11 +200,12 @@ class PipelineScheduler:
 
     def __init__(self, stages: Sequence, device_fn: Callable,
                  depth: int = 3, max_inflight: Optional[int] = None,
-                 on_batch: Optional[Callable] = None):
+                 on_batch: Optional[Callable] = None, tracer=None):
         self.stages = list(stages)
         if not self.stages:
             raise ValueError("empty stage sequence")
         self.device_fn = device_fn
+        self.tracer = tracer
         self.depth = max(1, depth)
         self.max_inflight = max_inflight or 2 * self.depth
         self.on_batch = on_batch
@@ -256,11 +271,33 @@ class PipelineScheduler:
                 + time.perf_counter() - t0
         return v
 
+    def _traced(self, name: str, ticket: StreamTicket, fn, *args):
+        """Run one pipeline step, under a span when the ticket is traced
+        (the untraced path is a single attribute test + call)."""
+        tr = self.tracer
+        if tr is None or ticket.trace is None:
+            return fn(*args)
+        with tr.span(name, ctx=ticket.trace, seq=ticket.seq):
+            return fn(*args)
+
+    def _device_step(self, ticket: StreamTicket, host_batch):
+        """Launch the batch's device work; a traced ticket's "device" span
+        stays open (closed in ``_complete``, after the drain) and is the
+        current span meanwhile, so the engine's store-gather and
+        calibration spans nest under it."""
+        tr = self.tracer
+        if tr is None or ticket.trace is None:
+            return self.device_fn(host_batch)
+        ticket.device_span = tr.open_span(
+            "device", ctx=ticket.trace, seq=ticket.seq, tid=ticket.seq % 16)
+        with tr.activate(ticket.device_span):
+            return self.device_fn(host_batch)
+
     def _stage_step(self, ticket: StreamTicket, i: int, value):
         st = self.stages[i]
         t0 = time.perf_counter()
         try:
-            out = st.run(value)
+            out = self._traced(st.name, ticket, st.run, value)
         except BaseException as e:             # noqa: BLE001
             ticket.stage_times[st.name] = \
                 ticket.stage_times.get(st.name, 0.0) \
@@ -295,11 +332,15 @@ class PipelineScheduler:
             if self._inflight == 0:
                 self._active_since = time.perf_counter()
             self._inflight += 1
+        if self.tracer is not None:
+            t.trace = self.tracer.maybe_trace(seq=t.seq)
         try:
             t._host_future = Future()
             self._stage_pools[0].submit(self._stage_step, t, 0, t.item)
             self._order_q.put(t)
         except RuntimeError as e:    # pool shut down by a racing close()
+            if t.trace is not None:
+                self.tracer.discard_ticket(t.trace)
             with self._idle:
                 self._inflight -= 1
                 if self._inflight == 0:
@@ -342,6 +383,16 @@ class PipelineScheduler:
         with self._lock:
             self.stats.record(ticket.t_host, ticket.t_device)
             self.stats.merge_stage_times(ticket.stage_times)
+        if ticket.trace is not None:
+            # the device span ends here, after the drain's wait on the
+            # batch's event; then the batch's tree closes before waiters
+            # wake, so a result() followed by export sees the full tree
+            self.tracer.close_span(ticket.device_span)
+            ticket.device_span = None
+            self.tracer.finish_ticket(
+                ticket.trace, error=ticket.error is not None,
+                t_host=round(ticket.t_host, 6),
+                t_device=round(ticket.t_device, 6))
         ticket._event.set()          # resolve BEFORE on_done: callbacks may
         if ticket.on_done is not None:           # call ticket.result()
             try:
@@ -383,7 +434,7 @@ class PipelineScheduler:
             try:
                 hb, t.t_host = t._host_future.result()
                 td0 = time.perf_counter()
-                t.output = self.device_fn(hb)
+                t.output = self._device_step(t, hb)
                 t.cuda_event = record_event(t.output)
             except BaseException as e:             # noqa: BLE001
                 t.error = e

@@ -24,9 +24,13 @@
 // (kernels/scatter_gather.py, sg_variant).
 //
 // "sort" (E <= 65,536 and its shared memory fits at (N, E): every serving
-// launch at N=256). One block of 16 warps per (c, tile of BF columns), BF = 128 where
-// shared memory allows, else 64 or 32 (the caller picks the widest that
-// fits at (N, E)); a lane owns BF/32 consecutive columns.
+// launch at N=256). One block of 16 warps per (c, tile of BF columns), BF =
+// 128, 64 or 32: by default the narrowest that still covers F in one tile
+// (F <= 32: 32, F <= 64: 64, else 128; a narrower block stages less and
+// more blocks share an SM), never wider than the widest whose shared
+// memory fits at (N, E); or the width the caller asks for (autotune's
+// knob, which changes no result, since every lane sums its columns in the
+// same edge order). A lane owns BF/32 consecutive columns.
 //   Staging: cp.async copies h[c, :, tile] (N x BF fp32, 128 KB at N=256)
 //   into shared memory while phase 1 runs (bf16 h: plain loads, widened).
 //   Phase 1, a stable counting sort of the live edges (w != 0, src and dst
@@ -364,11 +368,15 @@ int launch(const int* src, const int* dst, const float* w, const T* h,
 
 constexpr int MAX_SMEM = 232448;       // bytes a block may have (H100)
 
-int block_cols(int N, int E) {
+// The default columns a block at (N, E, F): the narrowest candidate that
+// covers F, capped at the widest that fits; 0 where none fits.
+int block_cols(int N, int E, int F) {
   if (E > 65536) return 0;             // 16-bit edge indices
-  for (int bf = 128; bf >= 32; bf /= 2)
-    if (Layout(N, E, bf).bytes <= MAX_SMEM) return bf;
-  return 0;
+  int bf = 128;
+  while (bf >= 32 && Layout(N, E, bf).bytes > MAX_SMEM) bf /= 2;
+  if (bf < 32) return 0;
+  while (bf > 32 && bf / 2 >= F) bf /= 2;
+  return bf;
 }
 
 // -- "bucket" ----------------------------------------------------------------
@@ -555,13 +563,21 @@ __global__ void __launch_bounds__(32 * GROWS) bucket_gather_kernel(
   elem::store4(out + ((long long)c * N + i) * F + f, F - f, vec, acc);
 }
 
+// Whether the sort variant takes (N, E) at bc columns a block.
+bool fits(int N, int E, int bc) {
+  return (bc == 128 || bc == 64 || bc == 32) && E <= 65536 &&
+         Layout(N, E, bc).bytes <= MAX_SMEM;
+}
+
 template <typename T>
 int launch_sort(const int* src, const int* dst, const float* w, const T* h,
-                T* out, int C, int N, int E, int F, void* stream) {
+                T* out, int C, int N, int E, int F, int bc, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = F % 4 == 0 && (reinterpret_cast<uintptr_t>(h) & 15) == 0 &&
                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  switch (block_cols(N, E)) {
+  if (bc == 0) bc = block_cols(N, E, F);
+  else if (!fits(N, E, bc)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (bc) {
     case 128: return launch<T, 4>(src, dst, w, h, out, C, N, E, F, vec, s);
     case 64: return launch<T, 2>(src, dst, w, h, out, C, N, E, F, vec, s);
     case 32: return launch<T, 1>(src, dst, w, h, out, C, N, E, F, vec, s);
@@ -590,10 +606,13 @@ int launch_bucket(const int* src, const int* dst, const float* w, const T* h,
 
 extern "C" {
 
-// The columns a block of the sort variant takes at (N, E): 128, 64 or 32,
-// the widest whose shared memory fits a block; 0 where none does or E >
-// 65,536 (then the bucket variant takes the shape).
-int scatter_gather_block_cols(int N, int E) { return block_cols(N, E); }
+// The columns a block of the sort variant takes by default at (N, E) for F
+// columns: 128, 64 or 32, the narrowest that covers F, capped at the
+// widest whose shared memory fits a block; 0 where none fits or E > 65,536
+// (then the bucket variant takes the shape).
+int scatter_gather_block_cols(int N, int E, int F) {
+  return block_cols(N, E, F);
+}
 
 // int32 words of scratch the bucket variant needs for C subgraphs.
 long long scatter_gather_bucket_scratch_words(int C, int N, int E, int F) {
@@ -602,19 +621,24 @@ long long scatter_gather_bucket_scratch_words(int C, int N, int E, int F) {
 
 // src/dst [C,E] int32, w [C,E] fp32, h [C,N,F] and out [C,N,F] fp32 (_f32)
 // or bf16 (_bf16), contiguous. The sort variant needs
-// scatter_gather_block_cols(N, E) != 0; the bucket variant takes any shape
-// and `scratch` of scatter_gather_bucket_scratch_words int32. Each returns
-// cudaGetLastError (cudaErrorInvalidValue where the sort's shared memory
-// does not fit).
+// scatter_gather_block_cols(N, E, F) != 0 and takes block_cols columns a
+// block (128, 64 or 32; 0 = scatter_gather_block_cols(N, E, F)); the bucket
+// variant takes any shape and `scratch` of
+// scatter_gather_bucket_scratch_words int32. Each returns cudaGetLastError
+// (cudaErrorInvalidValue where the sort's shared memory does not fit at
+// the width asked for).
 int scatter_gather_sort_f32(const int* src, const int* dst, const float* w,
                             const float* h, float* out, int C, int N, int E,
-                            int F, void* stream) {
-  return launch_sort<float>(src, dst, w, h, out, C, N, E, F, stream);
+                            int F, int block_cols, void* stream) {
+  return launch_sort<float>(src, dst, w, h, out, C, N, E, F, block_cols,
+                            stream);
 }
 int scatter_gather_sort_bf16(const int* src, const int* dst, const float* w,
                              const elem::bf16* h, elem::bf16* out, int C,
-                             int N, int E, int F, void* stream) {
-  return launch_sort<elem::bf16>(src, dst, w, h, out, C, N, E, F, stream);
+                             int N, int E, int F, int block_cols,
+                             void* stream) {
+  return launch_sort<elem::bf16>(src, dst, w, h, out, C, N, E, F, block_cols,
+                                 stream);
 }
 int scatter_gather_bucket_f32(const int* src, const int* dst, const float* w,
                               const float* h, float* out, int* scratch, int C,

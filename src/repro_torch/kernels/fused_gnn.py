@@ -47,6 +47,9 @@ ACT_CODES = {"none": 0, "relu": 1, "elu": 2}
 # tiles per thread block of the cuda_core kernel (the tf32x3 kernel takes
 # one tile a block), so it never changes a result
 TILE_N = 64
+# block_f values that autotune sweeps (the reference's BLOCK_F_CANDIDATES);
+# only the cuda_core kernel groups tiles by it
+BLOCK_F_CANDIDATES = (64, 128, 256, 512)
 VARIANTS = ("tf32x3", "cuda_core")
 TF32X3_MAX_N = 256          # the tf32x3 kernel keeps all N rows in a block
 # shared memory of one block (bytes): tf32x3's fixed layout (two ring-1

@@ -4,7 +4,8 @@ Each wrapper launches its CUDA kernel for CUDA tensors and takes its plain
 version for CPU tensors; ``impl="torch"`` programs call the plain versions
 (``kernels.ref``) directly. ``launch_counts`` / ``reset_launch_counts``
 read and zero the wrappers' launch counters (``flash_attention`` also
-counts each of its two kernels: ``flash_attention.variant_launches``).
+counts each of its two kernels: ``flash_attention.variant_launches``; the
+scatter-gather also its sort kernel's widths: ``width_launches``).
 """
 from __future__ import annotations
 
@@ -34,3 +35,5 @@ def reset_launch_counts() -> None:
             m.launches = 0
             if hasattr(m, "variant_launches"):
                 m.variant_launches = dict.fromkeys(m.variant_launches, 0)
+            if hasattr(m, "width_launches"):
+                m.width_launches = dict.fromkeys(m.width_launches, 0)

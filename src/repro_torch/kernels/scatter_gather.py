@@ -13,10 +13,10 @@ rounded once on the store); w is float32. Two kernels, chosen by
 ``sg_variant`` from the shapes before launch:
 
 - ``"sort"`` (E <= 65,536 and its shared memory fits at (N, E): every
-  serving launch at N=256): one block per (c, tile of 128 columns, or 64
-  or 32 where shared memory is short) stages its tile of h[c] in shared
-  memory and sorts the live edges (w != 0) by destination there, stably,
-  with 16-bit edge indices.
+  serving launch at N=256): one block per (c, tile of 128, 64 or 32
+  columns: ``sort_block_cols``) stages its tile of h[c] in shared memory
+  and sorts the live edges (w != 0) by destination there, stably, with
+  16-bit edge indices.
 - ``"bucket"`` (the rest, e.g. forced sg at N=1024 with the Flickr-sized
   graph's 74,496 edge slots): the same stable sort with 32-bit indices
   into a scratch in device memory (one block a subgraph), then a second
@@ -32,7 +32,8 @@ with an index outside [0, N) are skipped.
 
 The wrapper takes the plain version for tensors on the CPU; for CUDA
 tensors it launches the chosen kernel or raises. ``launches`` counts
-launches (one a call), ``variant_launches`` each kernel's.
+launches (one a call), ``variant_launches`` each kernel's and
+``width_launches`` the sort kernel's by columns a block.
 """
 from __future__ import annotations
 
@@ -45,10 +46,16 @@ from repro_torch.kernels import build
 
 VARIANTS = ("sort", "bucket")
 SORT_MAX_EDGES = 65536      # the sort kernel's 16-bit edge indices
+# the sort kernel's columns a block (its template's V = 4, 2, 1): the
+# port's counterpart of the reference's BLOCK_E_CANDIDATES for autotune.
+# Every lane sums its columns over its destination's edges in sorted-edge
+# order whatever the width, so the width never changes a result
+BLOCK_COLS_CANDIDATES = (128, 64, 32)
 _SORT_WARPS = 16
 
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
+width_launches = dict.fromkeys(BLOCK_COLS_CANDIDATES, 0)
 _count_lock = threading.Lock()
 
 
@@ -63,17 +70,27 @@ def sort_smem_bytes(N: int, E: int, block_cols: int) -> int:
     return idx + ((2 * E + 15) & ~15)
 
 
-def sort_block_cols(N: int, E: int) -> int:
-    """Columns a sort-kernel block takes at (N, E): 128, 64 or 32, the
-    widest whose shared memory fits a block; 0 where none does or E
-    exceeds the 16-bit indices (the library's scatter_gather_block_cols
-    must agree)."""
-    if E > SORT_MAX_EDGES:
+def sort_block_cols(N: int, E: int, F: int = BLOCK_COLS_CANDIDATES[0]
+                    ) -> int:
+    """Columns a sort-kernel block takes by default at (N, E) for F
+    columns: 128, 64 or 32, the narrowest that still covers F in one tile
+    (a narrower block stages less and more blocks share an SM; the sg
+    softmax's 64-wide heads take 64), capped at the widest whose shared
+    memory fits a block; 0 where none fits or E exceeds the 16-bit indices
+    (the library's scatter_gather_block_cols must agree)."""
+    fit = [bc for bc in BLOCK_COLS_CANDIDATES if sort_block_fits(N, E, bc)]
+    if not fit:
         return 0
-    for bf in (128, 64, 32):
-        if sort_smem_bytes(N, E, bf) <= build.MAX_SMEM:
-            return bf
-    return 0
+    covering = [bc for bc in fit if bc >= F]
+    return covering[-1] if covering else fit[0]
+
+
+def sort_block_fits(N: int, E: int, block_cols: int) -> bool:
+    """Whether the sort kernel takes (N, E) at ``block_cols`` columns a
+    block: a candidate width whose shared memory fits, E within the 16-bit
+    indices."""
+    return (block_cols in BLOCK_COLS_CANDIDATES and E <= SORT_MAX_EDGES
+            and sort_smem_bytes(N, E, block_cols) <= build.MAX_SMEM)
 
 
 def sg_variant(N: int, E: int) -> str:
@@ -104,28 +121,32 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in _SUFFIX.values():
         fn = getattr(lib, f"scatter_gather_sort_{dt}")
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
         fn = getattr(lib, f"scatter_gather_bucket_{dt}")
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
-    lib.scatter_gather_block_cols.argtypes = [i, i]
+    lib.scatter_gather_block_cols.argtypes = [i, i, i]
     lib.scatter_gather_block_cols.restype = i
     lib.scatter_gather_bucket_scratch_words.argtypes = [i, i, i, i]
     lib.scatter_gather_bucket_scratch_words.restype = ctypes.c_longlong
-    for n, e in ((256, 18688), (256, 65537), (1024, 74496), (512, 40000)):
-        if lib.scatter_gather_block_cols(n, e) != sort_block_cols(n, e):
+    for n, e, f in ((256, 18688, 512), (256, 18944, 68), (256, 18944, 64),
+                    (256, 18944, 1), (256, 65537, 512), (1024, 74496, 256),
+                    (512, 40000, 512), (512, 40000, 16)):
+        if lib.scatter_gather_block_cols(n, e, f) != sort_block_cols(n, e, f):
             raise RuntimeError(f"scatter_gather: the library's block width "
-                               f"at N={n}, E={e} is "
-                               f"{lib.scatter_gather_block_cols(n, e)}, the "
-                               f"wrapper's {sort_block_cols(n, e)}")
+                               f"at N={n}, E={e}, F={f} is "
+                               f"{lib.scatter_gather_block_cols(n, e, f)}, "
+                               f"the wrapper's {sort_block_cols(n, e, f)}")
     return lib
 
 
-def scatter_gather_aggregate(src, dst, w, h):
+def scatter_gather_aggregate(src, dst, w, h, block_cols=None):
     """src/dst [C,E] int32 (padding edges carry w == 0 and any index in
     range); w [C,E] float32; h [C,N,F] float32 or bfloat16. Returns
-    [C,N,F] in h's dtype."""
+    [C,N,F] in h's dtype. ``block_cols`` (128, 64 or 32; None =
+    ``sort_block_cols(N, E, F)``) sets the sort kernel's columns a block;
+    a width the sort kernel cannot take at (N, E) raises."""
     if src.dim() != 2 or h.dim() != 3:
         raise ValueError(f"scatter_gather_aggregate: src must be [C,E] and "
                          f"h [C,N,F], got {tuple(src.shape)} and "
@@ -142,6 +163,12 @@ def scatter_gather_aggregate(src, dst, w, h):
     if w.dtype != torch.float32 or h.dtype not in _SUFFIX:
         raise TypeError(f"scatter_gather_aggregate: w must be float32 and h "
                         f"float32 or bfloat16, got {w.dtype} and {h.dtype}")
+    if block_cols is not None and not sort_block_fits(N, E, block_cols):
+        raise ValueError(f"scatter_gather_aggregate: block_cols="
+                         f"{block_cols} is not a width the sort kernel takes "
+                         f"at N={N}, E={E} (candidates "
+                         f"{BLOCK_COLS_CANDIDATES}, shared memory and E <= "
+                         f"{SORT_MAX_EDGES} permitting)")
     dev = h.device
     if any(t.device != dev for t in (src, dst, w)):
         raise ValueError("scatter_gather_aggregate: inputs on different "
@@ -163,8 +190,9 @@ def scatter_gather_aggregate(src, dst, w, h):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if variant == "sort":
+            block_cols = block_cols or sort_block_cols(N, E, F)
             err = getattr(lib, f"scatter_gather_sort_{dt}")(
-                *ptrs, C, N, E, F, stream)
+                *ptrs, C, N, E, F, block_cols, stream)
         else:
             # freed on return: the caching allocator may hand it out again
             # at once, but only to work queued behind these kernels on
@@ -181,4 +209,6 @@ def scatter_gather_aggregate(src, dst, w, h):
     with _count_lock:
         launches += 1
         variant_launches[variant] += 1
+        if variant == "sort":
+            width_launches[block_cols] += 1
     return out

@@ -15,9 +15,10 @@ PyTorch counterpart of ``repro.serve.gnn_server``:
 * per-model latency percentiles (p50/p90/p99) and the achieved host/device
   overlap fraction are reported, per model and aggregate.
 
-The reference's telemetry, tracing, dispatch and precompute planes (its
-``metrics_wire``/``metrics_text`` and those report sections) are not
-ported.
+A lane's report carries its engine's ``trace`` and ``dispatch`` sections
+where the deployment has those planes. The reference's telemetry and
+precompute planes (its ``metrics_wire``/``metrics_text`` and those report
+sections) are not ported.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import numpy as np
 from repro_torch.core.config import ServingConfig
 from repro_torch.core.dse import DSEPlan, H100Spec, explore, validate_models
 from repro_torch.core.engine import DecoupledEngine
-from repro_torch.core.report_schema import (SCHEMA_VERSION, stages_section,
+from repro_torch.core.report_schema import (SCHEMA_VERSION,
+                                            dispatch_section, stages_section,
                                             store_section)
 from repro_torch.obs.hist import LogHistogram, Reservoir
 
@@ -189,19 +191,25 @@ class _ModelLane:
     def report(self) -> dict:
         """This lane's slice of the report schema (core.report_schema):
         latency.* request percentiles, stages.* pipeline breakdown, store.*
-        transfer + subsystem state."""
+        transfer + subsystem state, and trace.* / dispatch.* where the
+        deployment has those planes."""
         sched = self.engine.scheduler.stats
-        return {"kind": self.engine.cfg.kind,
-                # compiled ACK program: per-op mode mux of this lane
-                "ack": {"mode": self.engine.mode,
-                        "summary": self.engine.decision.summary,
-                        "ops": [{"site": d.site, "op": d.op,
-                                 "mode": d.mode}
-                                for d in self.engine.decision]},
-                "latency": dict(self.stats.percentiles()),
-                "stages": stages_section(sched),
-                "store": {**store_section(sched),
-                          **self.engine.store_report()}}
+        r = {"kind": self.engine.cfg.kind,
+             # compiled ACK program: per-op mode mux of this lane
+             "ack": {"mode": self.engine.mode,
+                     "summary": self.engine.decision.summary,
+                     "ops": [{"site": d.site, "op": d.op, "mode": d.mode}
+                             for d in self.engine.decision]},
+             "latency": dict(self.stats.percentiles()),
+             "stages": stages_section(sched),
+             "store": {**store_section(sched),
+                       **self.engine.store_report()}}
+        if self.engine.tracer is not None:
+            r["trace"] = self.engine.trace_report()
+        dispatch = dispatch_section(self.engine)
+        if dispatch is not None:
+            r["dispatch"] = dispatch
+        return r
 
 
 class GNNServer:

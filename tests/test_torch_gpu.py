@@ -168,6 +168,54 @@ def test_scatter_gather_aggregate(dev):
     assert torch.equal(got, again)          # no atomics: run-to-run equal
 
 
+def test_scatter_gather_block_cols_widths_bitwise_equal(dev):
+    """The sort kernel's columns a block (autotune's knob): every width
+    that fits gives the default's bits, at the layer-0 width, the sg
+    softmax's (a head's columns, the ones column and padding) and one
+    column; each launch is counted at its width."""
+    rng = np.random.default_rng(4)
+    fh = F_HID // HEADS
+    for c, e, f in ((C, E, 512), (C * HEADS, E + N, fh // 4 * 4 + 4),
+                    (C * HEADS, E + N, 1)):
+        src = rng.integers(0, N, size=(c, e)).astype(np.int32)
+        dst = rng.integers(0, N, size=(c, e)).astype(np.int32)
+        w = rng.standard_normal((c, e)).astype(np.float32)
+        w[:, e // 4:] = 0.0
+        h = rng.standard_normal((c, N, f)).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev) for a in (src, dst, w, h)]
+        ops.reset_launch_counts()
+        want = scatter_gather.scatter_gather_aggregate(*args)
+        default = scatter_gather.sort_block_cols(N, e, f)
+        assert scatter_gather.width_launches[default] == 1
+        for bc in scatter_gather.BLOCK_COLS_CANDIDATES:
+            assert scatter_gather.sort_block_fits(N, e, bc)
+            got = scatter_gather.scatter_gather_aggregate(*args,
+                                                          block_cols=bc)
+            assert torch.equal(got, want), (c, e, f, bc)
+            assert scatter_gather.width_launches[bc] == 1 + (bc == default)
+
+
+def test_gat_sg_device_steps_bitwise_repeatable(dev):
+    """gat/sg under impl="cuda": the sg softmax's sums run on the
+    scatter-gather kernel, so two device steps of one batch are bitwise
+    equal (the plain index_add_ path is not, on a card)."""
+    g = get_graph("flickr", scale=0.05, seed=0)
+    cfg = GNNConfig(kind="gat", n_layers=3, receptive_field=128,
+                    f_in=g.feature_dim, n_heads=HEADS)
+    conf = ServingConfig(device="cuda", batch_size=16, mode="sg",
+                         impl="cuda", num_threads=2)
+    with DecoupledEngine(g, cfg, params=init_gnn(cfg, seed=0, device="cuda"),
+                         config=conf) as eng:
+        plan = eng.plan(zipf_traffic(g, 16, seed=1))
+        ops.reset_launch_counts()
+        a = eng.run_device(plan).clone()
+        b = eng.run_device(plan).clone()
+        torch.cuda.synchronize()
+    # one launch a layer (both sums) and step
+    assert ops.launch_counts()["scatter_gather_aggregate"] == 2 * 3
+    assert torch.equal(a, b)
+
+
 def test_scatter_gather_weight0_edges_from_nonfinite_sources(dev):
     """The oracle's 0 * h[src] on weight-0 edges: NaN exactly where the
     plain version puts it, the rest within 2e-5."""

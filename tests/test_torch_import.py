@@ -1,7 +1,9 @@
 """The PyTorch package stands alone and never falls back silently: it
 imports with ``jax`` blocked and loads nothing of ``repro``; so do
 chip_smoke.py's and the fault-check scripts' imports; a CUDA device with no card raises; every
-ServingConfig field of a plane not ported yet raises; kernels are built
+ServingConfig field of a plane not ported yet raises, naming its ROADMAP
+item, while the ported trace and dispatch planes take their configs and
+refuse other types; kernels are built
 from the repository's sources only."""
 import inspect
 import json
@@ -62,7 +64,9 @@ class TestImportIsolation:
                 "core.engine", "devices", "configs.base", "configs.registry",
                 "kernels.flash_attention", "models.common", "models.rope",
                 "models.mlp", "models.attention", "models.transformer",
-                "obs.hist", "core.dse", "serve.gnn_server", "launch.serve")}
+                "obs.hist", "core.dse", "serve.gnn_server", "launch.serve",
+                "obs.flight", "obs.trace", "obs.export", "obs.calib",
+                "ckpt.checkpoint", "core.dispatch")}
         assert slice_modules <= set(MODULES), slice_modules - set(MODULES)
         code = "import repro_torch\n" + "".join(
             f"import {m}\n" for m in MODULES)
@@ -73,7 +77,8 @@ class TestImportIsolation:
 
     @pytest.mark.parametrize("script", ["gnn_fault_check",
                                         "flash_fault_check",
-                                        "gat_phase_probe"])
+                                        "gat_phase_probe",
+                                        "sg_softmax_probe"])
     def test_fault_checks_import_without_jax_or_repro(self, script):
         assert _loaded_after(f"sys.path.insert(0, {str(ROOT / 'scripts')!r})"
                              f"\nimport {script}") == []
@@ -82,7 +87,8 @@ class TestImportIsolation:
         bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
         for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
                   *(ROOT / "scripts").glob("*_fault_check.py"),
-                  ROOT / "scripts" / "gat_phase_probe.py"]:
+                  ROOT / "scripts" / "gat_phase_probe.py",
+                  ROOT / "scripts" / "sg_softmax_probe.py"]:
             for line in p.read_text().splitlines():
                 assert not bad.match(line), (p, line)
 
@@ -112,10 +118,25 @@ class TestNoSilentFallback:
             default = inspect.signature(fn).parameters[arg].default
             assert default == "cuda", (fn.__qualname__, arg, default)
 
-    @pytest.mark.parametrize("field", ["trace", "telemetry", "dispatch",
-                                       "precompute"])
+    @pytest.mark.parametrize("field", ["telemetry", "precompute"])
     def test_unported_plane_raises(self, field):
-        with pytest.raises(NotImplementedError, match=field):
+        item = {"telemetry": 12, "precompute": 10}[field]
+        with pytest.raises(NotImplementedError,
+                           match=f"{field}.*item {item}"):
+            ServingConfig(device="cpu", **{field: object()})
+
+    @pytest.mark.parametrize("field", ["trace", "dispatch"])
+    def test_ported_plane_takes_its_config(self, field):
+        from repro_torch.core.dispatch import DispatchConfig
+        from repro_torch.obs.trace import TraceConfig
+        conf = {"trace": TraceConfig, "dispatch": DispatchConfig}[field]()
+        sc = ServingConfig(device="cpu", **{field: conf})
+        assert getattr(sc, field) is conf
+        assert sc.describe()[field] == conf.describe()
+
+    @pytest.mark.parametrize("field", ["trace", "dispatch"])
+    def test_ported_plane_refuses_another_type(self, field):
+        with pytest.raises(TypeError, match=field):
             ServingConfig(device="cpu", **{field: object()})
 
     @pytest.mark.parametrize("transport", ["inproc", "socket"])
