@@ -130,14 +130,50 @@
    evictions, and the device step's time with dispatch on and off (host
    clock around ``run_device`` and a synchronize, on batches planned
    once).
-11. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
-   the bucket scatter-gather and the bf16 kernels) and, last, the ``ok``
-   line.
+11. ``[shard]``: GCN (sg), GraphSAGE (dense) and GAT (dense) at the
+   [engine] phase's width and depth behind ``StorePolicy(features=
+   "sharded", num_shards=4)``: the whole 182.8 MB table in hash and then
+   range placement (four shard tables on the one card: ``simulated``),
+   per-shard budgets holding about half of it (host miss rows shipped), a
+   ``repin()`` after Zipf traffic, and a feature mutation through
+   ``invalidate()``. Every batch must be bitwise equal to the
+   resident-store engine's (after the mutation: to a resident engine built
+   on the mutated graph), with ``cross_shard_rows`` > 0, every shard
+   non-empty and the program's launches a batch. Prints the bytes a batch
+   per shard, their balance and the device step beside the resident
+   engine's.
+12. ``[precompute]``: the scatter-gather at the offline build's chunk
+   shape (C=1, the largest chunk of 2048 destinations, its distinct
+   sources gathered from the [V, F] register, F 500 and 256) against its
+   plain version (``KERNEL_TOL``, two launches bitwise equal, the bucket
+   kernel, NaN from an inf/NaN row 0 behind the padding edges), timed
+   beside its bound, plain and ``index_add_`` times. Then GCN (sg online)
+   and GraphSAGE (dense online) with readout="target" through the tier:
+   the offline build on the Flickr-sized graph under impl="cuda" (its
+   scatter-gather launches exactly chunks x Aggregates, nothing else
+   launched) against impl="torch" on the card (``ENGINE_TOL``), two cuda
+   builds bitwise equal; all-fresh batches launching nothing and returning
+   the tier's rows bitwise, their p50 beside the online engine's; the
+   artifact saved, loaded bitwise and refused on a mutated graph
+   (``PrecomputeArtifactError``). On a 256-vertex graph of two components
+   (receptive field 256: the online subgraph is the whole component): an
+   all-fresh batch against the online engine (``ENGINE_TOL``, hits == C);
+   a mixed batch after ``on_invalidate`` (the program launched once, its
+   online rows against the online engine, its tier rows bitwise); an edge
+   update and ``drain()`` (refresh chunks launch the kernel; the tier
+   against a fresh build). Last, one ``GNNServer`` with a tiered and an
+   untiered GCN lane, 192 Zipf(1.1) requests each: the tiered lane
+   launches nothing and answers the tier's rows, with its ``precompute``
+   report section; p50/p99 of both lanes printed.
+13. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
+   the bucket scatter-gather, the offline chunk shape and the bf16
+   kernels) and, last, the ``ok`` line.
 
 Any failure exits nonzero before the last line.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import shutil
@@ -166,7 +202,10 @@ from repro_torch.core.program import (Aggregate,  # noqa: E402
                                       required_adjacency, respecialize)
 from repro_torch.gnn.layers import dense_init  # noqa: E402
 from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
-from repro_torch.graphs.synthetic import get_graph, zipf_traffic  # noqa: E402
+from repro_torch.graphs.csr import CSRGraph  # noqa: E402
+from repro_torch.graphs.synthetic import (DatasetSpec,  # noqa: E402
+                                          get_graph, make_graph,
+                                          zipf_traffic)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernels  # noqa: E402
 from repro_torch.kernels import fused_gnn as fused_kernels  # noqa: E402
@@ -188,6 +227,11 @@ from repro_torch.models.common import param_count  # noqa: E402
 from repro_torch.obs.calib import op_label, op_mode, size_bucket  # noqa: E402
 from repro_torch.obs.export import validate_chrome_trace  # noqa: E402
 from repro_torch.obs.trace import TraceConfig  # noqa: E402
+from repro_torch.precompute import (PrecomputeArtifactError,  # noqa: E402
+                                    PrecomputeConfig, agg_hops,
+                                    layer_major_embeddings, save_artifact)
+from repro_torch.precompute.propagate import (_apply_section,  # noqa: E402
+                                              _layer, _LocalCSR)
 from repro_torch.serve.gnn_server import GNNServer  # noqa: E402
 from repro_torch.store import StorePolicy  # noqa: E402
 
@@ -249,6 +293,19 @@ EXPECTED = {
 # artifacts go under build/ (ignored by git)
 DISPATCH_BATCHES, DISPATCH_TIMED = 6, 5
 CALIB_DIR = ROOT / "build" / "chip_smoke_calib"
+# [shard]: four shard tables (one card each where the host has four, else
+# simulated on the one card), and the three GNN kernels behind them
+SHARDS = 4
+SHARD_KINDS = (("gcn", "sg"), ("sage", "dense"), ("gat", "dense"))
+# [precompute]: the paper's two precomputable models (readout="target"),
+# online halves in these modes; the offline build's chunk of destination
+# vertices (PrecomputeConfig's default); the full-coverage graph's
+# vertices (two components of 128: at L=5 the dependency ball of any
+# vertex is its whole component, so a mixed batch needs a second one);
+# the artifacts go under build/ (ignored by git)
+PRE_KINDS = (("gcn", "sg"), ("sage", "dense"))
+PRE_CHUNK, COVER_V = 2048, 256
+PRE_DIR = ROOT / "build" / "chip_smoke_precompute"
 REPLACES = {
     "fused_gnn_layer": ("src/repro_torch/csrc/fused_gnn.cu",
                         "src/repro/kernels/fused_gnn.py:65"),
@@ -1591,6 +1648,541 @@ def dispatch_phase(graph, label):
     return total
 
 
+# -- phase 5e: the sharded feature store -------------------------------------
+
+
+def _infer(eng, targets):
+    """(embeddings, p50 device time in s, launches by kernel a batch) of
+    one ``infer`` call with the launch counters read around it."""
+    before = ops.launch_counts()
+    res = eng.infer(targets)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    n = len(res.stats.device_times)
+    per = {k: (after[k] - before[k]) / n for k in after}
+    return res.embeddings, statistics.median(res.stats.device_times), per
+
+
+def shard_phase(graph, targets, label):
+    """GCN (sg), GraphSAGE (dense) and GAT (dense) behind the sharded
+    feature store at the [engine] phase's width and depth: four shards in
+    hash and range placement holding the whole table, uneven budgets
+    holding about half of it, a repin() after Zipf traffic, and a feature
+    mutation through invalidate(); every batch bitwise equal to the
+    resident-store engine's (or, after the mutation, to a resident engine
+    built on the mutated graph). Returns the launch counts of the sharded
+    engines' batches."""
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    batch = targets[:2 * C]
+    half = graph.num_vertices // 2
+    # uneven per-shard budgets summing to about half of the table
+    rows = (half // 2, half // 4, half // 8, half - half // 2 - half // 4
+            - half // 8)
+    budget = tuple(r * 512 * 4 for r in rows)
+    simulated = torch.cuda.device_count() < SHARDS
+
+    def sharded(g, cfg, params, mode, **kw):
+        return DecoupledEngine(g, cfg, params=params, config=ServingConfig(
+            device="cuda", batch_size=C, mode=mode, impl="cuda",
+            store=StorePolicy(features="sharded", num_shards=SHARDS, **kw)))
+
+    def resident(g, cfg, params, mode):
+        return DecoupledEngine(g, cfg, params=params, config=ServingConfig(
+            device="cuda", batch_size=C, mode=mode, impl="cuda",
+            store=StorePolicy(features="resident")))
+
+    def counted(eng, tgt, kind, mode):
+        emb, step, per = _infer(eng, tgt)
+        want = {k: EXPECTED[kind, mode].get(k, 0) for k in per}
+        check(per == want, f"[shard] {kind}: launches a batch {per}, "
+                           f"expected {want}")
+        for k in total:
+            total[k] += int(per[k] * (len(tgt) // C))
+        return emb, step
+
+    for kind, mode in SHARD_KINDS:
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+        params = init_gnn(cfg, seed=0, device="cuda")
+        with resident(graph, cfg, params, mode) as eng:
+            want, step_res, _ = _infer(eng, batch)
+        for placement in ("hash", "range"):
+            with sharded(graph, cfg, params, mode,
+                         placement=placement) as eng:
+                got, step = counted(eng, batch, kind, mode)
+                rep = eng.store_report()["features"]
+                st = eng.scheduler.stats
+                per_batch = [b // st.n_batches for b in st.shard_bytes]
+            same = np.array_equal(got, want)
+            print(f"[shard] {kind}/{mode} {SHARDS} shards ({placement}, "
+                  f"whole table, simulated {rep['simulated']}): bitwise "
+                  f"equal to the resident store {same}; shard rows "
+                  f"{rep['shard_rows']}, {rep['device_bytes']} bytes on "
+                  f"the card, cross-shard rows {rep['cross_shard_rows']}; "
+                  f"bytes a batch per shard {per_batch}, balance "
+                  f"{st.shard_balance:.4f}; device step p50 "
+                  f"{step * 1e3:.3f} ms (resident store "
+                  f"{step_res * 1e3:.3f} ms) [{label}]", flush=True)
+            check(same, f"[shard] {kind} {placement}: embeddings differ "
+                        f"from the resident store's")
+            check(rep["cross_shard_rows"] > 0 and min(rep["shard_rows"]) > 0
+                  and rep["simulated"] == simulated,
+                  f"[shard] {kind} {placement}: {rep}")
+        with sharded(graph, cfg, params, mode, placement="range",
+                     shard_budget_bytes=budget) as eng:
+            got, _ = counted(eng, batch[:C], kind, mode)
+            rep = eng.store_report()["features"]
+            same = np.array_equal(got, want[:C])
+            print(f"[shard] {kind}/{mode} uneven budgets {list(rows)} rows "
+                  f"({rep['resident_fraction']} of the table): bitwise "
+                  f"equal {same}, miss rows shipped "
+                  f"{rep['miss_rows_shipped']}, resident hit rate "
+                  f"{rep['resident_hit_rate']} [{label}]", flush=True)
+            check(same and rep["miss_rows_shipped"] > 0,
+                  f"[shard] {kind} uneven budgets: bitwise {same}, {rep}")
+            counted(eng, zipf_traffic(graph, 2 * C, a=1.1, seed=5), kind,
+                    mode)
+            moved = eng.repin()
+            got, _ = counted(eng, batch[:C], kind, mode)
+            rep = eng.store_report()["features"]
+            same = np.array_equal(got, want[:C])
+            print(f"[shard] {kind}/{mode} after repin() "
+                  f"(promoted {moved['promoted']}, demoted "
+                  f"{moved['demoted']}, moved {moved['moved']}, mass "
+                  f"balance {moved['mass_balance_before']} -> "
+                  f"{moved['mass_balance_after']}): bitwise equal {same}, "
+                  f"resident hit rate {rep['resident_hit_rate']} "
+                  f"[{label}]", flush=True)
+            check(same, f"[shard] {kind}: embeddings changed by repin()")
+        g2 = copy.deepcopy(graph)
+        with sharded(g2, cfg, params, mode) as eng:
+            counted(eng, batch[:C], kind, mode)
+            touched = np.unique(batch[:8])
+            g2.features[touched] += 1.0
+            eng.invalidate(touched)
+            got, _ = counted(eng, batch[:C], kind, mode)
+        with resident(g2, cfg, params, mode) as fresh:
+            want2, _, _ = _infer(fresh, batch[:C])
+        same = np.array_equal(got, want2)
+        print(f"[shard] {kind}/{mode} feature rows of {len(touched)} "
+              f"targets mutated, invalidate(): bitwise equal to a resident "
+              f"engine built on the mutated graph {same}; differs from "
+              f"before {not np.array_equal(got, want[:C])} [{label}]",
+              flush=True)
+        check(same, f"[shard] {kind}: mutated rows not refreshed")
+        del g2
+    print(f"[shard] launches over the sharded engines: {total} [{label}]",
+          flush=True)
+    return total
+
+
+# -- phase 5f: the offline precompute tier -----------------------------------
+
+
+def two_components(seed):
+    """CSRGraph of 256 vertices: two disjoint copies (128 each) of the
+    synthetic generator at the Flickr-sized graph's degree and f_in."""
+    spec = DatasetSpec("cover", COVER_V // 2, 10.0, F_IN, 7)
+    a, b = (make_graph(spec, seed=2 * seed + i) for i in (1, 2))
+    h = a.num_vertices
+    check(h + b.num_vertices == COVER_V, f"two_components: "
+          f"{h} + {b.num_vertices} vertices, expected {COVER_V}")
+    return CSRGraph(indptr=np.concatenate([a.indptr,
+                                           a.indptr[-1] + b.indptr[1:]]),
+                    indices=np.concatenate([a.indices,
+                                            b.indices + h]).astype(np.int32),
+                    features=np.concatenate([a.features, b.features]),
+                    name="cover").validate()
+
+
+def chunk_args(local, i, H):
+    """The kernel's arguments for chunk ``i`` of ``local`` (a _LocalCSR) on
+    the register ``H`` [V, F]: src, dst, w (gcn norm) [1, E] and the
+    compact h [1, N, F]."""
+    rows, src, dst, nrows = local._chunks[i]
+    h = H.index_select(0, rows)
+    if nrows > h.shape[0]:
+        h = torch.cat([h, h.new_zeros(nrows - h.shape[0], h.shape[1])])
+    return src, dst, local._weights("gcn")[i], h[None].contiguous()
+
+
+def offline_chunk_phase(graph, label):
+    """``scatter_gather_aggregate`` at the offline build's chunk shape (C=1,
+    one chunk of 2048 destinations, its distinct sources gathered from the
+    full [V, F] register): the chunk with the most edges, at F=500 (layer
+    0, unaligned) and 256, against its plain version (two launches bitwise
+    equal, the bucket kernel), with inf and NaN on row 0, the source of the
+    chunk's weight-0 padding edges; then timed. Returns the JSON records."""
+    t0 = time.perf_counter()
+    local = _LocalCSR(graph, np.arange(graph.num_vertices), PRE_CHUNK,
+                      "cuda", torch.device("cuda"))
+    sizes = [e1 - e0 for e0, e1 in local.e_ranges]
+    i = int(np.argmax(sizes))
+    print(f"[kernels] offline chunk shape: {local.num_chunks} chunks of "
+          f"{local.chunk} destinations, e_cap {local.e_cap} (edges a chunk "
+          f"mean {np.mean(sizes):.1f}, max {max(sizes)}), distinct sources "
+          f"{min(len(c[0]) for c in local._chunks)}-"
+          f"{max(len(c[0]) for c in local._chunks)}; compute set built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator().manual_seed(0)
+    recs, checks = [], []
+    for f in (F_IN, F_HID):
+        H = torch.randn(graph.num_vertices, f, generator=gen).to(
+            local.device)
+        args = chunk_args(local, i, H)
+        Nn = args[3].shape[1]
+        tag = (f"offline chunk C=1 N={Nn} ({local.chunk} destinations) "
+               f"F={f} E={local.e_cap} real_edges={sizes[i]}")
+        before = dict(sg_kernels.variant_launches)
+        got = scatter_gather_aggregate(*args)
+        again = scatter_gather_aggregate(*args)
+        variant = ",".join(k for k, n in sg_kernels.variant_launches.items()
+                           if n > before[k])
+        ok, text, err = reading(got, scatter_gather_aggregate_ref(*args))
+        same = bool(torch.equal(got, again))
+        checks.append((f"sg {tag}", ok and same and variant == "bucket",
+                       f"{text}, repeat bitwise {same}, kernel {variant}"))
+        Hn = H.clone()
+        Hn[0, 7] = float("inf")
+        Hn[0, f - 1] = float("nan")
+        nargs = chunk_args(local, i, Hn)
+        ok, text = nan_reading(scatter_gather_aggregate(*nargs),
+                               scatter_gather_aggregate_ref(*nargs))
+        checks.append((f"sg offline chunk F={f} weight-0 padding from an "
+                       f"inf/NaN row 0", ok, text))
+        recs.append((tag, args, err, variant))
+    run_checks(checks)
+    out = []
+    for tag, args, err, variant in recs:
+        ms = cuda_ms(lambda: scatter_gather_aggregate(*args))
+        plain = cuda_ms(lambda: scatter_gather_aggregate_ref(*args))
+        lib = cuda_ms(sg_library(args))
+        bnd, by = sg_bound(args)
+        print(f"  scatter_gather_aggregate {tag}: kernel {ms:.4f} ms "
+              f"({variant}), plain {plain:.4f} ms, library {lib:.4f} ms "
+              f"(index_add_, float32), bound {bnd:.4f} ms ({by}) "
+              f"[{label}]", flush=True)
+        out.append(dict(variant=variant, shape=tag, max_abs_err=err, ms=ms,
+                        plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        library_ms=lib))
+    return out
+
+
+class _Float64:
+    """A compute set's (``_LocalCSR``) Aggregate and Transform in float64:
+    the same edges and float32 edge weights, widened, summed with
+    ``index_add_``; the plain build's ops at twice the precision."""
+
+    def __init__(self, local):
+        self.local = local
+        dev = local.self_w.device
+        self.src = torch.from_numpy(local.src.astype(np.int64)).to(dev)
+        self.dst = torch.from_numpy(local.dst).to(dev)
+        self.w = {k: torch.from_numpy(v.astype(np.float64)).to(dev)
+                  for k, v in local._w.items()}
+        self.self_w = local.self_w.double()
+
+    def aggregate(self, norm, H):
+        z = torch.zeros_like(H).index_add_(
+            0, self.dst, H[self.src] * self.w[norm][:, None])
+        return z + H * self.self_w[:, None] if norm == "gcn" else z
+
+    def transform(self, op, p, H_src, H_in):
+        return self.local.transform(op, p, H_src, H_in)
+
+
+def float64_build(graph, prog, params):
+    """Every vertex's tier row from the layer-major propagation in float64
+    on the card (the offline build's reference: the float32 builds sum a
+    hub's up to 18,406 in-edges in an order of their own)."""
+    local = _LocalCSR(graph, np.arange(graph.num_vertices), PRE_CHUNK,
+                      "torch", torch.device("cuda"))
+    f64 = _Float64(local)
+    p64 = {k: ({kk: vv.double() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.double())
+           for k, v in params.items()}
+    with torch.inference_mode():
+        H = torch.from_numpy(graph.features.astype(np.float64)).to(
+            local.device)
+        H = _apply_section(f64, prog.layer0, p64["layer0"], H, None)
+        H0 = H
+        for i in range(prog.n_layers - 1):
+            H = _apply_section(f64, prog.inner, _layer(p64["layers"], i),
+                               H, H0)
+        return H.cpu().numpy()
+
+
+def _tier_engine(graph, cfg, params, mode, **pconf):
+    return DecoupledEngine(graph, cfg, params=params, config=ServingConfig(
+        device="cuda", batch_size=C, mode=mode, impl="cuda",
+        precompute=PrecomputeConfig(chunk_size=PRE_CHUNK, **pconf)))
+
+
+def _online_engine(graph, cfg, params, mode):
+    return DecoupledEngine(graph, cfg, params=params, config=ServingConfig(
+        device="cuda", batch_size=C, mode=mode, impl="cuda"))
+
+
+def _held(name, got, want, label):
+    """Holds ``got`` to ``want`` at ENGINE_TOL; prints the bitwise share."""
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    share = float((got == want).mean()) if got.size else 1.0
+    ok = got.shape == want.shape and np.isfinite(got).all() \
+        and np.allclose(got, want, **ENGINE_TOL)
+    print(f"[precompute] {name}: max_abs_err {err:.3e} (rtol "
+          f"{ENGINE_TOL['rtol']}, atol {ENGINE_TOL['atol']}), bitwise equal "
+          f"{share:.6f} {'ok' if ok else 'FAIL'} [{label}]", flush=True)
+    check(ok, f"[precompute] {name}")
+
+
+def precompute_big(graph, targets, kind, mode, label, total):
+    """The tier on the Flickr-sized graph: the offline build (impl="cuda"
+    against impl="torch" on the card, two cuda builds bitwise equal, its
+    scatter-gather launches counted exactly), an all-fresh batch (no
+    launch, the tier's rows bitwise), the artifact saved and loaded, and
+    the p50 of all-fresh batches against the online engine's. Returns the
+    tiered engine (open) and the online one."""
+    cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                    f_in=F_IN, f_hidden=F_HID, n_heads=HEADS,
+                    readout="target")
+    params = init_gnn(cfg, seed=0, device="cuda")
+    before = ops.launch_counts()
+    split = dict(sg_kernels.variant_launches)
+    t0 = time.perf_counter()
+    eng = _tier_engine(graph, cfg, params, mode, auto_refresh=False)
+    torch.cuda.synchronize()
+    t_engine = time.perf_counter() - t0
+    after = ops.launch_counts()
+    split = {k: n - split[k] for k, n in sg_kernels.variant_launches.items()}
+    built = {k: after[k] - before[k] for k in after}
+    local_chunks = -(-graph.num_vertices // PRE_CHUNK)
+    hops = agg_hops(eng.program)
+    want = {k: 0 for k in built}
+    want["scatter_gather_aggregate"] = local_chunks * hops
+    check(built == want, f"[precompute] {kind} build launches {built}, "
+                         f"expected {want} ({local_chunks} chunks x {hops} "
+                         f"Aggregates)")
+    for k in total:
+        total[k] += built[k]
+    table = eng.precompute.tier.table.copy()
+    rows_t, t_cuda = _timed(lambda: layer_major_embeddings(
+        graph, eng.program, params, chunk_size=PRE_CHUNK, impl="cuda",
+        device="cuda"))
+    rows_p, t_torch = _timed(lambda: layer_major_embeddings(
+        graph, eng.program, params, chunk_size=PRE_CHUNK, impl="torch",
+        device="cuda"))
+    rows_64 = float64_build(graph, eng.program, params)
+    print(f"[precompute] {kind}/L={LAYERS} offline build on V="
+          f"{graph.num_vertices}: engine construction (build + tier) "
+          f"{t_engine:.3f} s, layer_major_embeddings impl=cuda "
+          f"{t_cuda:.3f} s, impl=torch {t_torch:.3f} s; tier "
+          f"{eng.precompute.tier.nbytes} bytes; scatter-gather launches "
+          f"{built['scatter_gather_aggregate']} ({local_chunks} chunks x "
+          f"{hops} Aggregates, by kernel {split}) [{label}]", flush=True)
+    same = np.array_equal(rows_t, table)
+    print(f"[precompute] {kind} two impl=cuda builds bitwise equal {same}",
+          flush=True)
+    check(same, f"[precompute] {kind}: two cuda builds differ")
+    # the gate: the kernel build against the float64 build (the float32
+    # impl="torch" build varies from run to run by up to ~0.7 of the
+    # tolerance itself: index_add_'s order, scripts/tier_precision_probe.py)
+    _held(f"{kind} offline build impl=cuda vs the float64 build", table,
+          rows_64, label)
+    for name, got, want in (("impl=cuda vs impl=torch", table, rows_p),
+                            ("impl=torch vs the float64 build", rows_p,
+                             rows_64)):
+        err, worst, share = closeness(torch.from_numpy(got),
+                                      torch.from_numpy(want), ENGINE_TOL)
+        print(f"[precompute] {kind} offline build {name} (reported): "
+              f"max_abs_err {err:.3e}, worst {worst:.3f} of ENGINE_TOL, "
+              f"bitwise equal {share:.6f} [{label}]", flush=True)
+    # all-fresh batches: no program runs, the rows are the tier's
+    before = ops.launch_counts()
+    res = eng.infer(targets)
+    after = ops.launch_counts()
+    tier = eng.precompute.tier
+    same = np.array_equal(res.embeddings, tier.table[tier.slot_of[targets]])
+    check(after == before, f"[precompute] {kind}: an all-fresh batch "
+                           f"launched {after} (before {before})")
+    check(same, f"[precompute] {kind}: all-fresh rows are not the tier's")
+    st = res.stats
+    fresh_p50 = statistics.median(h + d for h, d in
+                                  zip(st.host_times, st.device_times))
+    online = _online_engine(graph, cfg, params, mode)
+    emb_on, _, per = _infer(online, targets)
+    for k in total:
+        total[k] += int(per[k] * (len(targets) // C))
+    st = online.scheduler.stats
+    on_p50 = statistics.median(h + d for h, d in
+                               zip(st.host_times, st.device_times))
+    print(f"[precompute] {kind} {len(targets) // C} all-fresh batches: no "
+          f"launch, rows bitwise the tier's {same}; p50 batch host+device "
+          f"{fresh_p50 * 1e3:.3f} ms against the online engine's "
+          f"{on_p50 * 1e3:.3f} ms ({mode}) [{label}]", flush=True)
+    # the artifact: saved, loaded by a new engine, refused on a mutation
+    path = str(PRE_DIR / kind)
+    shutil.rmtree(path, ignore_errors=True)
+    save_artifact(path, table, graph, cfg, params)
+    with _tier_engine(graph, cfg, params, mode, artifact=path) as loaded:
+        rep = loaded.precompute_report()
+        same = np.array_equal(loaded.precompute.tier.table, table)
+    g2 = copy.deepcopy(graph)
+    g2.features[int(targets[0])] += 1.0
+    try:
+        _tier_engine(g2, cfg, params, mode, artifact=path).close()
+        refused = "no"
+    except PrecomputeArtifactError as e:
+        refused = str(e).split(":")[1].split("(")[0].strip()
+    print(f"[precompute] {kind} artifact: loaded with builds="
+          f"{rep['builds']}, rows bitwise equal {same}; mutated graph "
+          f"refused: {refused} [{label}]", flush=True)
+    check(same and rep["builds"] == 0, f"[precompute] {kind}: artifact")
+    check(refused != "no", f"[precompute] {kind}: a mutated graph loaded")
+    del g2
+    return eng, online, cfg, params
+
+
+def precompute_small(kind, mode, label, total):
+    """The tier where the online subgraph covers the whole component (256
+    vertices in two components of 128, receptive field 256): an all-fresh
+    batch against the online engine, a mixed batch after on_invalidate
+    (the program once, on the stale half; the fresh half the tier's rows),
+    and an edge update then drain() against a fresh build."""
+    g = two_components(seed=1 if kind == "gcn" else 2)
+    cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=COVER_V,
+                    f_in=F_IN, f_hidden=F_HID, n_heads=HEADS,
+                    readout="target", ppr_eps=1e-9)
+    params = init_gnn(cfg, seed=0, device="cuda")
+    h = COVER_V // 2
+    rng = np.random.default_rng(4)
+    a = np.sort(rng.choice(h, C // 2, replace=False))
+    b = np.sort(rng.choice(h, C // 2, replace=False)) + h
+    batch = np.concatenate([a, b])
+    with _tier_engine(g, cfg, params, mode, auto_refresh=False) as hy, \
+            _online_engine(g, cfg, params, mode) as on:
+        want, _, per = _infer(on, batch)
+        for k in total:
+            total[k] += int(per[k])
+        before = ops.launch_counts()
+        got = hy.infer(batch).embeddings
+        check(ops.launch_counts() == before,
+              f"[precompute] {kind}: an all-fresh batch launched")
+        rep = hy.precompute_report()
+        check(rep["hits"] == C, f"[precompute] {kind}: hits {rep['hits']}")
+        _held(f"{kind} full coverage (V={COVER_V}, two components): "
+              f"all-fresh batch (hits {rep['hits']}) vs the online engine",
+              got, want, label)
+        demoted = hy.precompute.on_invalidate(a[:2])
+        tier = hy.precompute.tier
+        fresh = tier.fresh[tier.slot_of[batch]]
+        got, _, per = _infer(hy, batch)
+        want_per = {k: EXPECTED[kind, mode].get(k, 0) for k in per}
+        check(per == want_per, f"[precompute] {kind}: the mixed batch "
+                               f"launched {per}, expected {want_per}")
+        for k in total:
+            total[k] += int(per[k])
+        print(f"[precompute] {kind} mixed batch: on_invalidate of 2 targets "
+              f"demoted {demoted} vertices; {int((~fresh).sum())} stale "
+              f"targets online, {int(fresh.sum())} from the tier; launches "
+              f"{per} [{label}]", flush=True)
+        check(fresh.any() and (~fresh).any(),
+              f"[precompute] {kind}: the batch is not mixed")
+        _held(f"{kind} mixed batch, online half vs the online engine",
+              got[~fresh], want[~fresh], label)
+        same = np.array_equal(got[fresh],
+                              tier.table[tier.slot_of[batch[fresh]]])
+        print(f"[precompute] {kind} mixed batch, tier half bitwise the "
+              f"tier's rows {same}", flush=True)
+        check(same, f"[precompute] {kind}: tier half of the mixed batch")
+        nbrs = set(g.neighbors(int(a[0])).tolist())
+        v = next(int(u) for u in a[1:] if int(u) not in nbrs)
+        before = ops.launch_counts()
+        g.apply_edge_updates(insert=[(int(a[0]), v)])
+        hy.precompute.drain()
+        after = ops.launch_counts()
+        rep = hy.precompute_report()
+        launched = after["scatter_gather_aggregate"] \
+            - before["scatter_gather_aggregate"]
+        for k in total:
+            total[k] += after[k] - before[k]
+        print(f"[precompute] {kind} edge ({int(a[0])}, {v}) inserted, "
+              f"drain(): {rep['refresh_chunks']} refresh chunks, "
+              f"scatter-gather launches {launched}, fresh {rep['fresh']} of "
+              f"{rep['resident']}, refresh errors {rep['refresh_errors']} "
+              f"[{label}]", flush=True)
+        check(launched > 0 and rep["fresh"] == COVER_V
+              and rep["refresh_errors"] == 0,
+              f"[precompute] {kind}: refresh {rep}, launches {launched}")
+        rebuilt = layer_major_embeddings(g, hy.program, params,
+                                         chunk_size=PRE_CHUNK, impl="cuda",
+                                         device="cuda")
+        _held(f"{kind} refreshed tier vs a fresh build after the edge "
+              f"update", tier.table[tier.slot_of[np.arange(COVER_V)]],
+              rebuilt, label)
+
+
+def precompute_phase(graph, label):
+    """GCN (sg online) and GraphSAGE (dense online) with readout="target"
+    through the offline tier at the [engine] phase's width and depth, then
+    one GNNServer with a tiered and an untiered GCN lane. Returns the launch
+    counts of the phase's driven paths (builds, online halves, refreshes,
+    the server)."""
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    targets = zipf_traffic(graph, N_BATCHES * C, a=1.1, seed=7)
+    lanes = {}
+    for kind, mode in PRE_KINDS:
+        lanes[kind] = precompute_big(graph, targets, kind, mode, label,
+                                     total)
+        precompute_small(kind, mode, label, total)
+    hy, online, cfg, _ = lanes["gcn"]
+    lanes["sage"][0].close()
+    lanes["sage"][1].close()
+    srv = GNNServer()
+    srv.register("gcn-tier", hy)
+    srv.register("gcn", online)
+    rng = np.random.default_rng(8)
+    order = [(name, int(t)) for name in ("gcn-tier", "gcn")
+             for t in zipf_traffic(graph, SERVE_REQUESTS, a=1.1,
+                                   seed=int(rng.integers(1 << 30)))]
+    ops.reset_launch_counts()
+    srv.start()
+    reqs = [srv.submit(t, model=k) for k, t in order]
+    srv.drain(reqs, timeout=600)
+    srv.stop()
+    torch.cuda.synchronize()
+    served = ops.launch_counts()
+    rep = srv.report()["models"]
+    batches = srv.model_stats("gcn").n_batches
+    want = {k: EXPECTED["gcn", "sg"].get(k, 0) * batches for k in served}
+    check(served == want, f"[precompute] server launches {served}, "
+                          f"expected {want} (the tiered lane none)")
+    for k in total:
+        total[k] += served[k]
+    tier = hy.precompute.tier
+    mine = [r for r in reqs if r.model == "gcn-tier"]
+    same = np.array_equal(np.stack([r.embedding for r in mine]),
+                          tier.table[tier.slot_of[[r.target for r in mine]]])
+    for name in ("gcn-tier", "gcn"):
+        lat = rep[name]["latency"]
+        pre = rep[name].get("precompute")
+        section = "absent" if pre is None else \
+            {k: pre[k] for k in ("hits", "misses", "hit_rate")}
+        print(f"[precompute] server lane {name}: n={lat['n']} p50 "
+              f"{lat['p50'] * 1e3:.2f} ms p99 {lat['p99'] * 1e3:.2f} ms; "
+              f"precompute section {section} [{label}]", flush=True)
+        check(lat["n"] == SERVE_REQUESTS, f"[precompute] {name}: "
+                                          f"{lat['n']} answered")
+    pre = rep["gcn-tier"].get("precompute")
+    check(pre is not None and pre["misses"] == 0 and same
+          and "precompute" not in rep["gcn"],
+          f"[precompute] tiered lane: section {pre}, rows the tier's {same}")
+    hy.close()
+    online.close()
+    print(f"[precompute] launches over the phase: {total} [{label}]",
+          flush=True)
+    return total
+
+
 # -- phase 6: LM prefill and decode ------------------------------------------
 
 
@@ -1796,6 +2388,11 @@ def main() -> int:
     served = serve_phase(graph, label)
     repeatability_phase(graph, targets, label)
     dispatched = dispatch_phase(graph, label)
+    sharded = shard_phase(graph, targets, label)
+    print("[kernels] scatter_gather_aggregate at the offline chunk shape",
+          flush=True)
+    variants["scatter_gather_aggregate"] += offline_chunk_phase(graph, label)
+    precomputed = precompute_phase(graph, label)
     launches["flash_attention"] = lm_phase(label)["flash_attention"]
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")
@@ -1803,12 +2400,17 @@ def main() -> int:
         check(served[k] > 0, f"{k} was never launched on the server path")
         check(dispatched[k] > 0,
               f"{k} was never launched on the dispatch path")
+        check(sharded[k] > 0, f"{k} was never launched behind the sharded "
+                              f"store")
+    check(precomputed["scatter_gather_aggregate"] > 0,
+          "scatter_gather_aggregate was never launched by the tier")
     kernels = []
     for k, (source, replaces) in REPLACES.items():
         kernels.append(dict(name=k, route="cuda", source=source,
                             replaces=replaces,
                             launches=launches[k] + served.get(k, 0)
-                            + dispatched.get(k, 0),
+                            + dispatched.get(k, 0) + sharded.get(k, 0)
+                            + precomputed.get(k, 0),
                             **rec[k], variants=variants.get(k, [])))
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,13 @@
 """BatchPlan IR — the host side of prepare() as a typed, staged pipeline.
 
 The PyTorch package's copy of ``repro.core.batchplan`` (numpy only; the
-reference's precompute-tier fields and tracing annotations belong to
-planes not ported yet). The device side is an inspectable instruction
-stream (core.program.AckProgram); this module is the mirrored move for the
-HOST side. The paper's Fig. 3 shows INI + subgraph construction dominating the
-non-compute budget, and its Fig. 7 scheduler hides that work under device
-execution — but a monolithic ``host_fn`` can only be hidden as a whole.
-Decomposing it into named stages makes each piece separately observable
+reference's tracing annotations are not copied). The device side is an
+inspectable instruction stream (core.program.AckProgram); this module is
+the mirrored move for the HOST side. The paper's Fig. 3 shows INI +
+subgraph construction dominating the non-compute budget, and its Fig. 7
+scheduler hides that work under device execution — but a monolithic
+``host_fn`` can only be hidden as a whole. Decomposing it into named
+stages makes each piece separately observable
 (a software Fig. 3 breakdown), separately cacheable (the Build stage's
 subgraph-row cache), and separately schedulable (the scheduler pipelines
 stage i of batch k under stage i+1 of batch k-1).
@@ -65,6 +65,12 @@ class BatchPlan:
     # Pack
     sb: Optional[SubgraphBatch] = None
     device: Optional[Dict[str, np.ndarray]] = None
+    # Tier (hybrid precompute routing; set by precompute.TierStage)
+    tier_rows: Optional[np.ndarray] = None   # [C, f_out] (stale rows 0)
+    tier_fresh: Optional[np.ndarray] = None  # [C] bool freshness mask
+    tier_done: bool = False       # all-fresh: skip Select/Build/Pack
+    online_index: Optional[np.ndarray] = None  # stale slot -> online row
+    orig_targets: Optional[np.ndarray] = None  # pre-split target list
 
 
 def _note_density(plan: BatchPlan) -> None:
@@ -112,6 +118,8 @@ class SelectStage(PlanStage):
         from repro_torch.core.ini import ini_batch
         if not isinstance(plan, BatchPlan):   # pipeline entry: raw targets
             plan = BatchPlan(targets=np.asarray(plan))
+        if plan.tier_done:       # all targets served from the tier:
+            return plan          # nothing to select
         eng = self.engine
         cfg = eng.cfg
         n, a, e = cfg.receptive_field, cfg.ppr_alpha, cfg.ppr_eps
@@ -181,6 +189,8 @@ class BuildStage(PlanStage):
         self.engine = engine
 
     def run(self, plan: BatchPlan) -> BatchPlan:
+        if plan.tier_done:
+            return plan
         eng = self.engine
         cfg = eng.cfg
         n, e_pad = cfg.receptive_field, eng.e_pad
@@ -224,6 +234,8 @@ class PackStage(PlanStage):
         self.engine = engine
 
     def run(self, plan: BatchPlan) -> BatchPlan:
+        if plan.tier_done:
+            return plan
         eng = self.engine
         src = eng._fsource
         n = eng.cfg.receptive_field
@@ -242,10 +254,15 @@ class PackStage(PlanStage):
         shipped = other + sum(int(a.nbytes) for a in payload.values())
         dense = other + len(plan.node_lists) * n * eng.f_pad * 4
         d.update(payload)
+        # sharded store: per-shard share of this payload's bytes (a pure
+        # function of the payload: safe from concurrent stage threads)
+        per_shard = getattr(src, "shard_metrics_for", None)
         eng.scheduler.note_host_metrics(
             bytes_shipped=shipped, bytes_dense=dense,
             cache_hits=plan.nbr_hits, cache_misses=plan.nbr_misses,
             build_hits=plan.build_hits, build_misses=plan.build_misses,
-            dedup_ratio=dedup, batch_edges=plan.n_edges)
+            dedup_ratio=dedup,
+            shard_bytes=per_shard(payload) if per_shard else None,
+            batch_edges=plan.n_edges)
         plan.device = d
         return plan

@@ -7,8 +7,8 @@ package has ported so far:
   * host pipeline:   num_threads, depth (triple buffering),
                      max_inflight (backpressure), max_wait_s (the
                      server's micro-batch deadline)
-  * store:           ``StorePolicy`` (dense, packed or device-resident
-                     features; local neighborhood and subgraph-row
+  * store:           ``StorePolicy`` (dense, packed, device-resident or
+                     sharded features; local neighborhood and subgraph-row
                      caches)
   * observability:   ``trace`` (an ``obs.TraceConfig``: per-batch spans,
                      histograms, the flight recorder and the sampled
@@ -16,14 +16,16 @@ package has ported so far:
   * dispatch:        ``dispatch`` (a ``core.dispatch.DispatchConfig``:
                      per-batch measured-cost dense/sg dispatch, the
                      bounded variant cache, kernel block autotune)
+  * precompute:      ``precompute`` (a ``precompute.PrecomputeConfig``:
+                     the offline layer-major embedding tier and hybrid
+                     routing)
 
 ``device`` defaults to ``"cuda"`` and ``impl`` to ``"cuda"`` (the hand
 kernels), so a default deployment on a card always runs the kernels; a
 CUDA device with no card raises, and nothing continues on the CPU
-unasked. The reference's other planes — ``telemetry``, ``precompute``
-and a ``transport`` other than ``"local"`` — are not ported yet: setting
-one raises NotImplementedError naming it and its ROADMAP item, and so does
-the sharded feature store.
+unasked. The reference's other planes — ``telemetry`` and a
+``transport`` other than ``"local"`` — are not ported yet: setting one
+raises NotImplementedError naming it and its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from repro_torch.devices import resolve
 from repro_torch.store.policy import StorePolicy
 
 # planes of the reference not ported yet, with their ROADMAP queue-1 item
-UNPORTED_PLANES = {"telemetry": 12, "precompute": 10}
+UNPORTED_PLANES = {"telemetry": 12}
 
 
 @dataclass(frozen=True)
@@ -62,10 +64,13 @@ class ServingConfig:
     # DispatchConfig enables per-batch measured-cost dense/sg dispatch.
     # Only meaningful with mode="auto" — a forced mode pins the mux.
     dispatch: Optional[object] = None
+    # precompute: None (default) = pure online serving; a
+    # PrecomputeConfig builds (or loads) the offline embedding tier and
+    # routes tier-fresh targets around the host pipeline
+    precompute: Optional[object] = None
     # planes of the reference not ported yet: anything but the default
     # raises NotImplementedError
     transport: str = "local"
-    precompute: Optional[object] = None
     telemetry: Optional[object] = None
 
     def __post_init__(self):
@@ -87,6 +92,12 @@ class ServingConfig:
                 raise TypeError(
                     f"dispatch must be a core.DispatchConfig or None, "
                     f"got {type(self.dispatch).__name__}")
+        if self.precompute is not None:
+            from repro_torch.precompute.config import PrecomputeConfig
+            if not isinstance(self.precompute, PrecomputeConfig):
+                raise TypeError(
+                    f"precompute must be a precompute.PrecomputeConfig or "
+                    f"None, got {type(self.precompute).__name__}")
         if self.transport != "local":
             raise NotImplementedError(
                 f"ServingConfig.transport={self.transport!r}: only the "
@@ -96,11 +107,6 @@ class ServingConfig:
             raise TypeError(
                 f"store must be a StorePolicy, got "
                 f"{type(self.store).__name__}")
-        if self.store.features == "sharded":
-            raise NotImplementedError(
-                "StorePolicy.features='sharded': the sharded feature store "
-                "is not ported to repro_torch yet (ROADMAP queue 1, item 7; "
-                "use 'dense', 'packed' or 'resident')")
         if self.impl not in IMPLS:
             raise ValueError(f"impl={self.impl!r}, expected one of {IMPLS}")
         if self.mode not in ("auto", "dense", "sg"):
@@ -127,6 +133,8 @@ class ServingConfig:
             d["trace"] = self.trace.describe()
         if self.dispatch is not None:
             d["dispatch"] = self.dispatch.describe()
+        if self.precompute is not None:
+            d["precompute"] = self.precompute.describe()
         return d
 
 

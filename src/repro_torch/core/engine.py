@@ -26,11 +26,16 @@ run to the engine forced to the mode vector it chose. Exploration passes
 logged and counted (``explore_failures`` in ``trace_report`` and
 ``dispatch_report``) where the reference swallows it.
 
-This is the local path of the reference's engine: remote transports,
-telemetry, the precompute tier and the sharded feature store are not
-ported yet (ServingConfig refuses them). The single-device resident store
-is, with its automatic repin triggers (``StorePolicy.repin_every`` /
-``repin_hit_floor``) on the completion path.
+The offline precompute tier (``ServingConfig.precompute``) prepends a
+``TierStage`` to the host pipeline: tier-fresh targets skip Select, Build
+and Pack and the device program, and a mixed batch runs the program on its
+stale targets only, rejoined with the tier's rows on the device. The
+resident and sharded feature stores come with their automatic repin
+triggers (``StorePolicy.repin_every`` / ``repin_hit_floor``) on the
+completion path.
+
+This is the local path of the reference's engine: remote transports and
+telemetry are not ported yet (ServingConfig refuses them).
 """
 from __future__ import annotations
 
@@ -192,6 +197,20 @@ class DecoupledEngine:
         # Pack); prepare() runs the same stages serially, so the staged
         # path is the monolithic one by construction
         self.stages = [SelectStage(self), BuildStage(self), PackStage(self)]
+        # offline precompute tier (hybrid serving): build or load the
+        # layer-major embedding table and prepend the TierStage router;
+        # tier-fresh targets skip Select/Build/Pack entirely. ``params``
+        # (the local) is the UNPADDED tree: offline propagation runs on
+        # unpadded features
+        pconf = config.precompute
+        if pconf is not None and (pconf.models is None
+                                  or cfg.kind in pconf.models):
+            from repro_torch.precompute.manager import (PrecomputeManager,
+                                                        TierStage)
+            self.precompute = PrecomputeManager(self, pconf, params)
+            self.stages = [TierStage(self)] + self.stages
+        else:
+            self.precompute = None
         # auto-repin trigger state (StorePolicy.repin_every / _hit_floor)
         self._repin_auto = bool(store.repin_every or store.repin_hit_floor)
         self._repin_lock = threading.Lock()
@@ -279,11 +298,32 @@ class DecoupledEngine:
 
     def run_device(self, device_batch) -> torch.Tensor:
         """Copy one batch to the device and launch its program; returns
-        the [C, f] embeddings without waiting for the device."""
+        the [C, f] embeddings without waiting for the device (for an
+        all-fresh tier batch: the tier's rows, on the host)."""
         plan = device_batch if isinstance(device_batch, BatchPlan) \
             else None                             # staged pipeline output
         if plan is not None:
+            if plan.tier_done:
+                # all-fresh: the tier's rows ARE the answer; no program
+                # runs for this batch (and no calibration or dispatch)
+                return torch.from_numpy(plan.tier_rows)
             device_batch = plan.device
+        emb = self._run_program(plan, device_batch)
+        if plan is not None and plan.online_index is not None:
+            # mixed batch: the program ran on the stale targets only
+            # (padded); rejoin with the tier rows in the original slot
+            # order, on the device and without waiting for it
+            dev = emb.device
+            emb = torch.where(
+                to_device(plan.tier_fresh, dev)[:, None],
+                to_device(plan.tier_rows, dev),
+                emb.index_select(0, to_device(plan.online_index, dev)))
+        return emb
+
+    def _run_program(self, plan: Optional[BatchPlan], device_batch
+                     ) -> torch.Tensor:
+        """The batch's feature gather and device program (launched, not
+        waited for)."""
         db = dict(device_batch)
         src = self._fsource
         tr = self.tracer
@@ -497,6 +537,10 @@ class DecoupledEngine:
         store_report())."""
         if hasattr(self._fsource, "refresh_features"):
             self._fsource.refresh_features(vertices)
+        if self.precompute is not None:
+            # demote the dependency ball in the embedding tier (those
+            # vertices serve online until refreshed)
+            self.precompute.on_invalidate(vertices)
         if self.sg_cache is not None:
             self.sg_cache.invalidate(vertices)
         if self.nbr_cache is None:
@@ -551,13 +595,14 @@ class DecoupledEngine:
             self._repin_pool.submit(lambda: None).result(timeout)
 
     def repin(self, **kwargs) -> dict:
-        """Online residency rebalance of the resident store: re-derive
-        the device-resident set from the PPR mass observed since start.
-        Batches in flight keep their residency snapshot."""
+        """Online residency rebalance (resident and sharded stores):
+        re-derive the device-resident set from the PPR mass observed since
+        start (and, sharded, even out skewed shards). Batches in flight
+        keep their residency snapshot."""
         if not hasattr(self._fsource, "repin"):
             raise ValueError(
                 f"store strategy {self._fsource.name!r} has no repin(); "
-                "use StorePolicy(features='resident', ...)")
+                "use StorePolicy(features='resident' | 'sharded', ...)")
         return self._fsource.repin(**kwargs)
 
     def store_report(self) -> dict:
@@ -574,6 +619,15 @@ class DecoupledEngine:
             r["auto_repins"] = self.auto_repins
         return r
 
+    def precompute_report(self) -> dict:
+        """Embedding-tier state of this deployment (the ``precompute.*``
+        schema section): residency, freshness, hit/demotion counters and
+        refresh backlog. ``{"enabled": False}`` when the deployment was
+        built without ``ServingConfig(precompute=...)`` (or this model
+        kind is excluded from ``PrecomputeConfig.models``)."""
+        from repro_torch.core.report_schema import precompute_section
+        return precompute_section(self.precompute)
+
     def close(self):
         dconf = self.config.dispatch
         if self.dispatch is not None and dconf.save_on_close \
@@ -585,6 +639,8 @@ class DecoupledEngine:
                               RuntimeWarning, stacklevel=2)
         if hasattr(self.graph, "unregister_listener"):
             self.graph.unregister_listener(self.invalidate)
+        if self.precompute is not None:
+            self.precompute.close()
         self.scheduler.close()
         if self._repin_pool is not None:
             self._repin_pool.shutdown(wait=True)

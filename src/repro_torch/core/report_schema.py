@@ -2,13 +2,14 @@
 
 The PyTorch counterpart of ``repro.core.report_schema``, limited to the
 sections this package emits: ``latency.*``, ``stages.*``, ``store.*``,
-``trace.*`` (traced deployments) and ``dispatch.*`` (adaptively
-dispatched ones) keep the reference's names, so a dashboard reads both
-packages alike (``SCHEMA``, the reference's key map of those sections).
-``trace`` and ``dispatch`` add one key the reference lacks,
-``explore_failures``: the calibration, warm-up and autotune passes that
-raised, which the reference swallows. The reference's ``shards``/``rpc``/
-``precompute``/``telemetry`` sections belong to planes not ported yet.
+``shards.*`` (sharded feature stores), ``trace.*`` (traced deployments),
+``precompute.*`` (tiered ones) and ``dispatch.*`` (adaptively dispatched
+ones) keep the reference's names, so a dashboard reads both packages alike
+(``SCHEMA``, the reference's key map of those sections). ``trace`` and
+``dispatch`` add one key the reference lacks, ``explore_failures``: the
+calibration, warm-up and autotune passes that raised, which the reference
+swallows. The reference's ``rpc``/``telemetry`` sections belong to planes
+not ported yet.
 """
 from __future__ import annotations
 
@@ -26,10 +27,16 @@ SCHEMA = {
     "store": ("bytes_shipped", "bytes_dense", "transfer_ratio",
               "cache_hit_rate", "dedup_ratio", "policy", "features",
               "nbr_cache", "subgraph_cache", "auto_repins"),
+    "shards": ("bytes", "balance"),
     "trace": ("enabled", "sample_every", "ring_capacity", "flight_k",
               "calibrate_every", "tickets_traced", "spans",
               "spans_dropped", "remote_spans", "host", "hists",
               "flight", "clock_sync", "calibration", "explore_failures"),
+    "precompute": ("enabled", "resident", "fresh", "hits", "misses",
+                   "hit_rate", "demotions", "promotions",
+                   "refresh_chunks", "refresh_backlog",
+                   "refresh_errors", "tier_bytes", "generation",
+                   "builds"),
     "dispatch": ("enabled", "policy", "impl", "mux_sites", "decisions",
                  "sources", "warmup", "variants", "blocks",
                  "table_cells", "table_passes", "artifact",
@@ -56,6 +63,16 @@ def store_section(stats) -> dict:
             "dedup_ratio": stats.last_dedup_ratio}
 
 
+def shards_section(stats) -> Optional[dict]:
+    """The ``shards.*`` section: cumulative bytes shipped per feature-store
+    shard and their max/mean balance (None when the deployment is not
+    sharded — the section is omitted)."""
+    if not stats.shard_bytes:
+        return None
+    return {"bytes": list(stats.shard_bytes),
+            "balance": round(stats.shard_balance, 4)}
+
+
 def trace_section(tracer, calibration=None) -> Optional[dict]:
     """The ``trace.*`` section of a traced deployment (None when tracing
     is off — the section is omitted)."""
@@ -65,6 +82,14 @@ def trace_section(tracer, calibration=None) -> Optional[dict]:
     if calibration is not None and len(calibration):
         d["calibration"] = calibration.to_dict()
     return d
+
+
+def precompute_section(manager) -> dict:
+    """The ``precompute.*`` section of a tiered deployment;
+    ``{"enabled": False}`` when the deployment has no embedding tier."""
+    if manager is None:
+        return {"enabled": False}
+    return manager.report()
 
 
 def dispatch_section(engine) -> Optional[dict]:
@@ -79,15 +104,19 @@ def dispatch_section(engine) -> Optional[dict]:
 
 def scheduler_summary(stats) -> dict:
     """The nested summary a ``SchedulerStats`` emits."""
-    return {"schema_version": SCHEMA_VERSION,
-            "latency": {"t_wall": stats.t_wall,
-                        "t_host": stats.t_host_total,
-                        "t_device": stats.t_device_total,
-                        "t_init": stats.t_initialization},
-            "stages": stages_section(stats),
-            "store": store_section(stats)}
+    d = {"schema_version": SCHEMA_VERSION,
+         "latency": {"t_wall": stats.t_wall,
+                     "t_host": stats.t_host_total,
+                     "t_device": stats.t_device_total,
+                     "t_init": stats.t_initialization},
+         "stages": stages_section(stats),
+         "store": store_section(stats)}
+    shards = shards_section(stats)
+    if shards is not None:
+        d["shards"] = shards
+    return d
 
 
 __all__ = ["SCHEMA_VERSION", "SCHEMA", "scheduler_summary",
-           "stages_section", "store_section", "trace_section",
-           "dispatch_section"]
+           "stages_section", "store_section", "shards_section",
+           "trace_section", "precompute_section", "dispatch_section"]

@@ -84,6 +84,9 @@ class SchedulerStats:
     last_dedup_ratio: Optional[float] = None
     batch_edges_total: float = 0.0
     n_density: int = 0
+    # sharded feature store only: cumulative host->device bytes PER SHARD
+    # (empty for unsharded deployments)
+    shard_bytes: List[int] = field(default_factory=list)
 
     @property
     def overlap_fraction(self) -> float:
@@ -114,6 +117,15 @@ class SchedulerStats:
     def transfer_ratio(self) -> float:
         return self.bytes_shipped / self.bytes_dense if self.bytes_dense \
             else 1.0
+
+    @property
+    def shard_balance(self) -> float:
+        """max/mean of per-shard shipped bytes (1.0 = perfectly even; 1.0
+        also when the deployment is unsharded)."""
+        if not self.shard_bytes:
+            return 1.0
+        mean = sum(self.shard_bytes) / len(self.shard_bytes)
+        return max(self.shard_bytes) / mean if mean > 0 else 1.0
 
     def summary(self) -> dict:
         return scheduler_summary(self)
@@ -355,9 +367,12 @@ class PipelineScheduler:
                           cache_misses: int = 0, build_hits: int = 0,
                           build_misses: int = 0,
                           dedup_ratio: Optional[float] = None,
+                          shard_bytes: Optional[Sequence[int]] = None,
                           batch_edges: Optional[float] = None):
         """Accumulate transfer/cache counters for one prepared batch (safe
-        from the stage worker threads and from run()'s serial path)."""
+        from the stage worker threads and from run()'s serial path).
+        ``shard_bytes`` (one entry per feature-store shard) accumulates
+        elementwise."""
         with self._lock:
             s = self.stats
             s.bytes_shipped += int(bytes_shipped)
@@ -371,6 +386,12 @@ class PipelineScheduler:
             if batch_edges is not None:
                 s.batch_edges_total += float(batch_edges)
                 s.n_density += 1
+            if shard_bytes is not None:
+                if len(s.shard_bytes) < len(shard_bytes):
+                    s.shard_bytes += [0] * (len(shard_bytes)
+                                            - len(s.shard_bytes))
+                for i, b in enumerate(shard_bytes):
+                    s.shard_bytes[i] += int(b)
 
     def flush(self, timeout: Optional[float] = None):
         """Block until every submitted batch has completed."""

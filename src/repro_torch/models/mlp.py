@@ -1,6 +1,6 @@
 """Feed-forward block: SwiGLU (llama family), the PyTorch counterpart of
 ``repro.models.mlp``. The plain GELU MLP (whisper) comes with the audio
-family (ROADMAP.md queue 1, item 12.6)."""
+family (ROADMAP.md queue 1, item 14.5)."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +15,7 @@ def init_mlp(gen, n_layers, d_model, d_ff, act="silu",
     if act != "silu":
         raise NotImplementedError(
             f"act={act!r}: the plain MLP is not ported yet (ROADMAP.md "
-            f"queue 1, item 12.6: audio)")
+            f"queue 1, item 14.5: audio)")
     return {"w_gate": dense_init(gen, (n_layers, d_model, d_ff), dtype),
             "w_up": dense_init(gen, (n_layers, d_model, d_ff), dtype),
             "w_down": dense_init(gen, (n_layers, d_ff, d_model), dtype)}
@@ -25,7 +25,7 @@ def mlp(params, x, act="silu"):
     if "w_gate" not in params:
         raise NotImplementedError(
             "the plain MLP (w_in/w_out) is not ported yet (ROADMAP.md "
-            "queue 1, item 12.6: audio)")
+            "queue 1, item 14.5: audio)")
     f = act_fn(act)
     h = f(matmul(x, params["w_gate"])) * matmul(x, params["w_up"])
     return matmul(h, params["w_down"])

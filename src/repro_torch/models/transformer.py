@@ -31,10 +31,10 @@ from repro_torch.models.common import (cast_tree, dense_init, embed_init,
 from repro_torch.models.mlp import init_mlp, mlp
 
 CACHE_DTYPE = torch.bfloat16
-# ROADMAP.md queue 1, item 12: the LM families not ported yet
-UNPORTED = {"moe": "12.2 (MoE) and 12.3 (MLA)", "ssm": "12.4 (SSM/Mamba)",
-            "hybrid": "12.5 (hybrid, Jamba)", "audio": "12.6 (audio)",
-            "vlm": "12.7 (VLM)"}
+# ROADMAP.md queue 1, item 14: the LM families not ported yet
+UNPORTED = {"moe": "14.1 (MoE) and 14.2 (MLA)", "ssm": "14.3 (SSM/Mamba)",
+            "hybrid": "14.4 (hybrid, Jamba)", "audio": "14.5 (audio)",
+            "vlm": "14.6 (VLM)"}
 
 
 def _pdt(cfg: ModelConfig) -> torch.dtype:
@@ -49,7 +49,7 @@ def _require_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or any(
             (cfg.moe, cfg.mla, cfg.ssm, cfg.encoder, cfg.vision,
              cfg.hybrid_attn_period, cfg.mtp)):
-        item = UNPORTED.get(cfg.family, "12")
+        item = UNPORTED.get(cfg.family, "14")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"repro_torch yet (ROADMAP.md queue 1, item {item}); only the "

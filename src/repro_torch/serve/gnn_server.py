@@ -15,10 +15,10 @@ PyTorch counterpart of ``repro.serve.gnn_server``:
 * per-model latency percentiles (p50/p90/p99) and the achieved host/device
   overlap fraction are reported, per model and aggregate.
 
-A lane's report carries its engine's ``trace`` and ``dispatch`` sections
-where the deployment has those planes. The reference's telemetry and
-precompute planes (its ``metrics_wire``/``metrics_text`` and those report
-sections) are not ported.
+A lane's report carries its engine's ``shards``, ``trace``,
+``precompute`` and ``dispatch`` sections where the deployment has those
+planes. The reference's telemetry plane (its ``metrics_wire``/
+``metrics_text`` and that report section) is not ported.
 """
 from __future__ import annotations
 
@@ -34,7 +34,9 @@ from repro_torch.core.config import ServingConfig
 from repro_torch.core.dse import DSEPlan, H100Spec, explore, validate_models
 from repro_torch.core.engine import DecoupledEngine
 from repro_torch.core.report_schema import (SCHEMA_VERSION,
-                                            dispatch_section, stages_section,
+                                            dispatch_section,
+                                            precompute_section,
+                                            shards_section, stages_section,
                                             store_section)
 from repro_torch.obs.hist import LogHistogram, Reservoir
 
@@ -191,8 +193,8 @@ class _ModelLane:
     def report(self) -> dict:
         """This lane's slice of the report schema (core.report_schema):
         latency.* request percentiles, stages.* pipeline breakdown, store.*
-        transfer + subsystem state, and trace.* / dispatch.* where the
-        deployment has those planes."""
+        transfer + subsystem state, and shards.* / trace.* /
+        precompute.* / dispatch.* where the deployment has those planes."""
         sched = self.engine.scheduler.stats
         r = {"kind": self.engine.cfg.kind,
              # compiled ACK program: per-op mode mux of this lane
@@ -204,8 +206,13 @@ class _ModelLane:
              "stages": stages_section(sched),
              "store": {**store_section(sched),
                        **self.engine.store_report()}}
+        shards = shards_section(sched)
+        if shards is not None:
+            r["shards"] = shards
         if self.engine.tracer is not None:
             r["trace"] = self.engine.trace_report()
+        if self.engine.precompute is not None:
+            r["precompute"] = precompute_section(self.engine.precompute)
         dispatch = dispatch_section(self.engine)
         if dispatch is not None:
             r["dispatch"] = dispatch

@@ -13,10 +13,11 @@ prepare/run_device stay strategy-agnostic:
     partition it misses, and the device gathers them (``index_select``).
 
 Host arrays cross to the device through a pinned host tensor and a
-non-blocking copy on the current stream (``to_device``). The reference's
-sharded store (``"sharded"``) is not ported yet and raises in
-``build_feature_source``. All strategies emit feature rows padded to the
-engine's feature width (``f_pad``), so padding is decided exactly once.
+non-blocking copy on the current stream (``to_device``). The fourth
+strategy, ``"sharded"`` (the resident table split across shard tables),
+lives in store/sharded.py; ``build_feature_source`` builds all four. All
+strategies emit feature rows padded to the engine's feature width
+(``f_pad``), so padding is decided exactly once.
 """
 from __future__ import annotations
 
@@ -387,8 +388,10 @@ def build_feature_source(graph: CSRGraph, policy, f_pad: int, device,
                                   budget_bytes=policy.hbm_budget_bytes,
                                   hot_scores=hot_scores)
     if policy.features == "sharded":
-        raise NotImplementedError(
-            "StorePolicy.features='sharded': the sharded feature store is "
-            "not ported to repro_torch yet (ROADMAP queue 1, item 7; use "
-            "'dense', 'packed' or 'resident')")
+        from repro_torch.store.sharded import ShardedFeatureStore
+        return ShardedFeatureStore(graph, f_pad, device,
+                                   num_shards=policy.num_shards,
+                                   placement=policy.placement,
+                                   budget_bytes=policy.shard_budget_bytes,
+                                   hot_scores=hot_scores)
     raise ValueError(f"unknown feature strategy {policy.features!r}")

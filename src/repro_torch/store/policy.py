@@ -5,14 +5,13 @@ The paper's end-to-end latency (Eq. 2) is t_pre + t_load + t_compute.
 and t_load (host->device feature shipping) is traded for memory:
 
   features:  "dense"    ship [C, N, f] feature rows every batch (baseline)
-             (the sharded strategy is not ported yet and raises
-             NotImplementedError in build_feature_source)
              "packed"   cross-target dedup: unique rows + int32 index map
              "resident" device feature store: rows pinned in device memory
                         at engine start; batches ship int32 slot maps plus
                         only the rows that miss the HBM budget partition
              "sharded"  resident table partitioned across ``num_shards``
-                        shard tables (not ported yet: the engine raises),
+                        shard tables (one card each where the host has
+                        enough, else simulated on the engine's device),
                         each under its own budget; batches ship per-shard
                         slot lists + a reorder map, rows gather
                         shard-locally, and ``repin()`` rebalances from

@@ -16,7 +16,11 @@ it against the plain path. The scatter-gather's bucket kernel past the
 sort kernel's 16-bit edge indices (E = 65,537) and at N=1024 with the
 Flickr-sized graph's 74,496 edge slots; the three GNN kernels in bf16
 within one bf16 ulp of their plain versions' fp32 results; and a
-multi-model server answering through the kernels. Skipped where no CUDA device is
+multi-model server answering through the kernels. The scatter-gather at
+the offline build's chunk shape (compact sources, the bucket kernel), the
+layer-major build under impl="cuda" against impl="torch", four feature
+shards serving the resident store's bits, and a tiered engine's all-fresh
+and mixed batches. Skipped where no CUDA device is
 present; on the GPU machine run
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
@@ -577,3 +581,128 @@ def test_lm_prefill_through_flash_attention(dev):
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("f", [500, 256])
+def test_scatter_gather_at_the_offline_chunk_shape(dev, f):
+    """The offline build's Aggregate: each chunk of 256 destinations in
+    the compact form (its distinct sources gathered from the [V, f]
+    register, N = max(chunk, sources)), on the kernel sg_variant names,
+    against the plain version; two launches bitwise equal; a non-finite
+    row 0 (the padding edges' source) gives NaN where the plain version
+    does."""
+    from repro_torch.precompute.propagate import _LocalCSR
+    g = get_graph("flickr", scale=0.05, seed=0)
+    local = _LocalCSR(g, np.arange(g.num_vertices), 256, "cuda", dev)
+    H = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (g.num_vertices, f)).astype(np.float32)).to(dev)
+    H[0, 3] = float("inf")
+    for i in range(local.num_chunks):
+        rows, src, dst, nrows = local._chunks[i]
+        h = torch.zeros(1, nrows, f, device=dev)
+        h[0, :len(rows)] = H.index_select(0, rows)
+        w = local._weights("gcn")[i]
+        before = dict(scatter_gather.variant_launches)
+        got = scatter_gather.scatter_gather_aggregate(src, dst, w, h)
+        again = scatter_gather.scatter_gather_aggregate(src, dst, w, h)
+        variant = scatter_gather.sg_variant(nrows, src.shape[1])
+        assert scatter_gather.variant_launches[variant] == \
+            before[variant] + 2
+        want = scatter_gather.scatter_gather_aggregate_ref(src, dst, w, h)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(again))
+
+
+@pytest.mark.parametrize("kind", ["gcn", "sage"])
+def test_offline_build_cuda_against_torch(dev, kind):
+    """The layer-major build under impl="cuda" (every Aggregate on the
+    scatter-gather kernel, counted: chunks x Aggregates) against the same
+    build under impl="torch" on the card; two cuda builds bitwise equal."""
+    from repro_torch.core.program import lower, specialize
+    from repro_torch.precompute import agg_hops, layer_major_embeddings
+    g = get_graph("flickr", scale=0.05, seed=0)
+    cfg = GNNConfig(kind=kind, n_layers=3, receptive_field=128,
+                    f_in=g.feature_dim, readout="target")
+    prog, _ = specialize(lower(cfg), n=128, f_in=g.feature_dim)
+    params = init_gnn(cfg, seed=0, device="cuda")
+    ops.reset_launch_counts()
+    got = layer_major_embeddings(g, prog, params, chunk_size=512,
+                                 impl="cuda", device="cuda")
+    chunks = -(-g.num_vertices // 512)
+    assert ops.launch_counts()["scatter_gather_aggregate"] == \
+        chunks * agg_hops(prog)
+    again = layer_major_embeddings(g, prog, params, chunk_size=512,
+                                   impl="cuda", device="cuda")
+    np.testing.assert_array_equal(got, again)
+    want = layer_major_embeddings(g, prog, params, chunk_size=512,
+                                  impl="torch", device="cuda")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,mode", [("gcn", "sg"), ("sage", "dense"),
+                                       ("gat", "dense")])
+def test_sharded_engine_bitwise_equal_to_resident(dev, kind, mode):
+    """Four shards (one card each where the host has four, else simulated
+    on the one card) serve the resident-store engine's bits through the
+    kernels."""
+    from repro_torch.store import StorePolicy
+    g = get_graph("flickr", scale=0.05, seed=0)
+    cfg = GNNConfig(kind=kind, n_layers=3, receptive_field=128,
+                    f_in=g.feature_dim)
+    params = init_gnn(cfg, seed=0, device="cuda")
+    targets = zipf_traffic(g, 32, seed=1)
+    out = {}
+    for features, extra in (("resident", {}),
+                            ("sharded", {"num_shards": 4}),
+                            ("sharded", {"num_shards": 4,
+                                         "placement": "range"})):
+        conf = ServingConfig(device="cuda", batch_size=16, mode=mode,
+                             impl="cuda", num_threads=2,
+                             store=StorePolicy(features=features, **extra))
+        with DecoupledEngine(g, cfg, params=params, config=conf) as eng:
+            out[features, extra.get("placement")] = \
+                eng.infer(targets).embeddings
+            rep = eng.store_report()["features"]
+        if features == "sharded":
+            four = torch.cuda.device_count() >= 4
+            assert rep["simulated"] is not four
+            assert rep["devices"] == ([f"cuda:{i}" for i in range(4)]
+                                      if four else ["cuda:0"] * 4)
+            assert rep["cross_shard_rows"] > 0
+    want = out["resident", None]
+    for key, got in out.items():
+        np.testing.assert_array_equal(got, want, err_msg=str(key))
+
+
+def test_tier_engine_all_fresh_and_mixed(dev):
+    """A tiered GCN engine on the card: an all-fresh batch launches
+    nothing and returns the tier's rows; a mixed batch after a demotion
+    runs the program once, its online rows equal to an online engine's."""
+    from repro_torch.precompute import PrecomputeConfig
+    g = get_graph("flickr", scale=0.05, seed=0)
+    cfg = GNNConfig(kind="gcn", n_layers=2, receptive_field=128,
+                    f_in=g.feature_dim, readout="target")
+    params = init_gnn(cfg, seed=0, device="cuda")
+    targets = zipf_traffic(g, 16, seed=1)
+    base = ServingConfig(device="cuda", batch_size=16, mode="sg",
+                         impl="cuda", num_threads=2)
+    tiered = dataclasses.replace(base, precompute=PrecomputeConfig(
+        chunk_size=512, auto_refresh=False))
+    with DecoupledEngine(g, cfg, params=params, config=tiered) as hy, \
+            DecoupledEngine(g, cfg, params=params, config=base) as on:
+        tier = hy.precompute.tier
+        ops.reset_launch_counts()
+        got = hy.infer(targets).embeddings
+        assert sum(ops.launch_counts().values()) == 0
+        np.testing.assert_array_equal(got, tier.table[tier.slot_of[targets]])
+        tier.demote(targets[:5])
+        fresh = tier.fresh[tier.slot_of[targets]]
+        want = on.infer(targets).embeddings
+        ops.reset_launch_counts()
+        got = hy.infer(targets).embeddings
+        assert ops.launch_counts()["fused_gnn_layer"] == 2
+        np.testing.assert_allclose(got[~fresh], want[~fresh], rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(
+            got[fresh], tier.table[tier.slot_of[targets[fresh]]])

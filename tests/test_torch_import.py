@@ -2,8 +2,8 @@
 imports with ``jax`` blocked and loads nothing of ``repro``; so do
 chip_smoke.py's and the fault-check scripts' imports; a CUDA device with no card raises; every
 ServingConfig field of a plane not ported yet raises, naming its ROADMAP
-item, while the ported trace and dispatch planes take their configs and
-refuse other types; kernels are built
+item, while the ported trace, dispatch and precompute planes take their
+configs and refuse other types; kernels are built
 from the repository's sources only."""
 import inspect
 import json
@@ -66,7 +66,10 @@ class TestImportIsolation:
                 "models.mlp", "models.attention", "models.transformer",
                 "obs.hist", "core.dse", "serve.gnn_server", "launch.serve",
                 "obs.flight", "obs.trace", "obs.export", "obs.calib",
-                "ckpt.checkpoint", "core.dispatch")}
+                "ckpt.checkpoint", "core.dispatch", "distributed.sharding",
+                "store.sharded", "precompute.propagate", "precompute.tier",
+                "precompute.config", "precompute.artifact",
+                "precompute.manager", "precompute.build")}
         assert slice_modules <= set(MODULES), slice_modules - set(MODULES)
         code = "import repro_torch\n" + "".join(
             f"import {m}\n" for m in MODULES)
@@ -78,7 +81,8 @@ class TestImportIsolation:
     @pytest.mark.parametrize("script", ["gnn_fault_check",
                                         "flash_fault_check",
                                         "gat_phase_probe",
-                                        "sg_softmax_probe"])
+                                        "sg_softmax_probe",
+                                        "tier_precision_probe"])
     def test_fault_checks_import_without_jax_or_repro(self, script):
         assert _loaded_after(f"sys.path.insert(0, {str(ROOT / 'scripts')!r})"
                              f"\nimport {script}") == []
@@ -88,7 +92,8 @@ class TestImportIsolation:
         for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
                   *(ROOT / "scripts").glob("*_fault_check.py"),
                   ROOT / "scripts" / "gat_phase_probe.py",
-                  ROOT / "scripts" / "sg_softmax_probe.py"]:
+                  ROOT / "scripts" / "sg_softmax_probe.py",
+                  ROOT / "scripts" / "tier_precision_probe.py"]:
             for line in p.read_text().splitlines():
                 assert not bad.match(line), (p, line)
 
@@ -118,23 +123,25 @@ class TestNoSilentFallback:
             default = inspect.signature(fn).parameters[arg].default
             assert default == "cuda", (fn.__qualname__, arg, default)
 
-    @pytest.mark.parametrize("field", ["telemetry", "precompute"])
+    @pytest.mark.parametrize("field", ["telemetry"])
     def test_unported_plane_raises(self, field):
-        item = {"telemetry": 12, "precompute": 10}[field]
+        item = {"telemetry": 12}[field]
         with pytest.raises(NotImplementedError,
                            match=f"{field}.*item {item}"):
             ServingConfig(device="cpu", **{field: object()})
 
-    @pytest.mark.parametrize("field", ["trace", "dispatch"])
+    @pytest.mark.parametrize("field", ["trace", "dispatch", "precompute"])
     def test_ported_plane_takes_its_config(self, field):
         from repro_torch.core.dispatch import DispatchConfig
         from repro_torch.obs.trace import TraceConfig
-        conf = {"trace": TraceConfig, "dispatch": DispatchConfig}[field]()
+        from repro_torch.precompute import PrecomputeConfig
+        conf = {"trace": TraceConfig, "dispatch": DispatchConfig,
+                "precompute": PrecomputeConfig}[field]()
         sc = ServingConfig(device="cpu", **{field: conf})
         assert getattr(sc, field) is conf
         assert sc.describe()[field] == conf.describe()
 
-    @pytest.mark.parametrize("field", ["trace", "dispatch"])
+    @pytest.mark.parametrize("field", ["trace", "dispatch", "precompute"])
     def test_ported_plane_refuses_another_type(self, field):
         with pytest.raises(TypeError, match=field):
             ServingConfig(device="cpu", **{field: object()})
@@ -147,19 +154,15 @@ class TestNoSilentFallback:
     @pytest.mark.parametrize("features,extra", [
         ("resident", {}), ("sharded", {"num_shards": 2})])
     def test_resident_store_raises(self, features, extra):
-        """The sharded store is not ported and raises, naming itself; the
-        single-device resident store is ported and is accepted."""
+        """Neither device store raises any longer: the single-device
+        resident store and the sharded store are both ported, and the
+        config and the factory take them."""
         pol = StorePolicy(features=features, **extra)
         g = get_graph("flickr", scale=0.02, seed=1)
-        if features == "resident":
-            ServingConfig(device="cpu", store=pol)
-            assert build_feature_source(g, pol, 512, "cpu").name == \
-                "resident"
-            return
-        with pytest.raises(NotImplementedError, match="features"):
-            ServingConfig(device="cpu", store=pol)
-        with pytest.raises(NotImplementedError, match="features"):
-            build_feature_source(g, pol, 512, "cpu")
+        ServingConfig(device="cpu", store=pol)
+        src = build_feature_source(g, pol, 512, "cpu")
+        assert src.name == features
+        assert src.num_resident == g.num_vertices
 
     def test_bad_impl_rejected(self):
         with pytest.raises(ValueError, match="impl"):

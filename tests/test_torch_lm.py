@@ -32,6 +32,8 @@ plain version, which keeps the probabilities in fp32); held at
 ``BF16_EQUAL`` = half of them bitwise equal.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -491,6 +493,29 @@ class TestNotPorted:
                      lambda: t_tf.decode_step(cfg, {}, {}, None, 0)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 call()
+
+    @pytest.mark.parametrize("name", OTHER)
+    def test_refusal_names_its_roadmap_item(self, name):
+        """Each family's refusal names the item of ROADMAP.md's queue 1
+        that ports it (14.1 MoE and 14.2 MLA, 14.3 SSM, 14.4 hybrid, 14.5
+        audio, 14.6 VLM), and that item exists in ROADMAP.md."""
+        cfg = t_registry.get_config(name, reduced=True)
+        item = t_tf.UNPORTED[cfg.family]
+        want = {"moe": "14.1", "ssm": "14.3", "hybrid": "14.4",
+                "audio": "14.5", "vlm": "14.6"}[cfg.family]
+        assert item.startswith(want)
+        with pytest.raises(NotImplementedError) as e:
+            t_tf.init_params(cfg, device="cpu")
+        assert f"item {item}" in str(e.value)
+        roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md"
+                   ).read_text()
+        queue = roadmap[roadmap.index("14. **LLM substrate"):]
+        for num in re.findall(r"14\.(\d)", item):
+            assert re.search(rf"^\s+{num}\. \*\*", queue, re.M), num
+
+    def test_plain_mlp_refusal_names_audio_item(self):
+        with pytest.raises(NotImplementedError, match=r"item 14\.5: audio"):
+            t_mlp.init_mlp(None, 1, 4, 8, act="gelu")
 
     def test_cuda_without_a_card_raises(self):
         if torch.cuda.is_available():

@@ -63,10 +63,11 @@ def baseline(graph, cfg):
 
 class TestResidentStore:
     def test_config_takes_resident_refuses_sharded(self, graph):
+        """The config takes the resident store; the sharded store, refused
+        until it was ported, is taken too (tests/test_torch_shard.py)."""
         ServingConfig(device="cpu", store=StorePolicy(features="resident"))
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ServingConfig(device="cpu", store=StorePolicy(
-                features="sharded", num_shards=2))
+        ServingConfig(device="cpu", store=StorePolicy(
+            features="sharded", num_shards=2))
         src = build_feature_source(graph, StorePolicy(features="resident"),
                                    512, "cpu")
         assert isinstance(src, DeviceFeatureStore)
