@@ -165,7 +165,38 @@
    untiered GCN lane, 192 Zipf(1.1) requests each: the tiered lane
    launches nothing and answers the tier's rows, with its ``precompute``
    report section; p50/p99 of both lanes printed.
-13. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
+13. ``[rpc]``: two graph-host processes (``python -m
+   repro_torch.distributed.graph_host`` on the Flickr-sized graph, seed 0,
+   ephemeral ports read from their ``GRAPH_HOST_LISTENING`` lines; a host
+   that does not answer within ``RPC_HOST_DEADLINE_S`` fails the run; both
+   are killed at the end; no caches on either side) serve Select and
+   Build for GCN (sg), GraphSAGE
+   (dense) and GAT (dense, ``routing="affine"``) at the [engine] phase's
+   width, depth and params over ``transport="socket"``: a warm-up batch and
+   ``N_BATCHES`` Zipf(1.1) batches, every batch bitwise equal to the local
+   engine's, the program's launches a batch. One traced remote engine: its
+   export validates and carries remote select/build spans from both hosts,
+   with ``clock_sync`` for both endpoints. Then one host is killed between
+   batches: the next batches are served by the other, bitwise equal to the
+   local engine, with the retry or quarantine counted. Prints per kind,
+   local against remote: p50 host+device, wall per batch, the device step,
+   rpc calls, bytes in and out a batch and ``t_rpc_wire`` /
+   ``t_rpc_remote``.
+14. ``[telemetry]``: one ``GNNServer`` with a telemetry port
+   (``TelemetryConfig(port=0)``) and three metered lanes at the [engine]
+   width and depth: GCN (sg) behind ``transport="inproc"``, GraphSAGE
+   (dense) on the resident store, GAT ``mode="auto"`` with a
+   ``DispatchConfig`` (no table, no warm-up: every decision from the
+   static model, so ``repro_dispatch_total`` counts ``source="flop"``),
+   ``SERVE_REQUESTS`` requests a lane. The ``/metrics`` body, scraped over
+   loopback HTTP, must pass the package's exposition validator with at
+   least ``MIN_SERIES`` series, among them the inproc graph host's
+   ``repro_host_select_seconds`` (the cluster scrape),
+   ``repro_rpc_calls_total`` and ``repro_dispatch_total``; every lane
+   bitwise equal to an unmetered engine replaying the batches it served
+   (launching what the lanes launched); each lane's device-stage histogram
+   counting its batches.
+15. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
    the bucket scatter-gather, the offline chunk shape and the bf16
    kernels) and, last, the ``ok`` line.
 
@@ -176,11 +207,15 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
+import queue
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -226,6 +261,9 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
 from repro_torch.obs.calib import op_label, op_mode, size_bucket  # noqa: E402
 from repro_torch.obs.export import validate_chrome_trace  # noqa: E402
+from repro_torch.obs.metrics import (TelemetryConfig,  # noqa: E402
+                                     series_count)
+from repro_torch.obs.promexp import validate_exposition  # noqa: E402
 from repro_torch.obs.trace import TraceConfig  # noqa: E402
 from repro_torch.precompute import (PrecomputeArtifactError,  # noqa: E402
                                     PrecomputeConfig, agg_hops,
@@ -306,6 +344,16 @@ SHARD_KINDS = (("gcn", "sg"), ("sage", "dense"), ("gat", "dense"))
 PRE_KINDS = (("gcn", "sg"), ("sage", "dense"))
 PRE_CHUNK, COVER_V = 2048, 256
 PRE_DIR = ROOT / "build" / "chip_smoke_precompute"
+# [rpc]: two graph hosts, the three GNN kernels behind them (GAT routed
+# partition-affine, the others round-robin); a host must print its
+# endpoint within the deadline (it builds the Flickr-sized graph first)
+RPC_HOSTS = 2
+RPC_KINDS = (("gcn", "sg", "round_robin"), ("sage", "dense", "round_robin"),
+             ("gat", "dense", "affine"))
+RPC_HOST_DEADLINE_S = 300.0
+RPC_DIR = ROOT / "build" / "chip_smoke_rpc"
+# [telemetry]: the exposition's series floor (scripts/metrics_smoke.py's)
+MIN_SERIES = 20
 REPLACES = {
     "fused_gnn_layer": ("src/repro_torch/csrc/fused_gnn.cu",
                         "src/repro/kernels/fused_gnn.py:65"),
@@ -2183,6 +2231,362 @@ def precompute_phase(graph, label):
     return total
 
 
+# -- phase 5g: multi-host serving --------------------------------------------
+
+
+def spawn_graph_hosts(n):
+    """Start ``n`` graph-host processes on the Flickr-sized graph (seed 0,
+    the device host's) and return (processes, endpoints). Each must print
+    its ``GRAPH_HOST_LISTENING`` line within ``RPC_HOST_DEADLINE_S``;
+    their later output is drained by a daemon thread. The hosts keep no
+    neighborhood or row cache, as the local engines they are compared
+    with (``StorePolicy()``): shared across the phase's engines, their
+    caches would serve later kinds' batches from the first kind's work."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs, lines = [], []
+    for _ in range(n):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.distributed.graph_host",
+             "--dataset", "flickr", "--scale", "1.0", "--seed", "0",
+             "--port", "0", "--nbr-cache", "none", "--no-row-cache"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        q: "queue.Queue" = queue.Queue()
+
+        def pump(out=proc.stdout, q=q):
+            for line in out:
+                q.put(line)
+            q.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+        procs.append(proc)
+        lines.append(q)
+    endpoints = []
+    deadline = time.monotonic() + RPC_HOST_DEADLINE_S
+    try:
+        for proc, q in zip(procs, lines):
+            seen = []
+            while True:
+                try:
+                    line = q.get(timeout=max(0.0,
+                                             deadline - time.monotonic()))
+                except queue.Empty:
+                    line = None
+                if line is None:
+                    raise RuntimeError(
+                        f"chip_smoke: graph host pid {proc.pid} gave no "
+                        f"endpoint within {RPC_HOST_DEADLINE_S:.0f} s "
+                        f"(exit {proc.poll()}): {''.join(seen)[-2000:]}")
+                seen.append(line)
+                if line.startswith("GRAPH_HOST_LISTENING"):
+                    _, host, port = line.split()
+                    endpoints.append(f"{host}:{port}")
+                    break
+    except BaseException:
+        stop_graph_hosts(procs)
+        raise
+    return procs, endpoints
+
+
+def stop_graph_hosts(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=30)
+
+
+def _rpc_counts(stats):
+    return {k: getattr(stats, k) for k in (
+        "rpc_calls", "rpc_bytes_out", "rpc_bytes_in", "rpc_retries",
+        "rpc_timeouts", "rpc_errors", "t_rpc_wall", "t_rpc_remote",
+        "t_rpc_wire")}
+
+
+def _served(eng, targets):
+    """(embeddings, call stats, rpc counters of the call, launches by
+    kernel) of a warm-up batch and then ``targets`` through ``eng``."""
+    eng.infer(targets[:C])                           # warm-up batch
+    before = ops.launch_counts()
+    r0 = _rpc_counts(eng.scheduler.stats)
+    res = eng.infer(targets)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    r1 = _rpc_counts(eng.scheduler.stats)
+    return (res.embeddings, res.stats, {k: r1[k] - r0[k] for k in r0},
+            {k: after[k] - before[k] for k in after})
+
+
+def _stat_line(st):
+    per = [h + d for h, d in zip(st.host_times, st.device_times)]
+    n = len(st.device_times)
+    return (f"p50 host+device {statistics.median(per) * 1e3:.2f} ms, wall/"
+            f"batch {st.t_wall / n * 1e3:.2f} ms, device step p50 "
+            f"{statistics.median(st.device_times) * 1e3:.2f} ms")
+
+
+def _batches_equal(got, want):
+    return [bool(np.array_equal(got[i:i + C], want[i:i + C]))
+            for i in range(0, len(want), C)]
+
+
+def rpc_phase(graph, targets, label):
+    """GCN, GraphSAGE and GAT with Select and Build on two graph-host
+    processes (see the module docstring, 13). Returns the launch counts of
+    the remote engines' batches."""
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    RPC_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs, endpoints = spawn_graph_hosts(RPC_HOSTS)
+    try:
+        print(f"[rpc] {RPC_HOSTS} graph hosts {endpoints} up in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        local_out, params = {}, {}
+        for kind, mode, routing in RPC_KINDS:
+            cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                            f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+            params[kind] = init_gnn(cfg, seed=0, device="cuda")
+            local_conf = ServingConfig(device="cuda", batch_size=C,
+                                       mode=mode, impl="cuda")
+            remote_conf = dataclasses.replace(
+                local_conf, transport="socket", endpoints=tuple(endpoints),
+                routing=routing)
+            with DecoupledEngine(graph, cfg, params=params[kind],
+                                 config=local_conf) as eng:
+                want, st_local, _, _ = _served(eng, targets)
+            with DecoupledEngine(graph, cfg, params=params[kind],
+                                 config=remote_conf) as eng:
+                got, st, rpc, per = _served(eng, targets)
+                hosts = eng.store_report()["graph_hosts"]
+            local_out[kind] = want
+            same = _batches_equal(got, want)
+            expected = {k: EXPECTED[kind, mode].get(k, 0) * N_BATCHES
+                        for k in per}
+            print(f"[rpc] {kind}/{mode} ({routing}) local: "
+                  f"{_stat_line(st_local)} [{label}]", flush=True)
+            print(f"[rpc] {kind}/{mode} ({routing}) remote over "
+                  f"{RPC_HOSTS} hosts: {_stat_line(st)}; rpc calls "
+                  f"{rpc['rpc_calls']}, bytes a batch out "
+                  f"{rpc['rpc_bytes_out'] / N_BATCHES:.0f} in "
+                  f"{rpc['rpc_bytes_in'] / N_BATCHES:.0f}, t_rpc_wall "
+                  f"{rpc['t_rpc_wall']:.4f} s, t_rpc_remote "
+                  f"{rpc['t_rpc_remote']:.4f} s, t_rpc_wire "
+                  f"{rpc['t_rpc_wire']:.4f} s (wire share "
+                  f"{rpc['t_rpc_wire'] / max(rpc['t_rpc_wall'], 1e-9):.4f}"
+                  f"); requests by host "
+                  f"{[h.get('report', {}).get('requests') for h in hosts]};"
+                  f" launches {per}; batches bitwise equal to local {same} "
+                  f"[{label}]", flush=True)
+            check(all(same), f"[rpc] {kind}: remote batches {same} differ "
+                             f"from the local engine's")
+            check(per == expected, f"[rpc] {kind}: launches {per}, "
+                                   f"expected {expected}")
+            check(rpc["rpc_calls"] == N_BATCHES and rpc["rpc_errors"] == 0,
+                  f"[rpc] {kind}: {rpc}")
+            for k in total:
+                total[k] += per[k]
+        # one traced remote engine: the graph hosts' spans stitched in
+        kind, mode, routing = RPC_KINDS[0]
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS)
+        conf = ServingConfig(device="cuda", batch_size=C, mode=mode,
+                             impl="cuda", transport="socket",
+                             endpoints=tuple(endpoints),
+                             trace=TraceConfig())
+        with DecoupledEngine(graph, cfg, params=params[kind],
+                             config=conf) as eng:
+            got, st, rpc, per = _served(eng, targets)
+            tree = eng.export_trace(str(RPC_DIR / "trace.json"))
+            spans = eng.tracer.export_spans()
+            rep = eng.trace_report()
+        for k in total:
+            total[k] += per[k]
+        remote = [sp for sp in spans if sp["cat"] == "remote"]
+        by_host = {}
+        for sp in remote:
+            by_host.setdefault(sp["host"], set()).add(sp["name"])
+        problems = validate_chrome_trace(tree)
+        same = _batches_equal(got, local_out[kind])
+        print(f"[rpc] traced {kind}/{mode}: {len(spans)} spans, remote "
+              f"spans {rep['remote_spans']} by host "
+              f"{ {h: sorted(v) for h, v in by_host.items()} }, clock_sync "
+              f"{rep.get('clock_sync')}, export problems {problems[:3]}; "
+              f"bitwise equal to local {same} [{label}]", flush=True)
+        check(not problems and all(same), f"[rpc] traced: {problems[:3]}, "
+                                          f"bitwise {same}")
+        check(len(by_host) == RPC_HOSTS and all(
+            v == {"remote.select", "remote.build"}
+            for v in by_host.values()),
+            f"[rpc] traced: remote spans by host {by_host}")
+        check(set(rep.get("clock_sync", {})) == set(endpoints),
+              f"[rpc] traced: clock_sync {rep.get('clock_sync')}")
+        # kill one host between batches: the other serves the rest
+        conf = ServingConfig(device="cuda", batch_size=C, mode=mode,
+                             impl="cuda", transport="socket",
+                             endpoints=tuple(endpoints),
+                             telemetry=TelemetryConfig())
+        with DecoupledEngine(graph, cfg, params=params[kind],
+                             config=conf) as eng:
+            before = ops.launch_counts()
+            first = eng.infer(targets[:2 * C]).embeddings
+            stop_graph_hosts(procs[:1])
+            r0 = _rpc_counts(eng.scheduler.stats)
+            after_kill = eng.infer(targets[2 * C:4 * C]).embeddings
+            r1 = _rpc_counts(eng.scheduler.stats)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            health = {h["endpoint"]: h["healthy"]
+                      for h in eng._host_pool.report()}
+            quarantines = eng.telemetry_report()["counters"].get(
+                "repro_host_quarantines_total", 0)
+            served = eng.store_report()["graph_hosts"]
+        for k in total:
+            total[k] += after[k] - before[k]
+        got = np.concatenate([first, after_kill])
+        same = _batches_equal(got, local_out[kind])
+        retries = r1["rpc_retries"] - r0["rpc_retries"]
+        errors = r1["rpc_errors"] - r0["rpc_errors"]
+        print(f"[rpc] {endpoints[0]} killed after 2 batches: the next 2 "
+              f"served with {retries} retries, {errors} errors, "
+              f"{quarantines} quarantines; health {health}; requests by "
+              f"host {[h.get('report', {}).get('requests') for h in served]}"
+              f"; batches bitwise equal to local {same} [{label}]",
+              flush=True)
+        check(all(same) and errors == 0, f"[rpc] after the kill: bitwise "
+                                         f"{same}, errors {errors}")
+        check(retries + quarantines > 0 and not health[endpoints[0]]
+              and health[endpoints[1]],
+              f"[rpc] after the kill: retries {retries}, quarantines "
+              f"{quarantines}, health {health}")
+    finally:
+        stop_graph_hosts(procs)
+    print(f"[rpc] launches over the remote engines: {total} [{label}]",
+          flush=True)
+    return total
+
+
+# -- phase 5h: the telemetry plane -------------------------------------------
+
+
+def telemetry_phase(graph, label):
+    """One metered GNNServer (see the module docstring, 14). Returns the
+    launch counts of the server's batches."""
+    tconf = TelemetryConfig(port=0)
+    base = ServingConfig(device="cuda", batch_size=C, impl="cuda",
+                         telemetry=tconf)
+    lanes = {
+        "gcn": dataclasses.replace(base, mode="sg", transport="inproc"),
+        "sage": dataclasses.replace(
+            base, mode="dense", store=StorePolicy(features="resident")),
+        "gat": dataclasses.replace(
+            base, mode="auto", dispatch=DispatchConfig(
+                warmup_passes=0, autotune_blocks=False)),
+    }
+    srv = GNNServer(config=base)
+    cfgs, params, recorded = {}, {}, {}
+    for kind, conf in lanes.items():
+        cfgs[kind] = GNNConfig(kind=kind, n_layers=LAYERS,
+                               receptive_field=N, f_in=F_IN,
+                               f_hidden=F_HID, n_heads=HEADS)
+        params[kind] = init_gnn(cfgs[kind], seed=0, device="cuda")
+        srv.register(kind, graph=graph, cfg=cfgs[kind],
+                     params=params[kind], config=conf)
+        eng = srv.engine_for(kind)
+        recorded[kind] = []
+
+        def record(targets, on_done=None, eng=eng, log=recorded[kind],
+                   submit=eng.submit_chunk):
+            log.append(np.array(targets))
+            return submit(targets, on_done=on_done)
+
+        eng.submit_chunk = record
+    rng = np.random.default_rng(9)
+    order = [(k, int(t)) for k in lanes
+             for t in zipf_traffic(graph, SERVE_REQUESTS, a=1.1,
+                                   seed=int(rng.integers(1 << 30)))]
+    ops.reset_launch_counts()
+    srv.start()
+    try:
+        reqs = [srv.submit(t, model=k) for k, t in order]
+        srv.drain(reqs, timeout=600)
+        for k in lanes:
+            srv.engine_for(k).scheduler.flush(timeout=60)
+        torch.cuda.synchronize()
+        served = ops.launch_counts()
+        url = srv.metrics_url
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            status = resp.status
+            ctype = resp.headers.get("Content-Type", "")
+            body = resp.read().decode("utf-8")
+        t_scrape = time.perf_counter() - t0
+        wire = srv.metrics_wire()
+        rep = srv.report()["models"]
+        tele = {k: srv.engine_for(k).telemetry_report() for k in lanes}
+    finally:
+        srv.stop()
+    problems = validate_exposition(body)
+    n_series = series_count(wire)
+    families = sorted({ln.split()[2] for ln in body.splitlines()
+                       if ln.startswith("# TYPE ")})
+    print(f"[telemetry] scraped {url} (HTTP "
+          f"{status}, {ctype}): {len(body)} bytes, {n_series} series "
+          f"across {len(families)} families in {t_scrape * 1e3:.2f} ms, "
+          f"problems {problems[:3]}; server launches {served} [{label}]",
+          flush=True)
+    check(status == 200 and "version=0.0.4" in ctype and not problems
+          and n_series >= MIN_SERIES,
+          f"[telemetry] scrape: HTTP {status} {ctype!r}, {n_series} "
+          f"series, problems {problems[:3]}")
+    for fam in ("repro_host_select_seconds", "repro_rpc_calls_total",
+                "repro_dispatch_total", "repro_request_seconds"):
+        check(f"# TYPE {fam} " in body, f"[telemetry] {fam} not exposed")
+    disp = [ln for ln in body.splitlines()
+            if ln.startswith("repro_dispatch_total{")]
+    print(f"[telemetry] {disp} [{label}]", flush=True)
+    replay = dict.fromkeys(served, 0)
+    for kind, conf in lanes.items():
+        eng = srv.engine_for(kind)
+        batches = eng.scheduler.stats.n_batches
+        hist = tele[kind]["hists"]
+        dev = hist.get("repro_stage_seconds{stage=device}", {})
+        mine = [r for r in reqs if r.model == kind]
+        got = np.stack([r.embedding for r in mine])
+        before = ops.launch_counts()
+        with DecoupledEngine(graph, cfgs[kind], params=params[kind],
+                             config=dataclasses.replace(
+                                 conf, telemetry=None)) as twin:
+            want = np.concatenate([twin.infer(b).embeddings
+                                   for b in recorded[kind]])
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        for k in replay:
+            replay[k] += after[k] - before[k]
+        same = np.array_equal(got, want)
+        lat = rep[kind]["latency"]
+        print(f"[telemetry] {kind} ({conf.mode}, {conf.transport}, "
+              f"{conf.store.features} store): n={lat['n']} p50 "
+              f"{lat['p50'] * 1e3:.2f} ms p99 {lat['p99'] * 1e3:.2f} ms; "
+              f"{batches} batches, device-stage histogram count "
+              f"{dev.get('count')} (p50 {dev.get('p50', 0) * 1e3:.3f} ms), "
+              f"series {tele[kind]['series']}; bitwise equal to an "
+              f"unmetered engine on the same {len(recorded[kind])} batches "
+              f"{same} [{label}]", flush=True)
+        check(lat["n"] == SERVE_REQUESTS and same,
+              f"[telemetry] {kind}: n={lat['n']}, bitwise {same}")
+        check(dev.get("count") == batches == len(recorded[kind]),
+              f"[telemetry] {kind}: device-stage count {dev.get('count')},"
+              f" batches {batches}")
+        eng.close()
+    check(replay == served, f"[telemetry] the unmetered replay launched "
+                            f"{replay}, the server {served}")
+    check(rep["gcn"].get("rpc", {}).get("calls", 0) > 0
+          and "rpc" not in rep["sage"],
+          f"[telemetry] rpc sections {rep['gcn'].get('rpc')}")
+    print(f"[telemetry] launches over the server: {served} [{label}]",
+          flush=True)
+    return served
+
+
 # -- phase 6: LM prefill and decode ------------------------------------------
 
 
@@ -2393,6 +2797,8 @@ def main() -> int:
           flush=True)
     variants["scatter_gather_aggregate"] += offline_chunk_phase(graph, label)
     precomputed = precompute_phase(graph, label)
+    remote = rpc_phase(graph, targets, label)
+    metered = telemetry_phase(graph, label)
     launches["flash_attention"] = lm_phase(label)["flash_attention"]
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")
@@ -2402,6 +2808,10 @@ def main() -> int:
               f"{k} was never launched on the dispatch path")
         check(sharded[k] > 0, f"{k} was never launched behind the sharded "
                               f"store")
+        check(remote[k] > 0, f"{k} was never launched behind the graph "
+                             f"hosts")
+        check(metered[k] > 0, f"{k} was never launched by the metered "
+                              f"server")
     check(precomputed["scatter_gather_aggregate"] > 0,
           "scatter_gather_aggregate was never launched by the tier")
     kernels = []
@@ -2410,7 +2820,8 @@ def main() -> int:
                             replaces=replaces,
                             launches=launches[k] + served.get(k, 0)
                             + dispatched.get(k, 0) + sharded.get(k, 0)
-                            + precomputed.get(k, 0),
+                            + precomputed.get(k, 0) + remote.get(k, 0)
+                            + metered.get(k, 0),
                             **rec[k], variants=variants.get(k, [])))
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

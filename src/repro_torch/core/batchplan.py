@@ -1,7 +1,7 @@
 """BatchPlan IR — the host side of prepare() as a typed, staged pipeline.
 
-The PyTorch package's copy of ``repro.core.batchplan`` (numpy only; the
-reference's tracing annotations are not copied). The device side is an
+The PyTorch package's copy of ``repro.core.batchplan`` (numpy only). The
+device side is an
 inspectable instruction stream (core.program.AckProgram); this module is
 the mirrored move for the HOST side. The paper's Fig. 3 shows INI +
 subgraph construction dominating the non-compute budget, and its Fig. 7
@@ -58,8 +58,9 @@ class BatchPlan:
     rows: Optional[List[SubgraphRows]] = None
     build_hits: int = 0
     build_misses: int = 0
-    # induced-subgraph density stats (mean over the batch's rows), filled
-    # by Build
+    # induced-subgraph density stats (mean over the batch's rows): the
+    # inputs to per-batch adaptive dispatch. Build fills them locally;
+    # Pack recomputes them from the rows when Build ran behind a transport
     n_vertices: Optional[float] = None   # mean real vertices / subgraph
     n_edges: Optional[float] = None      # mean real edges / subgraph
     # Pack
@@ -169,6 +170,11 @@ class SelectStage(PlanStage):
         plan.node_lists = [found[t] for t in targets]
         plan.nbr_hits = len(found) - len(missing)
         plan.nbr_misses = len(missing)
+        tr = eng.tracer
+        if tr is not None:           # annotate this batch's select span
+            tr.annotate(nbr_hits=plan.nbr_hits,
+                        nbr_misses=plan.nbr_misses,
+                        n_targets=len(targets))
         return plan
 
     def close(self):
@@ -220,6 +226,10 @@ class BuildStage(PlanStage):
         plan.build_hits = hits
         plan.build_misses = len(built) - hits
         _note_density(plan)
+        tr = eng.tracer
+        if tr is not None:           # annotate this batch's build span
+            tr.annotate(build_hits=hits,
+                        build_misses=plan.build_misses)
         return plan
 
 
@@ -236,6 +246,8 @@ class PackStage(PlanStage):
     def run(self, plan: BatchPlan) -> BatchPlan:
         if plan.tier_done:
             return plan
+        if plan.n_edges is None:     # Build ran behind a transport; the
+            _note_density(plan)      # rows' scalars crossed the wire
         eng = self.engine
         src = eng._fsource
         n = eng.cfg.receptive_field
@@ -265,4 +277,7 @@ class PackStage(PlanStage):
             shard_bytes=per_shard(payload) if per_shard else None,
             batch_edges=plan.n_edges)
         plan.device = d
+        tr = eng.tracer
+        if tr is not None:           # annotate this batch's pack span
+            tr.annotate(bytes_shipped=shipped, bytes_dense=dense)
         return plan

@@ -1,7 +1,7 @@
 """ServingConfig — the one typed knob surface for a serving deployment.
 
-The PyTorch counterpart of ``repro.core.config``, with the planes this
-package has ported so far:
+The PyTorch counterpart of ``repro.core.config``, with every plane of the
+reference:
 
   * device program:  device, batch_size, mode, impl, e_pad, seed
   * host pipeline:   num_threads, depth (triple buffering),
@@ -19,25 +19,34 @@ package has ported so far:
   * precompute:      ``precompute`` (a ``precompute.PrecomputeConfig``:
                      the offline layer-major embedding tier and hybrid
                      routing)
+  * telemetry:       ``telemetry`` (an ``obs.TelemetryConfig``: windowed
+                     metrics, Prometheus exposition, SLO burn rates and
+                     the regression watchdog)
+  * transport:       where Select/Build run —
+      transport="local"   in-process stages (the default)
+      transport="inproc"  a private GraphHostService behind the loopback
+                          transport: full wire codec, one process
+      transport="socket"  TCP to ``endpoints`` graph hosts, routed
+                          round-robin or partition-affine with per-call
+                          timeout + bounded retry
 
 ``device`` defaults to ``"cuda"`` and ``impl`` to ``"cuda"`` (the hand
 kernels), so a default deployment on a card always runs the kernels; a
 CUDA device with no card raises, and nothing continues on the CPU
-unasked. The reference's other planes — ``telemetry`` and a
-``transport`` other than ``"local"`` — are not ported yet: setting one
-raises NotImplementedError naming it and its ROADMAP item.
+unasked. Graph hosts are CPU processes: the transport moves Select and
+Build off the device host, while Pack and the program stay on ``device``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.program import IMPLS
 from repro_torch.devices import resolve
 from repro_torch.store.policy import StorePolicy
 
-# planes of the reference not ported yet, with their ROADMAP queue-1 item
-UNPORTED_PLANES = {"telemetry": 12}
+TRANSPORT_MODES = ("local", "inproc", "socket")
+ROUTING_MODES = ("round_robin", "affine")
 
 
 @dataclass(frozen=True)
@@ -57,6 +66,13 @@ class ServingConfig:
     depth: int = 3                     # paper's triple buffering
     max_inflight: Optional[int] = None  # backpressure; None = 2 * depth
     max_wait_s: float = 0.005          # micro-batcher deadline (server)
+    # transport: where Select/Build run
+    transport: str = "local"
+    endpoints: Tuple[str, ...] = ()    # "host:port" graph hosts (socket)
+    rpc_timeout_s: float = 30.0        # per-call deadline
+    rpc_retries: int = 2               # extra attempts on OTHER hosts
+    rpc_concurrency: int = 4           # in-flight calls per deployment
+    routing: str = "round_robin"       # round_robin | affine
     # observability: None (default) = tracing off, zero-cost; a
     # TraceConfig enables per-ticket spans + histograms (obs package)
     trace: Optional[object] = None
@@ -68,18 +84,12 @@ class ServingConfig:
     # PrecomputeConfig builds (or loads) the offline embedding tier and
     # routes tier-fresh targets around the host pipeline
     precompute: Optional[object] = None
-    # planes of the reference not ported yet: anything but the default
-    # raises NotImplementedError
-    transport: str = "local"
+    # telemetry: None (default) = metrics off, zero-cost; a
+    # TelemetryConfig enables windowed metrics + Prometheus exposition
+    # + SLO burn rates + the regression watchdog (obs package)
     telemetry: Optional[object] = None
 
     def __post_init__(self):
-        for name, item in UNPORTED_PLANES.items():
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"ServingConfig.{name}: this plane is not ported to "
-                    f"repro_torch yet (ROADMAP queue 1, item {item}; leave "
-                    f"it None)")
         if self.trace is not None:
             from repro_torch.obs.trace import TraceConfig
             if not isinstance(self.trace, TraceConfig):
@@ -98,11 +108,12 @@ class ServingConfig:
                 raise TypeError(
                     f"precompute must be a precompute.PrecomputeConfig or "
                     f"None, got {type(self.precompute).__name__}")
-        if self.transport != "local":
-            raise NotImplementedError(
-                f"ServingConfig.transport={self.transport!r}: only the "
-                f"local transport is ported to repro_torch (ROADMAP queue "
-                f"1, item 11)")
+        if self.telemetry is not None:
+            from repro_torch.obs.metrics import TelemetryConfig
+            if not isinstance(self.telemetry, TelemetryConfig):
+                raise TypeError(
+                    f"telemetry must be an obs.TelemetryConfig or None, "
+                    f"got {type(self.telemetry).__name__}")
         if not isinstance(self.store, StorePolicy):
             raise TypeError(
                 f"store must be a StorePolicy, got "
@@ -123,6 +134,33 @@ class ServingConfig:
             raise ValueError("max_inflight must be >= 1 (or None)")
         if self.max_wait_s < 0:
             raise ValueError("max_wait_s must be >= 0")
+        if self.transport not in TRANSPORT_MODES:
+            raise ValueError(f"transport={self.transport!r}, expected "
+                             f"one of {TRANSPORT_MODES}")
+        if self.routing not in ROUTING_MODES:
+            raise ValueError(f"routing={self.routing!r}, expected one "
+                             f"of {ROUTING_MODES}")
+        if not isinstance(self.endpoints, tuple):
+            object.__setattr__(self, "endpoints", tuple(self.endpoints))
+        if self.transport == "socket" and not self.endpoints:
+            raise ValueError(
+                "transport='socket' needs at least one 'host:port' in "
+                "endpoints")
+        if self.endpoints and self.transport != "socket":
+            raise ValueError(
+                f"endpoints are only meaningful with transport='socket' "
+                f"(got transport={self.transport!r})")
+        if self.rpc_timeout_s <= 0:
+            raise ValueError("rpc_timeout_s must be > 0")
+        if self.rpc_retries < 0:
+            raise ValueError("rpc_retries must be >= 0")
+        if self.rpc_concurrency < 1:
+            raise ValueError("rpc_concurrency must be >= 1")
+
+    @property
+    def remote(self) -> bool:
+        """Whether Select/Build run behind a transport."""
+        return self.transport != "local"
 
     def describe(self) -> dict:
         d = {"device": self.device, "batch_size": self.batch_size,
@@ -135,7 +173,14 @@ class ServingConfig:
             d["dispatch"] = self.dispatch.describe()
         if self.precompute is not None:
             d["precompute"] = self.precompute.describe()
+        if self.telemetry is not None:
+            d["telemetry"] = self.telemetry.describe()
+        if self.remote:
+            d.update(endpoints=list(self.endpoints) or ["inproc"],
+                     rpc_timeout_s=self.rpc_timeout_s,
+                     rpc_retries=self.rpc_retries,
+                     routing=self.routing)
         return d
 
 
-__all__ = ["ServingConfig"]
+__all__ = ["ServingConfig", "TRANSPORT_MODES", "ROUTING_MODES"]

@@ -34,13 +34,24 @@ resident and sharded feature stores come with their automatic repin
 triggers (``StorePolicy.repin_every`` / ``repin_hit_floor``) on the
 completion path.
 
-This is the local path of the reference's engine: remote transports and
-telemetry are not ported yet (ServingConfig refuses them).
+Multi-host serving (``ServingConfig.transport`` "inproc" or "socket")
+replaces Select and Build with one ``RemoteSelectBuildStage`` that ships
+each batch's targets to a graph host (distributed.rpc) and grafts the
+returned node lists and subgraph rows onto the plan; Pack and the program
+stay here, on the card. The caches then live with the graph on the graph
+hosts, and ``invalidate`` broadcasts to them. A remote engine serves the
+bits of the local one.
+
+The telemetry plane (``ServingConfig.telemetry``) joins the subsystems'
+counters to a windowed metrics registry as collect-time callbacks, so a
+metered engine serves the bits of an unmetered one; ``metrics_wire``
+scrapes the graph hosts' registries too and merges them losslessly.
 """
 from __future__ import annotations
 
 import logging
 import threading
+import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -100,6 +111,17 @@ class DecoupledEngine:
             self.tracer = None
             self._calib = None
         self._calib_count = 0
+        # live telemetry plane (same contract: off by default, every
+        # hot-path site guards on ``telemetry is None``)
+        if config.telemetry is not None:
+            from repro_torch.obs.metrics import Telemetry
+            self.telemetry = Telemetry(config.telemetry, host="client")
+            self._h_gather = self.telemetry.whist(
+                "repro_store_gather_seconds",
+                help="device-side feature gather wall time")
+        else:
+            self.telemetry = None
+            self._h_gather = None
         # calibration / warm-up / autotune passes that raised (serving
         # went on; the reference swallows these)
         self.explore_failures = 0
@@ -131,6 +153,7 @@ class DecoupledEngine:
         dconf = config.dispatch
         self.dispatch = None
         self._variants = None
+        self._disp_counters: Dict = {}
         self._forced_dispatch = 0
         self._last_blocks: Dict[str, int] = {}
         self._static_assignment = {d.site: d.mode
@@ -181,22 +204,45 @@ class DecoupledEngine:
             self.params = dict(params, layer0=l0)
         self._fsource = build_feature_source(graph, store, self.f_pad,
                                              self.device)
-        self.nbr_cache = self._build_nbr_cache(store)
-        # Build-stage subgraph-row cache, byte-bounded by default (one
-        # entry is ~2N^2 floats + the edge arrays)
-        if store.cache_subgraph_rows:
-            cap = store.subgraph_capacity
-            if cap is None:
-                entry = 2 * n * n * 4 + 2 * n * 4 + 4 * self.e_pad * 4
-                cap = max(1, min(store.nbr_capacity,
-                                 store.subgraph_budget_bytes // entry))
-            self.sg_cache = SubgraphRowCache(cap)
-        else:
+        if config.remote:
+            # multi-host deployment: Select/Build run on graph hosts
+            # behind the transport (distributed.rpc); the nbr/row caches
+            # live WITH the graph over there, Pack + the program stay here
+            # where the feature store and the card are
+            from repro_torch.distributed.rpc import (RemoteSelectBuildStage,
+                                                     build_host_pool)
+            self.nbr_cache = None
             self.sg_cache = None
-        # the host side as an explicit staged pipeline (Select -> Build ->
-        # Pack); prepare() runs the same stages serially, so the staged
-        # path is the monolithic one by construction
-        self.stages = [SelectStage(self), BuildStage(self), PackStage(self)]
+            self._host_pool = build_host_pool(config, graph=graph)
+            self.stages = [RemoteSelectBuildStage(
+                self, self._host_pool,
+                workers=config.rpc_concurrency), PackStage(self)]
+            if self.tracer is not None:
+                # ping-based clock-offset estimate per graph host, so
+                # their spans stitch onto this process's timeline
+                from repro_torch.distributed.rpc import \
+                    estimate_clock_offsets
+                self.tracer.clock_sync = estimate_clock_offsets(
+                    self._host_pool)
+        else:
+            self._host_pool = None
+            self.nbr_cache = self._build_nbr_cache(store)
+            # Build-stage subgraph-row cache, byte-bounded by default (one
+            # entry is ~2N^2 floats + the edge arrays)
+            if store.cache_subgraph_rows:
+                cap = store.subgraph_capacity
+                if cap is None:
+                    entry = 2 * n * n * 4 + 2 * n * 4 + 4 * self.e_pad * 4
+                    cap = max(1, min(store.nbr_capacity,
+                                     store.subgraph_budget_bytes // entry))
+                self.sg_cache = SubgraphRowCache(cap)
+            else:
+                self.sg_cache = None
+            # the host side as an explicit staged pipeline (Select ->
+            # Build -> Pack); prepare() runs the same stages serially, so
+            # the staged path is the monolithic one by construction
+            self.stages = [SelectStage(self), BuildStage(self),
+                           PackStage(self)]
         # offline precompute tier (hybrid serving): build or load the
         # layer-major embedding table and prepend the TierStage router;
         # tier-fresh targets skip Select/Build/Pack entirely. ``params``
@@ -232,7 +278,9 @@ class DecoupledEngine:
             self.stages, self.run_device, depth=config.depth,
             max_inflight=config.max_inflight,
             on_batch=self._on_batch_done if self._repin_auto else None,
-            tracer=self.tracer)
+            tracer=self.tracer, telemetry=self.telemetry)
+        if self.telemetry is not None:
+            self._register_metrics()
         # graph-update streaming: cached neighborhoods / rows never serve
         # stale state
         if hasattr(graph, "register_listener"):
@@ -251,6 +299,119 @@ class DecoupledEngine:
                         max(1, policy.nbr_capacity // 4))
                 pinned = np.argpartition(self.graph.degrees, -k)[-k:]
         return NeighborhoodCache(policy.nbr_capacity, pinned_targets=pinned)
+
+    def _register_metrics(self):
+        """Join the existing subsystem counters to the telemetry plane as
+        collect-time callbacks: the hot path increments nothing twice —
+        the registry samples each source at scrape/report time, so metered
+        serving stays bitwise equal to unmetered."""
+        reg = self.telemetry.registry
+        stats = self.scheduler.stats
+        src = self._fsource
+        if self.nbr_cache is not None:
+            c = self.nbr_cache
+            reg.counter_fn("repro_nbr_cache_hits_total",
+                           lambda: c.hits, help="neighborhood cache hits")
+            reg.counter_fn("repro_nbr_cache_misses_total",
+                           lambda: c.misses,
+                           help="neighborhood cache misses")
+            reg.counter_fn("repro_nbr_cache_evictions_total",
+                           lambda: c.evictions,
+                           help="neighborhood cache evictions")
+        if self.sg_cache is not None:
+            rc = self.sg_cache
+            reg.counter_fn("repro_row_cache_hits_total",
+                           lambda: rc.hits,
+                           help="subgraph-row cache hits")
+            reg.counter_fn("repro_row_cache_misses_total",
+                           lambda: rc.misses,
+                           help="subgraph-row cache misses")
+        if hasattr(src, "lookups"):
+            reg.counter_fn("repro_store_lookups_total",
+                           lambda: src.lookups,
+                           help="feature rows resolved")
+            reg.counter_fn("repro_store_resident_lookups_total",
+                           lambda: src.resident_lookups,
+                           help="feature rows served device-resident")
+        reg.counter_fn("repro_store_bytes_shipped_total",
+                       lambda: stats.bytes_shipped,
+                       help="host->device bytes actually shipped")
+        reg.counter_fn("repro_store_bytes_dense_total",
+                       lambda: stats.bytes_dense,
+                       help="dense-baseline host->device bytes")
+        if self._repin_auto:
+            reg.counter_fn("repro_auto_repins_total",
+                           lambda: self.auto_repins,
+                           help="automatic residency rebalances")
+        if self.dispatch is not None:
+            pol, vc = self.dispatch, self._variants
+            reg.counter_fn("repro_dispatch_decisions_total",
+                           lambda: pol.decisions,
+                           help="per-batch dispatch decisions taken")
+            reg.counter_fn("repro_variant_cache_hits_total",
+                           lambda: vc.hits,
+                           help="compiled-variant cache hits")
+            reg.counter_fn("repro_variant_cache_misses_total",
+                           lambda: vc.misses,
+                           help="compiled-variant cache misses (builds)")
+            reg.counter_fn("repro_variant_cache_evictions_total",
+                           lambda: vc.evictions,
+                           help="compiled variants evicted (LRU bound)")
+            reg.gauge_fn("repro_variant_cache_size", lambda: len(vc),
+                         help="live compiled variants (<= capacity)")
+        if self.precompute is not None:
+            tier, mgr = self.precompute.tier, self.precompute
+            reg.counter_fn("repro_tier_hits_total", lambda: tier.hits,
+                           help="embedding-tier fresh hits")
+            reg.counter_fn("repro_tier_misses_total",
+                           lambda: tier.misses,
+                           help="embedding-tier misses (online path)")
+            reg.counter_fn("repro_tier_demotions_total",
+                           lambda: tier.demotions,
+                           help="tier rows demoted by invalidation")
+            reg.counter_fn("repro_tier_promotions_total",
+                           lambda: tier.promotions,
+                           help="tier rows re-promoted by refresh")
+            reg.counter_fn("repro_refresh_chunks_total",
+                           lambda: mgr.refresh_chunks,
+                           help="background refresh chunks completed")
+            reg.counter_fn("repro_refresh_errors_total",
+                           lambda: mgr.refresh_errors,
+                           help="background refresh chunk failures")
+            reg.gauge_fn("repro_refresh_backlog",
+                         lambda: len(mgr._backlog),
+                         help="vertices awaiting tier refresh")
+        if self._host_pool is not None:
+            reg.counter_fn("repro_rpc_calls_total",
+                           lambda: stats.rpc_calls,
+                           help="remote stage calls")
+            reg.counter_fn("repro_rpc_retries_total",
+                           lambda: stats.rpc_retries,
+                           help="remote stage call retries")
+            reg.counter_fn("repro_rpc_timeouts_total",
+                           lambda: stats.rpc_timeouts,
+                           help="remote stage call timeouts")
+            reg.counter_fn("repro_rpc_errors_total",
+                           lambda: stats.rpc_errors,
+                           help="remote stage call errors")
+            reg.counter_fn("repro_rpc_bytes_out_total",
+                           lambda: stats.rpc_bytes_out,
+                           help="bytes sent to graph hosts")
+            reg.counter_fn("repro_rpc_bytes_in_total",
+                           lambda: stats.rpc_bytes_in,
+                           help="bytes received from graph hosts")
+            quarantines = self.telemetry.counter(
+                "repro_host_quarantines_total",
+                help="graph-host quarantine episodes")
+            events = self.telemetry.events
+
+            def _on_quarantine(endpoint: str):
+                quarantines.inc()
+                events.emit("host_quarantine", severity="warn",
+                            message=f"graph host {endpoint} quarantined",
+                            endpoint=endpoint)
+
+            self._host_pool.on_quarantine = _on_quarantine
 
     # -- host side ----------------------------------------------------------
     def plan(self, targets) -> BatchPlan:
@@ -329,6 +490,8 @@ class DecoupledEngine:
         tr = self.tracer
         if all(k in db for k in src.payload_keys):
             payload = {k: db.pop(k) for k in src.payload_keys}
+            tg = time.perf_counter() if self._h_gather is not None \
+                else 0.0
             if tr is None:
                 feats = src.device_feats(payload)
             else:
@@ -336,6 +499,10 @@ class DecoupledEngine:
                 # current span); records nothing on an untraced batch
                 with tr.span("store.gather", cat="store", store=src.name):
                     feats = src.device_feats(payload)
+            if self._h_gather is not None:
+                # the gather's host time: its copies and index_selects are
+                # launched, not waited for
+                self._h_gather.record(time.perf_counter() - tg)
         else:       # externally built dense batch (e.g. device_batch())
             feats = to_device(db.pop("feats"), self.device)
         batch = {k: to_device(v, self.device) for k, v in db.items()}
@@ -357,7 +524,12 @@ class DecoupledEngine:
                     and plan.n_edges is not None:
                 return self._dispatch_infer(plan, batch)
             if self.config.dispatch is not None and self.dispatch is None:
-                self._forced_dispatch += 1      # forced mode: policy inert
+                # forced mode: the policy is inert, but the mode counters
+                # still tell the operator WHAT served and WHY ("forced")
+                self._forced_dispatch += 1
+                self._count_dispatch(self._static_assignment,
+                                     {s: "forced"
+                                      for s in self._static_assignment})
             emb, _ = execute(self.program, self.params, batch,
                              impl=self.impl)
         return emb
@@ -373,6 +545,23 @@ class DecoupledEngine:
             self.explore_failures += 1
             logging.getLogger(__name__).exception(
                 "exploration pass %s failed", getattr(fn, "__name__", fn))
+
+    def _count_dispatch(self, assignment: Dict[str, str],
+                        sources: Dict[str, str]) -> None:
+        """Per-mux-op dispatch counters:
+        ``repro_dispatch_total{op,mode,source}``. Counter handles are
+        cached per label set so the hot path pays one dict probe."""
+        if self.telemetry is None:
+            return
+        for site, m in assignment.items():
+            key = (site, m, sources[site])
+            c = self._disp_counters.get(key)
+            if c is None:
+                c = self._disp_counters[key] = self.telemetry.counter(
+                    "repro_dispatch_total",
+                    help="mux-op dispatch outcomes per batch",
+                    op=site, mode=m, source=sources[site])
+            c.inc()
 
     def _build_variant(self, assignment, blocks):
         """One compiled variant: the engine's program re-specialized to
@@ -408,6 +597,7 @@ class DecoupledEngine:
             if pol.autotune_blocks and self.impl == "cuda":
                 self._explore(run_block_autotune, self.program, self.params,
                               batch, pol.table)
+        self._count_dispatch(dec.assignment, dec.site_sources)
         tr = self.tracer
         if tr is not None and tr.current() is not None:
             tr.annotate(dispatch_source=dec.source,
@@ -541,6 +731,13 @@ class DecoupledEngine:
             # demote the dependency ball in the embedding tier (those
             # vertices serve online until refreshed)
             self.precompute.on_invalidate(vertices)
+        if self._host_pool is not None:
+            # multi-host: the caches live on the graph hosts — broadcast
+            # the drop (best-effort; a dead host holds no live state)
+            from repro_torch.store.nbr_cache import as_vertex_ids
+            results = self._host_pool.broadcast(
+                "invalidate", {"vertices": as_vertex_ids(vertices)})
+            return sum(r["dropped"] for r in results if r is not None)
         if self.sg_cache is not None:
             self.sg_cache.invalidate(vertices)
         if self.nbr_cache is None:
@@ -617,7 +814,50 @@ class DecoupledEngine:
             r["subgraph_cache"] = self.sg_cache.stats()
         if self._repin_auto:
             r["auto_repins"] = self.auto_repins
+        if self._host_pool is not None:
+            # multi-host: per-host health + the graph hosts' own cache
+            # stats (best-effort — a down host reports health only)
+            health = self._host_pool.report()
+            remote = self._host_pool.broadcast("report", None)
+            for h, rep in zip(health, remote):
+                if rep is not None:
+                    h["report"] = rep
+            r["graph_hosts"] = health
         return r
+
+    def telemetry_report(self) -> dict:
+        """Live telemetry state of this deployment (the ``telemetry.*``
+        schema section): windowed metric snapshot, SLO burn-rate rows,
+        watchdog state, and the event ring. ``{"enabled": False}`` when the
+        deployment was built without ``ServingConfig(telemetry=...)``."""
+        if self.telemetry is None:
+            return {"enabled": False}
+        from repro_torch.core.report_schema import telemetry_section
+        return telemetry_section(self.telemetry)
+
+    def metrics_wire(self, cluster: bool = True) -> dict:
+        """This deployment's metrics in wire form. With ``cluster=True`` on
+        a multi-host deployment, every graph host's registry is scraped
+        over the ``metrics`` RPC (best-effort broadcast) and merged
+        losslessly into one cluster view — per-host histograms fold bucket
+        by bucket, so the merged count is exactly the sum of the per-host
+        counts."""
+        if self.telemetry is None:
+            raise ValueError(
+                "telemetry is off; construct the engine with "
+                "ServingConfig(telemetry=TelemetryConfig(...))")
+        local = self.telemetry.to_wire()
+        if not cluster or self._host_pool is None:
+            return local
+        from repro_torch.obs.metrics import merge_wire
+        remote = self._host_pool.broadcast("metrics", None)
+        return merge_wire([local] + [r for r in remote if r])
+
+    def metrics_text(self, cluster: bool = True) -> str:
+        """Prometheus text exposition of ``metrics_wire()`` (what an HTTP
+        ``/metrics`` endpoint serves for this deployment)."""
+        from repro_torch.obs.promexp import render_wire
+        return render_wire(self.metrics_wire(cluster=cluster))
 
     def precompute_report(self) -> dict:
         """Embedding-tier state of this deployment (the ``precompute.*``
@@ -642,10 +882,14 @@ class DecoupledEngine:
         if self.precompute is not None:
             self.precompute.close()
         self.scheduler.close()
+        if self.telemetry is not None:
+            self.telemetry.close()
         if self._repin_pool is not None:
             self._repin_pool.shutdown(wait=True)
         for stage in self.stages:
             stage.close()
+        if self._host_pool is not None:
+            self._host_pool.close()
 
     def __enter__(self) -> "DecoupledEngine":
         return self

@@ -1,15 +1,14 @@
 """The versioned key schema behind the scheduler's summary.
 
-The PyTorch counterpart of ``repro.core.report_schema``, limited to the
-sections this package emits: ``latency.*``, ``stages.*``, ``store.*``,
-``shards.*`` (sharded feature stores), ``trace.*`` (traced deployments),
-``precompute.*`` (tiered ones) and ``dispatch.*`` (adaptively dispatched
-ones) keep the reference's names, so a dashboard reads both packages alike
-(``SCHEMA``, the reference's key map of those sections). ``trace`` and
-``dispatch`` add one key the reference lacks, ``explore_failures``: the
-calibration, warm-up and autotune passes that raised, which the reference
-swallows. The reference's ``rpc``/``telemetry`` sections belong to planes
-not ported yet.
+The PyTorch counterpart of ``repro.core.report_schema``: ``latency.*``,
+``stages.*``, ``store.*``, ``shards.*`` (sharded feature stores),
+``rpc.*`` (multi-host transports), ``trace.*`` (traced deployments),
+``precompute.*`` (tiered ones), ``telemetry.*`` (metered ones) and
+``dispatch.*`` (adaptively dispatched ones) keep the reference's names, so
+a dashboard reads both packages alike (``SCHEMA``, the reference's key
+map). ``trace`` and ``dispatch`` add one key the reference lacks,
+``explore_failures``: the calibration, warm-up and autotune passes that
+raised, which the reference swallows.
 """
 from __future__ import annotations
 
@@ -17,8 +16,7 @@ from typing import Optional
 
 SCHEMA_VERSION = 5
 
-# the documented key map of the sections this package emits (the
-# reference's, less the sections of planes not ported yet)
+# the documented key map of the sections this package emits
 SCHEMA = {
     "latency": ("t_wall", "t_host", "t_device", "t_init",
                 "p50", "p90", "p99", "mean", "batch_mean", "n", "hist"),
@@ -26,8 +24,11 @@ SCHEMA = {
                "batch_edges"),
     "store": ("bytes_shipped", "bytes_dense", "transfer_ratio",
               "cache_hit_rate", "dedup_ratio", "policy", "features",
-              "nbr_cache", "subgraph_cache", "auto_repins"),
+              "nbr_cache", "subgraph_cache", "auto_repins",
+              "graph_hosts"),
     "shards": ("bytes", "balance"),
+    "rpc": ("calls", "bytes_out", "bytes_in", "retries", "timeouts",
+            "errors", "wall_s", "remote_s", "wire_s"),
     "trace": ("enabled", "sample_every", "ring_capacity", "flight_k",
               "calibrate_every", "tickets_traced", "spans",
               "spans_dropped", "remote_spans", "host", "hists",
@@ -37,6 +38,9 @@ SCHEMA = {
                    "refresh_chunks", "refresh_backlog",
                    "refresh_errors", "tier_bytes", "generation",
                    "builds"),
+    "telemetry": ("enabled", "host", "window_s", "windows", "series",
+                  "counters", "gauges", "hists", "slo", "watchdog",
+                  "evaluations", "events"),
     "dispatch": ("enabled", "policy", "impl", "mux_sites", "decisions",
                  "sources", "warmup", "variants", "blocks",
                  "table_cells", "table_passes", "artifact",
@@ -73,6 +77,22 @@ def shards_section(stats) -> Optional[dict]:
             "balance": round(stats.shard_balance, 4)}
 
 
+def rpc_section(stats) -> Optional[dict]:
+    """The ``rpc.*`` section of a multi-host deployment (None before its
+    first remote call — the section is omitted)."""
+    if not stats.rpc_calls:
+        return None
+    return {"calls": stats.rpc_calls,
+            "bytes_out": stats.rpc_bytes_out,
+            "bytes_in": stats.rpc_bytes_in,
+            "retries": stats.rpc_retries,
+            "timeouts": stats.rpc_timeouts,
+            "errors": stats.rpc_errors,
+            "wall_s": round(stats.t_rpc_wall, 6),
+            "remote_s": round(stats.t_rpc_remote, 6),
+            "wire_s": round(stats.t_rpc_wire, 6)}
+
+
 def trace_section(tracer, calibration=None) -> Optional[dict]:
     """The ``trace.*`` section of a traced deployment (None when tracing
     is off — the section is omitted)."""
@@ -90,6 +110,14 @@ def precompute_section(manager) -> dict:
     if manager is None:
         return {"enabled": False}
     return manager.report()
+
+
+def telemetry_section(telemetry) -> Optional[dict]:
+    """The ``telemetry.*`` section of a metered deployment (None when
+    telemetry is off — the section is omitted, like ``trace``)."""
+    if telemetry is None:
+        return None
+    return telemetry.report()
 
 
 def dispatch_section(engine) -> Optional[dict]:
@@ -114,9 +142,13 @@ def scheduler_summary(stats) -> dict:
     shards = shards_section(stats)
     if shards is not None:
         d["shards"] = shards
+    rpc = rpc_section(stats)
+    if rpc is not None:
+        d["rpc"] = rpc
     return d
 
 
 __all__ = ["SCHEMA_VERSION", "SCHEMA", "scheduler_summary",
            "stages_section", "store_section", "shards_section",
-           "trace_section", "precompute_section", "dispatch_section"]
+           "rpc_section", "trace_section", "precompute_section",
+           "telemetry_section", "dispatch_section"]

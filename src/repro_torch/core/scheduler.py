@@ -27,8 +27,12 @@ Tracing (``tracer=``, an ``obs.Tracer``): sampled tickets carry a
 ``_drain`` has waited on the batch's CUDA event (the wait serving does
 anyway: a trace adds no synchronize). Device spans of pipelined batches
 overlap on the dispatcher thread, so each takes the lane of its sequence
-number, as the reference's batch roots do. (The reference's telemetry
-hooks are not ported yet.)
+number, as the reference's batch roots do.
+
+Telemetry (``telemetry=``, an ``obs.metrics.Telemetry``): every completed
+batch feeds its end-to-end latency and its stage split into the windowed
+registry, the device stage among them: the time the scheduler records
+for the batch's device work, which ends with the wait on its CUDA event.
 """
 from __future__ import annotations
 
@@ -87,6 +91,19 @@ class SchedulerStats:
     # sharded feature store only: cumulative host->device bytes PER SHARD
     # (empty for unsharded deployments)
     shard_bytes: List[int] = field(default_factory=list)
+    # multi-host transport only (distributed.rpc): per-stage remote call
+    # accounting — wall is what the device host observed end-to-end,
+    # remote is the graph host's reported handler time, wire is local
+    # encode/decode; the gap between them is the link
+    rpc_calls: int = 0
+    rpc_bytes_out: int = 0
+    rpc_bytes_in: int = 0
+    rpc_retries: int = 0
+    rpc_timeouts: int = 0
+    rpc_errors: int = 0
+    t_rpc_wall: float = 0.0
+    t_rpc_remote: float = 0.0
+    t_rpc_wire: float = 0.0
 
     @property
     def overlap_fraction(self) -> float:
@@ -203,6 +220,9 @@ class PipelineScheduler:
                       TraceContext and every stage/device step runs
                       under a span. None (default) = tracing off —
                       each hot-path site pays one ``is None`` test.
+    telemetry       -> optional ``obs.metrics.Telemetry``; every
+                      completed batch feeds its latency and stage split
+                      (device included). None (default) = metrics off.
 
     Lifecycle: lazily started on first submit/run; ``close()`` drains and
     tears down threads (the stage objects are owned — and closed — by
@@ -212,12 +232,14 @@ class PipelineScheduler:
 
     def __init__(self, stages: Sequence, device_fn: Callable,
                  depth: int = 3, max_inflight: Optional[int] = None,
-                 on_batch: Optional[Callable] = None, tracer=None):
+                 on_batch: Optional[Callable] = None, tracer=None,
+                 telemetry=None):
         self.stages = list(stages)
         if not self.stages:
             raise ValueError("empty stage sequence")
         self.device_fn = device_fn
         self.tracer = tracer
+        self.telemetry = telemetry
         self.depth = max(1, depth)
         self.max_inflight = max_inflight or 2 * self.depth
         self.on_batch = on_batch
@@ -393,6 +415,33 @@ class PipelineScheduler:
                 for i, b in enumerate(shard_bytes):
                     s.shard_bytes[i] += int(b)
 
+    def note_rpc_metrics(self, *, calls: int = 0, bytes_out: int = 0,
+                         bytes_in: int = 0, retries: int = 0,
+                         timeouts: int = 0, errors: int = 0,
+                         wall: float = 0.0, remote: float = 0.0,
+                         wire: float = 0.0):
+        """Accumulate one remote stage call's transport accounting
+        (distributed.rpc.RemoteSelectBuildStage) — safe from concurrent
+        stage workers, surfaced under ``rpc.*`` in summary()/report()."""
+        with self._lock:
+            s = self.stats
+            s.rpc_calls += int(calls)
+            s.rpc_bytes_out += int(bytes_out)
+            s.rpc_bytes_in += int(bytes_in)
+            s.rpc_retries += int(retries)
+            s.rpc_timeouts += int(timeouts)
+            s.rpc_errors += int(errors)
+            s.t_rpc_wall += float(wall)
+            s.t_rpc_remote += float(remote)
+            s.t_rpc_wire += float(wire)
+
+    def _observe(self, latency: float, stage_times: Dict[str, float],
+                 t_device: float, error: bool = False) -> None:
+        """Feed one completed batch into the telemetry registry: its
+        latency and its host stages, with the device stage beside them."""
+        self.telemetry.observe_batch(
+            latency, {**stage_times, "device": t_device}, error=error)
+
     def flush(self, timeout: Optional[float] = None):
         """Block until every submitted batch has completed."""
         with self._idle:
@@ -414,6 +463,10 @@ class PipelineScheduler:
                 ticket.trace, error=ticket.error is not None,
                 t_host=round(ticket.t_host, 6),
                 t_device=round(ticket.t_device, 6))
+        if self.telemetry is not None:
+            self._observe(time.perf_counter() - ticket.t_submit,
+                          ticket.stage_times, ticket.t_device,
+                          error=ticket.error is not None)
         ticket._event.set()          # resolve BEFORE on_done: callbacks may
         if ticket.on_done is not None:           # call ticket.result()
             try:
@@ -517,6 +570,8 @@ class PipelineScheduler:
                     self.stats.record(th, td)
                     self.stats.merge_stage_times(st_times)
                     self.stats.t_wall += th + td
+                if self.telemetry is not None:
+                    self._observe(th + td, st_times, td)
                 if self.on_batch is not None:
                     try:             # completion hook fires on the serial
                         self.on_batch(None)      # path too (no ticket)

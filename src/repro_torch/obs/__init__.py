@@ -1,19 +1,30 @@
 """Observability: per-batch tracing, streaming histograms, flight-recorder
-forensics, Perfetto-loadable trace export and the per-op calibration table
-(the PyTorch package's counterpart of ``repro.obs``; its telemetry plane,
-ROADMAP queue 1 item 12, is not ported).
+forensics, Perfetto-loadable trace export, the per-op calibration table
+and the live telemetry plane (windowed metrics, Prometheus exposition,
+SLO burn rates, regression watchdog): the PyTorch package's counterpart
+of ``repro.obs``.
 
-Enable tracing with ``ServingConfig(trace=TraceConfig())``: off by default
+Tracing answers "what happened to that batch"; telemetry answers "what
+has been happening lately". Enable with
+``ServingConfig(trace=TraceConfig())`` and/or
+``ServingConfig(telemetry=TelemetryConfig())``; both are off by default
 and zero-cost when off (every instrumentation site is one ``is None``
-test), and traced runs are bitwise equal to untraced ones.
+test), and instrumented runs are bitwise equal to bare ones.
 """
 from repro_torch.obs.calib import CalibrationTable, run_instrumented
+from repro_torch.obs.events import EventRing
 from repro_torch.obs.export import (containment, to_chrome_trace,
                                     validate_chrome_trace,
                                     write_chrome_trace)
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.hist import (LogHistogram, Reservoir, hist_dict_quantile,
                                   merge_hist_dicts)
+from repro_torch.obs.metrics import (MetricsRegistry, Telemetry,
+                                     TelemetryConfig, WindowedHistogram,
+                                     inject_labels, merge_wire, series_count)
+from repro_torch.obs.promexp import (MetricsHTTPServer, render_wire,
+                                     validate_exposition)
+from repro_torch.obs.slo import SLObjective, SLOTracker, Watchdog
 from repro_torch.obs.trace import (SpanAllocator, TraceConfig, TraceContext,
                                    Tracer, now, span_dict)
 
@@ -26,4 +37,9 @@ __all__ = [
     "CalibrationTable", "run_instrumented",
     "to_chrome_trace", "write_chrome_trace", "validate_chrome_trace",
     "containment",
+    "TelemetryConfig", "MetricsRegistry", "Telemetry",
+    "WindowedHistogram", "merge_wire", "inject_labels", "series_count",
+    "render_wire", "validate_exposition", "MetricsHTTPServer",
+    "SLObjective", "SLOTracker", "Watchdog",
+    "EventRing",
 ]

@@ -12,9 +12,10 @@ module records what actually happened to individual batches:
   per-ACK-op calibration runs. The device span opens when the batch's
   program is launched and closes when the CUDA event recorded after it is
   reached (``open_span`` / ``close_span``: launches are asynchronous, so
-  a span around the launch alone would time the enqueue). Remote spans
-  (``ingest_remote``, ``clock_sync``) are kept as data: the RPC transport
-  that would feed them is not ported;
+  a span around the launch alone would time the enqueue). The RPC layer
+  (distributed.rpc) stitches in the graph hosts' remote spans
+  (``ingest_remote``) with a ping-based clock-offset correction
+  (``clock_sync``);
 * finished spans land in a bounded ring (export) and the K slowest
   batches keep their FULL span trees in a flight recorder (forensics);
 * per-span durations also feed fixed-memory ``LogHistogram``s, so the

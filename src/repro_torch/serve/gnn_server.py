@@ -15,10 +15,12 @@ PyTorch counterpart of ``repro.serve.gnn_server``:
 * per-model latency percentiles (p50/p90/p99) and the achieved host/device
   overlap fraction are reported, per model and aggregate.
 
-A lane's report carries its engine's ``shards``, ``trace``,
-``precompute`` and ``dispatch`` sections where the deployment has those
-planes. The reference's telemetry plane (its ``metrics_wire``/
-``metrics_text`` and that report section) is not ported.
+A lane's report carries its engine's ``shards``, ``rpc``, ``trace``,
+``precompute``, ``telemetry`` and ``dispatch`` sections where the
+deployment has those planes. Metered lanes' registries merge into one
+server view (``metrics_wire``, ``metrics_text``), which an HTTP
+``/metrics`` endpoint serves when the server's config names a telemetry
+port (``metrics_url``).
 """
 from __future__ import annotations
 
@@ -35,9 +37,10 @@ from repro_torch.core.dse import DSEPlan, H100Spec, explore, validate_models
 from repro_torch.core.engine import DecoupledEngine
 from repro_torch.core.report_schema import (SCHEMA_VERSION,
                                             dispatch_section,
-                                            precompute_section,
+                                            precompute_section, rpc_section,
                                             shards_section, stages_section,
-                                            store_section)
+                                            store_section,
+                                            telemetry_section)
 from repro_torch.obs.hist import LogHistogram, Reservoir
 
 DEFAULT_MODEL = "default"
@@ -113,6 +116,12 @@ class _ModelLane:
         self.stats = ServerStats()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # metered lane: end-to-end request latency (enqueue -> done)
+        # into the engine's windowed registry
+        self._h_request = engine.telemetry.whist(
+            "repro_request_seconds",
+            help="end-to-end request latency") \
+            if engine.telemetry is not None else None
 
     # -- micro-batching ------------------------------------------------------
     def _collect_batch(self) -> List[Request]:
@@ -168,6 +177,8 @@ class _ModelLane:
             r.embedding = emb[i]
             r.t_done = t1
             self.stats.record(r.latency)
+            if self._h_request is not None:
+                self._h_request.record(r.latency)
         self.stats.record_batch(t1 - t0)
 
     # -- lifecycle -----------------------------------------------------------
@@ -193,8 +204,9 @@ class _ModelLane:
     def report(self) -> dict:
         """This lane's slice of the report schema (core.report_schema):
         latency.* request percentiles, stages.* pipeline breakdown, store.*
-        transfer + subsystem state, and shards.* / trace.* /
-        precompute.* / dispatch.* where the deployment has those planes."""
+        transfer + subsystem state, and shards.* / rpc.* / trace.* /
+        precompute.* / telemetry.* / dispatch.* where the deployment has
+        those planes."""
         sched = self.engine.scheduler.stats
         r = {"kind": self.engine.cfg.kind,
              # compiled ACK program: per-op mode mux of this lane
@@ -209,10 +221,16 @@ class _ModelLane:
         shards = shards_section(sched)
         if shards is not None:
             r["shards"] = shards
+        rpc = rpc_section(sched)
+        if rpc is not None:
+            r["rpc"] = rpc
         if self.engine.tracer is not None:
             r["trace"] = self.engine.trace_report()
         if self.engine.precompute is not None:
             r["precompute"] = precompute_section(self.engine.precompute)
+        telemetry = telemetry_section(self.engine.telemetry)
+        if telemetry is not None:
+            r["telemetry"] = telemetry
         dispatch = dispatch_section(self.engine)
         if dispatch is not None:
             r["dispatch"] = dispatch
@@ -247,6 +265,7 @@ class GNNServer:
         self._plan_fixed = plan is not None
         self._lanes: Dict[str, _ModelLane] = {}
         self._started = False
+        self._metrics_server = None
         if engine is not None:
             self.register(DEFAULT_MODEL, engine)
 
@@ -324,6 +343,32 @@ class GNNServer:
                 raise TimeoutError("serve drain timed out")
             time.sleep(0.002)
 
+    # -- metrics exposition ---------------------------------------------------
+    def metrics_wire(self) -> dict:
+        """All metered lanes' registries merged into one server view: each
+        lane's wire gets a ``model=<name>`` label first, so same-name
+        families from different models stay distinct series (and a
+        multi-host lane folds its graph hosts in losslessly via
+        ``engine.metrics_wire``)."""
+        from repro_torch.obs.metrics import inject_labels, merge_wire
+        wires = []
+        for name, lane in self._lanes.items():
+            if lane.engine.telemetry is None:
+                continue
+            wires.append(inject_labels(lane.engine.metrics_wire(),
+                                       model=name))
+        return merge_wire(wires)
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of every metered lane (what the
+        server's HTTP ``/metrics`` endpoint serves)."""
+        from repro_torch.obs.promexp import render_wire
+        return render_wire(self.metrics_wire())
+
+    @property
+    def metrics_url(self) -> Optional[str]:
+        return self._metrics_server.url if self._metrics_server else None
+
     # -- lifecycle -----------------------------------------------------------
     def start(self):
         if not self._lanes:
@@ -331,10 +376,22 @@ class GNNServer:
         self._started = True
         for lane in self._lanes.values():
             lane.start()
+        # exposition endpoint: on when the server's config asks for a port
+        # (a Prometheus scraper polls GET /metrics; port 0 picks an
+        # ephemeral one, surfaced via .metrics_url)
+        tconf = self.config.telemetry if self.config is not None else None
+        if tconf is not None and tconf.port is not None \
+                and self._metrics_server is None:
+            from repro_torch.obs.promexp import MetricsHTTPServer
+            self._metrics_server = MetricsHTTPServer(
+                self.metrics_text, port=tconf.port)
 
     def stop(self):
         for lane in self._lanes.values():
             lane.stop()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
         self._started = False
 
     # -- reporting -----------------------------------------------------------

@@ -7,8 +7,8 @@ chose), the kernels' block autotune, calibration persistence (the
 checkpoint layout read by both packages), and an adaptive engine of each
 package taking the same decisions on the same graph, params and table with
 embeddings within tests/test_torch_program.py's tolerance. (The
-reference's ``test_dispatch_metrics_exposed`` belongs to the telemetry
-plane, which is not ported.)"""
+reference's ``test_dispatch_metrics_exposed`` has its counterpart in
+tests/test_torch_telemetry.py.)"""
 import numpy as np
 import pytest
 

@@ -19,8 +19,9 @@ within one bf16 ulp of their plain versions' fp32 results; and a
 multi-model server answering through the kernels. The scatter-gather at
 the offline build's chunk shape (compact sources, the bucket kernel), the
 layer-major build under impl="cuda" against impl="torch", four feature
-shards serving the resident store's bits, and a tiered engine's all-fresh
-and mixed batches. Skipped where no CUDA device is
+shards serving the resident store's bits, a tiered engine's all-fresh
+and mixed batches, and an engine behind the loopback transport serving
+the local engine's bits through the kernels. Skipped where no CUDA device is
 present; on the GPU machine run
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
@@ -706,3 +707,28 @@ def test_tier_engine_all_fresh_and_mixed(dev):
                                    atol=1e-5)
         np.testing.assert_array_equal(
             got[fresh], tier.table[tier.slot_of[targets[fresh]]])
+
+
+@pytest.mark.parametrize("kind,mode", [("gcn", "sg"), ("sage", "dense"),
+                                       ("gat", "dense")])
+def test_inproc_remote_engine_bitwise_equal_to_local(dev, kind, mode):
+    """Select/Build behind the loopback transport (the full wire codec),
+    Pack and the program on the card under impl="cuda": every batch
+    bitwise equal to the local engine's, through the kernels."""
+    g = get_graph("flickr", scale=0.05, seed=0)
+    cfg = GNNConfig(kind=kind, n_layers=3, receptive_field=128,
+                    f_in=g.feature_dim)
+    params = init_gnn(cfg, seed=0, device="cuda")
+    targets = zipf_traffic(g, 48, seed=4)
+    out = {}
+    for transport in ("local", "inproc"):
+        ops.reset_launch_counts()
+        conf = ServingConfig(device="cuda", batch_size=16, mode=mode,
+                             impl="cuda", num_threads=2,
+                             transport=transport)
+        with DecoupledEngine(g, cfg, params=params, config=conf) as eng:
+            out[transport] = eng.infer(targets).embeddings
+            calls = eng.scheduler.stats.rpc_calls
+        assert sum(ops.launch_counts().values()) > 0
+        assert calls == (3 if transport == "inproc" else 0)
+    np.testing.assert_array_equal(out["inproc"], out["local"])

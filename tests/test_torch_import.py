@@ -1,10 +1,10 @@
 """The PyTorch package stands alone and never falls back silently: it
 imports with ``jax`` blocked and loads nothing of ``repro``; so do
-chip_smoke.py's and the fault-check scripts' imports; a CUDA device with no card raises; every
-ServingConfig field of a plane not ported yet raises, naming its ROADMAP
-item, while the ported trace, dispatch and precompute planes take their
-configs and refuse other types; kernels are built
-from the repository's sources only."""
+chip_smoke.py's and the scripts' imports; a CUDA device with no card
+raises; the trace, dispatch, precompute and telemetry planes take their
+configs and refuse other types, and the transport fields validate as the
+reference's (tests/test_config.py); kernels are built from the
+repository's sources only."""
 import inspect
 import json
 import re
@@ -69,7 +69,10 @@ class TestImportIsolation:
                 "ckpt.checkpoint", "core.dispatch", "distributed.sharding",
                 "store.sharded", "precompute.propagate", "precompute.tier",
                 "precompute.config", "precompute.artifact",
-                "precompute.manager", "precompute.build")}
+                "precompute.manager", "precompute.build", "obs.events",
+                "obs.slo", "obs.metrics", "obs.promexp", "obs.regress",
+                "distributed.wire", "distributed.rpc",
+                "distributed.graph_host")}
         assert slice_modules <= set(MODULES), slice_modules - set(MODULES)
         code = "import repro_torch\n" + "".join(
             f"import {m}\n" for m in MODULES)
@@ -82,7 +85,8 @@ class TestImportIsolation:
                                         "flash_fault_check",
                                         "gat_phase_probe",
                                         "sg_softmax_probe",
-                                        "tier_precision_probe"])
+                                        "tier_precision_probe",
+                                        "torch_metrics_smoke"])
     def test_fault_checks_import_without_jax_or_repro(self, script):
         assert _loaded_after(f"sys.path.insert(0, {str(ROOT / 'scripts')!r})"
                              f"\nimport {script}") == []
@@ -93,7 +97,8 @@ class TestImportIsolation:
                   *(ROOT / "scripts").glob("*_fault_check.py"),
                   ROOT / "scripts" / "gat_phase_probe.py",
                   ROOT / "scripts" / "sg_softmax_probe.py",
-                  ROOT / "scripts" / "tier_precision_probe.py"]:
+                  ROOT / "scripts" / "tier_precision_probe.py",
+                  ROOT / "scripts" / "torch_metrics_smoke.py"]:
             for line in p.read_text().splitlines():
                 assert not bad.match(line), (p, line)
 
@@ -123,33 +128,72 @@ class TestNoSilentFallback:
             default = inspect.signature(fn).parameters[arg].default
             assert default == "cuda", (fn.__qualname__, arg, default)
 
-    @pytest.mark.parametrize("field", ["telemetry"])
-    def test_unported_plane_raises(self, field):
-        item = {"telemetry": 12}[field]
-        with pytest.raises(NotImplementedError,
-                           match=f"{field}.*item {item}"):
-            ServingConfig(device="cpu", **{field: object()})
-
-    @pytest.mark.parametrize("field", ["trace", "dispatch", "precompute"])
+    @pytest.mark.parametrize("field", ["trace", "dispatch", "precompute",
+                                       "telemetry"])
     def test_ported_plane_takes_its_config(self, field):
         from repro_torch.core.dispatch import DispatchConfig
+        from repro_torch.obs.metrics import TelemetryConfig
         from repro_torch.obs.trace import TraceConfig
         from repro_torch.precompute import PrecomputeConfig
         conf = {"trace": TraceConfig, "dispatch": DispatchConfig,
-                "precompute": PrecomputeConfig}[field]()
+                "precompute": PrecomputeConfig,
+                "telemetry": TelemetryConfig}[field]()
         sc = ServingConfig(device="cpu", **{field: conf})
         assert getattr(sc, field) is conf
         assert sc.describe()[field] == conf.describe()
 
-    @pytest.mark.parametrize("field", ["trace", "dispatch", "precompute"])
+    @pytest.mark.parametrize("field", ["trace", "dispatch", "precompute",
+                                       "telemetry"])
     def test_ported_plane_refuses_another_type(self, field):
         with pytest.raises(TypeError, match=field):
             ServingConfig(device="cpu", **{field: object()})
 
-    @pytest.mark.parametrize("transport", ["inproc", "socket"])
-    def test_remote_transport_raises(self, transport):
-        with pytest.raises(NotImplementedError, match="transport"):
-            ServingConfig(device="cpu", transport=transport)
+    def test_no_plane_is_refused(self):
+        from repro_torch.core import config
+        assert not hasattr(config, "UNPORTED_PLANES")
+        for transport in ("local", "inproc"):
+            sc = ServingConfig(device="cpu", transport=transport)
+            assert sc.remote == (transport != "local")
+
+
+class TestTransportConfig:
+    """The port's counterparts of tests/test_config.py's transport
+    validation."""
+
+    def test_socket_needs_endpoints(self):
+        with pytest.raises(ValueError, match="endpoints"):
+            ServingConfig(device="cpu", transport="socket")
+
+    def test_endpoints_need_socket(self):
+        with pytest.raises(ValueError, match="transport='socket'"):
+            ServingConfig(device="cpu", endpoints=("h:1",))
+        with pytest.raises(ValueError, match="transport='socket'"):
+            ServingConfig(device="cpu", transport="inproc",
+                          endpoints=("h:1",))
+
+    def test_endpoints_list_coerced_to_tuple(self):
+        c = ServingConfig(device="cpu", transport="socket",
+                          endpoints=["a:1", "b:2"])
+        assert c.endpoints == ("a:1", "b:2") and c.remote
+
+    @pytest.mark.parametrize("bad", [
+        dict(transport="grpc"), dict(routing="random"),
+        dict(rpc_timeout_s=0.0), dict(rpc_retries=-1),
+        dict(rpc_concurrency=0),
+    ])
+    def test_bad_rpc_values_rejected(self, bad):
+        with pytest.raises(ValueError):
+            ServingConfig(device="cpu", **bad)
+
+    def test_describe_covers_transport(self):
+        c = ServingConfig(device="cpu", transport="socket",
+                          endpoints=("h:1",), routing="affine")
+        d = c.describe()
+        assert d["transport"] == "socket"
+        assert d["endpoints"] == ["h:1"] and d["routing"] == "affine"
+        assert "endpoints" not in ServingConfig(device="cpu").describe()
+        assert ServingConfig(device="cpu", transport="inproc"
+                             ).describe()["endpoints"] == ["inproc"]
 
     @pytest.mark.parametrize("features,extra", [
         ("resident", {}), ("sharded", {"num_shards": 2})])

@@ -3,9 +3,9 @@ recorder keeps the same K slowest batches, span trees from a real pipeline
 are well formed, each package's chrome trace passes the other's validator,
 traced and untraced engines serve the same bits (impl "torch", and "cuda"
 on the CPU through the kernels' plain versions), the trace report's keys
-are the schema's, and the server's report carries the trace section. (The
-reference's RPC propagation tests belong to the multi-host plane, which is
-not ported.)"""
+are the schema's, the server's report carries the trace section, and the
+host stages annotate their spans with the reference's keys and values.
+(The remote spans of the multi-host plane: tests/test_torch_rpc.py.)"""
 import json
 
 import numpy as np
@@ -14,11 +14,16 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from repro.core.config import ServingConfig as JConfig  # noqa: E402
+from repro.core.engine import DecoupledEngine as JEngine  # noqa: E402
+from repro.gnn.model import GNNConfig as JGNN  # noqa: E402
+from repro.graphs.synthetic import get_graph as j_get_graph  # noqa: E402
 from repro.obs import FlightRecorder as JFlightRecorder  # noqa: E402
 from repro.obs import TraceConfig as JTraceConfig  # noqa: E402
 from repro.obs import Tracer as JTracer  # noqa: E402
 from repro.obs import validate_chrome_trace as j_validate  # noqa: E402
 from repro.obs import to_chrome_trace as j_to_chrome  # noqa: E402
+from repro.store import StorePolicy as JPolicy  # noqa: E402
 from repro_torch.core.config import ServingConfig  # noqa: E402
 from repro_torch.core.engine import DecoupledEngine  # noqa: E402
 from repro_torch.core.report_schema import SCHEMA, SCHEMA_VERSION  # noqa: E402
@@ -29,6 +34,7 @@ from repro_torch.obs import (CalibrationTable, FlightRecorder,  # noqa: E402
                              validate_chrome_trace)
 from repro_torch.obs.export import main as export_main  # noqa: E402
 from repro_torch.serve.gnn_server import GNNServer  # noqa: E402
+from repro_torch.store import StorePolicy  # noqa: E402
 
 N = 16
 C = 4
@@ -230,3 +236,37 @@ def test_server_report_has_trace_section(graph):
     assert "dispatch" not in lane
     for key in lane["trace"]:
         assert key in SCHEMA["trace"]
+
+
+@pytest.mark.parametrize("nbr_cache", ["none", "lru"])
+def test_host_stage_span_args_equal_the_reference(graph, nbr_cache):
+    """Select (nbr hits/misses, targets; on the cached path), Build (row
+    cache hits/misses) and Pack (bytes shipped / dense) annotate their
+    spans with the reference's keys and values, batch by batch."""
+    jg = j_get_graph("flickr", scale=0.004, seed=1)
+    jcfg = JGNN(kind="gcn", n_layers=2, receptive_field=N,
+                f_in=jg.feature_dim)
+    targets = np.array([3, 3, 7, 11, 7, 3, 2, 9])    # repeats: cache hits
+    args = {}
+    for name, eng in (
+            ("port", DecoupledEngine(graph, _cfg(graph), config=_conf(
+                impl="torch", trace=TraceConfig(),
+                store=StorePolicy(nbr_cache=nbr_cache)))),
+            ("ref", JEngine(jg, jcfg, config=JConfig(
+                batch_size=C, num_threads=2, trace=JTraceConfig(),
+                store=JPolicy(nbr_cache=nbr_cache))))):
+        with eng:
+            eng.infer(targets, overlap=False)
+            eng.infer(targets)
+            spans = eng.tracer.export_spans()
+        args[name] = sorted(
+            (s["trace_id"] - min(x["trace_id"] for x in spans), s["name"],
+             sorted((k, v) for k, v in s["args"].items() if k != "tid"))
+            for s in spans if s["name"] in ("select", "build", "pack"))
+    assert len(args["port"]) == 3 * 2          # the pipelined batches
+    assert args["port"] == args["ref"]
+    keys = {n: {k for k, _ in a} for _, n, a in args["port"]}
+    assert {"bytes_shipped", "bytes_dense"} <= keys["pack"]
+    if nbr_cache == "lru":           # the cached paths annotate
+        assert {"nbr_hits", "nbr_misses", "n_targets"} <= keys["select"]
+        assert {"build_hits", "build_misses"} <= keys["build"]

@@ -10,7 +10,8 @@ Then holds the port against the reference on the same graph, seed and
 params: the offline propagation, the dependency closure, the tier's
 bookkeeping, the compact chunk form of the Aggregate against the
 reference's chunk function, artifacts read across the two packages, and
-which planes the ServingConfig still refuses."""
+the tier beside the other planes (sharded store, the loopback transport,
+telemetry)."""
 import numpy as np
 import pytest
 
@@ -485,15 +486,48 @@ class TestPlanes:
                                              num_shards=2))
         assert sc.describe()["precompute"] == PrecomputeConfig().describe()
 
-    def test_telemetry_still_raises_naming_item_12(self):
-        with pytest.raises(NotImplementedError,
-                           match="telemetry.*item 12"):
-            ServingConfig(device="cpu", telemetry=object())
+    @pytest.mark.parametrize("mode", ["dense", "sg"])
+    def test_tiered_engine_behind_inproc_is_bitwise_local(self, mode):
+        """Both planes at once: a tiered engine whose Select/Build run
+        behind the loopback transport serves the bits of the local tiered
+        engine, on a mixed batch (the online half crosses the wire) and
+        on all-fresh ones (no remote call)."""
+        g = _graph(seed=2)
+        cfg = _cfg("gcn")
+        params = init_gnn(cfg, 0, device="cpu")
+        pconf = PrecomputeConfig(auto_refresh=False)
+        outs = {}
+        for transport in ("local", "inproc"):
+            with DecoupledEngine(g, cfg, params=params, config=_sc(
+                    mode=mode, transport=transport,
+                    precompute=pconf)) as eng:
+                fresh = eng.infer(TARGETS).embeddings
+                eng.precompute.on_invalidate([3])
+                mixed = eng.infer(TARGETS).embeddings
+                outs[transport] = (fresh, mixed,
+                                   eng.scheduler.stats.rpc_calls)
+        for a, b in zip(outs["local"][:2], outs["inproc"][:2]):
+            np.testing.assert_array_equal(a, b)
+        assert outs["local"][2] == 0 and outs["inproc"][2] > 0
 
-    @pytest.mark.parametrize("transport", ["inproc", "socket"])
-    def test_remote_transport_still_raises_naming_item_11(self, transport):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ServingConfig(device="cpu", transport=transport)
+    def test_metered_tiered_engine_exposes_tier_counters(self):
+        from repro_torch.obs import TelemetryConfig, validate_exposition
+        g = _graph(seed=2)
+        cfg = _cfg("gcn")
+        with DecoupledEngine(g, cfg, config=_sc(
+                precompute=PrecomputeConfig(auto_refresh=False),
+                telemetry=TelemetryConfig())) as eng:
+            eng.infer(TARGETS)
+            eng.precompute.on_invalidate([3])
+            eng.infer(TARGETS)
+            rep = eng.telemetry_report()
+            text = eng.metrics_text()
+            tier = eng.precompute_report()
+        assert rep["counters"]["repro_tier_hits_total"] == tier["hits"] > 0
+        assert rep["counters"]["repro_tier_demotions_total"] \
+            == tier["demotions"] > 0
+        assert "repro_tier_hits_total" in text
+        assert validate_exposition(text) == []
 
     def test_sharded_tiered_engine_serves(self):
         """Both planes at once: a tiered engine over the sharded store."""
