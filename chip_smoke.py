@@ -196,9 +196,42 @@
    bitwise equal to an unmetered engine replaying the batches it served
    (launching what the lanes launched); each lane's device-stage histogram
    counting its batches.
-15. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
-   the bucket scatter-gather, the offline chunk shape and the bf16
-   kernels) and, last, the ``ok`` line.
+15. ``[kernels] flash_attention`` at MLA prefill's shape (B=1, H=16,
+   S=8192, q and k 192 wide, v 128 zero-padded to 192, bf16, causal) on
+   the ``cuda_core`` kernel: ``flash_bf16_check`` against its plain
+   version (the padded output columns zero), timed beside its plain
+   version and ``scaled_dot_product_attention`` with v at 128 (timed only;
+   the package never calls it), and a bound from the function's own work
+   (Q.K^T at 192 and P.V at 128 over the causal half). Runs after step 4.
+16. ``[train]``: ``train_gnn`` for GCN, GraphSAGE and GAT at the
+   [engine] width and depth (L=5, N=256, f_hidden=256, 4 heads, the
+   graph's label count) on the Flickr-sized graph, batch 32, lr 3e-3, 30
+   steps. The first step on the card is held against the same step on
+   the CPU (same params and batch: loss, acc and grad_norm in float32,
+   loss and every gradient leaf in float64, at ``TRAIN_TOL``), the mean
+   loss of the last 5 steps
+   must be below the first 5's, and no kernel may launch (training runs
+   the plain program under autograd). Prints ms a step split into the
+   host ``build_batch`` and the device (copy, forward, backward, update).
+17. ``[lm]`` deepseek-v2-lite-16b (after phi3, whose parameters are freed
+   first) at full width (d_model 2048, 16 heads, MLA kv_lora 512, qk
+   128 + 64, v 128; 64 routed experts top-6 + 2 shared, expert ff 1408,
+   shared ff 2816, dense first layer ff 10944; vocab 102400; fp32 params,
+   bf16 compute), depth cut to 8 layers, seed-0 weights, the 8192-token
+   prompt. ``prefill(impl="cuda")`` must launch ``flash_attention`` once
+   a layer, all on ``cuda_core`` (D=192), and no other kernel; two such
+   prefills must be bitwise equal; impl="torch" launches none. Routing is
+   compared first (``MOE_ROUTE_AGREE``), then the logits at ``LM_TOL``
+   with the plain path routed as the kernel path (``RouteLog``), and 16
+   decode steps (which never drop: capacity 8 for one token) against the
+   prefill of the same 16 tokens given capacity for every assignment, at
+   ``DECODE_TOL``, routed as that prefill (the same prefill at the
+   config's capacity factor drops assignments on this prompt: counted and
+   printed). Prints latency, tokens/s, peak memory, capacity drops and
+   the profile.
+18. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
+   the bucket scatter-gather, the offline chunk shape, the bf16 kernels
+   and flash at the MLA shape) and, last, the ``ok`` line.
 
 Any failure exits nonzero before the last line.
 """
@@ -235,6 +268,7 @@ from repro_torch.core.program import (Aggregate,  # noqa: E402
                                       AttentionSoftmax, Transform,
                                       compile_steps, lower, mux_sites,
                                       required_adjacency, respecialize)
+from repro_torch.gnn import train as gnn_train  # noqa: E402
 from repro_torch.gnn.layers import dense_init  # noqa: E402
 from repro_torch.gnn.model import GNNConfig, init_gnn  # noqa: E402
 from repro_torch.graphs.csr import CSRGraph  # noqa: E402
@@ -257,6 +291,7 @@ from repro_torch.kernels.gat_attention import (  # noqa: E402
 from repro_torch.kernels.ref import bf16_reading  # noqa: E402
 from repro_torch.kernels.scatter_gather import (  # noqa: E402
     scatter_gather_aggregate, scatter_gather_aggregate_ref, sg_variant)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
 from repro_torch.obs.calib import op_label, op_mode, size_bucket  # noqa: E402
@@ -272,6 +307,8 @@ from repro_torch.precompute.propagate import (_apply_section,  # noqa: E402
                                               _layer, _LocalCSR)
 from repro_torch.serve.gnn_server import GNNServer  # noqa: E402
 from repro_torch.store import StorePolicy  # noqa: E402
+from repro_torch.train.optim import (global_norm, tree_leaves,  # noqa
+                                     tree_map)
 
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -314,6 +351,34 @@ LM_ARCH, LM_LAYERS, LM_SEQ, LM_DECODE = "phi3-medium-14b", 8, 8192, 16
 # max |logit|, and the share of positions whose top-1 token agrees.
 LM_TOL = dict(rel=5e-2, top1=0.9)
 DECODE_TOL = dict(rel=5e-2, top1=0.875)
+# [train]: the paper's three models at the [engine] width and depth,
+# train_gnn's steps, batch and learning rate. The first step on the card
+# against the CPU's: the float32 step's loss and grad_norm at
+# tests/test_torch_train.py's rtol 1e-5 and acc within one target. Its
+# gradient leaves are held in float64 (the same step with the params and
+# batch widened), to 1e-10 of each leaf's largest |g| (loss 1e-12): at
+# this width ~10^7 ReLU inputs a step are summed in other orders on the
+# two sides, and the few within float32 rounding of 0 switch a path's
+# gradient on or off, which float64 rounding does not reach (on an H100,
+# GraphSAGE's float32 leaves lay 9.5e-4 of a leaf's max from float64 on
+# the CPU and 2.3e-7 on the card, while the float64 steps agreed to
+# 1.6e-15); the float32 leaves' distances are printed
+TRAIN_KINDS = ("gcn", "sage", "gat")
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 30, 32, 3e-3
+TRAIN_TOL = dict(rtol=1e-5, rtol64=1e-12, grad64=1e-10)
+# [lm] MoE family: deepseek-v2-lite-16b at full width, depth cut to 8 of 27
+# layers (the dense first layer and 7 MoE layers: 4.59 B parameters, 18.4
+# GB in fp32), the same prompt as phi3's. impl="cuda" and impl="torch" (and
+# decode against prefill) round at other points, as phi3's do, and a token
+# whose top-k router probabilities nearly tie then routes to another
+# expert: a whole expert's output apart, which no rounding tolerance
+# covers. So the routing is compared first (the share of each MoE layer's
+# (token, k) decisions made alike, at least MOE_ROUTE_AGREE: near-ties are
+# rare), then the logits are held at LM_TOL / DECODE_TOL with the plain
+# path routed as the kernel path (each MoE layer's experts pinned; the
+# router's own probabilities of them weight the experts)
+MOE_ARCH, MOE_LAYERS = "deepseek-v2-lite-16b", 8
+MOE_ROUTE_AGREE = 0.9
 # kernel launches per batch at L=5 (the program's count, see README)
 EXPECTED = {
     ("gcn", "dense"): {"fused_gnn_layer": 5},
@@ -2737,6 +2802,340 @@ def lm_phase(label):
     return launches
 
 
+# -- phase 16: GNN training ----------------------------------------------------
+
+
+def train_phase(graph, label):
+    """``train_gnn`` for GCN, GraphSAGE and GAT at the [engine] width on the
+    card; the first step held against the same step on the CPU. Returns
+    the kernels' launches during training (all 0)."""
+    print("[train] GCN, GraphSAGE, GAT: train_gnn on the card", flush=True)
+    classes = int(graph.labels.max()) + 1
+    ops.reset_launch_counts()
+    for kind in TRAIN_KINDS:
+        t0 = time.perf_counter()
+        cfg = GNNConfig(kind=kind, n_layers=LAYERS, receptive_field=N,
+                        f_in=F_IN, f_hidden=F_HID, n_heads=HEADS,
+                        num_classes=classes)
+        # train_gnn's first batch: the first draw of default_rng(seed)
+        targets = np.random.default_rng(0).integers(
+            0, graph.num_vertices, size=TRAIN_BATCH)
+        first = {}
+        for d in ("cpu", "cuda"):
+            params = init_gnn(cfg, seed=0, device=d)
+            batch, labels = gnn_train.train_batch(graph, cfg, targets, d)
+            loss, acc, grads = gnn_train.gnn_grads(cfg, params, batch,
+                                                   labels)
+            l64, _, g64 = gnn_train.gnn_grads(
+                cfg, tree_map(torch.Tensor.double, params),
+                {k: v.double() for k, v in batch.items()}, labels)
+            first[d] = (float(loss), float(acc), float(global_norm(grads)),
+                        [g.cpu() for g in tree_leaves(grads)], float(l64),
+                        [g.cpu() for g in tree_leaves(g64)])
+        (l0, a0, n0, g0, k0, h0), (l1, a1, n1, g1, k1, h1) = \
+            first["cpu"], first["cuda"]
+
+        def worst(got, want):
+            return max(float((a.double() - b).abs().max())
+                       / max(float(b.abs().max()), 1e-300)
+                       for a, b in zip(got, want))
+        w64 = worst(h1, h0)
+        ok = (abs(l1 - l0) <= TRAIN_TOL["rtol"] * abs(l0)
+              and abs(n1 - n0) <= TRAIN_TOL["rtol"] * abs(n0)
+              and abs(a1 - a0) <= 1.0 / TRAIN_BATCH
+              and abs(k1 - k0) <= TRAIN_TOL["rtol64"] * abs(k0)
+              and w64 <= TRAIN_TOL["grad64"])
+        print(f"[train] {kind} first step, card vs CPU (same params and "
+              f"batch): loss {l1:.7f} / {l0:.7f}, acc {a1:.4f} / {a0:.4f}, "
+              f"grad_norm {n1:.6f} / {n0:.6f}; in float64 loss "
+              f"{k1:.15f} / {k0:.15f} and {len(h1)} gradient leaves within "
+              f"{w64:.3e} of each leaf's max |g| (tolerance {TRAIN_TOL}); "
+              f"float32 leaves: card vs CPU {worst(g1, g0):.3e}, card vs "
+              f"float64 {worst(g1, h1):.3e}, CPU vs float64 "
+              f"{worst(g0, h0):.3e} {'ok' if ok else 'FAIL'} [{label}]",
+              flush=True)
+        out = gnn_train.train_gnn(graph, cfg, steps=TRAIN_STEPS,
+                                  batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                                  seed=0, eval_every=0, device="cuda")
+        hist = out["history"]
+        check(abs(hist[0]["loss"] - l1) <= TRAIN_TOL["rtol"] * abs(l1),
+              f"{kind}: train_gnn's first loss {hist[0]['loss']} is not "
+              f"the checked step's {l1}")
+        head = float(np.mean([h["loss"] for h in hist[:5]]))
+        tail = float(np.mean([h["loss"] for h in hist[-5:]]))
+        build_ms = statistics.median(out["build_s"]) * 1e3
+        dev_ms = statistics.median(out["step_s"][1:]) * 1e3
+        print(f"[train] {kind} L={LAYERS} N={N} f_hidden={F_HID} C="
+              f"{TRAIN_BATCH} classes={classes}, {TRAIN_STEPS} steps lr "
+              f"{TRAIN_LR}: mean loss first 5 {head:.4f}, last 5 {tail:.4f} "
+              f"(acc last 5 {np.mean([h['acc'] for h in hist[-5:]]):.3f}); "
+              f"a step p50 {build_ms + dev_ms:.2f} ms = host build_batch "
+              f"{build_ms:.2f} ms + device (copy, forward, backward, "
+              f"update, to a synchronize) {dev_ms:.2f} ms (first step's "
+              f"device {out['step_s'][0] * 1e3:.2f} ms); wall "
+              f"{out['wall_s']:.2f} s, phase {time.perf_counter() - t0:.2f} "
+              f"s {'ok' if tail < head else 'FAIL'} [{label}]", flush=True)
+        check(tail < head, f"{kind}: training did not lower the loss")
+    launches = ops.launch_counts()
+    check(all(n == 0 for n in launches.values()),
+          f"training launched kernels {launches}")
+    return launches
+
+
+# -- phase 17: the MoE family: deepseek-v2-lite prefill and decode ----------
+
+
+class RouteLog:
+    """Records each ``models.moe.route`` call's experts (the MoE layers in
+    the order they run) and, given ``pin``, routes to those experts
+    instead, with the call's own probabilities of them renormalized (so
+    two paths can be compared with their routing made equal)."""
+
+    def __init__(self, pin=None):
+        self.pin = list(pin) if pin is not None else None
+        self.seen = []
+
+    def __enter__(self):
+        self._real = moe_mod.route
+
+        def route(router_w, x2d, moe):
+            top_e, top_p, aux = self._real(router_w, x2d, moe)
+            if self.pin is not None:
+                top_e = self.pin.pop(0)
+                probs = torch.softmax(x2d.float() @ router_w.float(), -1)
+                top_p = probs.gather(1, top_e)
+                top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+            self.seen.append(top_e)
+            return top_e, top_p, aux
+        moe_mod.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self._real
+        return False
+
+
+def _route_agreement(a, b):
+    """Share of (token, k) decisions of ``a`` that ``b`` also made (the
+    same expert among the token's k, in any order)."""
+    return float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())
+
+
+def _drops(top_e, cfg, T):
+    """Assignments past capacity in one MoE layer's routing."""
+    cap = moe_mod.capacity(T, cfg.moe)
+    counts = torch.bincount(top_e.reshape(-1), minlength=cfg.moe.num_experts)
+    return int((counts - cap).clamp_min(0).sum()), cap
+
+
+def moe_lm_phase(label):
+    """Serves one 8192-token prompt of deepseek-v2-lite-16b (8 layers)
+    through prefill and decode; returns the main path's launch counts."""
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    params, t_init = _timed(lambda: transformer.init_params(
+        cfg, seed=0, device="cuda"))
+    n_params = param_count(params)
+    m, a = cfg.moe, cfg.mla
+    print(f"[lm] {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} MLA "
+          f"kv_lora={a.kv_lora_rank} qk={a.qk_nope_head_dim}+"
+          f"{a.qk_rope_head_dim} v={a.v_head_dim}; {m.num_experts} experts "
+          f"top-{m.top_k} + {m.num_shared} shared, expert ff "
+          f"{m.d_ff_expert}, shared ff {m.d_ff_shared}, dense ff {cfg.d_ff} "
+          f"(first {m.dense_first_k}); vocab={cfg.vocab_size} layers="
+          f"{cfg.n_layers} (of 27): {n_params / 1e9:.3f} B parameters, "
+          f"{n_params * 4 / 1e9:.2f} GB fp32, drawn on the card in "
+          f"{t_init:.2f} s ({held / 2**30:.2f} GiB held before)", flush=True)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, LM_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    n_moe = cfg.n_layers - m.dense_first_k
+
+    def prefill(impl, b=batch):
+        return _timed(lambda: transformer.prefill(cfg, params, b, impl=impl))
+
+    prefill("cuda")                        # warm-up: cuBLAS, first launches
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with RouteLog() as routes:
+        logits, t_main = prefill("cuda")
+    launches = ops.launch_counts()
+    variants = dict(flash_kernels.variant_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: (cfg.n_layers if k == "flash_attention" else 0)
+            for k in launches}
+    check(launches == want, f"prefill launches {launches}, expected {want}")
+    check(variants == {"wgmma": 0, "cuda_core": cfg.n_layers},
+          f"prefill's flash_attention launches by kernel {variants}, "
+          f"expected all {cfg.n_layers} on the cuda_core kernel (D=192)")
+    check(tuple(logits.shape) == (1, LM_SEQ, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+    check(len(routes.seen) == n_moe, f"{len(routes.seen)} MoE layers "
+                                     f"routed, expected {n_moe}")
+    drops = [_drops(e, cfg, LM_SEQ) for e in routes.seen]
+    again, t2 = prefill("cuda")
+    same = bool(torch.equal(logits, again))
+    del again
+    times = [t_main, t2, prefill("cuda")[1]]
+    print(f"[lm] {cfg.name} prefill impl=cuda B=1 S={LM_SEQ}: latency "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms (p50 "
+          f"{statistics.median(times) * 1e3:.2f} ms), "
+          f"{LM_SEQ / statistics.median(times):.0f} tokens/s, peak device "
+          f"memory {peak / 2**30:.2f} GiB, launches {launches} (flash by "
+          f"kernel {variants}); capacity {drops[0][1]} a layer, dropped "
+          f"assignments by MoE layer {[d for d, _ in drops]} of "
+          f"{LM_SEQ * m.top_k}; two prefills bitwise equal {same} "
+          f"{'ok' if same else 'FAIL'} [{label}]", flush=True)
+    check(same, "two impl='cuda' prefills differ")
+    _profile(lambda: prefill("cuda"), label, f"one {cfg.name} prefill")
+
+    before = ops.launch_counts()
+    with RouteLog() as plain_routes:
+        plain, t_plain = prefill("torch")
+    check(ops.launch_counts() == before, "impl='torch' launched a kernel")
+    agree = [_route_agreement(x, y)
+             for x, y in zip(routes.seen, plain_routes.seen)]
+    rel0, top10 = _agreement(logits, plain)
+    del plain
+    with RouteLog(pin=routes.seen) as pinned:
+        plain, _ = prefill("torch")
+    check(not pinned.pin, "pinned routing left unused")
+    rel, top1 = _agreement(logits, plain)
+    ok = (rel <= LM_TOL["rel"] and top1 >= LM_TOL["top1"]
+          and min(agree) >= MOE_ROUTE_AGREE)
+    print(f"[lm] {cfg.name} prefill impl=cuda vs impl=torch: routing "
+          f"agreement by MoE layer {[round(x, 5) for x in agree]} (at least "
+          f"{MOE_ROUTE_AGREE}); as routed, max abs err / max |logit| "
+          f"{rel0:.3e}, top-1 {top10:.4f}; with impl=torch routed as "
+          f"impl=cuda, max abs err / max |logit| {rel:.3e} (max |logit| "
+          f"{float(plain.abs().max()):.3f}), top-1 agreement {top1:.4f} "
+          f"over {LM_SEQ} positions (tolerance {LM_TOL}); impl=torch "
+          f"latency {t_plain * 1e3:.2f} ms {'ok' if ok else 'FAIL'} "
+          f"[{label}]", flush=True)
+    check(ok, "the MoE prefill through the kernel disagrees with the plain "
+              "path")
+    del logits, plain
+
+    # decode never drops (capacity 8 >= one token); the prefill of the
+    # same 16 tokens may (capacity 8 an expert, and these random weights
+    # route the tokens alike): its drops are counted, and decode is held
+    # against the prefill with capacity for every assignment
+    short = {"tokens": batch["tokens"][:, :LM_DECODE]}
+    with RouteLog() as short_routes:
+        prefill("cuda", short)
+    short_drops = [_drops(e, cfg, LM_DECODE)[0] for e in short_routes.seen]
+    roomy = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=float(m.num_experts)))
+    with RouteLog() as short_routes:
+        ref = transformer.prefill(roomy, params, short, impl="cuda")
+    check(sum(_drops(e, roomy, LM_DECODE)[0] for e in short_routes.seen)
+          == 0, "the prefill with room for every assignment dropped one")
+
+    def decode(pin=None):
+        cache = transformer.init_cache(cfg, 1, LM_DECODE, device="cuda")
+        steps, step_times = [], []
+        with RouteLog(pin=pin) as log:
+            for pos in range(LM_DECODE):
+                (lg, cache), t = _timed(lambda: transformer.decode_step(
+                    cfg, params, cache, batch["tokens"][:, pos:pos + 1],
+                    pos))
+                steps.append(lg[:, 0])
+                step_times.append(t)
+        return torch.stack(steps, dim=1), step_times, cache, log
+
+    dec, step_times, cache, log = decode()
+    check(tuple(dec.shape) == (1, LM_DECODE, cfg.vocab_size)
+          and bool(torch.isfinite(dec).all()), "bad decode logits")
+    by_layer = [torch.cat(log.seen[l::n_moe]) for l in range(n_moe)]
+    dagree = [_route_agreement(x, y)
+              for x, y in zip(short_routes.seen, by_layer)]
+    rel0, top10 = _agreement(dec, ref)
+    pin = [short_routes.seen[l][p:p + 1] for p in range(LM_DECODE)
+           for l in range(n_moe)]
+    dec, _, _, _ = decode(pin)
+    rel, top1 = _agreement(dec, ref)
+    ok = rel <= DECODE_TOL["rel"] and top1 >= DECODE_TOL["top1"]
+    p50 = statistics.median(step_times[1:])
+    print(f"[lm] {cfg.name} decode {LM_DECODE} steps from an empty cache vs "
+          f"prefill of the same tokens with capacity "
+          f"{moe_mod.capacity(LM_DECODE, roomy.moe)} (at capacity "
+          f"{moe_mod.capacity(LM_DECODE, m)} that prefill drops "
+          f"{short_drops} assignments by MoE layer): routing agreement by "
+          f"MoE layer "
+          f"{[round(x, 4) for x in dagree]}; as routed, max abs err / max "
+          f"|logit| {rel0:.3e}, top-1 {top10:.4f}; routed as the prefill, "
+          f"max abs err / max |logit| {rel:.3e}, top-1 agreement "
+          f"{top1:.4f} (tolerance {DECODE_TOL}); step latency p50 "
+          f"{p50 * 1e3:.2f} ms (first {step_times[0] * 1e3:.2f} ms), "
+          f"{1 / p50:.1f} tokens/s at B=1 {'ok' if ok else 'FAIL'} "
+          f"[{label}]", flush=True)
+    check(ok, "the MoE decode disagrees with prefill")
+    _profile(lambda: transformer.decode_step(
+        cfg, params, cache, batch["tokens"][:, LM_DECODE - 1:LM_DECODE],
+        LM_DECODE - 1), label, f"one {cfg.name} decode step")
+    return launches
+
+
+def flash_mla_phase(dev, label):
+    """``flash_attention`` at MLA prefill's shape (v padded from 128 to
+    192) on the cuda_core kernel: checked, timed beside its plain version
+    and SDPA (q/k 192, v 128); returns its record."""
+    B, H, S, D, DV = 1, 16, LM_SEQ, 192, 128
+    print("[kernels] flash_attention at the MLA prefill shape", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v = rnd(B, H, S, D), rnd(B, H, S, D), rnd(B, H, S, DV)
+    vp = F.pad(v, (0, D - DV))
+    check(flash_variant(q.dtype, D) == "cuda_core", "D=192 variant")
+    before = flash_kernels.variant_launches["cuda_core"]
+    out = flash_attention(q, k, vp)
+    again = flash_attention(q, k, vp)
+    torch.cuda.synchronize()
+    check(flash_kernels.variant_launches["cuda_core"] == before + 2,
+          "the cuda_core kernel was not launched")
+    want = flash_attention_ref(q.float(), k.float(), vp.float())
+    r = flash_bf16_check(out, again, want, flash_bf16_tol(q, k, vp))
+    pad_zero = bool((out[..., DV:] == 0).all())
+    del want, again
+    tag = f"B={B} H={H} S={S} D={D} (v {DV} padded to {D}) bf16 causal"
+    print(f"  flash cuda_core {tag}: max_abs_err={r['max_abs_err']:.3e}, "
+          f"worst {r['worst']:.3f} of flash_bf16_tol, mean signed error "
+          f"{r['bias_ulp']:+.4f} ulp, repeatable {r['repeatable']}, padded "
+          f"columns zero {pad_zero} "
+          f"{'ok' if r['ok'] and pad_zero else 'FAIL'}", flush=True)
+    check(r["ok"] and pad_zero, f"flash {tag} disagrees with its plain "
+                                f"version")
+    ms = cuda_ms(lambda: flash_attention(q, k, vp), iters=10)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, vp), iters=3,
+                    warmup=1)
+    try:
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=10)
+    except RuntimeError as e:       # no SDPA backend for Ev != E here
+        lib = None
+        print(f"  scaled_dot_product_attention at q/k {D}, v {DV}: {e}",
+              flush=True)
+    # the function's work: Q.K^T at 192 and P.V at 128 over the causal
+    # half; q, k, v and the 128-wide output each moved once
+    flops = 2.0 * B * H * S * S * 0.5 * (D + DV)
+    moved = 2 * B * H * S * (2 * D + 2 * DV)
+    bnd, by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
+    print(f"  flash cuda_core {tag}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'} "
+          f"(scaled_dot_product_attention, v {DV}), bound {bnd:.4f} ms "
+          f"({by}; {flops:.4g} operations, {moved:.4g} bytes) [{label}]",
+          flush=True)
+    return dict(variant="cuda_core", shape=tag, max_abs_err=r["max_abs_err"],
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib)
+
+
 def serving_batch():
     """The Flickr-sized graph, the Zipf targets of every measured batch,
     and the first batch as the engine plans it (SubgraphBatch)."""
@@ -2787,6 +3186,10 @@ def main() -> int:
         dict(r, variant="sort") for r in rec.pop("softmax")]
     del x
     rec["flash_attention"] = flash_phase(dev, label)
+    t0 = time.perf_counter()
+    variants["flash_attention"] = [flash_mla_phase(dev, label)]
+    print(f"[kernels] flash_attention at the MLA shape: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     launches = engine_phase(graph, targets, label)
     profile_phase(graph, targets, label)
     served = serve_phase(graph, label)
@@ -2799,7 +3202,17 @@ def main() -> int:
     precomputed = precompute_phase(graph, label)
     remote = rpc_phase(graph, targets, label)
     metered = telemetry_phase(graph, label)
+    t0 = time.perf_counter()
+    trained = train_phase(graph, label)
+    print(f"[train] phase {time.perf_counter() - t0:.2f} s", flush=True)
     launches["flash_attention"] = lm_phase(label)["flash_attention"]
+    t0 = time.perf_counter()
+    moe_launches = moe_lm_phase(label)["flash_attention"]
+    print(f"[lm] {MOE_ARCH} phase {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    launches["flash_attention"] += moe_launches
+    variants["flash_attention"][0]["launches"] = moe_launches
+    check(not any(trained.values()), "training launched a kernel")
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in KERNELS_BY_NAME:

@@ -119,3 +119,20 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raises when grad mode is on and an input of ``kernel`` requires grad.
+    The kernels write their outputs through ctypes into buffers autograd
+    does not see, so such an output would carry no ``grad_fn`` and the
+    gradient through the call would be dropped without a word. The plain
+    versions (``impl="torch"`` programs, the ``*_ref`` functions) take
+    autograd."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the CUDA kernel has no "
+            f"backward (its output would carry no grad_fn and the gradient "
+            f"would be lost); run the plain path (impl='torch', or "
+            f"{kernel}_ref) or call it under torch.no_grad()")

@@ -165,6 +165,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
         return flash_attention_ref(q, k, v, causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
     variant = flash_variant(q.dtype, D)

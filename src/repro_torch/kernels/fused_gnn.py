@@ -165,6 +165,7 @@ def fused_gnn_layer(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
                                    act=act)
     if dev.type != "cuda":
         raise ValueError(f"fused_gnn_layer: unsupported device {dev}")
+    build.refuse_grad("fused_gnn_layer", adj, h, w_neigh, w_self, b, mask)
     args = [adj if w_neigh is not None else None, h, w_neigh, w_self, b,
             mask]
     for t in args:

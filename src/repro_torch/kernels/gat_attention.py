@@ -158,6 +158,7 @@ def gat_attention(z, s_src, s_dst, struct, *, n_heads: int,
                                  negative_slope=negative_slope)
     if dev.type != "cuda":
         raise ValueError(f"gat_attention: unsupported device {dev}")
+    build.refuse_grad("gat_attention", *tensors)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gat_attention: inputs must be contiguous")
     bf16 = z.dtype == torch.bfloat16

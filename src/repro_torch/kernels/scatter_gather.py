@@ -178,6 +178,7 @@ def scatter_gather_aggregate(src, dst, w, h, block_cols=None):
     if dev.type != "cuda":
         raise ValueError(f"scatter_gather_aggregate: unsupported device "
                          f"{dev}")
+    build.refuse_grad("scatter_gather_aggregate", w, h)
     if not all(t.is_contiguous() for t in (src, dst, w, h)):
         raise ValueError("scatter_gather_aggregate: inputs must be "
                          "contiguous")

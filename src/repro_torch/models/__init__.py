@@ -1,2 +1,2 @@
-"""The LM substrate's models in PyTorch: the dense decoder-only family
-(prefill and decode) so far."""
+"""The LM substrate's models in PyTorch: the dense decoder-only family and
+the MoE family (MoE FFNs, MLA attention), prefill and decode."""

@@ -1,19 +1,25 @@
-"""Model assembly for the dense decoder-only family, serving side (the
-PyTorch counterpart of the dense branch of ``repro.models.transformer``).
+"""Model assembly for the dense decoder-only family and the MoE family
+(MLA attention with MoE FFNs: deepseek-v2-lite-16b, deepseek-v3-671b),
+serving side: the PyTorch counterpart of those branches of
+``repro.models.transformer``.
 
   init_params(cfg, seed, device)               -> params (nested dicts)
+  backbone(cfg, params, batch, impl)           -> (hidden [B,S,D], aux)
   prefill(cfg, params, batch, impl)            -> logits [B,S,V] (fp32)
   init_cache(cfg, batch, max_seq, device)      -> decode cache
   decode_step(cfg, params, cache, token, pos)  -> (logits [B,1,V], cache)
   params_from_jax(tree, device)                -> the reference's params
 
-Layer parameters are stacked on a leading axis of length n_layers, as in
-the reference (which scans over them); here a Python loop takes layer l's
-slice and casts it to the compute type inside the loop, so no copy of the
-whole model in the compute type is ever held. Entry points run on the card
-unless the caller passes ``device="cpu"``. The other families (MoE, MLA,
-SSM, hybrid, audio, VLM) raise NotImplementedError naming their ROADMAP
-item.
+Layer parameters are stacked on a leading axis, one stack a homogeneous
+segment as in the reference (which scans over each): ``blocks``, and for
+the ``dense_first_k`` layout ``dense_blocks`` before it. Here a Python
+loop takes layer l's slice and casts it to the compute type inside the
+loop, so no copy of a whole stack in the compute type is ever held (one
+MoE layer of deepseek-v2-lite has 585 M parameters). deepseek-v3's
+multi-token-prediction subtree (``mtp``) is initialised as the reference's
+and never run when serving. Entry points run on the card unless the
+caller passes ``device="cpu"``. The other families (SSM, hybrid, audio,
+VLM) raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,13 +34,14 @@ from repro_torch.models.attention import (decode_attention, full_attention,
                                           init_attn)
 from repro_torch.models.common import (cast_tree, dense_init, embed_init,
                                        rms_norm)
+from repro_torch.models.mla import init_mla, mla_decode, mla_full
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.moe import init_moe, moe_apply
 
 CACHE_DTYPE = torch.bfloat16
 # ROADMAP.md queue 1, item 14: the LM families not ported yet
-UNPORTED = {"moe": "14.1 (MoE) and 14.2 (MLA)", "ssm": "14.3 (SSM/Mamba)",
-            "hybrid": "14.4 (hybrid, Jamba)", "audio": "14.5 (audio)",
-            "vlm": "14.6 (VLM)"}
+UNPORTED = {"ssm": "14.3 (SSM/Mamba)", "hybrid": "14.4 (hybrid, Jamba)",
+            "audio": "14.5 (audio)", "vlm": "14.6 (VLM)"}
 
 
 def _pdt(cfg: ModelConfig) -> torch.dtype:
@@ -45,19 +52,68 @@ def _cdt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype.compute_dtype)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or any(
-            (cfg.moe, cfg.mla, cfg.ssm, cfg.encoder, cfg.vision,
-             cfg.hybrid_attn_period, cfg.mtp)):
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family in UNPORTED or any(
+            (cfg.ssm, cfg.encoder, cfg.vision, cfg.hybrid_attn_period)):
         item = UNPORTED.get(cfg.family, "14")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet (ROADMAP.md queue 1, item {item}); only the "
-            f"dense family is")
+            f"repro_torch yet (ROADMAP.md queue 1, item {item}); the dense "
+            f"and moe families are")
+
+
+# ---------------------------------------------------------------------------
+# layer kinds
+
+
+def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
+    """Whether layer ``idx`` has a MoE FFN under the config's layout (the
+    reference's rule; the layer stacks below follow it for
+    ``dense_first_k``, and the hybrid family, item 14.4, per layer)."""
+    if cfg.moe is None:
+        return False
+    m = cfg.moe
+    if m.layout == "every":
+        return True
+    if m.layout == "alternate":
+        return idx % 2 == 1
+    if m.layout == "dense_first_k":
+        return idx >= m.dense_first_k
+    raise ValueError(m.layout)
+
+
+def _stacks(cfg: ModelConfig):
+    """(params key, cache key, layers, FFN kind) of each homogeneous layer
+    stack, in the order they run (the reference's segments)."""
+    cache_key = "moe" if cfg.mla is not None else "attn"
+    if cfg.moe is not None and cfg.moe.dense_first_k:
+        k = sum(not _is_moe_layer(cfg, i) for i in range(cfg.n_layers))
+        return [("dense_blocks", "dense", k, "dense"),
+                ("blocks", cache_key, cfg.n_layers - k, "moe")]
+    return [("blocks", cache_key, cfg.n_layers,
+             "moe" if cfg.moe is not None else "dense")]
 
 
 # ---------------------------------------------------------------------------
 # parameters
+
+
+def _init_block(cfg: ModelConfig, gen, n: int, kind: str):
+    """``n`` layers of one kind (dense | moe), stacked: norms, the mixer
+    (MLA where the config has it, else grouped-query attention) and the
+    FFN (MoE or SwiGLU)."""
+    dt, D = _pdt(cfg), cfg.d_model
+    ones = lambda: torch.ones((n, D), dtype=dt, device=gen.device)  # noqa
+    p = {"ln1": ones()}
+    if cfg.mla is not None:
+        p["mixer"] = init_mla(gen, n, D, cfg.n_heads, cfg.mla, dt)
+    else:
+        p["mixer"] = init_attn(gen, n, D, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim, cfg.qkv_bias, dt)
+    p["ln2"] = ones()
+    p["ffn"] = (init_moe(gen, n, D, cfg.moe, dt) if kind == "moe"
+                else init_mlp(gen, n, D, cfg.d_ff, cfg.act, dt))
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -65,22 +121,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     ``torch.Generator`` seeded with ``seed`` on ``device`` itself (billions
     of normals are quick there and slow on the host); the numbers differ
     from JAX's (tests carry JAX's across with ``params_from_jax``)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    dt = _pdt(cfg)
-    D, L = cfg.d_model, cfg.n_layers
+    dt, D = _pdt(cfg), cfg.d_model
     p = {"embed": embed_init(gen, (cfg.vocab_size, D), dt),
          "final_norm": torch.ones((D,), dtype=dt, device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (D, cfg.vocab_size), dtype=dt)
-    p["blocks"] = {
-        "ln1": torch.ones((L, D), dtype=dt, device=dev),
-        "mixer": init_attn(gen, L, D, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.resolved_head_dim, cfg.qkv_bias, dt),
-        "ln2": torch.ones((L, D), dtype=dt, device=dev),
-        "ffn": init_mlp(gen, L, D, cfg.d_ff, cfg.act, dt),
-    }
+    for key, _, n, kind in _stacks(cfg):
+        p[key] = _init_block(cfg, gen, n, kind)
+    if cfg.mtp:                      # deepseek-v3 multi-token prediction
+        p["mtp"] = {"proj": dense_init(gen, (2 * D, D), dtype=dt),
+                    "block": _layer(_init_block(cfg, gen, 1, "dense"), 0),
+                    "norm_h": torch.ones((D,), dtype=dt, device=dev),
+                    "norm_e": torch.ones((D,), dtype=dt, device=dev)}
     return p
 
 
@@ -117,17 +172,31 @@ def _layer(stack, l: int):
 # forward
 
 
-def _block(cfg: ModelConfig, bp, h, impl: str):
+def _ffn(cfg: ModelConfig, bp, h, kind: str):
+    """The FFN half of a block: (h + FFN(norm(h)), the MoE balance loss or
+    0)."""
+    x = rms_norm(h, bp["ln2"], cfg.norm_eps)
+    if kind == "moe":
+        out, aux = moe_apply(bp["ffn"], x, cfg.moe, act=cfg.act)
+        return h + out, aux
+    return h + mlp(bp["ffn"], x, cfg.act), 0.0
+
+
+def _block(cfg: ModelConfig, bp, h, kind: str, impl: str):
     bp = cast_tree(bp, _cdt(cfg))
     x = rms_norm(h, bp["ln1"], cfg.norm_eps)
-    h = h + full_attention(bp["mixer"], x, n_heads=cfg.n_heads,
-                           n_kv=cfg.n_kv_heads,
-                           head_dim=cfg.resolved_head_dim,
-                           rope_theta=cfg.rope_theta,
-                           rope_fraction=cfg.rope_fraction, causal=True,
-                           chunk_q=cfg.attn_chunk_q, impl=impl)
-    x = rms_norm(h, bp["ln2"], cfg.norm_eps)
-    return h + mlp(bp["ffn"], x, cfg.act)
+    if cfg.mla is not None:
+        out, _ = mla_full(bp["mixer"], x, n_heads=cfg.n_heads, mla=cfg.mla,
+                          rope_theta=cfg.rope_theta, causal=True,
+                          chunk_q=cfg.attn_chunk_q, impl=impl)
+    else:
+        out = full_attention(bp["mixer"], x, n_heads=cfg.n_heads,
+                             n_kv=cfg.n_kv_heads,
+                             head_dim=cfg.resolved_head_dim,
+                             rope_theta=cfg.rope_theta,
+                             rope_fraction=cfg.rope_fraction, causal=True,
+                             chunk_q=cfg.attn_chunk_q, impl=impl)
+    return _ffn(cfg, bp, h + out, kind)
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens):
@@ -166,21 +235,24 @@ def _unembed(cfg: ModelConfig, params, h):
 
 
 def backbone(cfg: ModelConfig, params, batch, impl: str = "cuda"):
-    """Token embeddings -> final hidden states [B,S,D]. ``batch`` is a dict
-    with 'tokens' [B,S]. (The reference also returns the MoE balance loss,
-    which the dense family does not have.)"""
-    _require_dense(cfg)
+    """Token embeddings -> (final hidden states [B,S,D], the MoE layers'
+    summed balance loss, fp32). ``batch`` is a dict with 'tokens'
+    [B,S]."""
+    _require_ported(cfg)
     h = _embed_tokens(cfg, params, batch["tokens"])
-    for l in range(cfg.n_layers):
-        h = _block(cfg, _layer(params["blocks"], l), h, impl)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for key, _, n, kind in _stacks(cfg):
+        for l in range(n):
+            h, a = _block(cfg, _layer(params[key], l), h, kind, impl)
+            aux = aux + a
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def prefill(cfg: ModelConfig, params, batch, impl: str = "cuda"):
     """Full-sequence forward producing fp32 logits [B,S,V]. ``impl="cuda"``
     runs every layer's attention core through ``flash_attention``;
     ``impl="torch"`` through the reference's plain path."""
-    return _unembed(cfg, params, backbone(cfg, params, batch, impl))
+    return _unembed(cfg, params, backbone(cfg, params, batch, impl)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -188,32 +260,48 @@ def prefill(cfg: ModelConfig, params, batch, impl: str = "cuda"):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
-    """Zeroed decode cache: {"attn": {"k", "v"}}, each
-    [n_layers, batch, max_seq, n_kv_heads, head_dim] in bfloat16 (the
-    reference's CACHE_DTYPE, whatever the compute type)."""
-    _require_dense(cfg)
+    """Zeroed decode cache in bfloat16 (the reference's CACHE_DTYPE,
+    whatever the compute type). Dense: {"attn": {"k", "v"}}, each
+    [n_layers, batch, max_seq, n_kv_heads, head_dim]. MLA: the latent
+    {"ckv": [n, batch, max_seq, kv_lora_rank], "kr": [n, batch, max_seq,
+    rope_dim]} a stack: "dense" for the dense-first layers, "moe" for the
+    rest."""
+    _require_ported(cfg)
     dev = resolve(device)
+    zeros = lambda *s: torch.zeros(s, dtype=CACHE_DTYPE,  # noqa: E731
+                                   device=dev)
+    if cfg.mla is not None:
+        return {ckey: {"ckv": zeros(n, batch, max_seq, cfg.mla.kv_lora_rank),
+                       "kr": zeros(n, batch, max_seq,
+                                   cfg.mla.qk_rope_head_dim)}
+                for _, ckey, n, _ in _stacks(cfg)}
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
              cfg.resolved_head_dim)
-    return {"attn": {"k": torch.zeros(shape, dtype=CACHE_DTYPE, device=dev),
-                     "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=dev)}}
+    return {"attn": {"k": zeros(*shape), "v": zeros(*shape)}}
 
 
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token [B,1] ints; pos an int. Returns (logits [B,1,V], cache), the
     cache updated in place at ``pos`` (the reference returns a copy)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     h = _embed_tokens(cfg, params, token)
-    ks, vs = cache["attn"]["k"], cache["attn"]["v"]
-    for l in range(cfg.n_layers):
-        bp = cast_tree(_layer(params["blocks"], l), _cdt(cfg))
-        x = rms_norm(h, bp["ln1"], cfg.norm_eps)
-        out, _, _ = decode_attention(
-            bp["mixer"], x, ks[l], vs[l], pos, n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-            rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction)
-        h = h + out
-        x = rms_norm(h, bp["ln2"], cfg.norm_eps)
-        h = h + mlp(bp["ffn"], x, cfg.act)
+    for key, ckey, n, kind in _stacks(cfg):
+        c = cache[ckey]
+        for l in range(n):
+            bp = cast_tree(_layer(params[key], l), _cdt(cfg))
+            x = rms_norm(h, bp["ln1"], cfg.norm_eps)
+            if cfg.mla is not None:
+                out, _, _ = mla_decode(
+                    bp["mixer"], x, c["ckv"][l], c["kr"][l], pos,
+                    n_heads=cfg.n_heads, mla=cfg.mla,
+                    rope_theta=cfg.rope_theta)
+            else:
+                out, _, _ = decode_attention(
+                    bp["mixer"], x, c["k"][l], c["v"][l], pos,
+                    n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                    head_dim=cfg.resolved_head_dim,
+                    rope_theta=cfg.rope_theta,
+                    rope_fraction=cfg.rope_fraction)
+            h, _ = _ffn(cfg, bp, h + out, kind)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), cache

@@ -732,3 +732,128 @@ def test_inproc_remote_engine_bitwise_equal_to_local(dev, kind, mode):
         assert sum(ops.launch_counts().values()) > 0
         assert calls == (3 if transport == "inproc" else 0)
     np.testing.assert_array_equal(out["inproc"], out["local"])
+
+
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gat"])
+def test_gnn_train_step_on_the_card_matches_the_cpu(dev, kind):
+    """One training step (the plain program under autograd, AdamW) on the
+    card against the same step on the CPU, with the same params and batch:
+    loss and grad_norm at rtol 1e-5, acc within one target, every
+    gradient leaf at 1e-5 of its largest |g| (tests/test_torch_train.py's
+    tolerances); no kernel launched."""
+    from repro_torch.gnn import train as gtrain
+    from repro_torch.train.optim import AdamWConfig, init_opt, tree_leaves
+    g = get_graph("flickr", scale=0.02, seed=1)
+    cfg = GNNConfig(kind=kind, n_layers=3, receptive_field=64,
+                    f_in=g.feature_dim, f_hidden=64,
+                    num_classes=int(g.labels.max()) + 1)
+    targets = np.random.default_rng(0).integers(0, g.num_vertices, 16)
+    ops.reset_launch_counts()
+    out = {}
+    for d in ("cpu", "cuda"):
+        params = init_gnn(cfg, seed=0, device=d)
+        batch, labels = gtrain.train_batch(g, cfg, targets, d)
+        loss, acc, grads = gtrain.gnn_grads(cfg, params, batch, labels)
+        opt = AdamWConfig(lr=3e-3, weight_decay=0.0)
+        _, _, m = gtrain.make_gnn_train_step(cfg, opt)(
+            params, init_opt(params, opt), batch, labels)
+        out[d] = (loss, acc, grads, m)
+    assert all(n == 0 for n in ops.launch_counts().values())
+    (l0, a0, g0, m0), (l1, a1, g1, m1) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-5)
+    np.testing.assert_allclose(float(m1["grad_norm"]), float(m0["grad_norm"]),
+                               rtol=1e-5)
+    assert abs(float(a1) - float(a0)) <= 1.0 / len(targets)
+    for got, want in zip(tree_leaves(g1), tree_leaves(g0)):
+        assert got.is_cuda
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-5 * scale)
+
+
+def test_mla_core_through_flash_attention_at_d192(dev):
+    """MLA prefill's core under impl="cuda": q and k 192 wide (128 nope +
+    64 rope, the rope key shared by the 16 heads), v padded from 128, bf16,
+    a ragged 300-token prompt, on the cuda_core kernel; held to
+    flash_bf16_check against the plain version (fp32) on the same padded
+    inputs, the padded columns sliced off."""
+    from repro_torch.models import mla
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, H = 1, 300, 16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    qn, qr, kn, kr, v = (rnd(B, S, H, 128), rnd(B, S, H, 64),
+                         rnd(B, S, H, 128), rnd(B, S, 1, 64),
+                         rnd(B, S, H, 128))
+    before = dict(flash_attention.variant_launches)
+    got = mla._flash_core(qn, qr, kn, kr, v, True)
+    again = mla._flash_core(qn, qr, kn, kr, v, True)
+    assert flash_attention.variant_launches["cuda_core"] == \
+        before["cuda_core"] + 2
+    q = torch.cat([qn, qr], -1).transpose(1, 2).contiguous()
+    k = torch.cat([kn, kr.expand(B, S, H, 64)], -1).transpose(1, 2) \
+        .contiguous()
+    vp = torch.nn.functional.pad(v, (0, 64)).transpose(1, 2).contiguous()
+    want = flash_attention.flash_attention_ref(q.float(), k.float(),
+                                               vp.float())
+    tol = flash_attention.flash_bf16_tol(q, k, vp)
+    r = flash_attention.flash_bf16_check(
+        got.transpose(1, 2), again.transpose(1, 2), want[..., :128],
+        tol[..., :128])
+    assert r["ok"], r
+
+
+def test_moe_prefill_bitwise_repeatable(dev):
+    """Two impl="cuda" prefills of a reduced deepseek-v2-lite in bf16
+    compute over 256 tokens (capacity drops included) are bitwise equal:
+    the combine sums each token's contributions in a fixed order."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-lite-16b", reduced=True),
+        dtype=DTypePolicy(param_dtype="float32", compute_dtype="bfloat16"))
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 256))).to(dev)
+    a = transformer.prefill(cfg, params, {"tokens": tokens}, impl="cuda")
+    b = transformer.prefill(cfg, params, {"tokens": tokens}, impl="cuda")
+    assert torch.equal(a, b)
+    x = torch.randn(1, 256, cfg.d_model, device=dev, dtype=torch.bfloat16)
+    p = {k: v[1] if k != "shared" else {kk: vv[1] for kk, vv in v.items()}
+         for k, v in params["blocks"]["ffn"].items()}
+    p = {k: (v.to(torch.bfloat16) if k != "shared" else
+             {kk: vv.to(torch.bfloat16) for kk, vv in v.items()})
+         for k, v in p.items()}
+    for fn in (moe.moe_ffn, moe.moe_ffn_gather):
+        y1, _ = fn(p, x, cfg.moe)
+        y2, _ = fn(p, x, cfg.moe)
+        assert torch.equal(y1, y2)
+
+
+def test_kernel_wrappers_refuse_autograd(dev):
+    """A CUDA tensor that requires grad, with grad mode on: each wrapper
+    raises (its kernel has no backward, and its output would carry no
+    grad_fn), and launches under torch.no_grad()."""
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    adj, h, w = t(2, 16, 16), t(2, 16, 8), t(8, 8)
+    src = torch.randint(0, 16, (2, 32), device=dev, dtype=torch.int32)
+    dst = torch.randint(0, 16, (2, 32), device=dev, dtype=torch.int32)
+    ew, z, s = t(2, 32), t(2, 16, 8), t(2, 16, 2)
+    q = t(1, 2, 16, 32)
+    calls = [
+        (lambda x: fused_gnn.fused_gnn_layer(adj, h, x), w),
+        (lambda x: scatter_gather.scatter_gather_aggregate(src, dst, ew, x),
+         h),
+        (lambda x: gat_attention.gat_attention(x, s, s, (adj > 0).float(),
+                                               n_heads=2), z),
+        (lambda x: flash_attention.flash_attention(x, q, q), q.clone()),
+    ]
+    for call, x in calls:
+        x.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(x)
+        with torch.no_grad():
+            assert call(x).is_cuda
