@@ -202,7 +202,11 @@
    version (the padded output columns zero), timed beside its plain
    version and ``scaled_dot_product_attention`` with v at 128 (timed only;
    the package never calls it), and a bound from the function's own work
-   (Q.K^T at 192 and P.V at 128 over the causal half). Runs after step 4.
+   (Q.K^T at 192 and P.V at 128 over the causal half). Runs after step 4,
+   and is followed by the wgmma kernel at Jamba's attention shape (B=1,
+   H=64, 8 KV heads, S=8192, D=128, bf16, causal): ``flash_bf16_check``,
+   timed beside its plain version and ``scaled_dot_product_attention(
+   enable_gqa=True)``, bound from the operations.
 16. ``[train]``: ``train_gnn`` for GCN, GraphSAGE and GAT at the
    [engine] width and depth (L=5, N=256, f_hidden=256, 4 heads, the
    graph's label count) on the Flickr-sized graph, batch 32, lr 3e-3, 30
@@ -229,9 +233,32 @@
    config's capacity factor drops assignments on this prompt: counted and
    printed). Prints latency, tokens/s, peak memory, capacity drops and
    the profile.
-18. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
+18. ``[lm]`` mamba2-2.7b (after deepseek, whose parameters are freed) at
+   full width and full depth (64 layers, d_model 2560, d_inner 5120, SSM
+   H=80 P=64 N=128, chunk 256, vocab 50280; fp32 params, bf16 compute),
+   seed-0 weights, the 8192-token prompt. No kernel of the repository is
+   on its path (SSD is plain torch in fp32 on both impls): the prefill
+   must launch none, two prefills and the impl="torch" prefill must be
+   bitwise equal; the chunked SSD on layer 32's real inputs is held
+   against the float64 recurrence (``SSD_TOL``); 16 decode steps at all
+   64 layers, timed and set beside the 16-token prefill, and held against
+   it at ``DECODE_TOL`` on the first ``SSM_DECODE_LAYERS`` layers (the
+   reason is at the constant). Prints latency, tokens/s, peak memory, the
+   profile with its busy share and kernels and copies a layer against the
+   prediction ``SSM_OPS``, and decode's p50 and busy share.
+19. ``[lm]`` jamba-1.5-large-398b, one period of 8 layers at full width
+   (d_model 8192, 64/8 heads at D=128, d_ff and expert ff 24576, SSM
+   H=256; bf16), its experts cut from 16 to ``HYBRID_EXPERTS`` = 4, top-2
+   kept (the cut printed). impl="cuda" against impl="torch" on a
+   2048-token prompt as deepseek's (routing agreement, then the logits
+   with the plain path routed as the kernel path); the timed 8192-token
+   prefill on impl="cuda" must launch ``flash_attention`` once (wgmma) and
+   nothing else, two of them bitwise equal; 16 decode steps against the
+   16-token prefill, routed as it. Prints latency, tokens/s, peak memory,
+   capacity drops a layer, the profile and decode's p50 and busy share.
+20. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
    the bucket scatter-gather, the offline chunk shape, the bf16 kernels
-   and flash at the MLA shape) and, last, the ``ok`` line.
+   and flash at the MLA and Jamba shapes) and, last, the ``ok`` line.
 
 Any failure exits nonzero before the last line.
 """
@@ -291,6 +318,7 @@ from repro_torch.kernels.gat_attention import (  # noqa: E402
 from repro_torch.kernels.ref import bf16_reading  # noqa: E402
 from repro_torch.kernels.scatter_gather import (  # noqa: E402
     scatter_gather_aggregate, scatter_gather_aggregate_ref, sg_variant)
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.common import param_count  # noqa: E402
@@ -379,6 +407,40 @@ TRAIN_TOL = dict(rtol=1e-5, rtol64=1e-12, grad64=1e-10)
 # router's own probabilities of them weight the experts)
 MOE_ARCH, MOE_LAYERS = "deepseek-v2-lite-16b", 8
 MOE_ROUTE_AGREE = 0.9
+# [lm] SSM family: mamba2-2.7b at full width and full depth (64 layers,
+# 2.831 B parameters, 11.33 GB in fp32), the same prompt as phi3's. Its
+# SSD runs as plain torch ops on both impls (fp32, TF32 off), so the
+# kernel-vs-plain comparison does not apply: the chunked SSD is held
+# against the step-by-step recurrence in float64 on one layer's real
+# inputs at the full layer shape (H=80, P=64, N=128, S=8192), to SSD_TOL of
+# the largest |y| (and |final state|): fp32 rounds each exp(cumsum) (the
+# cumulative decay reaches ~1e3 in a chunk, so ~1e3 x 2^-24 relative) and
+# sums 256 + 128 terms a chunk, and the state carries 32 chunks deep.
+# SSM_OPS is the prediction of a prefill's kernels and copies a layer
+# (PERF.md section 6): the per-layer cast of 9 leaves, two norms, the
+# projections, the conv, ~36 state-free SSD ops and the chunk loop's
+# 32 addcmuls.
+# Decode against prefill is held at DECODE_TOL on the model's first
+# SSM_DECODE_LAYERS layers (phi3's and deepseek's depth), and the 64-layer
+# decode is timed with its agreement printed: the two paths round to bf16
+# at other points, and 64 layers of random weights amplify that past
+# DECODE_TOL in the reference itself (scripts/ssm_depth_probe.py on the
+# CPU at the reduced width: decode vs prefill 0.116 op by op and 0.206
+# jit'd at 64 layers; on an H100 the port's full-width 64-layer gap was
+# 6.944e-02, top-1 0.9375)
+SSM_ARCH = "mamba2-2.7b"
+SSD_TOL = 1e-4
+SSM_OPS = (100, 160)
+SSM_DECODE_LAYERS = 8
+# [lm] hybrid family: one period of jamba-1.5-large-398b (8 layers, every
+# layer kind whole) at full width (d_model 8192, 64/8 heads at D=128,
+# d_ff 24576, expert ff 24576, SSM H=256), its 16 experts cut to 4, top-2
+# kept: 16.15 B parameters, 32.3 GB in bf16 (16 experts: 90.3 GB; 8: 51.6
+# GB, which with the plain path's transient scores does not fit one card).
+# impl="cuda" against impl="torch" on a HYBRID_SHORT-token prompt (the
+# plain attention's 64 x S^2 fp32 scores are 17.2 GB a tensor at 8192),
+# routing first, as deepseek's; the timed prefill at LM_SEQ on impl="cuda"
+HYBRID_ARCH, HYBRID_EXPERTS, HYBRID_SHORT = "jamba-1.5-large-398b", 4, 2048
 # kernel launches per batch at L=5 (the program's count, see README)
 EXPECTED = {
     ("gcn", "dense"): {"fused_gnn_layer": 5},
@@ -2683,9 +2745,10 @@ def _profile(fn, label, what, tag="lm", top=8):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
+    n_ops = sum(r[2] for r in rows)
     print(f"[{tag}] profile of {what}: device {busy * 1e3:.3f} ms of "
-          f"{wall * 1e3:.3f} ms wall ({busy / wall:.1%} busy; traced) "
-          f"[{label}]", flush=True)
+          f"{wall * 1e3:.3f} ms wall ({busy / wall:.1%} busy; traced), "
+          f"{n_ops} kernels and copies [{label}]", flush=True)
     for name, us, count in rows[:top]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms  x{count:<4d} {name[:80]}",
               flush=True)
@@ -2693,6 +2756,7 @@ def _profile(fn, label, what, tag="lm", top=8):
         rest, count = (sum(r[k] for r in rows[top:]) for k in (1, 2))
         print(f"[{tag}]   {rest / 1e3:9.3f} ms  x{count:<4d} "
               f"{len(rows) - top} other kernels and copies", flush=True)
+    return dict(busy=busy / wall, device_ms=busy * 1e3, ops=n_ops)
 
 
 def profile_phase(graph, targets, label):
@@ -3033,19 +3097,8 @@ def moe_lm_phase(label):
     check(sum(_drops(e, roomy, LM_DECODE)[0] for e in short_routes.seen)
           == 0, "the prefill with room for every assignment dropped one")
 
-    def decode(pin=None):
-        cache = transformer.init_cache(cfg, 1, LM_DECODE, device="cuda")
-        steps, step_times = [], []
-        with RouteLog(pin=pin) as log:
-            for pos in range(LM_DECODE):
-                (lg, cache), t = _timed(lambda: transformer.decode_step(
-                    cfg, params, cache, batch["tokens"][:, pos:pos + 1],
-                    pos))
-                steps.append(lg[:, 0])
-                step_times.append(t)
-        return torch.stack(steps, dim=1), step_times, cache, log
-
-    dec, step_times, cache, log = decode()
+    dec, step_times, cache, log = _decode_run(cfg, params, batch["tokens"],
+                                              LM_DECODE)
     check(tuple(dec.shape) == (1, LM_DECODE, cfg.vocab_size)
           and bool(torch.isfinite(dec).all()), "bad decode logits")
     by_layer = [torch.cat(log.seen[l::n_moe]) for l in range(n_moe)]
@@ -3054,7 +3107,7 @@ def moe_lm_phase(label):
     rel0, top10 = _agreement(dec, ref)
     pin = [short_routes.seen[l][p:p + 1] for p in range(LM_DECODE)
            for l in range(n_moe)]
-    dec, _, _, _ = decode(pin)
+    dec, _, _, _ = _decode_run(cfg, params, batch["tokens"], LM_DECODE, pin)
     rel, top1 = _agreement(dec, ref)
     ok = rel <= DECODE_TOL["rel"] and top1 >= DECODE_TOL["top1"]
     p50 = statistics.median(step_times[1:])
@@ -3076,6 +3129,351 @@ def moe_lm_phase(label):
         cfg, params, cache, batch["tokens"][:, LM_DECODE - 1:LM_DECODE],
         LM_DECODE - 1), label, f"one {cfg.name} decode step")
     return launches
+
+
+# -- phase 19: the SSM family: mamba2-2.7b prefill and decode -------------
+
+
+class SSDCapture:
+    """Keeps the inputs of the ``index``-th ``mamba.ssd_chunked`` call of
+    the model's layers (the mamba blocks look it up at call time)."""
+
+    def __init__(self, index):
+        self.index, self.calls, self.args = index, 0, None
+
+    def __enter__(self):
+        self._real = mamba_mod.ssd_chunked
+
+        def ssd(*args, **kw):
+            if self.calls == self.index:
+                self.args = tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args)
+            self.calls += 1
+            return self._real(*args, **kw)
+        mamba_mod.ssd_chunked = ssd
+        return self
+
+    def __exit__(self, *exc):
+        mamba_mod.ssd_chunked = self._real
+        return False
+
+
+def _decode_run(cfg, params, tokens, n, pin=None):
+    """``n`` decode steps from an empty cache: (logits [1,n,V], step
+    times, cache, the steps' RouteLog)."""
+    cache = transformer.init_cache(cfg, 1, n, device="cuda")
+    steps, step_times = [], []
+    with RouteLog(pin=pin) as log:
+        for pos in range(n):
+            (lg, cache), t = _timed(lambda: transformer.decode_step(
+                cfg, params, cache, tokens[:, pos:pos + 1], pos))
+            steps.append(lg[:, 0])
+            step_times.append(t)
+    return torch.stack(steps, dim=1), step_times, cache, log
+
+
+def ssm_lm_phase(label):
+    """Serves one 8192-token prompt of mamba2-2.7b (all 64 layers) through
+    prefill and decode; checks the chunked SSD against the float64
+    recurrence on one layer's inputs. No kernel of the repository is on
+    this path: returns the prefill's launch counts (all zero)."""
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(SSM_ARCH)
+    params, t_init = _timed(lambda: transformer.init_params(
+        cfg, seed=0, device="cuda"))
+    n_params = param_count(params)
+    d_inner, H, _ = mamba_mod.dims(cfg.d_model, cfg.ssm)
+    m = cfg.ssm
+    print(f"[lm] {cfg.name} d_model={cfg.d_model} d_inner={d_inner} SSM "
+          f"H={H} P={m.head_dim} N={m.d_state} chunk={m.chunk_size} "
+          f"d_conv={m.d_conv} vocab={cfg.vocab_size} layers={cfg.n_layers} "
+          f"(all): {n_params / 1e9:.3f} B parameters, "
+          f"{n_params * 4 / 1e9:.2f} GB fp32, drawn on the card in "
+          f"{t_init:.2f} s ({held / 2**30:.2f} GiB held before)", flush=True)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, LM_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+
+    def prefill(impl, b=batch):
+        return _timed(lambda: transformer.prefill(cfg, params, b, impl=impl))
+
+    prefill("cuda")                        # warm-up: cuBLAS, first launches
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits, t_main = prefill("cuda")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(launches.values()),
+          f"the SSM prefill launched {launches}: no kernel is on its path")
+    check(tuple(logits.shape) == (1, LM_SEQ, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+    with SSDCapture(cfg.n_layers // 2) as cap:
+        again, t2 = prefill("cuda")
+    same = bool(torch.equal(logits, again))
+    plain, t_plain = prefill("torch")
+    same_impls = bool(torch.equal(logits, plain))
+    del again, plain
+    times = [t_main, t2, prefill("cuda")[1]]
+    nc = LM_SEQ // m.chunk_size
+    print(f"[lm] {cfg.name} prefill B=1 S={LM_SEQ}: latency "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms (p50 "
+          f"{statistics.median(times) * 1e3:.2f} ms), "
+          f"{LM_SEQ / statistics.median(times):.0f} tokens/s, peak device "
+          f"memory {peak / 2**30:.2f} GiB, launches {launches}; two "
+          f"prefills bitwise equal {same}; impl=torch (the same plain SSD) "
+          f"bitwise equal {same_impls}, {t_plain * 1e3:.2f} ms "
+          f"{'ok' if same and same_impls else 'FAIL'} [{label}]",
+          flush=True)
+    check(same and same_impls, "two SSM prefills differ")
+    prof = _profile(lambda: prefill("cuda"), label,
+                    f"one {cfg.name} prefill", top=12)
+    per_layer = prof["ops"] / cfg.n_layers
+    print(f"[lm] {cfg.name} prefill: {prof['ops']} kernels and copies, "
+          f"{per_layer:.1f} a layer (predicted {SSM_OPS[0]}-{SSM_OPS[1]}, "
+          f"of which the chunk loop's {nc} addcmuls), busy "
+          f"{prof['busy']:.1%} [{label}]", flush=True)
+
+    # the chunked SSD against the float64 recurrence on layer L/2's inputs
+    x, dt, A, B, C, chunk = cap.args
+    check(tuple(x.shape) == (1, LM_SEQ, H, m.head_dim) and chunk ==
+          m.chunk_size, f"captured SSD inputs {tuple(x.shape)}, {chunk}")
+    # x arrives in bf16 (the compute type): given in fp32 (exact; the
+    # chunked SSD widens it first anyway) so that y is not rounded to bf16
+    x = x.float()
+    y, st = mamba_mod.ssd_chunked(x, dt, A, B, C, chunk)
+    y64, st64 = mamba_mod.ssd_reference(
+        *(t.double() for t in (x, dt, A, B, C)), dtype=torch.float64,
+        return_state=True)
+    rel_y = float((y.double() - y64).abs().max() / y64.abs().max())
+    rel_s = float((st.double() - st64).abs().max() / st64.abs().max())
+    ok = rel_y <= SSD_TOL and rel_s <= SSD_TOL
+    print(f"[lm] {cfg.name} ssd_chunked (fp32) vs the float64 recurrence on "
+          f"layer {cfg.n_layers // 2}'s inputs (H={H} P={m.head_dim} "
+          f"N={m.d_state} S={LM_SEQ}, {nc} chunks): max abs err / max |y| "
+          f"{rel_y:.3e}, final state {rel_s:.3e} (tolerance {SSD_TOL}) "
+          f"{'ok' if ok else 'FAIL'} [{label}]", flush=True)
+    check(ok, "ssd_chunked disagrees with the float64 recurrence")
+    ssd_ms = cuda_ms(lambda: mamba_mod.ssd_chunked(x, dt, A, B, C, chunk),
+                     iters=5, warmup=1)
+    print(f"[lm] {cfg.name} ssd_chunked alone at that shape: {ssd_ms:.3f} "
+          f"ms a layer (CUDA events) [{label}]", flush=True)
+    del x, dt, A, B, C, y, y64, st, st64, cap, logits
+
+    head = {"tokens": batch["tokens"][:, :LM_DECODE]}
+    dec, step_times, cache, _ = _decode_run(cfg, params, batch["tokens"],
+                                            LM_DECODE)
+    check(tuple(dec.shape) == (1, LM_DECODE, cfg.vocab_size)
+          and bool(torch.isfinite(dec).all()), "bad decode logits")
+    rel64, top64 = _agreement(dec, prefill("cuda", head)[0])
+    p50 = statistics.median(step_times[1:])
+    prof = _profile(lambda: transformer.decode_step(
+        cfg, params, cache, batch["tokens"][:, LM_DECODE - 1:LM_DECODE],
+        LM_DECODE - 1), label, f"one {cfg.name} decode step")
+    print(f"[lm] {cfg.name} decode {LM_DECODE} steps at all {cfg.n_layers} "
+          f"layers: step latency p50 {p50 * 1e3:.2f} ms (first "
+          f"{step_times[0] * 1e3:.2f} ms), {1 / p50:.1f} tokens/s at B=1, "
+          f"busy {prof['busy']:.1%}, {prof['ops']} kernels and copies a "
+          f"step; vs prefill of the same tokens (not held: see "
+          f"SSM_DECODE_LAYERS) max abs err / max |logit| {rel64:.3e}, top-1 "
+          f"{top64:.4f} [{label}]", flush=True)
+    # held: the same params' first SSM_DECODE_LAYERS layers (views)
+    cut = dataclasses.replace(cfg, n_layers=SSM_DECODE_LAYERS)
+    first = dict(params, blocks=tree_map(lambda v: v[:SSM_DECODE_LAYERS],
+                                         params["blocks"]))
+    dec, _, _, _ = _decode_run(cut, first, batch["tokens"], LM_DECODE)
+    ref = transformer.prefill(cut, first, head, impl="cuda")
+    rel, top1 = _agreement(dec, ref)
+    ok = rel <= DECODE_TOL["rel"] and top1 >= DECODE_TOL["top1"]
+    print(f"[lm] {cfg.name} decode {LM_DECODE} steps from an empty cache vs "
+          f"prefill of the same tokens at its first {SSM_DECODE_LAYERS} "
+          f"layers: max abs err / max |logit| {rel:.3e}, top-1 agreement "
+          f"{top1:.4f} (tolerance {DECODE_TOL}) {'ok' if ok else 'FAIL'} "
+          f"[{label}]", flush=True)
+    check(ok, "the SSM decode disagrees with prefill")
+    return launches
+
+
+# -- phase 20: the hybrid family: one Jamba period, prefill and decode ------
+
+
+def hybrid_lm_phase(label):
+    """Serves one period of jamba-1.5-large-398b (8 layers at full width,
+    4 of its 16 experts) through prefill and decode; returns the main
+    path's launch counts (flash_attention once a period)."""
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    full = get_config(HYBRID_ARCH)
+    per = full.hybrid_attn_period
+    cfg = dataclasses.replace(full, n_layers=per, moe=dataclasses.replace(
+        full.moe, num_experts=HYBRID_EXPERTS))
+    params, t_init = _timed(lambda: transformer.init_params(
+        cfg, seed=0, device="cuda"))
+    n_params = param_count(params)
+    _, H, _ = mamba_mod.dims(cfg.d_model, cfg.ssm)
+    m = cfg.moe
+    kinds = transformer._period(cfg)
+    print(f"[lm] {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} expert ff {m.d_ff_expert} SSM H={H} "
+          f"P={cfg.ssm.head_dim} N={cfg.ssm.d_state} vocab={cfg.vocab_size}"
+          f"; layers {[f'{a}+{f}' for a, f in kinds]}; CUT: one period of "
+          f"{per} layers (of {full.n_layers}), experts "
+          f"{full.moe.num_experts} -> {m.num_experts} (top-{m.top_k} kept, "
+          f"every width kept): {n_params / 1e9:.3f} B parameters, "
+          f"{n_params * 2 / 1e9:.2f} GB bf16, drawn on the card in "
+          f"{t_init:.2f} s ({held / 2**30:.2f} GiB held before)", flush=True)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, LM_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    short = {"tokens": batch["tokens"][:, :HYBRID_SHORT]}
+    n_moe = sum(f == "moe" for _, f in kinds)
+
+    def prefill(impl, b=batch):
+        return _timed(lambda: transformer.prefill(cfg, params, b, impl=impl))
+
+    # impl="cuda" against impl="torch" on the short prompt
+    prefill("cuda", short)
+    before = ops.launch_counts()
+    with RouteLog() as routes:
+        logits, _ = prefill("cuda", short)
+    check(ops.launch_counts()["flash_attention"]
+          == before["flash_attention"] + 1, "the short prefill did not "
+          "launch flash_attention once")
+    before = ops.launch_counts()
+    with RouteLog() as plain_routes:
+        plain, t_plain = prefill("torch", short)
+    check(ops.launch_counts() == before, "impl='torch' launched a kernel")
+    agree = [_route_agreement(x, y)
+             for x, y in zip(routes.seen, plain_routes.seen)]
+    rel0, top10 = _agreement(logits, plain)
+    del plain
+    with RouteLog(pin=routes.seen) as pinned:
+        plain, _ = prefill("torch", short)
+    check(not pinned.pin, "pinned routing left unused")
+    rel, top1 = _agreement(logits, plain)
+    ok = (len(agree) == n_moe and rel <= LM_TOL["rel"]
+          and top1 >= LM_TOL["top1"] and min(agree) >= MOE_ROUTE_AGREE)
+    print(f"[lm] {cfg.name} prefill S={HYBRID_SHORT} impl=cuda vs "
+          f"impl=torch: routing agreement by MoE layer "
+          f"{[round(x, 5) for x in agree]} (at least {MOE_ROUTE_AGREE}); as "
+          f"routed, max abs err / max |logit| {rel0:.3e}, top-1 "
+          f"{top10:.4f}; with impl=torch routed as impl=cuda, max abs err / "
+          f"max |logit| {rel:.3e} (max |logit| "
+          f"{float(plain.abs().max()):.3f}), top-1 agreement {top1:.4f} "
+          f"(tolerance {LM_TOL}); impl=torch latency {t_plain * 1e3:.2f} ms "
+          f"{'ok' if ok else 'FAIL'} [{label}]", flush=True)
+    check(ok, "the hybrid prefill through the kernel disagrees with the "
+              "plain path")
+    del logits, plain
+
+    # the timed prefill at full length on impl="cuda"
+    prefill("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with RouteLog() as routes:
+        logits, t_main = prefill("cuda")
+    launches = ops.launch_counts()
+    variants = dict(flash_kernels.variant_launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_per = cfg.n_layers // per
+    want = {k: (n_per if k == "flash_attention" else 0) for k in launches}
+    check(launches == want, f"prefill launches {launches}, expected {want}")
+    check(variants == {"wgmma": n_per, "cuda_core": 0},
+          f"prefill's flash_attention launches by kernel {variants}, "
+          f"expected {n_per} on the wgmma kernel")
+    check(tuple(logits.shape) == (1, LM_SEQ, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+    check(len(routes.seen) == n_moe, f"{len(routes.seen)} MoE layers "
+                                     f"routed, expected {n_moe}")
+    drops = [_drops(e, cfg, LM_SEQ) for e in routes.seen]
+    again, t2 = prefill("cuda")
+    same = bool(torch.equal(logits, again))
+    del again, logits
+    times = [t_main, t2, prefill("cuda")[1]]
+    print(f"[lm] {cfg.name} prefill impl=cuda B=1 S={LM_SEQ}: latency "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms (p50 "
+          f"{statistics.median(times) * 1e3:.2f} ms), "
+          f"{LM_SEQ / statistics.median(times):.0f} tokens/s, peak device "
+          f"memory {peak / 2**30:.2f} GiB, launches {launches} (flash by "
+          f"kernel {variants}); capacity {drops[0][1]} a layer, dropped "
+          f"assignments by MoE layer {[d for d, _ in drops]} of "
+          f"{LM_SEQ * m.top_k}; two prefills bitwise equal {same} "
+          f"{'ok' if same else 'FAIL'} [{label}]", flush=True)
+    check(same, "two impl='cuda' hybrid prefills differ")
+    prof = _profile(lambda: prefill("cuda"), label,
+                    f"one {cfg.name} period prefill", top=12)
+
+    # decode against the prefill of the same 16 tokens (4 experts of
+    # capacity 16 cannot overflow: each token sends one assignment to at
+    # most each expert), routed as that prefill
+    head = {"tokens": batch["tokens"][:, :LM_DECODE]}
+    with RouteLog() as short_routes:
+        ref, _ = prefill("cuda", head)
+    check(sum(_drops(e, cfg, LM_DECODE)[0] for e in short_routes.seen) == 0,
+          "the 16-token prefill dropped an assignment")
+    dec, step_times, cache, log = _decode_run(cfg, params, batch["tokens"],
+                                              LM_DECODE)
+    check(tuple(dec.shape) == (1, LM_DECODE, cfg.vocab_size)
+          and bool(torch.isfinite(dec).all()), "bad decode logits")
+    by_layer = [torch.cat(log.seen[l::n_moe]) for l in range(n_moe)]
+    dagree = [_route_agreement(x, y)
+              for x, y in zip(short_routes.seen, by_layer)]
+    rel0, top10 = _agreement(dec, ref)
+    pin = [short_routes.seen[l][p:p + 1] for p in range(LM_DECODE)
+           for l in range(n_moe)]
+    dec, _, _, _ = _decode_run(cfg, params, batch["tokens"], LM_DECODE, pin)
+    rel, top1 = _agreement(dec, ref)
+    ok = rel <= DECODE_TOL["rel"] and top1 >= DECODE_TOL["top1"]
+    p50 = statistics.median(step_times[1:])
+    dprof = _profile(lambda: transformer.decode_step(
+        cfg, params, cache, batch["tokens"][:, LM_DECODE - 1:LM_DECODE],
+        LM_DECODE - 1), label, f"one {cfg.name} period decode step")
+    print(f"[lm] {cfg.name} decode {LM_DECODE} steps from an empty cache vs "
+          f"prefill of the same tokens: routing agreement by MoE layer "
+          f"{[round(x, 4) for x in dagree]}; as routed, max abs err / max "
+          f"|logit| {rel0:.3e}, top-1 {top10:.4f}; routed as the prefill, "
+          f"max abs err / max |logit| {rel:.3e}, top-1 agreement "
+          f"{top1:.4f} (tolerance {DECODE_TOL}); step latency p50 "
+          f"{p50 * 1e3:.2f} ms (first {step_times[0] * 1e3:.2f} ms), "
+          f"{1 / p50:.1f} tokens/s at B=1, busy {dprof['busy']:.1%}; "
+          f"prefill busy {prof['busy']:.1%} {'ok' if ok else 'FAIL'} "
+          f"[{label}]", flush=True)
+    check(ok, "the hybrid decode disagrees with prefill")
+    return launches
+
+
+def flash_hybrid_row(dev, label):
+    """``flash_attention`` at Jamba's attention shape (B=1, H=64, Kh=8,
+    S=8192, D=128, bf16, causal) on the wgmma kernel: checked, timed beside
+    its plain version and SDPA; returns its record."""
+    B, H, KH, S, D = 1, 64, 8, LM_SEQ, 128
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v = rnd(B, H, S, D), rnd(B, KH, S, D), rnd(B, KH, S, D)
+    tag = f"B={B} H={H} Kh={KH} S={S} D={D} bf16 causal"
+    r = flash_wgmma_check(f"flash wgmma {tag} (Jamba)", q, k, v)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=3,
+                    warmup=1)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=20)
+    flops = flash_cost(B, H, S, S, D, causal=True)["flops"]
+    moved = 2 * nbytes(q) + nbytes(k, v)
+    bnd, by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
+    print(f"  flash wgmma {tag} (Jamba): kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
+          f"{lib:.4f} ms (scaled_dot_product_attention, enable_gqa), bound "
+          f"{bnd:.4f} ms ({by}; {flops:.4g} operations, {moved:.4g} bytes) "
+          f"[{label}]", flush=True)
+    return dict(variant="wgmma", shape=tag, max_abs_err=r["max_abs_err"],
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib)
 
 
 def flash_mla_phase(dev, label):
@@ -3190,6 +3588,8 @@ def main() -> int:
     variants["flash_attention"] = [flash_mla_phase(dev, label)]
     print(f"[kernels] flash_attention at the MLA shape: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print("[kernels] flash_attention at Jamba's attention shape", flush=True)
+    variants["flash_attention"].append(flash_hybrid_row(dev, label))
     launches = engine_phase(graph, targets, label)
     profile_phase(graph, targets, label)
     served = serve_phase(graph, label)
@@ -3212,6 +3612,19 @@ def main() -> int:
           flush=True)
     launches["flash_attention"] += moe_launches
     variants["flash_attention"][0]["launches"] = moe_launches
+    t0 = time.perf_counter()
+    ssm_launches = ssm_lm_phase(label)
+    print(f"[lm] {SSM_ARCH} phase {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(not any(ssm_launches.values()), "the SSM path launched a kernel")
+    t0 = time.perf_counter()
+    hybrid_launches = hybrid_lm_phase(label)["flash_attention"]
+    print(f"[lm] {HYBRID_ARCH} phase {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(hybrid_launches > 0, "the hybrid prefill never launched "
+                               "flash_attention")
+    launches["flash_attention"] += hybrid_launches
+    variants["flash_attention"][1]["launches"] = hybrid_launches
     check(not any(trained.values()), "training launched a kernel")
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")

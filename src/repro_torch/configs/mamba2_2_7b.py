@@ -1,0 +1,6 @@
+"""Arch config: mamba2-2.7b (see registry for the exact published numbers)."""
+from repro_torch.configs.registry import get_config
+
+ARCH = "mamba2-2.7b"
+CONFIG = get_config(ARCH)
+REDUCED = get_config(ARCH, reduced=True)

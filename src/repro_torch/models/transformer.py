@@ -1,7 +1,9 @@
-"""Model assembly for the dense decoder-only family and the MoE family
-(MLA attention with MoE FFNs: deepseek-v2-lite-16b, deepseek-v3-671b),
-serving side: the PyTorch counterpart of those branches of
-``repro.models.transformer``.
+"""Model assembly for the dense decoder-only family, the MoE family (MLA
+attention with MoE FFNs: deepseek-v2-lite-16b, deepseek-v3-671b), the SSM
+family (Mamba-2 blocks with no FFN: mamba2-2.7b) and the hybrid family
+(Jamba: periods of Mamba-2 layers around one attention layer, a MoE FFN on
+every other layer: jamba-1.5-large-398b), serving side: the PyTorch
+counterpart of those branches of ``repro.models.transformer``.
 
   init_params(cfg, seed, device)               -> params (nested dicts)
   backbone(cfg, params, batch, impl)           -> (hidden [B,S,D], aux)
@@ -12,13 +14,17 @@ serving side: the PyTorch counterpart of those branches of
 
 Layer parameters are stacked on a leading axis, one stack a homogeneous
 segment as in the reference (which scans over each): ``blocks``, and for
-the ``dense_first_k`` layout ``dense_blocks`` before it. Here a Python
-loop takes layer l's slice and casts it to the compute type inside the
-loop, so no copy of a whole stack in the compute type is ever held (one
-MoE layer of deepseek-v2-lite has 585 M parameters). deepseek-v3's
-multi-token-prediction subtree (``mtp``) is initialised as the reference's
-and never run when serving. Entry points run on the card unless the
-caller passes ``device="cpu"``. The other families (SSM, hybrid, audio,
+the ``dense_first_k`` layout ``dense_blocks`` before it. The hybrid
+family's ``blocks`` is one period unrolled, ``{"l0": ..., "l7": ...}``,
+each layer stacked over the periods. Here a Python loop takes layer l's
+slice and casts it to the compute type inside the loop, so no copy of a
+whole stack in the compute type is ever held (one MoE layer of
+deepseek-v2-lite has 585 M parameters); for fp32 parameters that cast
+rounds every leaf, the Mamba block's A_log, dt_bias, D, conv and norm
+too, as the reference's ``_cast_block`` does. deepseek-v3's
+multi-token-prediction subtree (``mtp``) is initialised as the
+reference's and never run when serving. Entry points run on the card
+unless the caller passes ``device="cpu"``. The other families (audio,
 VLM) raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -34,14 +40,15 @@ from repro_torch.models.attention import (decode_attention, full_attention,
                                           init_attn)
 from repro_torch.models.common import (cast_tree, dense_init, embed_init,
                                        rms_norm)
+from repro_torch.models.mamba import (dims as mamba_dims, init_mamba,
+                                      mamba_block, mamba_decode)
 from repro_torch.models.mla import init_mla, mla_decode, mla_full
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_apply
 
 CACHE_DTYPE = torch.bfloat16
 # ROADMAP.md queue 1, item 14: the LM families not ported yet
-UNPORTED = {"ssm": "14.3 (SSM/Mamba)", "hybrid": "14.4 (hybrid, Jamba)",
-            "audio": "14.5 (audio)", "vlm": "14.6 (VLM)"}
+UNPORTED = {"audio": "14.5 (audio)", "vlm": "14.6 (VLM)"}
 
 
 def _pdt(cfg: ModelConfig) -> torch.dtype:
@@ -53,13 +60,12 @@ def _cdt(cfg: ModelConfig) -> torch.dtype:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in UNPORTED or any(
-            (cfg.ssm, cfg.encoder, cfg.vision, cfg.hybrid_attn_period)):
+    if cfg.family in UNPORTED or any((cfg.encoder, cfg.vision)):
         item = UNPORTED.get(cfg.family, "14")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet (ROADMAP.md queue 1, item {item}); the dense "
-            f"and moe families are")
+            f"repro_torch yet (ROADMAP.md queue 1, item {item}); the dense, "
+            f"moe, ssm and hybrid families are")
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +75,7 @@ def _require_ported(cfg: ModelConfig) -> None:
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
     """Whether layer ``idx`` has a MoE FFN under the config's layout (the
     reference's rule; the layer stacks below follow it for
-    ``dense_first_k``, and the hybrid family, item 14.4, per layer)."""
+    ``dense_first_k``, and the hybrid family per layer of a period)."""
     if cfg.moe is None:
         return False
     m = cfg.moe
@@ -82,36 +88,82 @@ def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
     raise ValueError(m.layout)
 
 
+def _jamba_is_attn(cfg: ModelConfig, idx: int) -> bool:
+    """One attention layer a period, in its middle (index 4 of 8)."""
+    return idx % cfg.hybrid_attn_period == cfg.hybrid_attn_period // 2
+
+
+def _period(cfg: ModelConfig):
+    """(mixer, FFN kind) of each layer of a hybrid period: attention or
+    mamba, and a MoE FFN where ``_is_moe_layer`` says, else SwiGLU."""
+    return [("attn" if _jamba_is_attn(cfg, i) else "mamba",
+             "moe" if _is_moe_layer(cfg, i) else "dense")
+            for i in range(cfg.hybrid_attn_period)]
+
+
 def _stacks(cfg: ModelConfig):
-    """(params key, cache key, layers, FFN kind) of each homogeneous layer
-    stack, in the order they run (the reference's segments)."""
+    """(params key, cache key, layers, mixer, FFN kind or None) of each
+    homogeneous layer stack, in the order they run (the reference's
+    segments; the hybrid family's periods are ``_layers``')."""
+    if cfg.family == "ssm":          # pure mamba: no FFN
+        return [("blocks", "mamba", cfg.n_layers, "mamba", None)]
     cache_key = "moe" if cfg.mla is not None else "attn"
     if cfg.moe is not None and cfg.moe.dense_first_k:
         k = sum(not _is_moe_layer(cfg, i) for i in range(cfg.n_layers))
-        return [("dense_blocks", "dense", k, "dense"),
-                ("blocks", cache_key, cfg.n_layers - k, "moe")]
-    return [("blocks", cache_key, cfg.n_layers,
+        return [("dense_blocks", "dense", k, "attn", "dense"),
+                ("blocks", cache_key, cfg.n_layers - k, "attn", "moe")]
+    return [("blocks", cache_key, cfg.n_layers, "attn",
              "moe" if cfg.moe is not None else "dense")]
+
+
+def _layers(cfg: ModelConfig, params, cache=None):
+    """(layer params, mixer, FFN kind, the layer's cache views or None) of
+    every layer in the order it runs. A hybrid period's attention layer
+    reads the period's KV cache, its mamba layers the period's conv and
+    ssm state in order."""
+    if cfg.hybrid_attn_period:
+        kinds = _period(cfg)
+        for j in range(cfg.n_layers // cfg.hybrid_attn_period):
+            m = 0
+            for i, (mixer, ffn) in enumerate(kinds):
+                c = None
+                if cache is not None and mixer == "attn":
+                    c = {k: v[j] for k, v in cache["attn"].items()}
+                elif cache is not None:
+                    c = {k: cache[k][j, m] for k in ("conv", "ssm")}
+                    m += 1
+                yield _layer(params["blocks"][f"l{i}"], j), mixer, ffn, c
+        return
+    for key, ckey, n, mixer, ffn in _stacks(cfg):
+        for l in range(n):
+            c = None if cache is None else {
+                k: v[l] for k, v in cache[ckey].items()}
+            yield _layer(params[key], l), mixer, ffn, c
 
 
 # ---------------------------------------------------------------------------
 # parameters
 
 
-def _init_block(cfg: ModelConfig, gen, n: int, kind: str):
-    """``n`` layers of one kind (dense | moe), stacked: norms, the mixer
-    (MLA where the config has it, else grouped-query attention) and the
-    FFN (MoE or SwiGLU)."""
+def _init_block(cfg: ModelConfig, gen, n: int, mixer: str, ffn):
+    """``n`` layers of one kind, stacked: norms, the mixer (``"mamba"``, or
+    ``"attn"``: MLA where the config has it, else grouped-query attention)
+    and the FFN (``"moe"``, ``"dense"`` SwiGLU, or None: no FFN and no
+    second norm)."""
     dt, D = _pdt(cfg), cfg.d_model
     ones = lambda: torch.ones((n, D), dtype=dt, device=gen.device)  # noqa
     p = {"ln1": ones()}
-    if cfg.mla is not None:
+    if mixer == "mamba":
+        p["mixer"] = init_mamba(gen, n, D, cfg.ssm, dt)
+    elif cfg.mla is not None:
         p["mixer"] = init_mla(gen, n, D, cfg.n_heads, cfg.mla, dt)
     else:
         p["mixer"] = init_attn(gen, n, D, cfg.n_heads, cfg.n_kv_heads,
                                cfg.resolved_head_dim, cfg.qkv_bias, dt)
+    if ffn is None:
+        return p
     p["ln2"] = ones()
-    p["ffn"] = (init_moe(gen, n, D, cfg.moe, dt) if kind == "moe"
+    p["ffn"] = (init_moe(gen, n, D, cfg.moe, dt) if ffn == "moe"
                 else init_mlp(gen, n, D, cfg.d_ff, cfg.act, dt))
     return p
 
@@ -129,11 +181,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
          "final_norm": torch.ones((D,), dtype=dt, device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (D, cfg.vocab_size), dtype=dt)
-    for key, _, n, kind in _stacks(cfg):
-        p[key] = _init_block(cfg, gen, n, kind)
+    if cfg.hybrid_attn_period:       # jamba: one period, unrolled
+        n_per = cfg.n_layers // cfg.hybrid_attn_period
+        p["blocks"] = {f"l{i}": _init_block(cfg, gen, n_per, mixer, ffn)
+                       for i, (mixer, ffn) in enumerate(_period(cfg))}
+        return p
+    for key, _, n, mixer, ffn in _stacks(cfg):
+        p[key] = _init_block(cfg, gen, n, mixer, ffn)
     if cfg.mtp:                      # deepseek-v3 multi-token prediction
         p["mtp"] = {"proj": dense_init(gen, (2 * D, D), dtype=dt),
-                    "block": _layer(_init_block(cfg, gen, 1, "dense"), 0),
+                    "block": _layer(_init_block(cfg, gen, 1, "attn",
+                                                "dense"), 0),
                     "norm_h": torch.ones((D,), dtype=dt, device=dev),
                     "norm_e": torch.ones((D,), dtype=dt, device=dev)}
     return p
@@ -182,10 +240,14 @@ def _ffn(cfg: ModelConfig, bp, h, kind: str):
     return h + mlp(bp["ffn"], x, cfg.act), 0.0
 
 
-def _block(cfg: ModelConfig, bp, h, kind: str, impl: str):
+def _block(cfg: ModelConfig, bp, h, mixer: str, ffn, impl: str):
+    """One layer over the full sequence: (h', the MoE balance loss or 0).
+    The Mamba mixer runs its SSD as plain ops on both impls."""
     bp = cast_tree(bp, _cdt(cfg))
     x = rms_norm(h, bp["ln1"], cfg.norm_eps)
-    if cfg.mla is not None:
+    if mixer == "mamba":
+        out = mamba_block(bp["mixer"], x, cfg.d_model, cfg.ssm)
+    elif cfg.mla is not None:
         out, _ = mla_full(bp["mixer"], x, n_heads=cfg.n_heads, mla=cfg.mla,
                           rope_theta=cfg.rope_theta, causal=True,
                           chunk_q=cfg.attn_chunk_q, impl=impl)
@@ -196,7 +258,9 @@ def _block(cfg: ModelConfig, bp, h, kind: str, impl: str):
                              rope_theta=cfg.rope_theta,
                              rope_fraction=cfg.rope_fraction, causal=True,
                              chunk_q=cfg.attn_chunk_q, impl=impl)
-    return _ffn(cfg, bp, h + out, kind)
+    if ffn is None:
+        return h + out, 0.0
+    return _ffn(cfg, bp, h + out, ffn)
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens):
@@ -241,17 +305,17 @@ def backbone(cfg: ModelConfig, params, batch, impl: str = "cuda"):
     _require_ported(cfg)
     h = _embed_tokens(cfg, params, batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for key, _, n, kind in _stacks(cfg):
-        for l in range(n):
-            h, a = _block(cfg, _layer(params[key], l), h, kind, impl)
-            aux = aux + a
+    for bp, mixer, ffn, _ in _layers(cfg, params):
+        h, a = _block(cfg, bp, h, mixer, ffn, impl)
+        aux = aux + a
     return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def prefill(cfg: ModelConfig, params, batch, impl: str = "cuda"):
     """Full-sequence forward producing fp32 logits [B,S,V]. ``impl="cuda"``
-    runs every layer's attention core through ``flash_attention``;
-    ``impl="torch"`` through the reference's plain path."""
+    runs every attention layer's core through ``flash_attention``;
+    ``impl="torch"`` through the reference's plain path. Mamba layers run
+    the same plain SSD under both."""
     return _unembed(cfg, params, backbone(cfg, params, batch, impl)[0])
 
 
@@ -261,20 +325,38 @@ def prefill(cfg: ModelConfig, params, batch, impl: str = "cuda"):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """Zeroed decode cache in bfloat16 (the reference's CACHE_DTYPE,
-    whatever the compute type). Dense: {"attn": {"k", "v"}}, each
-    [n_layers, batch, max_seq, n_kv_heads, head_dim]. MLA: the latent
-    {"ckv": [n, batch, max_seq, kv_lora_rank], "kr": [n, batch, max_seq,
-    rope_dim]} a stack: "dense" for the dense-first layers, "moe" for the
-    rest."""
+    whatever the compute type), the SSM state in fp32. Dense: {"attn":
+    {"k", "v"}}, each [n_layers, batch, max_seq, n_kv_heads, head_dim].
+    MLA: the latent {"ckv": [n, batch, max_seq, kv_lora_rank], "kr": [n,
+    batch, max_seq, rope_dim]} a stack: "dense" for the dense-first
+    layers, "moe" for the rest. SSM: {"mamba": {"conv": [n_layers, batch,
+    d_conv - 1, d_xbc], "ssm": [n_layers, batch, H, P, N]}}. Hybrid: the
+    KV cache of each period's attention layer ({"attn"}, [n_periods,
+    ...]) and "conv" / "ssm" of its other layers, [n_periods, period - 1,
+    batch, ...]."""
     _require_ported(cfg)
     dev = resolve(device)
     zeros = lambda *s: torch.zeros(s, dtype=CACHE_DTYPE,  # noqa: E731
                                    device=dev)
+    if cfg.ssm is not None:
+        _, H, d_xbc = mamba_dims(cfg.d_model, cfg.ssm)
+        state = (batch, H, cfg.ssm.head_dim, cfg.ssm.d_state)
+        lead = ((cfg.n_layers,) if not cfg.hybrid_attn_period else
+                (cfg.n_layers // cfg.hybrid_attn_period,
+                 cfg.hybrid_attn_period - 1))
+        mamba = {"conv": zeros(*lead, batch, cfg.ssm.d_conv - 1, d_xbc),
+                 "ssm": torch.zeros(lead + state, dtype=torch.float32,
+                                    device=dev)}
+        if not cfg.hybrid_attn_period:
+            return {"mamba": mamba}
+        shape = (lead[0], batch, max_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"attn": {"k": zeros(*shape), "v": zeros(*shape)}, **mamba}
     if cfg.mla is not None:
         return {ckey: {"ckv": zeros(n, batch, max_seq, cfg.mla.kv_lora_rank),
                        "kr": zeros(n, batch, max_seq,
                                    cfg.mla.qk_rope_head_dim)}
-                for _, ckey, n, _ in _stacks(cfg)}
+                for _, ckey, n, _, _ in _stacks(cfg)}
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     return {"attn": {"k": zeros(*shape), "v": zeros(*shape)}}
@@ -282,26 +364,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
 
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token [B,1] ints; pos an int. Returns (logits [B,1,V], cache), the
-    cache updated in place at ``pos`` (the reference returns a copy)."""
+    cache updated in place at ``pos`` (the reference returns a copy); a
+    Mamba layer's conv window (fp32 inside the step) is stored back in
+    the cache's bf16, its state in fp32."""
     _require_ported(cfg)
     h = _embed_tokens(cfg, params, token)
-    for key, ckey, n, kind in _stacks(cfg):
-        c = cache[ckey]
-        for l in range(n):
-            bp = cast_tree(_layer(params[key], l), _cdt(cfg))
-            x = rms_norm(h, bp["ln1"], cfg.norm_eps)
-            if cfg.mla is not None:
-                out, _, _ = mla_decode(
-                    bp["mixer"], x, c["ckv"][l], c["kr"][l], pos,
-                    n_heads=cfg.n_heads, mla=cfg.mla,
-                    rope_theta=cfg.rope_theta)
-            else:
-                out, _, _ = decode_attention(
-                    bp["mixer"], x, c["k"][l], c["v"][l], pos,
-                    n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                    head_dim=cfg.resolved_head_dim,
-                    rope_theta=cfg.rope_theta,
-                    rope_fraction=cfg.rope_fraction)
-            h, _ = _ffn(cfg, bp, h + out, kind)
+    for bp, mixer, ffn, c in _layers(cfg, params, cache):
+        bp = cast_tree(bp, _cdt(cfg))
+        x = rms_norm(h, bp["ln1"], cfg.norm_eps)
+        if mixer == "mamba":
+            out, new = mamba_decode(bp["mixer"], x, c, cfg.d_model, cfg.ssm)
+            c["conv"].copy_(new["conv"])
+            c["ssm"].copy_(new["ssm"])
+        elif cfg.mla is not None:
+            out, _, _ = mla_decode(
+                bp["mixer"], x, c["ckv"], c["kr"], pos,
+                n_heads=cfg.n_heads, mla=cfg.mla, rope_theta=cfg.rope_theta)
+        else:
+            out, _, _ = decode_attention(
+                bp["mixer"], x, c["k"], c["v"], pos, n_heads=cfg.n_heads,
+                n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction)
+        h = h + out
+        if ffn is not None:
+            h, _ = _ffn(cfg, bp, h, ffn)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), cache

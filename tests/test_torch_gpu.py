@@ -21,7 +21,10 @@ the offline build's chunk shape (compact sources, the bucket kernel), the
 layer-major build under impl="cuda" against impl="torch", four feature
 shards serving the resident store's bits, a tiered engine's all-fresh
 and mixed batches, and an engine behind the loopback transport serving
-the local engine's bits through the kernels. Skipped where no CUDA device is
+the local engine's bits through the kernels. The reduced mamba2 and Jamba
+on the card against the CPU (Jamba's attention on the flash kernel once),
+and the chunked SSD against the float64 recurrence on the card. Skipped
+where no CUDA device is
 present; on the GPU machine run
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
@@ -857,3 +860,68 @@ def test_kernel_wrappers_refuse_autograd(dev):
             call(x)
         with torch.no_grad():
             assert call(x).is_cuda
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_ssm_and_hybrid_on_the_card_match_the_cpu(dev, name):
+    """The reduced mamba2 and Jamba (one period, 4 experts; fp32) on the
+    card against the same params on the CPU: prefill on both impls (Jamba's
+    attention through flash_attention once under impl="cuda", never under
+    impl="torch") and four decode steps, at tests/test_torch_lm.py's fp32
+    tolerances (rtol 1e-4, atol 1e-5 of the largest |logit|; decode 1e-3)."""
+    cfg = get_config(name, reduced=True)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, dev)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 64)))
+    want = transformer.prefill(cfg, params, {"tokens": tokens},
+                               impl="torch")
+    scale = max(1.0, float(want.abs().max()))
+    n_attn = 1 if cfg.hybrid_attn_period else 0
+    for impl in ("cuda", "torch"):
+        ops.reset_launch_counts()
+        got = transformer.prefill(cfg, on_card, {"tokens": tokens.to(dev)},
+                                  impl=impl)
+        assert ops.launch_counts()["flash_attention"] == (
+            n_attn if impl == "cuda" else 0)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-5 * scale)
+    cache = transformer.init_cache(cfg, 2, 8, device="cpu")
+    card_cache = transformer.init_cache(cfg, 2, 8, device="cuda")
+    for pos in range(4):
+        tok = tokens[:, pos:pos + 1]
+        want, cache = transformer.decode_step(cfg, params, cache, tok, pos)
+        got, card_cache = transformer.decode_step(cfg, on_card, card_cache,
+                                                  tok.to(dev), pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-3 * scale)
+
+
+def test_ssd_chunked_on_the_card(dev):
+    """ssd_chunked on the card (fp32, TF32 off) against the step-by-step
+    recurrence in float64 on the card, output and final state within 1e-4
+    of their largest magnitude, and two runs bitwise equal."""
+    from repro_torch.models import mamba
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, S, H, P, N, chunk = 1, 1024, 8, 64, 128, 256
+    x = torch.randn(b, S, H, P, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, H, generator=gen, device=dev) - 2)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    B, C = (torch.randn(b, S, H, N, generator=gen, device=dev) * 0.1
+            for _ in range(2))
+    y, st = mamba.ssd_chunked(x, dt, A, B, C, chunk)
+    y2, st2 = mamba.ssd_chunked(x, dt, A, B, C, chunk)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    y64, st64 = mamba.ssd_reference(
+        *(t.double() for t in (x, dt, A, B, C)), dtype=torch.float64,
+        return_state=True)
+    for got, want in ((y, y64), (st, st64)):
+        err = float((got.double() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err

@@ -72,7 +72,12 @@ class TestImportIsolation:
                 "precompute.manager", "precompute.build", "obs.events",
                 "obs.slo", "obs.metrics", "obs.promexp", "obs.regress",
                 "distributed.wire", "distributed.rpc",
-                "distributed.graph_host")}
+                "distributed.graph_host", "models.mamba",
+                "configs.chatglm3_6b", "configs.deepseek_7b",
+                "configs.qwen1_5_4b", "configs.phi3_medium_14b",
+                "configs.mamba2_2_7b", "configs.jamba_1_5_large_398b",
+                "configs.whisper_tiny", "configs.pixtral_12b",
+                "configs.deepseek_v2_lite_16b", "configs.deepseek_v3_671b")}
         assert slice_modules <= set(MODULES), slice_modules - set(MODULES)
         code = "import repro_torch\n" + "".join(
             f"import {m}\n" for m in MODULES)

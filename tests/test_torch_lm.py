@@ -63,7 +63,9 @@ from repro_torch.models import transformer as t_tf  # noqa: E402
 
 DENSE = ("chatglm3-6b", "deepseek-7b", "qwen1.5-4b", "phi3-medium-14b")
 # the registry's archs whose family the port still refuses (the MoE family,
-# deepseek-v2-lite-16b and deepseek-v3-671b, is tests/test_torch_moe.py's)
+# deepseek-v2-lite-16b and deepseek-v3-671b, is tests/test_torch_moe.py's;
+# the SSM and hybrid families, mamba2-2.7b and jamba-1.5-large-398b, are
+# tests/test_torch_hybrid.py's)
 OTHER = tuple(n for n in j_registry.ARCHS
               if j_registry.get_config(n).family in t_tf.UNPORTED)
 RTOL = 1e-4
@@ -500,12 +502,11 @@ class TestNotPorted:
     @pytest.mark.parametrize("name", OTHER)
     def test_refusal_names_its_roadmap_item(self, name):
         """Each family's refusal names the item of ROADMAP.md's queue 1
-        that ports it (14.3 SSM, 14.4 hybrid, 14.5 audio, 14.6 VLM), and
-        that item exists in ROADMAP.md."""
+        that ports it (14.5 audio, 14.6 VLM), and that item exists in
+        ROADMAP.md."""
         cfg = t_registry.get_config(name, reduced=True)
         item = t_tf.UNPORTED[cfg.family]
-        want = {"ssm": "14.3", "hybrid": "14.4", "audio": "14.5",
-                "vlm": "14.6"}[cfg.family]
+        want = {"audio": "14.5", "vlm": "14.6"}[cfg.family]
         assert item.startswith(want)
         with pytest.raises(NotImplementedError) as e:
             t_tf.init_params(cfg, device="cpu")
