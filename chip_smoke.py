@@ -206,7 +206,10 @@
    and is followed by the wgmma kernel at Jamba's attention shape (B=1,
    H=64, 8 KV heads, S=8192, D=128, bf16, causal): ``flash_bf16_check``,
    timed beside its plain version and ``scaled_dot_product_attention(
-   enable_gqa=True)``, bound from the operations.
+   enable_gqa=True)``, bound from the operations; then at whisper's
+   encoder shape (B=16, H=6, S=1500, D=64, non-causal, ragged) and
+   pixtral's (B=1, H=32, 8 KV heads, S=8192, D=128, causal), each the same
+   way (``flash_row``).
 16. ``[train]``: ``train_gnn`` for GCN, GraphSAGE and GAT at the
    [engine] width and depth (L=5, N=256, f_hidden=256, 4 heads, the
    graph's label count) on the Flickr-sized graph, batch 32, lr 3e-3, 30
@@ -256,9 +259,39 @@
    nothing else, two of them bitwise equal; 16 decode steps against the
    16-token prefill, routed as it. Prints latency, tokens/s, peak memory,
    capacity drops a layer, the profile and decode's p50 and busy share.
-20. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
+20. ``[lm]`` whisper-tiny (after Jamba) at full width and depth (4
+   encoder layers over 1500 frames, 4 decoder layers, d_model 384, 6
+   heads at D=64, GELU, vocab 51865; fp32 params, bf16 compute), seed-0
+   weights, 16 clips of random frames and a 448-token prompt:
+   ``prefill(impl="cuda")`` must launch ``flash_attention`` 8 times, all
+   on the wgmma kernel (the encoder's 4 non-causal at S=1500, the
+   decoder's 4 causal; ``FlashLog`` splits them), two prefills bitwise
+   equal, held against impl="torch" at ``LM_TOL``; 16 decode steps over
+   the cross cache filled from the encoder (``_fill_cross_cache``) against
+   the prefill's first 16 positions at ``DECODE_TOL``. Prints latency,
+   tokens/s, peak memory, busy share, the launches by flash variant and
+   decode's p50 and busy share.
+21. ``[lm]`` pixtral-12b at full width (d_model 5120, 32/8 heads at
+   D=128, d_ff 14336, vocab 131072), 8 of 40 layers, seed-0 weights, the
+   8192-token prompt with 256 random patch embeddings spliced: one wgmma
+   flash launch a layer, held against impl="torch" at ``LM_TOL``; the
+   identity splice (the prompt's own first 256 token embeddings) bitwise
+   equal to the dense family's prefill of the same params; 16 decode
+   steps against that prefill's first 16 positions at ``DECODE_TOL``.
+22. ``[lm-train]``: whisper-tiny (full width and depth) through
+   ``train.loop.train`` (``TRAIN_LM``: batch 8, S=448, 30 steps,
+   checkpoints every 10): finite losses, the last 5 below the first 5,
+   then a run killed at step 20 and resumed, every logged loss within
+   rtol 1e-4 of the uninterrupted run's; one deepseek-v2-lite step (2
+   layers at full width, gather dispatch, B=1, S=2048): finite, grad_norm
+   > 0, and its MoE layer's input gradient through the autograd pair held
+   against autograd through plain indexing in float64 (``GRAD64_TOL``).
+   No kernel may launch (training runs the plain path). Prints ms a step
+   (host and device), peak memory and the loss curve.
+23. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
    the bucket scatter-gather, the offline chunk shape, the bf16 kernels
-   and flash at the MLA and Jamba shapes) and, last, the ``ok`` line.
+   and flash at the MLA, Jamba, whisper-encoder and pixtral shapes) and,
+   last, the ``ok`` line.
 
 Any failure exits nonzero before the last line.
 """
@@ -320,8 +353,12 @@ from repro_torch.kernels.scatter_gather import (  # noqa: E402
     scatter_gather_aggregate, scatter_gather_aggregate_ref, sg_variant)
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
+from repro_torch.data.pipeline import (TokenPipelineConfig,  # noqa: E402
+                                       synthetic_batch)
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.common import param_count  # noqa: E402
+from repro_torch.models.common import cast_tree, param_count  # noqa: E402
 from repro_torch.obs.calib import op_label, op_mode, size_bucket  # noqa: E402
 from repro_torch.obs.export import validate_chrome_trace  # noqa: E402
 from repro_torch.obs.metrics import (TelemetryConfig,  # noqa: E402
@@ -335,8 +372,10 @@ from repro_torch.precompute.propagate import (_apply_section,  # noqa: E402
                                               _layer, _LocalCSR)
 from repro_torch.serve.gnn_server import GNNServer  # noqa: E402
 from repro_torch.store import StorePolicy  # noqa: E402
-from repro_torch.train.optim import (global_norm, tree_leaves,  # noqa
-                                     tree_map)
+from repro_torch.train import loop as lm_loop  # noqa: E402
+from repro_torch.train.optim import (AdamWConfig, global_norm,  # noqa
+                                     init_opt, tree_leaves, tree_map)
+from repro_torch.train.step import make_train_step  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -441,6 +480,32 @@ SSM_DECODE_LAYERS = 8
 # plain attention's 64 x S^2 fp32 scores are 17.2 GB a tensor at 8192),
 # routing first, as deepseek's; the timed prefill at LM_SEQ on impl="cuda"
 HYBRID_ARCH, HYBRID_EXPERTS, HYBRID_SHORT = "jamba-1.5-large-398b", 4, 2048
+# [lm] audio family: whisper-tiny at full width and depth (0.059 B
+# parameters), 16 clips of its 1500 frames and a 448-token prompt (its
+# text context, which sizes pos_emb), 16 decode steps over the cross cache
+# filled from the encoder
+AUDIO_ARCH, AUDIO_B, AUDIO_SEQ = "whisper-tiny", 16, 448
+# [lm] VLM family: pixtral-12b at full width, depth cut to 8 of 40 layers
+# (3.523 B parameters, 14.09 GB in fp32; the full model's 48.99 GB with
+# the plain path's transient scores and a 4.29 GB fp32 logits tensor does
+# not fit one card), its 256 random patch embeddings spliced over the
+# 8192-token prompt
+VLM_ARCH, VLM_LAYERS = "pixtral-12b", 8
+# [lm-train]: whisper-tiny at full width and depth through
+# train.loop.train (batch 8, its 448-token context, lr 1e-3, 30 steps, a
+# checkpoint every 10), killed at step 20 and resumed: the resumed losses
+# held to the uninterrupted run's at tests/test_substrate.py's rtol (the
+# embedding's backward on the card sums with atomics, so two runs differ
+# in the last bits, not more). Then one step of deepseek-v2-lite at full
+# width, cut to 2 layers (its dense first layer and one MoE layer, ~1.1 B
+# parameters: 4.4 GB fp32 + gradients + two AdamW moments ~18 GB before
+# activations), B=1, S=2048, the gather dispatch: its MoE layer's input
+# gradient through the autograd pair held against autograd through plain
+# indexing, in float64 on the card, to GRAD64_TOL of the largest element
+TRAIN_LM = dict(arch="whisper-tiny", batch=8, seq=448, lr=1e-3, steps=30,
+                ckpt_every=10, fail_at=20, rtol=1e-4)
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, GRAD64_TOL = 2, 2048, 1e-12
+LM_TRAIN_DIR = ROOT / "build" / "chip_smoke_lm_train"
 # kernel launches per batch at L=5 (the program's count, see README)
 EXPECTED = {
     ("gcn", "dense"): {"fused_gnn_layer": 5},
@@ -2796,48 +2861,9 @@ def lm_phase(label):
         0, cfg.vocab_size, (1, LM_SEQ)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(tokens).cuda()}
 
-    def prefill(impl, b=batch):
-        return _timed(lambda: transformer.prefill(cfg, params, b, impl=impl))
-
-    prefill("cuda")                        # warm-up: cuBLAS, first launches
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    logits, t_main = prefill("cuda")
-    launches = ops.launch_counts()
-    variants = dict(flash_kernels.variant_launches)
-    peak = torch.cuda.max_memory_allocated()
-    want = {k: (cfg.n_layers if k == "flash_attention" else 0)
-            for k in launches}
-    check(launches == want, f"prefill launches {launches}, expected {want}")
-    check(variants == {"wgmma": cfg.n_layers, "cuda_core": 0},
-          f"prefill's flash_attention launches by kernel {variants}, "
-          f"expected all {cfg.n_layers} on the wgmma kernel")
-    check(tuple(logits.shape) == (1, LM_SEQ, cfg.vocab_size)
-          and logits.dtype == torch.float32
-          and bool(torch.isfinite(logits).all()), "bad prefill logits")
-    times = [t_main] + [prefill("cuda")[1] for _ in range(2)]
-    print(f"[lm] prefill impl=cuda B=1 S={LM_SEQ}: latency "
-          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms (p50 "
-          f"{statistics.median(times) * 1e3:.2f} ms), "
-          f"{LM_SEQ / statistics.median(times):.0f} tokens/s, peak device "
-          f"memory {peak / 2**30:.2f} GiB, launches {launches} (flash by "
-          f"kernel {variants}) [{label}]",
-          flush=True)
-
-    _profile(lambda: prefill("cuda"), label, "one prefill")
-
-    before = ops.launch_counts()
-    plain, t_plain = prefill("torch")
-    check(ops.launch_counts() == before, "impl='torch' launched a kernel")
-    rel, top1 = _agreement(logits, plain)
-    ok = rel <= LM_TOL["rel"] and top1 >= LM_TOL["top1"]
-    print(f"[lm] prefill impl=cuda vs impl=torch: max abs err / max |logit| "
-          f"{rel:.3e} (max |logit| {float(plain.abs().max()):.3f}), top-1 "
-          f"agreement {top1:.4f} over {LM_SEQ} positions (tolerance "
-          f"{LM_TOL}); impl=torch latency {t_plain * 1e3:.2f} ms "
-          f"{'ok' if ok else 'FAIL'} [{label}]", flush=True)
-    check(ok, "prefill through the kernel disagrees with the plain path")
-    del logits, plain
+    logits, launches, _ = _serve_checks(cfg, params, batch, label,
+                                        cfg.n_layers)
+    del logits
 
     cache = transformer.init_cache(cfg, 1, LM_DECODE, device="cuda")
     steps, step_times = [], []
@@ -2849,7 +2875,8 @@ def lm_phase(label):
     dec = torch.stack(steps, dim=1)
     check(tuple(dec.shape) == (1, LM_DECODE, cfg.vocab_size)
           and bool(torch.isfinite(dec).all()), "bad decode logits")
-    ref, _ = prefill("cuda", {"tokens": batch["tokens"][:, :LM_DECODE]})
+    ref = transformer.prefill(
+        cfg, params, {"tokens": batch["tokens"][:, :LM_DECODE]}, impl="cuda")
     rel, top1 = _agreement(dec, ref)
     ok = rel <= DECODE_TOL["rel"] and top1 >= DECODE_TOL["top1"]
     p50 = statistics.median(step_times[1:])
@@ -3377,12 +3404,8 @@ def hybrid_lm_phase(label):
     launches = ops.launch_counts()
     variants = dict(flash_kernels.variant_launches)
     peak = torch.cuda.max_memory_allocated()
-    n_per = cfg.n_layers // per
-    want = {k: (n_per if k == "flash_attention" else 0) for k in launches}
-    check(launches == want, f"prefill launches {launches}, expected {want}")
-    check(variants == {"wgmma": n_per, "cuda_core": 0},
-          f"prefill's flash_attention launches by kernel {variants}, "
-          f"expected {n_per} on the wgmma kernel")
+    _prefill_launch_checks(cfg.name, launches, variants,
+                           cfg.n_layers // per)
     check(tuple(logits.shape) == (1, LM_SEQ, cfg.vocab_size)
           and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()), "bad prefill logits")
@@ -3445,35 +3468,453 @@ def hybrid_lm_phase(label):
     return launches
 
 
-def flash_hybrid_row(dev, label):
-    """``flash_attention`` at Jamba's attention shape (B=1, H=64, Kh=8,
-    S=8192, D=128, bf16, causal) on the wgmma kernel: checked, timed beside
-    its plain version and SDPA; returns its record."""
-    B, H, KH, S, D = 1, 64, 8, LM_SEQ, 128
-    gen = torch.Generator(device=dev).manual_seed(2)
+class FlashLog:
+    """Records the ``causal`` flag of each ``flash_attention`` call the
+    attention layers make (it only observes: the wrapper counts the
+    launches), so a prefill's launches split into whisper's encoder
+    (non-causal) and decoder (causal) layers."""
+
+    def __enter__(self):
+        self._real = attn_mod.flash_attention
+        self.causal = []
+
+        def observed(q, k, v, *, causal=True):
+            self.causal.append(bool(causal))
+            return self._real(q, k, v, causal=causal)
+        attn_mod.flash_attention = observed
+        return self
+
+    def __exit__(self, *exc):
+        attn_mod.flash_attention = self._real
+        return False
+
+
+def _prefill_launch_checks(name, launches, variants, n_flash):
+    want = {k: (n_flash if k == "flash_attention" else 0) for k in launches}
+    check(launches == want, f"{name} prefill launches {launches}, expected "
+                            f"{want}")
+    check(variants == {"wgmma": n_flash, "cuda_core": 0},
+          f"{name} prefill's flash_attention launches by kernel {variants}, "
+          f"expected all {n_flash} on the wgmma kernel")
+
+
+def _serve_checks(cfg, params, batch, label, n_flash, what=""):
+    """The checks each [lm] serving phase makes on its prefill: a warm-up,
+    then the main path's impl="cuda" prefill with its launches read (all
+    ``n_flash`` on the wgmma kernel, each call's ``causal`` flag logged),
+    finite fp32 logits [B, S, V], two more prefills timed, the second
+    bitwise equal to the first, the profile, and impl="torch" at
+    ``LM_TOL``. Returns (logits, launches, the causal flags)."""
+    B, S = batch["tokens"].shape
+
+    def prefill(impl):
+        return _timed(lambda: transformer.prefill(cfg, params, batch,
+                                                  impl=impl))
+
+    prefill("cuda")                        # warm-up: cuBLAS, first launches
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with FlashLog() as flog:
+        logits, t_main = prefill("cuda")
+    launches = ops.launch_counts()
+    variants = dict(flash_kernels.variant_launches)
+    peak = torch.cuda.max_memory_allocated()
+    _prefill_launch_checks(cfg.name, launches, variants, n_flash)
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "bad prefill logits")
+    again, t2 = prefill("cuda")
+    same = bool(torch.equal(logits, again))
+    del again
+    times = [t_main, t2, prefill("cuda")[1]]
+    p50 = statistics.median(times)
+    prof = _profile(lambda: prefill("cuda"), label,
+                    f"one {cfg.name} prefill", top=10)
+    n_causal = flog.causal.count(True)
+    print(f"[lm] {cfg.name} prefill impl=cuda B={B} S={S}{what}: latency "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times)} ms (p50 "
+          f"{p50 * 1e3:.3f} ms), {B * S / p50:.0f} tokens/s, peak device "
+          f"memory {peak / 2**30:.3f} GiB, busy {prof['busy']:.1%}, "
+          f"launches {launches} (flash by kernel {variants}; "
+          f"{len(flog.causal) - n_causal} non-causal, {n_causal} causal); "
+          f"two prefills bitwise equal {same} {'ok' if same else 'FAIL'} "
+          f"[{label}]", flush=True)
+    check(same, f"two impl='cuda' {cfg.name} prefills differ")
+
+    before = ops.launch_counts()
+    plain, t_plain = prefill("torch")
+    check(ops.launch_counts() == before, "impl='torch' launched a kernel")
+    rel, top1 = _agreement(logits, plain)
+    ok = rel <= LM_TOL["rel"] and top1 >= LM_TOL["top1"]
+    print(f"[lm] {cfg.name} prefill impl=cuda vs impl=torch: max abs err / "
+          f"max |logit| {rel:.3e} (max |logit| {float(plain.abs().max()):.3f}"
+          f"), top-1 agreement {top1:.4f} over {B * S} positions (tolerance "
+          f"{LM_TOL}); impl=torch latency {t_plain * 1e3:.2f} ms "
+          f"{'ok' if ok else 'FAIL'} [{label}]", flush=True)
+    check(ok, f"the {cfg.name} prefill through the kernel disagrees with "
+              f"the plain path")
+    return logits, launches, flog.causal
+
+
+def _fill_cross_cache(cfg, params, cache, frames):
+    """Writes the encoder's keys and values into ``cache``'s cross_k /
+    cross_v, layer by layer (``cross_kv`` of ``_encode``'s output, the
+    layer cast to the compute type, then to the cache's bf16): what the
+    prefill computes inside its decoder layers."""
+    enc = transformer._encode(cfg, params, frames, impl="cuda")
+    for l in range(cfg.n_layers):
+        bp = cast_tree(transformer._layer(params["blocks"], l),
+                       transformer._cdt(cfg))
+        k, v = attn_mod.cross_kv(bp["cross"], enc, n_kv=cfg.n_kv_heads,
+                                 head_dim=cfg.resolved_head_dim)
+        cache["cross_k"][l] = k.to(transformer.CACHE_DTYPE)
+        cache["cross_v"][l] = v.to(transformer.CACHE_DTYPE)
+    return cache
+
+
+def audio_lm_phase(label):
+    """Serves whisper-tiny (full width and depth) through prefill (16 clips
+    of 1500 frames, a 448-token prompt) and 16 decode steps over the cross
+    cache; returns the main path's launch counts and the flash launches of
+    the encoder and of the decoder."""
+    torch.cuda.empty_cache()
+    cfg = get_config(AUDIO_ARCH)
+    params, t_init = _timed(lambda: transformer.init_params(
+        cfg, seed=0, device="cuda", max_seq=AUDIO_SEQ))
+    n_params = param_count(params)
+    enc = cfg.encoder
+    print(f"[lm] {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} (GELU) "
+          f"vocab={cfg.vocab_size} encoder {enc.n_layers} layers over "
+          f"{enc.n_frames} frames, decoder {cfg.n_layers} layers: "
+          f"{n_params / 1e9:.4f} B parameters, {n_params * 4 / 1e9:.3f} GB "
+          f"fp32 (whole model), drawn on the card in {t_init:.2f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (AUDIO_B, AUDIO_SEQ)).astype(np.int32)
+    frames = rng.standard_normal(
+        (AUDIO_B, enc.n_frames, cfg.d_model)).astype(np.float32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda(),
+             "frames": torch.from_numpy(frames).cuda()}
+
+    logits, launches, causal = _serve_checks(
+        cfg, params, batch, label, enc.n_layers + cfg.n_layers,
+        f" (+{enc.n_frames} frames a clip)")
+    n_enc, n_dec = causal.count(False), causal.count(True)
+    check((n_enc, n_dec) == (enc.n_layers, cfg.n_layers),
+          f"flash launches encoder {n_enc}, decoder {n_dec}")
+    ref = logits[:, :LM_DECODE].clone()
+    del logits
+
+    cache = _fill_cross_cache(cfg, params, transformer.init_cache(
+        cfg, AUDIO_B, LM_DECODE, device="cuda"), batch["frames"])
+    steps, step_times = [], []
+    for pos in range(LM_DECODE):
+        (lg, cache), t = _timed(lambda: transformer.decode_step(
+            cfg, params, cache, batch["tokens"][:, pos:pos + 1], pos))
+        steps.append(lg[:, 0])
+        step_times.append(t)
+    dec = torch.stack(steps, dim=1)
+    check(tuple(dec.shape) == (AUDIO_B, LM_DECODE, cfg.vocab_size)
+          and bool(torch.isfinite(dec).all()), "bad decode logits")
+    rel, top1 = _agreement(dec, ref)
+    ok = rel <= DECODE_TOL["rel"] and top1 >= DECODE_TOL["top1"]
+    d50 = statistics.median(step_times[1:])
+    dprof = _profile(lambda: transformer.decode_step(
+        cfg, params, cache, batch["tokens"][:, LM_DECODE - 1:LM_DECODE],
+        LM_DECODE - 1), label, f"one {cfg.name} decode step")
+    print(f"[lm] {cfg.name} decode {LM_DECODE} steps over the filled cross "
+          f"cache vs the prefill's first {LM_DECODE} positions: max abs err "
+          f"/ max |logit| {rel:.3e}, top-1 agreement {top1:.4f} (tolerance "
+          f"{DECODE_TOL}); step latency p50 {d50 * 1e3:.3f} ms (first "
+          f"{step_times[0] * 1e3:.2f} ms), {AUDIO_B / d50:.1f} tokens/s at "
+          f"B={AUDIO_B}, busy {dprof['busy']:.1%} "
+          f"{'ok' if ok else 'FAIL'} [{label}]", flush=True)
+    check(ok, f"the {cfg.name} decode disagrees with prefill")
+    return launches, n_enc, n_dec
+
+
+def vlm_lm_phase(label):
+    """Serves pixtral-12b (8 layers at full width) through prefill with
+    256 random patch embeddings spliced and 16 decode steps; returns the
+    main path's launch counts."""
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    params, t_init = _timed(lambda: transformer.init_params(
+        cfg, seed=0, device="cuda"))
+    n_params = param_count(params)
+    P = cfg.vision.n_patches
+    print(f"[lm] {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} patches={P}; CUT: "
+          f"layers {cfg.n_layers} (of {full.n_layers}): "
+          f"{n_params / 1e9:.3f} B parameters, {n_params * 4 / 1e9:.2f} GB "
+          f"fp32, drawn on the card in {t_init:.2f} s "
+          f"({held / 2**30:.2f} GiB held before)", flush=True)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (1, LM_SEQ)).astype(np.int32)
+    patches = rng.standard_normal((1, P, cfg.d_model)).astype(np.float32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda(),
+             "patch_embeds": torch.from_numpy(patches).cuda()}
+
+    logits, launches, _ = _serve_checks(cfg, params, batch, label,
+                                        cfg.n_layers,
+                                        f" ({P} patches spliced)")
+    del logits
+
+    # the identity splice (the prompt's own first P token embeddings)
+    # against the same params served as the dense family
+    own = params["embed"][batch["tokens"][:, :P].long()]
+    ident = transformer.prefill(cfg, params, {
+        "tokens": batch["tokens"], "patch_embeds": own}, impl="cuda")
+    dense_cfg = dataclasses.replace(cfg, family="dense", vision=None)
+    dense = transformer.prefill(dense_cfg, params,
+                                {"tokens": batch["tokens"]}, impl="cuda")
+    same = bool(torch.equal(ident, dense))
+    ref = ident[:, :LM_DECODE].clone()
+    del ident, dense
+    print(f"[lm] {cfg.name} identity splice vs the dense family's prefill "
+          f"of the same params: bitwise equal {same} "
+          f"{'ok' if same else 'FAIL'} [{label}]", flush=True)
+    check(same, "the identity splice differs from the dense prefill")
+
+    dec, step_times, cache, _ = _decode_run(cfg, params, batch["tokens"],
+                                            LM_DECODE)
+    check(tuple(dec.shape) == (1, LM_DECODE, cfg.vocab_size)
+          and bool(torch.isfinite(dec).all()), "bad decode logits")
+    rel, top1 = _agreement(dec, ref)
+    ok = rel <= DECODE_TOL["rel"] and top1 >= DECODE_TOL["top1"]
+    d50 = statistics.median(step_times[1:])
+    dprof = _profile(lambda: transformer.decode_step(
+        cfg, params, cache, batch["tokens"][:, LM_DECODE - 1:LM_DECODE],
+        LM_DECODE - 1), label, f"one {cfg.name} decode step")
+    print(f"[lm] {cfg.name} decode {LM_DECODE} steps from an empty cache vs "
+          f"the identity-splice prefill's first {LM_DECODE} positions: max "
+          f"abs err / max |logit| {rel:.3e}, top-1 agreement {top1:.4f} "
+          f"(tolerance {DECODE_TOL}); step latency p50 {d50 * 1e3:.2f} ms "
+          f"(first {step_times[0] * 1e3:.2f} ms), {1 / d50:.1f} tokens/s at "
+          f"B=1, busy {dprof['busy']:.1%} {'ok' if ok else 'FAIL'} "
+          f"[{label}]", flush=True)
+    check(ok, f"the {cfg.name} decode disagrees with prefill")
+    return launches
+
+
+class MoEInput:
+    """Keeps the input of the first ``moe_ffn_gather`` call (detached)."""
+
+    def __enter__(self):
+        self._real = moe_mod.moe_ffn_gather
+        self.x = None
+
+        def kept(params, x, moe, *, act="silu"):
+            if self.x is None:
+                self.x = x.detach().clone()
+            return self._real(params, x, moe, act=act)
+        moe_mod.moe_ffn_gather = kept
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.moe_ffn_gather = self._real
+        return False
+
+
+def _moe_grad64(params, x, moe, g):
+    """(output, input gradient of sum(y * g)) of one MoE layer in float64,
+    through whatever ``routed_dispatch`` / ``routed_combine`` are."""
+    xx = x.double().requires_grad_(True)
+    with torch.enable_grad():
+        y, _ = moe_mod.moe_ffn_gather(params, xx, moe)
+        (gx,) = torch.autograd.grad((y * g).sum(), xx)
+    return y.detach(), gx
+
+
+def lm_train_phase(label):
+    """whisper-tiny trained through ``train.loop.train`` (30 steps, killed
+    at 20 and resumed), then one deepseek-v2-lite step (2 layers, gather
+    dispatch) with its MoE pair's gradient held in float64; returns the
+    kernels' launches during training (all 0)."""
+    torch.cuda.empty_cache()
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    LM_TRAIN_DIR.mkdir(parents=True)
+    t = TRAIN_LM
+    cfg = get_config(t["arch"])
+    opt = AdamWConfig(lr=t["lr"], moment_dtype=cfg.dtype.opt_dtype)
+
+    def job(name):
+        return lm_loop.TrainJobConfig(
+            steps=t["steps"], ckpt_every=t["ckpt_every"],
+            ckpt_dir=str(LM_TRAIN_DIR / name), seq_len=t["seq"],
+            global_batch=t["batch"],
+            log_path=str(LM_TRAIN_DIR / f"{name}.jsonl"))
+
+    print(f"[lm-train] {cfg.name} (full width and depth) through "
+          f"train.loop.train: B={t['batch']} S={t['seq']} lr={t['lr']} "
+          f"{t['steps']} steps, a checkpoint every {t['ckpt_every']}",
+          flush=True)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, full = lm_loop.train(cfg, job("full"), opt, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in full]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ok = bool(np.isfinite(losses).all()) and last < first
+    dev_ms = statistics.median(h["step_time_s"] for h in full[1:]) * 1e3
+    host_ms = statistics.median(h["data_time_s"] for h in full[1:]) * 1e3
+    print(f"[lm-train] {cfg.name} losses {[round(x, 4) for x in losses]}; "
+          f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
+          f"ms a step p50: host (batch) {host_ms:.3f} + device (forward, "
+          f"backward, AdamW, to the loss read back) {dev_ms:.3f} (first step "
+          f"{full[0]['step_time_s'] * 1e3:.1f}); peak device memory "
+          f"{peak / 2**30:.3f} GiB {'ok' if ok else 'FAIL'} [{label}]",
+          flush=True)
+    check(ok, f"{cfg.name} training: the loss is not finite or did not "
+              f"fall")
+    try:
+        lm_loop.train(cfg, job("killed"), opt, fail_at_step=t["fail_at"],
+                      device="cuda")
+        killed = False
+    except RuntimeError as e:
+        killed = "injected failure" in str(e)
+        if not killed:
+            raise
+    check(killed, "fail_at_step did not stop the run")
+    committed = ckpt_mod.committed_steps(str(LM_TRAIN_DIR / "killed"))
+    _, _, resumed = lm_loop.train(cfg, job("killed"), opt, device="cuda")
+    with open(LM_TRAIN_DIR / "killed.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    ref = {h["step"]: h["loss"] for h in full}
+    worst = max(abs(h["loss"] - ref[h["step"]]) / abs(ref[h["step"]])
+                for h in log)
+    ok = (committed[-1] == t["fail_at"] and resumed[0]["step"]
+          == t["fail_at"] + 1 and [h["step"] for h in log]
+          == list(range(1, t["steps"] + 1)) and worst <= t["rtol"])
+    print(f"[lm-train] {cfg.name} killed at step {t['fail_at']} "
+          f"(committed checkpoints {committed}) and resumed from step "
+          f"{resumed[0]['step']}: every logged loss against the "
+          f"uninterrupted run's, largest relative difference {worst:.3e} "
+          f"(rtol {t['rtol']}) {'ok' if ok else 'FAIL'} [{label}]",
+          flush=True)
+    check(ok, "the resumed run does not continue the uninterrupted run's "
+              "loss curve")
+
+    # one MoE step at full width
+    torch.cuda.empty_cache()
+    full_cfg = get_config(MOE_ARCH)
+    mcfg = dataclasses.replace(full_cfg, n_layers=MOE_TRAIN_LAYERS,
+                               moe=dataclasses.replace(full_cfg.moe,
+                                                       dispatch="gather"))
+    params = transformer.init_params(mcfg, seed=0, device="cuda")
+    n_params = param_count(params)
+    mopt = AdamWConfig(lr=t["lr"], moment_dtype=mcfg.dtype.opt_dtype)
+    state = init_opt(params, mopt)
+    step = make_train_step(mcfg, mopt)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [], []
+    for s in range(2):
+        t0 = time.perf_counter()
+        batch = synthetic_batch(TokenPipelineConfig(
+            vocab_size=mcfg.vocab_size, seq_len=MOE_TRAIN_SEQ,
+            global_batch=1, seed=0), s)
+        t1 = time.perf_counter()
+        with MoEInput() as cap:
+            params, state, m = step(params, state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        metrics.append((loss, gn, float(m["aux"])))
+        times.append((t1 - t0, time.perf_counter() - t1))
+    peak = torch.cuda.max_memory_allocated()
+    ok = all(np.isfinite(m[:2]).all() and m[1] > 0 for m in metrics)
+    print(f"[lm-train] {mcfg.name} d_model={mcfg.d_model} CUT: "
+          f"{mcfg.n_layers} layers (of {full_cfg.n_layers}: the dense first "
+          f"layer and one MoE layer, {mcfg.moe.num_experts} experts top-"
+          f"{mcfg.moe.top_k}, dispatch gather): {n_params / 1e9:.3f} B "
+          f"parameters; B=1 S={MOE_TRAIN_SEQ}; steps (loss, grad_norm, aux) "
+          f"{[tuple(round(v, 5) for v in m) for m in metrics]}; ms a step: "
+          f"host {[round(a * 1e3, 3) for a, _ in times]} + device "
+          f"{[round(b * 1e3, 2) for _, b in times]}; peak device memory "
+          f"{peak / 2**30:.2f} GiB {'ok' if ok else 'FAIL'} [{label}]",
+          flush=True)
+    check(ok, "the MoE train step is not finite or has no gradient")
+
+    # the MoE layer's input gradient: the autograd pair against autograd
+    # through plain indexing of the same forward, float64 on the card
+    layer = {k: (v[0] if not isinstance(v, dict)
+                 else {kk: vv[0] for kk, vv in v.items()})
+             for k, v in params["blocks"]["ffn"].items()}
+    p64 = tree_map(lambda p: p.detach().double(), layer)
+    x = cap.x
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = torch.randn(x.shape, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    y_pair, g_pair = _moe_grad64(p64, x, mcfg.moe, g)
+    real = (moe_mod.routed_dispatch, moe_mod.routed_combine)
+    moe_mod.routed_dispatch = lambda x2d, st, dt, k: \
+        moe_mod._dispatch_gather(x2d, st)
+    moe_mod.routed_combine = lambda f, dt, sp: moe_mod._combine_gather(f, dt)
+    try:
+        y_plain, g_plain = _moe_grad64(p64, x, mcfg.moe, g)
+    finally:
+        moe_mod.routed_dispatch, moe_mod.routed_combine = real
+    err = float((g_pair - g_plain).abs().max() / g_plain.abs().max())
+    same_y = bool(torch.equal(y_pair, y_plain))
+    ok = same_y and err <= GRAD64_TOL
+    print(f"[lm-train] {mcfg.name} MoE layer input gradient, float64 on the "
+          f"card (x {tuple(x.shape)}): the gather pair vs autograd through "
+          f"plain indexing: forward bitwise equal {same_y}, max |diff| / max "
+          f"|g| {err:.3e} (at most {GRAD64_TOL}) {'ok' if ok else 'FAIL'} "
+          f"[{label}]", flush=True)
+    check(ok, "the MoE dispatch pair's gradient disagrees with autograd "
+              "through plain indexing")
+    return ops.launch_counts()
+
+
+def flash_row(dev, label, what, B, H, KH, S, D, causal, seed):
+    """``flash_attention`` at one model's attention shape (bf16, q [B,H,S,D],
+    k/v [B,KH,S,D]) on the wgmma kernel: checked, timed beside its plain
+    version and SDPA (``enable_gqa`` where KH < H), with the bound from
+    the operations and bytes; returns its record."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
     q, k, v = rnd(B, H, S, D), rnd(B, KH, S, D), rnd(B, KH, S, D)
-    tag = f"B={B} H={H} Kh={KH} S={S} D={D} bf16 causal"
-    r = flash_wgmma_check(f"flash wgmma {tag} (Jamba)", q, k, v)
-    ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
-    plain = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=3,
-                    warmup=1)
+    tag = (f"B={B} H={H} Kh={KH} S={S} D={D} bf16 "
+           f"{'causal' if causal else 'non-causal'}")
+    r = flash_wgmma_check(f"flash wgmma {tag} ({what})", q, k, v, causal)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), iters=20)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                    iters=3, warmup=1)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), iters=20)
-    flops = flash_cost(B, H, S, S, D, causal=True)["flops"]
+        q, k, v, is_causal=causal, enable_gqa=KH < H), iters=20)
+    flops = flash_cost(B, H, S, S, D, causal=causal)["flops"]
     moved = 2 * nbytes(q) + nbytes(k, v)
     bnd, by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
-    print(f"  flash wgmma {tag} (Jamba): kernel {ms:.4f} ms "
+    print(f"  flash wgmma {tag} ({what}): kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
-          f"{lib:.4f} ms (scaled_dot_product_attention, enable_gqa), bound "
-          f"{bnd:.4f} ms ({by}; {flops:.4g} operations, {moved:.4g} bytes) "
-          f"[{label}]", flush=True)
+          f"{lib:.4f} ms (scaled_dot_product_attention"
+          f"{', enable_gqa' if KH < H else ''}), bound {bnd:.4f} ms ({by}; "
+          f"{flops:.4g} operations, {moved:.4g} bytes) [{label}]",
+          flush=True)
     return dict(variant="wgmma", shape=tag, max_abs_err=r["max_abs_err"],
                 ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 library_ms=lib)
+
+
+def flash_audio_vlm_rows(dev, label):
+    """``flash_attention`` at whisper's encoder shape (B=16, H=6, S=1500,
+    D=64, non-causal: ragged, the last KV tile masked with no diagonal),
+    its decoder's self-attention (B=16, H=6, S=448, D=64, causal) and
+    pixtral's (B=1, H=32, Kh=8, S=8192, D=128, causal)."""
+    print("[kernels] flash_attention at whisper's encoder and decoder and "
+          "pixtral's shapes", flush=True)
+    return [flash_row(dev, label, "whisper encoder", AUDIO_B, 6, 6, 1500, 64,
+                      False, 3),
+            flash_row(dev, label, "whisper decoder", AUDIO_B, 6, 6,
+                      AUDIO_SEQ, 64, True, 5),
+            flash_row(dev, label, "pixtral", 1, 32, 8, LM_SEQ, 128, True, 4)]
 
 
 def flash_mla_phase(dev, label):
@@ -3589,7 +4030,9 @@ def main() -> int:
     print(f"[kernels] flash_attention at the MLA shape: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     print("[kernels] flash_attention at Jamba's attention shape", flush=True)
-    variants["flash_attention"].append(flash_hybrid_row(dev, label))
+    variants["flash_attention"].append(
+        flash_row(dev, label, "Jamba", 1, 64, 8, LM_SEQ, 128, True, 2))
+    variants["flash_attention"] += flash_audio_vlm_rows(dev, label)
     launches = engine_phase(graph, targets, label)
     profile_phase(graph, targets, label)
     served = serve_phase(graph, label)
@@ -3625,6 +4068,23 @@ def main() -> int:
                                "flash_attention")
     launches["flash_attention"] += hybrid_launches
     variants["flash_attention"][1]["launches"] = hybrid_launches
+    t0 = time.perf_counter()
+    audio_launches, enc_launches, dec_launches = audio_lm_phase(label)
+    print(f"[lm] {AUDIO_ARCH} phase {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    launches["flash_attention"] += audio_launches["flash_attention"]
+    variants["flash_attention"][2]["launches"] = enc_launches
+    variants["flash_attention"][3]["launches"] = dec_launches
+    t0 = time.perf_counter()
+    vlm_launches = vlm_lm_phase(label)["flash_attention"]
+    print(f"[lm] {VLM_ARCH} phase {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    launches["flash_attention"] += vlm_launches
+    variants["flash_attention"][4]["launches"] = vlm_launches
+    t0 = time.perf_counter()
+    lm_trained = lm_train_phase(label)
+    print(f"[lm-train] phase {time.perf_counter() - t0:.2f} s", flush=True)
+    check(not any(lm_trained.values()), "LM training launched a kernel")
     check(not any(trained.values()), "training launched a kernel")
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")

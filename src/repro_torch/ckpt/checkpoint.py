@@ -9,9 +9,11 @@ Layout per step:  <dir>/step_000123/
 
 Atomicity: write into step_xxx.tmp, fsync, rename, then touch COMMITTED.
 A crash mid-write leaves only an ignored .tmp. Leaves are torch tensors or
-numpy arrays (or Python scalars), in nested dicts, lists and tuples; a key
-path joins dict keys and sequence indices with "/", as the reference's
-``tree_flatten_with_path`` names them (dict keys in sorted order). bf16
+numpy arrays (or Python scalars), in nested dicts, lists, tuples and
+NamedTuples; a key path joins dict keys, sequence indices and
+".field" for a NamedTuple's fields with "/", as the reference's
+``tree_flatten_with_path`` names them (dict keys in sorted order; an
+``OptState`` inside a tuple is "1/.step", "1/.m/..."). bf16
 leaves are stored as their uint16 bit patterns, the manifest naming the
 logical dtype. There is one device, so restore takes no sharding.
 """
@@ -26,10 +28,17 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """{key path: leaf}, dict keys sorted, sequence indices in order."""
+    """{key path: leaf}, dict keys sorted, sequence indices and NamedTuple
+    fields in order."""
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif _is_namedtuple(tree):
+        items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
@@ -46,6 +55,10 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: str = ""):
         return {k: _unflatten(v, leaves,
                               f"{prefix}/{k}" if prefix else str(k))
                 for k, v in like.items()}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(
+            getattr(like, f), leaves, f"{prefix}/.{f}" if prefix else f".{f}")
+            for f in like._fields))
     if isinstance(like, (list, tuple)):
         out = [_unflatten(v, leaves, f"{prefix}/{i}" if prefix else str(i))
                for i, v in enumerate(like)]

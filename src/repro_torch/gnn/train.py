@@ -21,7 +21,7 @@ from repro_torch.devices import resolve
 from repro_torch.gnn.model import GNNConfig, gnn_forward, init_gnn
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.train.optim import (AdamWConfig, apply_updates, init_opt,
-                                     tree_leaves, tree_map)
+                                     value_and_grad)
 
 BATCH_KEYS = ("feats", "adj", "adj_mean", "mask")
 
@@ -61,14 +61,8 @@ def gnn_loss(cfg: GNNConfig, params, batch, labels):
 def gnn_grads(cfg: GNNConfig, params, batch, labels):
     """(loss, acc, gradients as a tree of ``params``' layout) by
     ``torch.autograd.grad`` over the parameter leaves."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    with torch.enable_grad():
-        loss, acc = gnn_loss(cfg, leaves, batch, labels)
-        flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat)
-    by_id = {id(p): g for p, g in zip(flat, grads)}
-    return (loss.detach(), acc,
-            tree_map(lambda p: by_id[id(p)], leaves))
+    return value_and_grad(
+        lambda p: gnn_loss(cfg, p, batch, labels), params)
 
 
 def make_gnn_train_step(cfg: GNNConfig, opt_cfg: AdamWConfig,

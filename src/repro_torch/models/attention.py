@@ -1,6 +1,5 @@
-"""Grouped-query attention: the prefill and decode paths, in PyTorch (the
-counterpart of ``repro.models.attention``; cross-attention comes with the
-audio family).
+"""Grouped-query attention: the prefill, cross and decode paths, in
+PyTorch (the counterpart of ``repro.models.attention``).
 
 Shapes: hidden [B, S, D]; q [B, S, H, Dh]; k/v [B, S, Kh, Dh] with
 H % Kh == 0, query head h reading KV head h // (H // Kh). The decode path
@@ -144,6 +143,32 @@ def full_attention(params, x, *, n_heads, n_kv, head_dim, rope_theta=1e4,
         del s
         o = gqa_out(p, v)
     return matmul(o.reshape(B, S, n_heads * head_dim), params["wo"])
+
+
+def cross_attention(params, x, kv_cache, *, n_heads, n_kv, head_dim):
+    """x [B,Sq,D] attends to precomputed (k, v) [B,Skv,Kh,Dh] (whisper's
+    decoder over the encoder's output): no mask, no rope, plain ops on
+    every impl, as the reference computes it outside any kernel."""
+    B, Sq, _ = x.shape
+    q = matmul(x, params["wq"]).reshape(B, Sq, n_heads, head_dim)
+    if "bq" in params:
+        q = q + params["bq"].reshape(n_heads, head_dim)
+    k, v = kv_cache
+    p = torch.softmax(gqa_scores(q, k), dim=-1)
+    o = gqa_out(p, v)
+    return matmul(o.reshape(B, Sq, n_heads * head_dim), params["wo"])
+
+
+def cross_kv(params, enc_out, *, n_kv, head_dim):
+    """The encoder output's keys and values [B,Skv,Kh,Dh] for
+    ``cross_attention``."""
+    B, Skv, _ = enc_out.shape
+    k = matmul(enc_out, params["wk"]).reshape(B, Skv, n_kv, head_dim)
+    v = matmul(enc_out, params["wv"]).reshape(B, Skv, n_kv, head_dim)
+    if "bk" in params:
+        k = k + params["bk"].reshape(n_kv, head_dim)
+        v = v + params["bv"].reshape(n_kv, head_dim)
+    return k, v
 
 
 def decode_attention(params, x, k_cache, v_cache, pos, *, n_heads, n_kv,

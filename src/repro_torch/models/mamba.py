@@ -113,8 +113,16 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     CB = torch.einsum("bcqhn,bcshn->bchqs", Cc, Bc)          # [b,nc,H,Q,Q]
     L = cum_t[..., :, None] - cum_t[..., None, :]
     keep = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L.masked_fill_(~keep, -math.inf).exp_()
-    scores = CB.mul_(L).mul_(dtc.transpose(2, 3)[..., None, :])
+    # the masked-exp chain in place when serving (two [b,nc,H,Q,Q] tensors
+    # alive, not four); the same operations out of place under autograd
+    track = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, A, B, C, h0))
+    if track:
+        L = torch.where(keep, L, -math.inf).exp()
+        scores = CB * L * dtc.transpose(2, 3)[..., None, :]
+    else:
+        L.masked_fill_(~keep, -math.inf).exp_()
+        scores = CB.mul_(L).mul_(dtc.transpose(2, 3)[..., None, :])
     del L
     y = torch.einsum("bchqs,bcshp->bcqhp", scores, xc)
     del scores, CB
@@ -124,13 +132,11 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
                        xc * dec_out[..., None])              # [b,nc,H,P,N]
     decay = torch.exp(total)[..., None, None]                # [b,nc,H,1,1]
     # the recurrence: states[c] is the state entering chunk c
-    states = torch.empty((nc + 1, b, H, P, N), dtype=f32, device=x.device)
-    if h0 is None:
-        states[0].zero_()
-    else:
-        states[0].copy_(h0)
+    st = [torch.zeros((b, H, P, N), dtype=f32, device=x.device)
+          if h0 is None else h0.to(f32)]
     for c in range(nc):
-        torch.addcmul(upd[:, c], states[c], decay[:, c], out=states[c + 1])
+        st.append(torch.addcmul(upd[:, c], st[c], decay[:, c]))
+    states = torch.stack(st)
     # inter-chunk outputs from the carried states, all chunks at once
     y += torch.einsum("bcqhn,bchpn->bcqhp",
                       Cc * torch.exp(cum)[..., None],

@@ -18,9 +18,15 @@ in no fixed order). The scatter into the expert buffer writes each kept
 slot once; its only duplicate indices are the drop row's, which is
 discarded.
 
-The reference's ``custom_vjp`` pair of the gather dispatch is a training
-concern (ROADMAP.md queue 1, item 14.7): here the gather formulation's
-forward runs as plain ops.
+The gather formulation moves tokens into the expert buffer and outputs
+back by two gathers, ``routed_dispatch`` and ``routed_combine``: the
+``torch.autograd.Function`` pair of the reference's ``custom_vjp`` pair
+(``_routed_dispatch``, ``_routed_combine``). The dispatch map (t, i) <->
+slot is a partial bijection, so each backward is also a gather, in a fixed
+order: no scatter-add (with atomics on the card) enters the gradient. Each
+saves only its integer index vectors, through ``save_for_backward`` (so a
+``checkpoint`` around the layer recomputes them), and returns None for
+them.
 """
 from __future__ import annotations
 
@@ -117,10 +123,67 @@ def moe_ffn(params, x, moe: MoEConfig, *, act="silu"):
     return y.reshape(B, S, D), aux
 
 
+def _dispatch_gather(x2d, slot_tok):
+    """eb[s] = x2d[slot_tok[s] - 1], rows of 0 for empty slots
+    (slot_tok 0)."""
+    return x2d[(slot_tok - 1).clamp_min(0)] \
+        * (slot_tok > 0)[:, None].to(x2d.dtype)
+
+
+def _combine_gather(flat, dest_tk):
+    """contrib[t*k+i] = flat[dest_tk[t*k+i]], 0 where the pair was dropped
+    (dest_tk = len(flat))."""
+    n = flat.shape[0]
+    return torch.where((dest_tk < n)[:, None], flat[dest_tk.clamp_max(n - 1)],
+                       flat.new_zeros(()))
+
+
+class _RoutedDispatch(torch.autograd.Function):
+    """Forward ``_dispatch_gather``; backward the gather dx[t] = sum_i
+    g[dest_tk[t*k+i]] (0 for a dropped pair), the k terms added in order."""
+
+    @staticmethod
+    def forward(ctx, x2d, slot_tok, dest_tk, k):
+        ctx.save_for_backward(dest_tk)
+        ctx.k = k
+        return _dispatch_gather(x2d, slot_tok)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dest_tk,) = ctx.saved_tensors
+        gt = _combine_gather(g, dest_tk)                     # [T*k, D]
+        dx = gt.reshape(-1, ctx.k, g.shape[-1]).sum(dim=1)
+        return dx, None, None, None
+
+
+class _RoutedCombine(torch.autograd.Function):
+    """Forward ``_combine_gather``; backward the inverse gather dflat[s] =
+    g[slot_pair[s] - 1] (0 for an empty slot)."""
+
+    @staticmethod
+    def forward(ctx, flat, dest_tk, slot_pair):
+        ctx.save_for_backward(slot_pair)
+        return _combine_gather(flat, dest_tk)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot_pair,) = ctx.saved_tensors
+        return _dispatch_gather(g, slot_pair), None, None
+
+
+def routed_dispatch(x2d, slot_tok, dest_tk, k):
+    return _RoutedDispatch.apply(x2d, slot_tok, dest_tk, k)
+
+
+def routed_combine(flat, dest_tk, slot_pair):
+    return _RoutedCombine.apply(flat, dest_tk, slot_pair)
+
+
 def moe_ffn_gather(params, x, moe: MoEConfig, *, act="silu"):
-    """The gather formulation's forward: only index vectors are scattered
-    (slot -> token + 1, (t, i) -> slot); the tokens reach the expert buffer
-    and the outputs come back by gathers."""
+    """The gather formulation: only index vectors are scattered (slot ->
+    token + 1, (t, i) -> slot, slot -> pair + 1); the tokens reach the
+    expert buffer and the outputs come back through ``routed_dispatch`` and
+    ``routed_combine``."""
     B, S, D = x.shape
     T = B * S
     x2d = x.reshape(T, D)
@@ -134,13 +197,12 @@ def moe_ffn_gather(params, x, moe: MoEConfig, *, act="silu"):
     slot_tok[dest[keep]] = tok[keep] + 1                     # 0 = empty
     dest_tk = torch.empty_like(dest)
     dest_tk[perm] = dest                                     # (t, i) -> slot
+    slot_pair = torch.zeros_like(slot_tok)
+    slot_pair[dest[keep]] = perm[keep] + 1                   # slot -> pair
 
-    eb = x2d[(slot_tok - 1).clamp_min(0)] \
-        * (slot_tok > 0)[:, None].to(x2d.dtype)
+    eb = routed_dispatch(x2d, slot_tok, dest_tk, k)
     out_e = _experts(params, eb.reshape(E, cap, D)).reshape(E * cap, D)
-    hit = dest_tk < E * cap
-    contrib = torch.where(hit[:, None], out_e[dest_tk.clamp_max(E * cap - 1)],
-                          out_e.new_zeros(()))               # [T*k, D]
+    contrib = routed_combine(out_e, dest_tk, slot_pair)      # [T*k, D]
     w_tok = top_p.reshape(T, k).to(x.dtype)
     y = torch.einsum("tkd,tk->td", contrib.reshape(T, k, D), w_tok)
     if "shared" in params:

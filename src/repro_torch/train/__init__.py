@@ -1,1 +1,2 @@
-"""Training pieces: the AdamW optimizer the GNN trainer uses."""
+"""Training pieces: AdamW, the LM loss and train step, and the
+fault-tolerant LM training loop."""

@@ -53,6 +53,21 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def value_and_grad(fn, params):
+    """(loss, aux, gradients as a tree of ``params``' layout) of ``fn(
+    leaves) -> (loss, aux)`` by ``torch.autograd.grad`` over fresh leaves
+    that require grad. A leaf the loss does not reach gets a zero
+    gradient, as ``jax.grad`` gives."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, aux = fn(leaves)
+        flat = tree_leaves(leaves)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    by_id = {id(p): (torch.zeros_like(p) if g is None else g)
+             for p, g in zip(flat, grads)}
+    return loss.detach(), aux, tree_map(lambda p: by_id[id(p)], leaves)
+
+
 def init_opt(params, cfg: AdamWConfig) -> OptState:
     dt = getattr(torch, cfg.moment_dtype)
     zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731

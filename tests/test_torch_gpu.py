@@ -23,8 +23,12 @@ shards serving the resident store's bits, a tiered engine's all-fresh
 and mixed batches, and an engine behind the loopback transport serving
 the local engine's bits through the kernels. The reduced mamba2 and Jamba
 on the card against the CPU (Jamba's attention on the flash kernel once),
-and the chunked SSD against the float64 recurrence on the card. Skipped
-where no CUDA device is
+and the chunked SSD against the float64 recurrence on the card. The
+wgmma flash kernel at whisper's encoder shape (non-causal, D=64, ragged
+S=1500), the reduced whisper and pixtral prefill through the kernel
+against the plain path and the CPU, whisper's bf16 policy on the wgmma
+kernel, and one LM train step (whisper, and the MoE family's gather
+pair) on the card against the CPU. Skipped where no CUDA device is
 present; on the GPU machine run
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
@@ -925,3 +929,104 @@ def test_ssd_chunked_on_the_card(dev):
     for got, want in ((y, y64), (st, st64)):
         err = float((got.double() - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_flash_wgmma_non_causal_ragged_at_whisper_encoder_shape(dev):
+    """whisper's encoder core: non-causal, D=64, S=1500 (no tile multiple;
+    the last KV tile masked with no diagonal), on the wgmma kernel, held
+    by flash_bf16_check."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(2, 6, 1500, 64, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    assert flash_attention.flash_variant(q.dtype, 64) == "wgmma"
+    before = flash_attention.variant_launches["wgmma"]
+    got = flash_attention.flash_attention(q, k, v, causal=False)
+    again = flash_attention.flash_attention(q, k, v, causal=False)
+    assert flash_attention.variant_launches["wgmma"] == before + 2
+    r = flash_attention.flash_bf16_check(
+        got, again, flash_attention.flash_attention_ref(
+            q.float(), k.float(), v.float(), causal=False),
+        flash_attention.flash_bf16_tol(q, k, v, causal=False))
+    assert r["ok"], r
+
+
+def _lm_batch(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, s)))}
+    if cfg.encoder is not None:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32))
+    if cfg.vision is not None:
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.vision.n_patches, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "pixtral-12b"])
+def test_audio_and_vlm_prefill_on_the_card(dev, name):
+    """The reduced whisper and pixtral (fp32) on the card: impl="cuda"
+    (flash_attention a layer: whisper's encoder non-causal and decoder
+    causal) against impl="torch" on the card and the CPU's prefill, at
+    tests/test_torch_lm.py's fp32 tolerance."""
+    cfg = get_config(name, reduced=True)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, dev)
+    batch = _lm_batch(cfg, 2, 40, 3)
+    want = transformer.prefill(cfg, params, batch, impl="torch")
+    scale = max(1.0, float(want.abs().max()))
+    n_attn = cfg.n_layers + (cfg.encoder.n_layers if cfg.encoder else 0)
+    for impl in ("cuda", "torch"):
+        ops.reset_launch_counts()
+        got = transformer.prefill(cfg, on_card, _to(batch, dev), impl=impl)
+        assert ops.launch_counts()["flash_attention"] == (
+            n_attn if impl == "cuda" else 0)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-5 * scale)
+
+
+def test_whisper_bf16_prefill_through_wgmma(dev):
+    """whisper's serving policy (bf16 compute) at its head dim 64 with a
+    ragged encoder (150 frames): every launch on the wgmma kernel, within
+    chip_smoke.py's LM_TOL of impl="torch"."""
+    cfg = dataclasses.replace(
+        get_config("whisper-tiny", reduced=True), head_dim=64,
+        encoder=dataclasses.replace(get_config("whisper-tiny").encoder,
+                                    n_layers=2, n_frames=150),
+        dtype=DTypePolicy(param_dtype="float32", compute_dtype="bfloat16"))
+    params = transformer.init_params(cfg, seed=0, device="cuda", max_seq=64)
+    batch = _to(_lm_batch(cfg, 2, 64, 4), dev)
+    before = dict(flash_attention.variant_launches)
+    got = transformer.prefill(cfg, params, batch, impl="cuda")
+    assert flash_attention.variant_launches["wgmma"] - before["wgmma"] == \
+        cfg.n_layers + cfg.encoder.n_layers
+    want = transformer.prefill(cfg, params, batch, impl="torch")
+    rel = float((got - want).abs().max() / want.abs().max())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    assert rel <= 5e-2 and top1 >= 0.9, (rel, top1)
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "deepseek-v2-lite-16b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(dev, name):
+    """One make_train_step step of the reduced config (fp32; the MoE
+    family with the gather dispatch's autograd pair) on the card against
+    the same step on the CPU: loss and grad_norm at rtol 1e-5, no kernel
+    launched (training runs the plain path)."""
+    from repro_torch.train import optim, step
+    cfg = get_config(name, reduced=True)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch="gather"))
+    params = transformer.init_params(cfg, seed=0, device="cpu", max_seq=32)
+    opt = optim.AdamWConfig(lr=1e-3)
+    batch = _lm_batch(cfg, 2, 32, 6)
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    fn = step.make_train_step(cfg, opt)
+    _, _, want = fn(params, optim.init_opt(params, opt), batch)
+    on_card = _to(params, dev)
+    ops.reset_launch_counts()
+    _, _, got = fn(on_card, optim.init_opt(on_card, opt), _to(batch, dev))
+    assert not any(ops.launch_counts().values())
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
+                                   atol=0.0)

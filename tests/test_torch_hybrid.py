@@ -445,13 +445,3 @@ def test_layer_cast_rounds_the_mamba_constants():
                                             impl="torch"), got)
     finally:
         t_tf.cast_tree = real
-
-
-@pytest.mark.parametrize("name", ARCHS)
-def test_no_longer_refused(name):
-    """The SSM and hybrid families left UNPORTED; its audio and VLM
-    entries still name their items."""
-    cfg = t_registry.get_config(name, reduced=True)
-    assert cfg.family not in t_tf.UNPORTED
-    t_tf._require_ported(cfg)
-    assert sorted(t_tf.UNPORTED) == ["audio", "vlm"]

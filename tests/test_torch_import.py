@@ -77,7 +77,9 @@ class TestImportIsolation:
                 "configs.qwen1_5_4b", "configs.phi3_medium_14b",
                 "configs.mamba2_2_7b", "configs.jamba_1_5_large_398b",
                 "configs.whisper_tiny", "configs.pixtral_12b",
-                "configs.deepseek_v2_lite_16b", "configs.deepseek_v3_671b")}
+                "configs.deepseek_v2_lite_16b", "configs.deepseek_v3_671b",
+                "train.xent", "train.step", "train.loop", "data.pipeline",
+                "distributed.compression", "launch.train")}
         assert slice_modules <= set(MODULES), slice_modules - set(MODULES)
         code = "import repro_torch\n" + "".join(
             f"import {m}\n" for m in MODULES)

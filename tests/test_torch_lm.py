@@ -32,8 +32,6 @@ plain version, which keeps the probabilities in fp32); held at
 ``BF16_EQUAL`` = half of them bitwise equal.
 """
 import dataclasses
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -60,14 +58,10 @@ from repro_torch.models import common as t_common  # noqa: E402
 from repro_torch.models import mlp as t_mlp  # noqa: E402
 from repro_torch.models import rope as t_rope  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
+from repro_torch.train import optim as t_optim  # noqa: E402
+from repro_torch.train import step as t_step  # noqa: E402
 
 DENSE = ("chatglm3-6b", "deepseek-7b", "qwen1.5-4b", "phi3-medium-14b")
-# the registry's archs whose family the port still refuses (the MoE family,
-# deepseek-v2-lite-16b and deepseek-v3-671b, is tests/test_torch_moe.py's;
-# the SSM and hybrid families, mamba2-2.7b and jamba-1.5-large-398b, are
-# tests/test_torch_hybrid.py's)
-OTHER = tuple(n for n in j_registry.ARCHS
-              if j_registry.get_config(n).family in t_tf.UNPORTED)
 RTOL = 1e-4
 DECODE_ATOL = 1e-3
 BF16_REL = 5e-2
@@ -222,10 +216,6 @@ class TestBlocks:
                          jnp.asarray(x))
         got = t_mlp.mlp({k: _t(v) for k, v in p.items()}, _t(x))
         _close(got, want)
-
-    def test_plain_mlp_not_ported(self):
-        with pytest.raises(NotImplementedError, match="audio"):
-            t_mlp.mlp({"w_in": torch.zeros(2, 2)}, torch.zeros(1, 2))
 
     def test_cast_tree(self):
         tree = {"a": torch.zeros(2),
@@ -488,38 +478,79 @@ class TestBf16Compute:
         _close(got, want)
 
 
+def _spec_shapes(tree):
+    """{path: (shape, dtype name)} of a JAX tree of arrays or
+    ShapeDtypeStructs, or of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: _spec_shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape), str(tree.dtype).replace("torch.", "")
+
+
+class TestEveryArch:
+    """Every arch of the registry serves and trains in the port:
+    init_params, prefill, init_cache and decode_step of its reduced config
+    on the CPU, each with the reference's tree layout or output shape,
+    every output finite; and one ``make_train_step`` step."""
+
+    @pytest.mark.parametrize("name", list(t_registry.ARCHS))
+    def test_serves_with_the_reference_shapes(self, name):
+        jc = j_registry.get_config(name, reduced=True)
+        cfg = t_registry.get_config(name, reduced=True)
+        B, S = 2, 16
+        params = t_tf.init_params(cfg, seed=0, device="cpu", max_seq=S)
+        want = jax.eval_shape(lambda: j_tf.init_params(
+            jc, jax.random.PRNGKey(0), max_seq=S))
+        assert _spec_shapes(params) == _spec_shapes(want)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))}
+        if cfg.encoder is not None:
+            batch["frames"] = _normal(
+                rng, (B, cfg.encoder.n_frames, cfg.d_model))
+        if cfg.vision is not None:
+            batch["patch_embeds"] = _normal(
+                rng, (B, cfg.vision.n_patches, cfg.d_model))
+        for impl in ("cuda", "torch"):
+            logits = t_tf.prefill(cfg, params, batch, impl=impl)
+            assert tuple(logits.shape) == (B, S, cfg.vocab_size)
+            assert bool(torch.isfinite(logits).all())
+        cache = t_tf.init_cache(cfg, B, S, device="cpu")
+        assert _spec_shapes(cache) == _spec_shapes(
+            j_tf.init_cache(jc, B, S, mode="specs"))
+        for pos in range(2):
+            logits, cache = t_tf.decode_step(
+                cfg, params, cache, batch["tokens"][:, pos:pos + 1], pos)
+            assert tuple(logits.shape) == (B, 1, cfg.vocab_size)
+            assert bool(torch.isfinite(logits).all())
+
+    @pytest.mark.parametrize("name", list(t_registry.ARCHS))
+    def test_takes_a_train_step(self, name):
+        cfg = t_registry.get_config(name, reduced=True)
+        B, S = 2, 16
+        params = t_tf.init_params(cfg, seed=0, device="cpu", max_seq=S)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
+                 "labels": rng.integers(0, cfg.vocab_size, (B, S))}
+        if cfg.encoder is not None:
+            batch["frames"] = _normal(
+                rng, (B, cfg.encoder.n_frames, cfg.d_model))
+        if cfg.vision is not None:
+            batch["patch_embeds"] = _normal(
+                rng, (B, cfg.vision.n_patches, cfg.d_model))
+        opt_cfg = t_optim.AdamWConfig(lr=1e-3)
+        new, state, metrics = t_step.make_train_step(cfg, opt_cfg)(
+            params, t_optim.init_opt(params, opt_cfg), batch)
+        assert {"loss", "xent", "aux", "grad_norm"} <= set(metrics)
+        assert all(bool(torch.isfinite(metrics[k]))
+                   for k in ("loss", "xent", "aux", "grad_norm"))
+        assert float(metrics["grad_norm"]) > 0 and int(state.step) == 1
+        assert _spec_shapes(new) == _spec_shapes(params)
+        assert any(not torch.equal(a, b) for a, b in zip(
+            t_optim.tree_leaves(new), t_optim.tree_leaves(params)))
+
+
 class TestNotPorted:
-    @pytest.mark.parametrize("name", OTHER)
-    def test_other_families_raise(self, name):
-        cfg = t_registry.get_config(name, reduced=True)
-        for call in (lambda: t_tf.init_params(cfg, device="cpu"),
-                     lambda: t_tf.prefill(cfg, {}, {"tokens": None}),
-                     lambda: t_tf.init_cache(cfg, 1, 4, device="cpu"),
-                     lambda: t_tf.decode_step(cfg, {}, {}, None, 0)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                call()
-
-    @pytest.mark.parametrize("name", OTHER)
-    def test_refusal_names_its_roadmap_item(self, name):
-        """Each family's refusal names the item of ROADMAP.md's queue 1
-        that ports it (14.5 audio, 14.6 VLM), and that item exists in
-        ROADMAP.md."""
-        cfg = t_registry.get_config(name, reduced=True)
-        item = t_tf.UNPORTED[cfg.family]
-        want = {"audio": "14.5", "vlm": "14.6"}[cfg.family]
-        assert item.startswith(want)
-        with pytest.raises(NotImplementedError) as e:
-            t_tf.init_params(cfg, device="cpu")
-        assert f"item {item}" in str(e.value)
-        roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md"
-                   ).read_text()
-        queue = roadmap[roadmap.index("14. **LLM substrate"):]
-        for num in re.findall(r"14\.(\d)", item):
-            assert re.search(rf"^\s+{num}\. \*\*", queue, re.M), num
-
-    def test_plain_mlp_refusal_names_audio_item(self):
-        with pytest.raises(NotImplementedError, match=r"item 14\.5: audio"):
-            t_mlp.init_mlp(None, 1, 4, 8, act="gelu")
+    """Nothing is left unported; what the port refuses is a card that is
+    not there."""
 
     def test_cuda_without_a_card_raises(self):
         if torch.cuda.is_available():
