@@ -288,7 +288,29 @@
    against autograd through plain indexing in float64 (``GRAD64_TOL``).
    No kernel may launch (training runs the plain path). Prints ms a step
    (host and device), peak memory and the loss curve.
-23. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
+23. ``[launch]``: the launch analysis (``src/repro_torch/launch``). (a)
+   The survey: ``python -m repro_torch.launch.dryrun`` in four
+   subprocesses at once (the fake process group stays out of this
+   process) at full width on the single 16x16 mesh: phi3-medium-14b
+   prefill_32k, deepseek-v2-lite-16b train_4k, whisper-tiny decode_32k
+   and the five GNN serve cells; every cell must be ``ok``, and the
+   roofline table of the records is printed. (b) Cells measured on one
+   card, at one card's share of the survey's GNN batch (4096 / 256 = 16
+   targets) and at ``[lm]``'s phi3 prefill (B=1, S=8192, 8 of 40
+   layers): the GNN cells on a real Build + Pack batch of the
+   Flickr-sized graph at each cell's N, dense, f_in 512. Each cell is
+   counted once on ``meta`` (impl="torch"), once on the card with
+   impl="torch" (its FLOPs must equal the meta count exactly, and its
+   argument bytes the bytes of the tensors on the card) and once with
+   impl="cuda" (the kernels' own counts from their ``*_cost``), then
+   timed without the analysis (p50 of single calls between CUDA events).
+   Prints the counts, the p50, the roofline bound of the impl="cuda"
+   count and ``bound_share`` = bound / p50 (at most 1.05: a higher
+   reading means the count is wrong), the card's peak memory beside the
+   estimate, and the launches; impl="cuda" is held against impl="torch"
+   at ``ENGINE_TOL`` (GNN) and ``LM_TOL`` (phi3). The path must launch
+   ``fused_gnn_layer``, ``gat_attention`` and ``flash_attention``.
+24. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
    the bucket scatter-gather, the offline chunk shape, the bf16 kernels
    and flash at the MLA, Jamba, whisper-encoder and pixtral shapes) and,
    last, the ``ok`` line.
@@ -344,13 +366,20 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref, flash_bf16_check, flash_bf16_tol,
     flash_cost, flash_variant)
 from repro_torch.kernels.fused_gnn import (ACTS,  # noqa: E402
-                                           fused_gnn_layer,
+                                           fused_cost, fused_gnn_layer,
                                            fused_gnn_layer_ref)
 from repro_torch.kernels.gat_attention import (  # noqa: E402
-    gat_attention, gat_attention_ref, gat_variant)
+    gat_attention, gat_attention_ref, gat_cost, gat_variant)
 from repro_torch.kernels.ref import bf16_reading  # noqa: E402
 from repro_torch.kernels.scatter_gather import (  # noqa: E402
-    scatter_gather_aggregate, scatter_gather_aggregate_ref, sg_variant)
+    scatter_gather_aggregate, scatter_gather_aggregate_ref, sg_cost,
+    sg_variant)
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun as launch_dryrun  # noqa: E402
+from repro_torch.launch import op_analysis as launch_analysis  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch import specs as launch_specs  # noqa: E402
+from repro_torch.launch.cells import build_cell, build_gnn_cell  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
@@ -938,16 +967,10 @@ def run_checks(checks):
 def fused_bound(args):
     """(ms, 'bytes' or 'operations'): inputs read once and the output
     written once over 3.35 TB/s, or three tf32 products of every
-    multiply-add over 494.7 TFLOP/s (dense TF32), whichever is larger."""
-    adj, h, wn, ws, b, mask = args
-    Cc, Nn, fin = h.shape
-    fout = (wn if wn is not None else ws).shape[1]
-    flops = 2.0 * Cc * Nn * fin * fout * ((wn is not None) + (ws is not None))
-    if wn is not None:
-        flops += 2.0 * Cc * Nn * Nn * fout
-    nb = nbytes(adj if wn is not None else None, h, wn, ws, b, mask) \
-        + 4 * Cc * Nn * fout
-    return bound_ms(nb, 3 * flops, PEAK_TF32_FLOPS)
+    multiply-add over 494.7 TFLOP/s (dense TF32), whichever is larger
+    (``fused_cost``, which the launch analysis shares)."""
+    c = fused_cost(*args)
+    return bound_ms(c["hbm_bytes"], 3 * c["flops"], PEAK_TF32_FLOPS)
 
 
 def kernel_phase(x, dev, label):
@@ -1035,9 +1058,8 @@ def kernel_phase(x, dev, label):
     variant = ",".join(k for k, n in gat_kernels.variant_launches.items()
                        if n > before[k])
     plain = cuda_ms(lambda: gat_attention_ref(*args, n_heads=HEADS))
-    nnz_s = int((args[3] > 0).sum())
-    bnd, by = bound_ms(nbytes(*args) + 4 * C * N * F_HID,
-                       2.0 * nnz_s * F_HID + 6.0 * C * HEADS * N * N)
+    c = gat_cost(*args, n_heads=HEADS)
+    bnd, by = bound_ms(c["hbm_bytes"], c["flops"])
     print(f"  gat {tag}: kernel {ms:.4f} ms ({variant}), plain {plain:.4f} "
           f"ms, library none, bound {bnd:.4f} ms ({by}) [{label}]",
           flush=True)
@@ -1190,10 +1212,8 @@ def fused_bf16_bound(args):
 
 
 def sg_bound(args):
-    src, dst, w, h = args
-    Cc, Nn, f = h.shape
-    return bound_ms(nbytes(src, dst, w, h) + h.element_size() * Cc * Nn * f,
-                    2.0 * int((w != 0).sum()) * f)
+    c = sg_cost(*args)
+    return bound_ms(c["hbm_bytes"], c["flops"])
 
 
 def sg_library(args):
@@ -1255,12 +1275,9 @@ def variant_phase(graph, targets, x, dev, label):
             bnd, by = sg_bound(args)
             lib_name = f"index_add_, {str(args[3].dtype)[6:]}"
         else:
-            z, ss, sd, st = args
             lib, lib_name = None, "none"
-            nnz_s = int((st > 0).sum())
-            bnd, by = bound_ms(nbytes(*args) + z.element_size() * z.numel(),
-                               2.0 * nnz_s * z.shape[-1]
-                               + 6.0 * z.shape[0] * HEADS * z.shape[1] ** 2)
+            c = gat_cost(*args, n_heads=HEADS)
+            bnd, by = bound_ms(c["hbm_bytes"], c["flops"])
         print(f"  {kernel} {tag}: kernel {ms:.4f} ms ({variant}), plain "
               f"{plain:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'} ({lib_name}), "
@@ -3995,6 +4012,205 @@ def serving_batch():
     return graph, targets, sb
 
 
+# -- phase 23: the launch analysis ----------------------------------------
+
+LAUNCH_SURVEY = (["--arch", "phi3-medium-14b", "--shape", "prefill_32k"],
+                 ["--arch", "deepseek-v2-lite-16b", "--shape", "train_4k"],
+                 ["--arch", "whisper-tiny", "--shape", "decode_32k"],
+                 ["--gnn-only"])
+LAUNCH_DIR = ROOT / "build" / "dryrun_torch"
+LAUNCH_GNN_C = 4096 // 256       # GNN_SERVE_BATCH over the 16x16 mesh
+LAUNCH_SHARE_MAX = 1.05
+LAUNCH_RUNS = 21
+
+
+def launch_survey(label):
+    """(a): the survey's four dry-runs at once, each in its own process
+    (one fake process group a process); prints the roofline table."""
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single", "--out", str(LAUNCH_DIR), *a], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a in LAUNCH_SURVEY]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for a, p, log in zip(LAUNCH_SURVEY, procs, logs):
+        for line in log.splitlines():
+            if line.startswith(("[cell]", "  ok", "  FAIL", "done")):
+                print(f"[launch] {line}", flush=True)
+        check(p.returncode == 0, f"the dry-run {' '.join(a)} failed:\n"
+                                 f"{log[-3000:]}")
+    rows = roofline.load_rows(str(LAUNCH_DIR))
+    print(f"[launch] survey: {len(rows)} cells on the 16x16 fake mesh in "
+          f"{time.perf_counter() - t0:.2f} s (host), roofline per card at "
+          f"the H100 SXM's published peaks:", flush=True)
+    for line in roofline.render_md(rows).splitlines():
+        print(f"[launch] {line}", flush=True)
+    check(len(rows) == 8, f"the survey recorded {len(rows)} cells, not 8")
+
+
+def _event_ms(fn, runs: int = LAUNCH_RUNS) -> float:
+    """p50 of ``runs`` single calls, each between two CUDA events after a
+    warm-up (the host's launch gaps inside a call count: a GNN step at 16
+    targets is host-bound)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def launch_cell(name, fn_meta, args_meta, make_fn, args_card, label,
+                close):
+    """One measured cell: the meta count, the card's impl="torch" and
+    impl="cuda" counts, the p50 of impl="cuda", its bound and share, the
+    memory and the launches. ``make_fn(impl)`` gives the cell's function
+    on the card; ``close(got, want)`` holds impl="cuda" to impl="torch".
+    Returns the launches by kernel."""
+    meta = launch_dryrun.run_cell(fn_meta, args_meta, 1)
+    torch.cuda.synchronize()
+    plain = launch_dryrun.run_cell(make_fn("torch"), args_card, 1)
+    ops.reset_launch_counts()
+    cuda = launch_dryrun.run_cell(make_fn("cuda"), args_card, 1)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    h = cuda["hlo"]
+    counted = {k: v["launches"] for k, v in h["kernels"].items()}
+    check(counted == {k: n for k, n in launched.items() if n},
+          f"{name}: the kernels' notes {counted} disagree with their "
+          f"launches {launched}")
+    ok_out, text = close(make_fn("cuda")(*args_card),
+                         make_fn("torch")(*args_card))
+    card_args = launch_analysis.local_bytes(args_card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn = make_fn("cuda")
+    ms = _event_ms(lambda: fn(*args_card))
+    peak = torch.cuda.max_memory_allocated() - base + card_args
+    t_c, t_m, t_l = roofline.terms(h)
+    bound = max(t_c, t_m, t_l) * 1e3
+    by = max((("compute", t_c), ("memory", t_m), ("collective", t_l)),
+             key=lambda kv: kv[1])[0]
+    share = bound / ms
+    est = cuda["memory"]["peak_bytes_est"]
+    flops_ok = plain["hlo"]["flops"] == meta["hlo"]["flops"]
+    args_ok = card_args == meta["memory"]["argument_bytes"]
+    print(f"[launch] {name}: meta (impl=torch) {meta['hlo']['flops']:.6g} "
+          f"FLOP, {meta['hlo']['hbm_bytes']:.6g} B; card impl=torch "
+          f"{plain['hlo']['flops']:.6g} FLOP (equal {flops_ok}); card "
+          f"impl=cuda {h['flops']:.6g} FLOP {h['flops_by_dtype']}, "
+          f"{h['hbm_bytes']:.6g} B, kernels {counted}; argument bytes card "
+          f"{card_args} meta {meta['memory']['argument_bytes']} (equal "
+          f"{args_ok}); p50 {ms:.4f} ms (cuda_ms, {LAUNCH_RUNS} calls), "
+          f"bound {bound:.4f} ms ({by}), bound_share {share:.4f}; peak "
+          f"memory card {peak / 2**30:.3f} GiB vs estimate "
+          f"{est / 2**30:.3f} GiB (impl=torch on meta "
+          f"{meta['memory']['peak_bytes_est'] / 2**30:.3f} GiB); impl=cuda "
+          f"vs impl=torch {text} "
+          f"[{label}]", flush=True)
+    check(flops_ok, f"{name}: the card's impl='torch' FLOPs differ from "
+                    f"the meta count")
+    check(args_ok, f"{name}: argument bytes differ from the meta count")
+    check(share <= LAUNCH_SHARE_MAX, f"{name}: bound_share {share:.4f} > "
+                                     f"{LAUNCH_SHARE_MAX}: a count is wrong")
+    check(ok_out, f"{name}: impl='cuda' disagrees with impl='torch'")
+    return launched
+
+
+def launch_gnn_cells(graph, targets, label):
+    """(b), GNN: each survey GNN cell at 16 targets on a real batch."""
+    from repro_torch.launch.dryrun import GNN_CELLS
+    dev = torch.device("cuda")
+    total = {}
+    for cfg in GNN_CELLS:
+        with DecoupledEngine(graph, dataclasses.replace(cfg, f_in=F_IN),
+                             config=ServingConfig(
+                                 device="cuda", batch_size=LAUNCH_GNN_C,
+                                 mode="dense")) as eng:
+            sb = eng.plan(targets[:LAUNCH_GNN_C]).sb
+        t = lambda a: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+        batch = {"feats": t(np.pad(sb.feats, ((0, 0), (0, 0),
+                                             (0, cfg.f_in - F_IN)))),
+                 "adj": t(sb.adj), "adj_mean": t(sb.adj_mean),
+                 "mask": t(sb.mask)}
+        params = init_gnn(cfg, seed=0, device="cuda")
+        fn_meta, args_meta = build_gnn_cell(cfg, None, C=LAUNCH_GNN_C)
+
+        def make_fn(impl, cfg=cfg):
+            return build_gnn_cell(cfg, None, C=LAUNCH_GNN_C, impl=impl,
+                                  params=params, batch=batch)[0]
+
+        def close(got, want):
+            err = compare(f"[launch] {cfg.display}", got, want, ENGINE_TOL)
+            return True, f"max abs err {err:.3e} (ENGINE_TOL)"
+
+        launched = launch_cell(
+            f"{cfg.display} C={LAUNCH_GNN_C} dense", fn_meta, args_meta,
+            make_fn, (params, batch), label, close)
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def launch_lm_cell(label):
+    """(b), LM: phi3-medium-14b's prefill at [lm]'s shape."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    shape = ShapeConfig("prefill_8k", LM_SEQ, 1, "prefill")
+    fn_meta, args_meta = build_cell(cfg, shape, None)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    batch = launch_specs.specs_for(cfg, shape, mode="random", seed=0,
+                                   device="cuda")
+
+    def make_fn(impl):
+        return lambda p, b: transformer.prefill(cfg, p, b, impl=impl)
+
+    def close(got, want):
+        rel, top1 = _agreement(got, want)
+        ok = rel <= LM_TOL["rel"] and top1 >= LM_TOL["top1"]
+        return ok, (f"max abs err / max |logit| {rel:.3e}, top-1 {top1:.4f}"
+                    f" (LM_TOL)")
+
+    launched = launch_cell(f"{cfg.name} prefill B=1 S={LM_SEQ} "
+                           f"{LM_LAYERS} layers", fn_meta, args_meta,
+                           make_fn, (params, batch), label, close)
+    check(launched["flash_attention"] == LM_LAYERS,
+          f"phi3's cell launched flash_attention "
+          f"{launched['flash_attention']} times, not {LM_LAYERS}")
+    return launched
+
+
+def launch_phase(graph, targets, label):
+    """[launch]: the survey, then the measured cells; returns the
+    launches by kernel of the measured cells' impl="cuda" runs."""
+    t0 = time.perf_counter()
+    launch_survey(label)
+    ops.reset_launch_counts()
+    launched = launch_gnn_cells(graph, targets, label)
+    for k, n in launch_lm_cell(label).items():
+        launched[k] = launched.get(k, 0) + n
+    for k in ("fused_gnn_layer", "gat_attention", "flash_attention"):
+        check(launched.get(k, 0) > 0, f"[launch] never launched {k}")
+    print(f"[launch] phase {time.perf_counter() - t0:.2f} s, launches "
+          f"{launched}", flush=True)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4085,6 +4301,7 @@ def main() -> int:
     lm_trained = lm_train_phase(label)
     print(f"[lm-train] phase {time.perf_counter() - t0:.2f} s", flush=True)
     check(not any(lm_trained.values()), "LM training launched a kernel")
+    analysed = launch_phase(graph, targets, label)
     check(not any(trained.values()), "training launched a kernel")
     for k in REPLACES:
         check(launches[k] > 0, f"{k} was never launched on the main path")
@@ -4107,7 +4324,7 @@ def main() -> int:
                             launches=launches[k] + served.get(k, 0)
                             + dispatched.get(k, 0) + sharded.get(k, 0)
                             + precomputed.get(k, 0) + remote.get(k, 0)
-                            + metered.get(k, 0),
+                            + metered.get(k, 0) + analysed.get(k, 0),
                             **rec[k], variants=variants.get(k, [])))
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -59,6 +59,8 @@ class H100Spec:
     peak_fp32: float = 67e12            # FLOP/s, CUDA cores
     hbm_bw: float = 3.35e12             # bytes/s
     hbm_bytes: int = 80 * 10 ** 9
+    nvlink_bw: float = 450e9            # bytes/s a direction, <= 8 cards
+    net_bw: float = 50e9                # bytes/s, one 400 Gb/s NDR port
     sms: int = 132
     max_smem: int = build.MAX_SMEM      # bytes a block may have
 

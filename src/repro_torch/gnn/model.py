@@ -50,8 +50,10 @@ def init_gnn(cfg: GNNConfig, seed: int = 0, device="cuda"):
     drawn on the CPU (the same numbers on every device), then moved to
     ``device`` (the card unless the caller asks for the CPU; "cuda" with
     no card raises). The inner layers are stacked along a leading L-1
-    axis."""
-    device = resolve(device)
+    axis. ``device="meta"`` gives the same tree, shapes and types on
+    ``meta`` (drawn on the host as for any device, then moved there: the
+    GNN weights are a few MB)."""
+    device = resolve(device, allow_meta=True)
     gen = torch.Generator().manual_seed(int(seed))
     p = {"layer0": _init_layer(cfg, gen, cfg.f_in, cfg.f_hidden)}
     if cfg.n_layers > 1:
@@ -95,3 +97,18 @@ def gnn_forward(cfg: GNNConfig, params, batch, mode: str = "dense",
     prog, _ = lower_and_specialize(cfg, force=mode)
     return execute(prog, params, batch, impl=impl)
 
+
+
+# the paper's evaluated sweep (§5.2): 3 models x L in {3,5,8,16} x
+# N in {64,128,256}, hidden 256
+PAPER_MODELS = ("gcn", "sage", "gat")
+PAPER_LAYERS = (3, 5, 8, 16)
+PAPER_N = (64, 128, 256)
+
+
+def paper_model_grid(f_in: int = 500, num_classes: int = 0):
+    for kind in PAPER_MODELS:
+        for L in PAPER_LAYERS:
+            for N in PAPER_N:
+                yield GNNConfig(kind=kind, n_layers=L, receptive_field=N,
+                                f_in=f_in, num_classes=num_classes)

@@ -38,6 +38,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import op_analysis
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -203,6 +204,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
     with _count_lock:
         launches += 1
         variant_launches[variant] += 1
+    if op_analysis.active() is not None:
+        c = flash_cost(B, H, Sq, Sk, D, causal=causal,
+                       bytes_per=q.element_size())
+        op_analysis.note_kernel(
+            "flash_attention", c["flops"], c["hbm_bytes"],
+            torch.bfloat16 if variant == "wgmma" else torch.float32)
     return out
 
 

@@ -37,6 +37,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import op_analysis
 
 ACTS = {"none": lambda x: x, "relu": torch.relu,
         "elu": torch.nn.functional.elu}
@@ -200,4 +201,29 @@ def fused_gnn_layer(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
     with _count_lock:
         launches += 1
         variant_launches[variant] += 1
+    if op_analysis.active() is not None:
+        c = fused_cost(adj, h, w_neigh, w_self, b, mask)
+        op_analysis.note_kernel(
+            "fused_gnn_layer", c["flops"], c["hbm_bytes"],
+            "tf32x3" if variant == "tf32x3" else torch.float32)
     return out
+
+
+def fused_cost(adj, h, w_neigh, w_self=None, b=None, mask=None) -> dict:
+    """The function's operations and bytes (chip_smoke.py's bound and the
+    launch analysis share it): 2 C N Fin Fout a weight matrix, plus 2 C N N
+    Fout for A.(H.W); each input read once (adj only with w_neigh) and the
+    output [C, N, Fout] written once. The tf32x3 kernel issues three tf32
+    products a multiply-add: the roofline prices its operations at a third
+    of the tf32 rate."""
+    C, N, fin = h.shape
+    w = w_neigh if w_neigh is not None else w_self
+    fout = w.shape[1]
+    flops = 2.0 * C * N * fin * fout * ((w_neigh is not None)
+                                        + (w_self is not None))
+    if w_neigh is not None:
+        flops += 2.0 * C * N * N * fout
+    moved = sum(t.numel() * t.element_size() for t in (
+        adj if w_neigh is not None else None, h, w_neigh, w_self, b, mask)
+        if t is not None) + h.element_size() * C * N * fout
+    return {"flops": flops, "hbm_bytes": moved}

@@ -42,6 +42,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import op_analysis
 
 NEG_INF = -1e30
 VARIANTS = ("slab", "row")
@@ -185,4 +186,23 @@ def gat_attention(z, s_src, s_dst, struct, *, n_heads: int,
     with _count_lock:
         launches += 1
         variant_launches[variant] += 1
+    if op_analysis.active() is not None:
+        c = gat_cost(z, s_src, s_dst, struct, n_heads=n_heads)
+        op_analysis.note_kernel("gat_attention", c["flops"],
+                                c["hbm_bytes"], torch.float32)
     return out
+
+
+def gat_cost(z, s_src, s_dst, struct, *, n_heads: int) -> dict:
+    """The function's operations and bytes (chip_smoke.py's bound and the
+    launch analysis share it): 6 C heads N N for the scores, LeakyReLU and
+    softmax, and 2 F for each structural entry (struct > 0, this batch's
+    count: it reads the structure, so it waits for the card) of attn.z;
+    each input read once and the output [C, N, F] written once."""
+    C, N, F = z.shape
+    nnz = int((struct > 0).sum())
+    moved = sum(t.numel() * t.element_size()
+                for t in (z, s_src, s_dst, struct)) \
+        + z.element_size() * C * N * F
+    return {"flops": 2.0 * nnz * F + 6.0 * C * n_heads * N * N,
+            "hbm_bytes": moved}

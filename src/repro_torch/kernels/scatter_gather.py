@@ -43,6 +43,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import op_analysis
 
 VARIANTS = ("sort", "bucket")
 SORT_MAX_EDGES = 65536      # the sort kernel's 16-bit edge indices
@@ -212,4 +213,19 @@ def scatter_gather_aggregate(src, dst, w, h, block_cols=None):
         variant_launches[variant] += 1
         if variant == "sort":
             width_launches[block_cols] += 1
+    if op_analysis.active() is not None:
+        c = sg_cost(src, dst, w, h)
+        op_analysis.note_kernel("scatter_gather_aggregate", c["flops"],
+                                c["hbm_bytes"], torch.float32)
     return out
+
+
+def sg_cost(src, dst, w, h) -> dict:
+    """The function's operations and bytes (chip_smoke.py's bound and the
+    launch analysis share it): 2 F for each edge of weight != 0 (this
+    batch's count: it reads w, so it waits for the card), each input read
+    once and the output [C, N, F] written once."""
+    C, N, F = h.shape
+    moved = sum(t.numel() * t.element_size() for t in (src, dst, w, h)) \
+        + h.element_size() * C * N * F
+    return {"flops": 2.0 * int((w != 0).sum()) * F, "hbm_bytes": moved}

@@ -18,7 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import dense_init, matmul
+from repro_torch.models.common import (dense_init, einsum, fit_merge,
+                                       fit_split, masked_fill, matmul,
+                                       shard)
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
@@ -48,19 +50,57 @@ def qkv(params, x, n_heads, n_kv, head_dim):
     v = matmul(x, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv, head_dim)
-    v = v.reshape(B, S, n_kv, head_dim)
+    q = fit_split(q, -1, n_heads).reshape(B, S, n_heads, head_dim)
+    k = fit_split(k, -1, n_kv).reshape(B, S, n_kv, head_dim)
+    v = fit_split(v, -1, n_kv).reshape(B, S, n_kv, head_dim)
     return q, k, v
+
+
+def _per_query_head(t, heads: int):
+    """KV ``t`` [B,S,Kh,Dh] repeated to ``heads`` heads, query head h
+    reading KV head h // G; ``t`` itself when it has them."""
+    B, S, Kh, Dh = t.shape
+    if Kh == heads:
+        return t
+    return t[:, :, :, None].expand(B, S, Kh, heads // Kh, Dh).reshape(
+        B, S, heads, Dh)
+
+
+def _kv_heads(q, k):
+    """The KV heads the core reads for ``q``: ``k`` itself, or, for a
+    DTensor ``q`` whose head shards do not split into whole KV groups,
+    ``k`` repeated to one head a query head, so the core runs on ``q``'s
+    head shards (GSPMD shards both factors of the split, a DTensor dim
+    sits on one mesh dim); the same scores either way."""
+    if fit_split(q, 2, k.shape[2]) is q:
+        return k
+    return _per_query_head(k, q.shape[2])
+
+
+def _grouped(q, Kh: int):
+    """q [B,S,H,Dh] -> [B,S,Kh,G,Dh]. With one query head a KV head this
+    is an unsqueeze, which leaves a DTensor's uneven head shards (H not a
+    multiple of the model axis) in place; a reshape would gather them."""
+    B, S, H, Dh = q.shape
+    if Kh == H:
+        return q.unsqueeze(3)
+    return fit_split(q, 2, Kh).reshape(B, S, Kh, H // Kh, Dh)
+
+
+def _ungrouped(o):
+    """o [B,S,Kh,G,Dh] -> [B,S,Kh*G,Dh] (``_grouped``'s inverse)."""
+    B, S, Kh, G, Dh = o.shape
+    return o.squeeze(3) if G == 1 else o.reshape(B, S, Kh * G, Dh)
 
 
 def gqa_scores(q, k):
     """q [B,Sq,H,Dh], k [B,Sk,Kh,Dh] -> fp32 scores [B,Kh,G,Sq,Sk]
     (products of the inputs' values, summed in fp32)."""
     B, Sq, H, Dh = q.shape
+    k = _kv_heads(q, k)
     Kh = k.shape[2]
-    qg = q.reshape(B, Sq, Kh, H // Kh, Dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    qg = _grouped(q, Kh)
+    s = einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
     return s.div_(math.sqrt(Dh))
 
 
@@ -69,8 +109,9 @@ def gqa_out(probs, v):
     (the probabilities are cast to v's type first, as in JAX)."""
     B, Kh, G, Sq, _ = probs.shape
     Dh = v.shape[-1]
-    o = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
-    return o.reshape(B, Sq, Kh * G, Dh)
+    v = _per_query_head(v, Kh)
+    o = einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return _ungrouped(o)
 
 
 def chunked_gqa_attention(q, k, v, *, causal=True, block_q=1024):
@@ -79,13 +120,14 @@ def chunked_gqa_attention(q, k, v, *, causal=True, block_q=1024):
 
     q [B,S,H,Dh]; k/v [B,S,Kh,Dh]. Returns [B,S,H,Dh]."""
     B, S, H, Dh = q.shape
+    k, v = _kv_heads(q, k), _kv_heads(q, v)
     Kh = k.shape[2]
     G = H // Kh
     bq = min(block_q, S)
     if S % bq:
         raise ValueError(f"chunked_gqa_attention: S={S} is not a multiple "
                          f"of block_q={bq}")
-    qg = q.reshape(B, S, Kh, G, Dh).permute(0, 2, 3, 1, 4)   # [B,Kh,G,S,D]
+    qg = _grouped(q, Kh).permute(0, 2, 3, 1, 4)              # [B,Kh,G,S,D]
     kt = k.permute(0, 2, 1, 3)                               # [B,Kh,S,D]
     vt = v.permute(0, 2, 1, 3)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))  # as JAX
@@ -93,17 +135,17 @@ def chunked_gqa_attention(q, k, v, *, causal=True, block_q=1024):
     blocks = []
     for i in range(S // bq):
         qb = qg[:, :, :, i * bq:(i + 1) * bq]
-        s = torch.einsum("bkgqd,bksd->bkgqs", qb.float(), kt.float())
+        s = einsum("bkgqd,bksd->bkgqs", qb.float(), kt.float())
         s.mul_(scale)
         if causal:
             rows = i * bq + torch.arange(bq, device=q.device)
-            s.masked_fill_(~(rows[:, None] >= cols[None, :]), NEG_INF)
+            s = masked_fill(s, ~(rows[:, None] >= cols[None, :]), NEG_INF)
         p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
-        num = torch.einsum("bkgqs,bksd->bkgqd", p.to(vt.dtype), vt)
+        num = einsum("bkgqs,bksd->bkgqd", p.to(vt.dtype), vt)
         den = p.sum(dim=-1, keepdim=True).to(vt.dtype)
         blocks.append(num / den.clamp_min(1e-20))
     o = torch.cat(blocks, dim=3)                             # [B,Kh,G,S,D]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
+    return _ungrouped(o.permute(0, 3, 1, 2, 4))
 
 
 def _flash_core(q, k, v, causal):
@@ -130,6 +172,9 @@ def full_attention(params, x, *, n_heads, n_kv, head_dim, rope_theta=1e4,
         positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, rope_theta, rope_fraction)
     k = apply_rope(k, positions, rope_theta, rope_fraction)
+    q = shard(q, ("batch", None, "heads", None))
+    k = shard(k, ("batch", None, "kv_heads", None))
+    v = shard(v, ("batch", None, "kv_heads", None))
     if impl == "cuda":
         o = _flash_core(q, k, v, causal)
     elif chunk_q and S > chunk_q and S % chunk_q == 0:
@@ -138,11 +183,13 @@ def full_attention(params, x, *, n_heads, n_kv, head_dim, rope_theta=1e4,
         s = gqa_scores(q, k)                              # [B,Kh,G,S,S]
         if causal:
             keep = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-            s.masked_fill_(~keep, NEG_INF)
+            s = masked_fill(s, ~keep, NEG_INF)
         p = torch.softmax(s, dim=-1)
         del s
         o = gqa_out(p, v)
-    return matmul(o.reshape(B, S, n_heads * head_dim), params["wo"])
+    o = shard(o, ("batch", None, "heads", None))
+    return matmul(fit_merge(o, 2).reshape(B, S, n_heads * head_dim),
+                  params["wo"])
 
 
 def cross_attention(params, x, kv_cache, *, n_heads, n_kv, head_dim):
@@ -150,21 +197,25 @@ def cross_attention(params, x, kv_cache, *, n_heads, n_kv, head_dim):
     decoder over the encoder's output): no mask, no rope, plain ops on
     every impl, as the reference computes it outside any kernel."""
     B, Sq, _ = x.shape
-    q = matmul(x, params["wq"]).reshape(B, Sq, n_heads, head_dim)
+    q = fit_split(matmul(x, params["wq"]), -1, n_heads).reshape(
+        B, Sq, n_heads, head_dim)
     if "bq" in params:
         q = q + params["bq"].reshape(n_heads, head_dim)
     k, v = kv_cache
     p = torch.softmax(gqa_scores(q, k), dim=-1)
     o = gqa_out(p, v)
-    return matmul(o.reshape(B, Sq, n_heads * head_dim), params["wo"])
+    return matmul(fit_merge(o, 2).reshape(B, Sq, n_heads * head_dim),
+                  params["wo"])
 
 
 def cross_kv(params, enc_out, *, n_kv, head_dim):
     """The encoder output's keys and values [B,Skv,Kh,Dh] for
     ``cross_attention``."""
     B, Skv, _ = enc_out.shape
-    k = matmul(enc_out, params["wk"]).reshape(B, Skv, n_kv, head_dim)
-    v = matmul(enc_out, params["wv"]).reshape(B, Skv, n_kv, head_dim)
+    k = fit_split(matmul(enc_out, params["wk"]), -1, n_kv).reshape(
+        B, Skv, n_kv, head_dim)
+    v = fit_split(matmul(enc_out, params["wv"]), -1, n_kv).reshape(
+        B, Skv, n_kv, head_dim)
     if "bk" in params:
         k = k + params["bk"].reshape(n_kv, head_dim)
         v = v + params["bv"].reshape(n_kv, head_dim)
@@ -191,8 +242,9 @@ def decode_attention(params, x, k_cache, v_cache, pos, *, n_heads, n_kv,
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
     s = gqa_scores(q, k_cache)                            # [B,Kh,G,1,S]
-    s.masked_fill_(torch.arange(S, device=x.device) > pos, NEG_INF)
+    s = masked_fill(s, torch.arange(S, device=x.device) > pos, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = gqa_out(p, v_cache)
-    out = matmul(o.reshape(B, 1, n_heads * head_dim), params["wo"])
+    out = matmul(fit_merge(o, 2).reshape(B, 1, n_heads * head_dim),
+                 params["wo"])
     return out, k_cache, v_cache

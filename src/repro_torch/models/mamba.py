@@ -23,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.models.common import dense_init, matmul, rms_norm
+from repro_torch.models.common import (dense_init, einsum, fit_merge,
+                                       is_dtensor, matmul, randn, rms_norm,
+                                       shard)
 
 
 def dims(d_model: int, ssm: SSMConfig):
@@ -42,7 +44,7 @@ def init_mamba(gen, n_layers, d_model: int, ssm: SSMConfig,
     L = n_layers
     d_inner, H, d_xbc = dims(d_model, ssm)
     dev = gen.device
-    conv_w = torch.randn((L, ssm.d_conv, d_xbc), generator=gen, device=dev)
+    conv_w = randn(gen, (L, ssm.d_conv, d_xbc))
     a_log = torch.linspace(1.0, 16.0, H, device=dev).log()
     full = lambda w, v: torch.full((L, w), v, dtype=dtype,  # noqa: E731
                                    device=dev)
@@ -110,7 +112,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     cum_t = cum.transpose(2, 3)                              # [b,nc,H,Q]
     # intra-chunk: the masked decay matrix, masked BEFORE the exp (t < s
     # entries have positive exponents)
-    CB = torch.einsum("bcqhn,bcshn->bchqs", Cc, Bc)          # [b,nc,H,Q,Q]
+    CB = einsum("bcqhn,bcshn->bchqs", Cc, Bc)          # [b,nc,H,Q,Q]
     L = cum_t[..., :, None] - cum_t[..., None, :]
     keep = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     # the masked-exp chain in place when serving (two [b,nc,H,Q,Q] tensors
@@ -124,11 +126,11 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
         L.masked_fill_(~keep, -math.inf).exp_()
         scores = CB.mul_(L).mul_(dtc.transpose(2, 3)[..., None, :])
     del L
-    y = torch.einsum("bchqs,bcshp->bcqhp", scores, xc)
+    y = einsum("bchqs,bcshp->bcqhp", scores, xc)
     del scores, CB
     # each chunk's own state update, and its decay over the whole chunk
     dec_out = torch.exp(total[:, :, None, :] - cum) * dtc    # [b,nc,Q,H]
-    upd = torch.einsum("bcshn,bcshp->bchpn", Bc,
+    upd = einsum("bcshn,bcshp->bchpn", Bc,
                        xc * dec_out[..., None])              # [b,nc,H,P,N]
     decay = torch.exp(total)[..., None, None]                # [b,nc,H,1,1]
     # the recurrence: states[c] is the state entering chunk c
@@ -138,7 +140,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
         st.append(torch.addcmul(upd[:, c], st[c], decay[:, c]))
     states = torch.stack(st)
     # inter-chunk outputs from the carried states, all chunks at once
-    y += torch.einsum("bcqhn,bchpn->bcqhp",
+    y += einsum("bcqhn,bchpn->bcqhp",
                       Cc * torch.exp(cum)[..., None],
                       states[:nc].transpose(0, 1))
     return y.reshape(b, S, H, P).to(x.dtype), states[nc]
@@ -153,7 +155,11 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
     dbx = (x_t.to(f32) * dt32[..., None])[..., None] \
         * B_t.to(f32)[..., None, :]
     state = decay * state + dbx
-    y = (state @ C_t.to(f32)[..., None])[..., 0]
+    if is_dtensor(state) or is_dtensor(C_t):
+        # DTensor's batched-matmul strategy search is slow on a 3-d mesh
+        y = einsum("bhpn,bhn->bhp", state, C_t.to(f32))
+    else:
+        y = (state @ C_t.to(f32)[..., None])[..., 0]
     return state, y.to(x_t.dtype)
 
 
@@ -197,17 +203,26 @@ def mamba_block(params, x, d_model: int, ssm: SSMConfig):
     b, S, _ = x.shape
     d_inner, H, _ = dims(d_model, ssm)
     z, xbc, dt_raw = _split_proj(params, x, d_model, ssm)
-    # causal depthwise conv, width d_conv: the sum of shifted slices
-    pad = F.pad(xbc, (0, 0, ssm.d_conv - 1, 0))
+    # causal depthwise conv, width d_conv: the sum of shifted slices over
+    # the input after d_conv - 1 zero rows (a cat: DTensor's pad plan
+    # fails on some meshes)
+    front = torch.zeros_like(xbc[:, :1]).expand(b, ssm.d_conv - 1,
+                                                xbc.shape[-1])
+    pad = torch.cat([front, xbc], dim=1)
     conv = sum(pad[:, i:i + S] * params["conv_w"][i]
                for i in range(ssm.d_conv)) + params["conv_b"]
     x_ssm, B, C = _split_xbc(F.silu(conv), d_inner, ssm)
     x_h = x_ssm.reshape(b, S, H, ssm.head_dim)
+    x_h = shard(x_h, ("batch", None, "heads", None))
     dt, A = _dt_a(params, dt_raw)
-    y, _ = ssd_chunked(x_h, dt, A, _bc_heads(B, b, S, H, ssm),
-                       _bc_heads(C, b, S, H, ssm), min(ssm.chunk_size, S))
+    # B and C broadcast over the heads take x_h's head shards, where
+    # GSPMD's propagation puts them (DTensor propagates nothing)
+    Bh, Ch = (shard(_bc_heads(t, b, S, H, ssm),
+                    ("batch", None, "heads", None)) for t in (B, C))
+    y, _ = ssd_chunked(x_h, dt, A, Bh, Ch, min(ssm.chunk_size, S))
     y = y + x_h * params["D"][None, None, :, None]
-    y = rms_norm(y.reshape(b, S, d_inner) * F.silu(z), params["norm"])
+    y = rms_norm(fit_merge(y, 2).reshape(b, S, d_inner) * F.silu(z),
+                 params["norm"])
     return matmul(y, params["out_proj"])
 
 
@@ -233,7 +248,7 @@ def mamba_decode(params, x, cache, d_model: int, ssm: SSMConfig):
     f32 = torch.float32
     window = torch.cat([cache["conv"].to(f32), xbc[:, None, :].to(f32)],
                        dim=1)
-    conv = torch.einsum("bkc,kc->bc", window, params["conv_w"].to(f32)) \
+    conv = einsum("bkc,kc->bc", window, params["conv_w"].to(f32)) \
         + params["conv_b"].to(f32)
     x_ssm, B, C = _split_xbc(F.silu(conv).to(x.dtype), d_inner, ssm)
     x_h = x_ssm.reshape(b, H, ssm.head_dim)

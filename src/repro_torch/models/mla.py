@@ -27,7 +27,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import dense_init, matmul, rms_norm
+from repro_torch.models.common import (dense_init, einsum, fit_merge,
+                                       fit_split, masked_fill, matmul,
+                                       rms_norm, shard)
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
@@ -67,15 +69,15 @@ def _queries(params, x, n_heads, mla: MLAConfig):
                    params["w_uq"])
     else:
         q = matmul(x, params["wq"])
-    q = q.reshape(B, S, n_heads, qk_dim)
+    q = fit_split(q, -1, n_heads).reshape(B, S, n_heads, qk_dim)
     return q[..., :mla.qk_nope_head_dim], q[..., mla.qk_nope_head_dim:]
 
 
 def _einsum(eq, a, b):
-    """``torch.einsum`` after promoting both operands to their common type
+    """``einsum`` after promoting both operands to their common type
     (as jnp does)."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    return einsum(eq, a.to(dt), b.to(dt))
 
 
 def _scale(mla: MLAConfig) -> float:
@@ -122,8 +124,12 @@ def mla_full(params, x, *, n_heads, mla: MLAConfig, rope_theta=1e4,
     c_kv = rms_norm(matmul(x, params["w_dkv"]), params["kv_norm"])  # [B,S,r]
     k_rope = apply_rope(matmul(x, params["w_kr"])[:, :, None, :],
                         positions, rope_theta)                 # [B,S,1,rd]
-    k_nope = matmul(c_kv, params["w_uk"]).reshape(B, S, n_heads, nope)
-    v = matmul(c_kv, params["w_uv"]).reshape(B, S, n_heads, vd)
+    k_nope = fit_split(matmul(c_kv, params["w_uk"]), -1, n_heads).reshape(
+        B, S, n_heads, nope)
+    v = fit_split(matmul(c_kv, params["w_uv"]), -1, n_heads).reshape(
+        B, S, n_heads, vd)
+    q_nope = shard(q_nope, ("batch", None, "heads", None))
+    k_nope = shard(k_nope, ("batch", None, "heads", None))
     scale = _scale(mla)
 
     if impl == "cuda":
@@ -137,12 +143,13 @@ def mla_full(params, x, *, n_heads, mla: MLAConfig, rope_theta=1e4,
         for i in range(S // bq):
             qs = q_nope[:, i * bq:(i + 1) * bq].float()
             qr = q_rope[:, i * bq:(i + 1) * bq].float()
-            sb = torch.einsum("bqhd,bshd->bhqs", qs, kn)
-            sb += torch.einsum("bqhd,bsd->bhqs", qr, kr)
+            sb = einsum("bqhd,bshd->bhqs", qs, kn)
+            sb += einsum("bqhd,bsd->bhqs", qr, kr)
             sb.mul_(scale)
             if causal:
                 rows = i * bq + torch.arange(bq, device=x.device)
-                sb.masked_fill_(~(rows[:, None] >= cols[None, :]), NEG_INF)
+                sb = masked_fill(sb, ~(rows[:, None] >= cols[None, :]),
+                                 NEG_INF)
             pb = sb.sub_(sb.amax(dim=-1, keepdim=True)).exp_()
             num = _einsum("bhqs,bshd->bqhd", pb.to(v.dtype), v)
             den = pb.sum(dim=-1).to(v.dtype)                  # [B,h,q]
@@ -150,16 +157,17 @@ def mla_full(params, x, *, n_heads, mla: MLAConfig, rope_theta=1e4,
                 1e-20))
         o = torch.cat(blocks, dim=1)
     else:
-        s = torch.einsum("bqhd,bshd->bhqs", q_nope.float(), k_nope.float())
-        s += torch.einsum("bqhd,bsxd->bhqs", q_rope.float(), k_rope.float())
+        s = einsum("bqhd,bshd->bhqs", q_nope.float(), k_nope.float())
+        s += einsum("bqhd,bsxd->bhqs", q_rope.float(), k_rope.float())
         s.mul_(scale)
         if causal:
             keep = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-            s.masked_fill_(~keep, NEG_INF)
+            s = masked_fill(s, ~keep, NEG_INF)
         p = torch.softmax(s, dim=-1)
         del s
         o = _einsum("bhqs,bshd->bqhd", p.to(v.dtype), v)
-    out = matmul(o.reshape(B, S, n_heads * vd), params["wo"])
+    o = shard(o, ("batch", None, "heads", None))
+    out = matmul(fit_merge(o, 2).reshape(B, S, n_heads * vd), params["wo"])
     return out, (c_kv, k_rope[:, :, 0, :])
 
 
@@ -186,15 +194,15 @@ def mla_decode(params, x, ckv_cache, krope_cache, pos, *, n_heads,
     ckv_cache[:, pos] = c_kv[:, 0].to(ckv_cache.dtype)
     krope_cache[:, pos] = k_rope[:, 0].to(krope_cache.dtype)
     # absorb W_uk into q: q_lat [B,1,H,r]
-    w_uk = params["w_uk"].reshape(r, n_heads, nope)
+    w_uk = fit_split(params["w_uk"], -1, n_heads).reshape(r, n_heads, nope)
     q_lat = _einsum("bqhd,rhd->bqhr", q_nope, w_uk)
-    s = torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckv_cache.float())
-    s += torch.einsum("bqhd,bsd->bhqs", q_rope.float(), krope_cache.float())
+    s = einsum("bqhr,bsr->bhqs", q_lat.float(), ckv_cache.float())
+    s += einsum("bqhd,bsd->bhqs", q_rope.float(), krope_cache.float())
     s.mul_(_scale(mla))
-    s.masked_fill_(torch.arange(S, device=x.device) > pos, NEG_INF)
+    s = masked_fill(s, torch.arange(S, device=x.device) > pos, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhqs,bsr->bqhr", p.to(ckv_cache.dtype), ckv_cache)
-    w_uv = params["w_uv"].reshape(r, n_heads, vd)
+    ctx = einsum("bhqs,bsr->bqhr", p.to(ckv_cache.dtype), ckv_cache)
+    w_uv = fit_split(params["w_uv"], -1, n_heads).reshape(r, n_heads, vd)
     o = _einsum("bqhr,rhd->bqhd", ctx, w_uv)
-    out = matmul(o.reshape(B, 1, n_heads * vd), params["wo"])
+    out = matmul(fit_merge(o, 2).reshape(B, 1, n_heads * vd), params["wo"])
     return out, ckv_cache, krope_cache

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import act_fn, dense_init, matmul
+from repro_torch.models.common import act_fn, dense_init, matmul, shard
 
 
 def init_mlp(gen, n_layers, d_model, d_ff, act="silu",
@@ -27,8 +27,11 @@ def init_mlp(gen, n_layers, d_model, d_ff, act="silu",
 
 def mlp(params, x, act="silu"):
     f = act_fn(act)
+    axes = ("batch",) + (None,) * (x.ndim - 2) + ("ff",)
     if "w_gate" in params:
         h = f(matmul(x, params["w_gate"])) * matmul(x, params["w_up"])
+        h = shard(h, axes)
         return matmul(h, params["w_down"])
     h = f(matmul(x, params["w_in"]) + params["b_in"])
+    h = shard(h, axes)
     return matmul(h, params["w_out"]) + params["b_out"]

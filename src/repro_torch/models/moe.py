@@ -34,7 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.common import dense_init, matmul
+from repro_torch.models.common import (dense_init, einsum, full_local,
+                                       is_dtensor, matmul, on_replicated,
+                                       shard)
 from repro_torch.models.mlp import init_mlp, mlp
 
 
@@ -67,19 +69,30 @@ def route(router_w, x2d, moe: MoEConfig):
     # Switch-style aux loss: E * sum_e f_e * P_e
     T, E = logits.shape
     me = probs.mean(dim=0)
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() \
-        / (T * moe.top_k)
+    ce = expert_counts(top_e.reshape(-1), E).float() / (T * moe.top_k)
     return top_e, top_p, E * (me * ce).sum()
+
+
+def expert_counts(flat_e, E: int):
+    """How many of ``flat_e``'s ids name each of the E experts:
+    ``bincount``, which has no DTensor strategy and no ``meta`` kernel;
+    for a DTensor or a ``meta`` tensor the same counts as an exact
+    integer ``scatter_add`` over the ids gathered whole."""
+    if flat_e.device.type != "meta" and not is_dtensor(flat_e):
+        return torch.bincount(flat_e, minlength=E)
+    flat_e = full_local(flat_e)
+    return torch.zeros(E, dtype=torch.int64, device=flat_e.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
 
 
 def dispatch_indices(top_e, n_tokens: int, moe: MoEConfig, cap: int):
     """Sort-based ranking. Returns (dest slot [T*k] in [0, E*cap] where
     E*cap means 'dropped', source token [T*k] in sorted order, perm)."""
     k = moe.top_k
-    flat_e = top_e.reshape(-1)                               # [T*k]
+    flat_e = full_local(top_e).reshape(-1)                   # [T*k]
     perm = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[perm]
-    counts = torch.bincount(flat_e, minlength=moe.num_experts)
+    counts = expert_counts(flat_e, moe.num_experts)
     starts = torch.cumsum(counts, 0) - counts                # exclusive
     rank = torch.arange(n_tokens * k, device=top_e.device) - starts[sorted_e]
     dest = torch.where(rank < cap, sorted_e * cap + rank,
@@ -89,9 +102,12 @@ def dispatch_indices(top_e, n_tokens: int, moe: MoEConfig, cap: int):
 
 def _experts(params, eb):
     """eb [E, cap, D] -> [E, cap, D]: each expert's SwiGLU (SiLU whatever
-    the config's act, as the reference) as batched matmuls."""
+    the config's act, as the reference) as batched matmuls, the expert
+    axis on the "experts" rule."""
+    eb = shard(eb, ("experts", None, None))
     h = F.silu(matmul(eb, params["w_gate"])) * matmul(eb, params["w_up"])
-    return matmul(h, params["w_down"])
+    h = shard(h, ("experts", None, "expert_ff"))
+    return shard(matmul(h, params["w_down"]), ("experts", None, None))
 
 
 def moe_ffn(params, x, moe: MoEConfig, *, act="silu"):
@@ -104,20 +120,31 @@ def moe_ffn(params, x, moe: MoEConfig, *, act="silu"):
     top_e, top_p, aux = route(params["router"], x2d, moe)
     dest, tok, perm = dispatch_indices(top_e, T, moe, cap)
 
-    # scatter tokens into the expert buffer (the extra row catches drops)
-    buf = x2d.new_zeros((E * cap + 1, D))
-    buf[dest] = x2d[tok]
-    out_e = _experts(params, buf[:E * cap].reshape(E, cap, D))
+    # scatter tokens into the expert buffer (the extra row catches drops);
+    # DTensors are gathered whole around the index arithmetic (DTensor has
+    # no strategy for the index writes; GSPMD replicates the reference's
+    # scatter likewise)
+    def scatter(xs):
+        buf = xs.new_zeros((E * cap + 1, D))
+        buf[dest] = xs[tok]
+        return buf[:E * cap].reshape(E, cap, D)
+
+    out_e = _experts(params, on_replicated(scatter, x2d))
 
     # combine: gather back, weight by router prob, sum over k
-    flat = torch.cat([out_e.reshape(E * cap, D), out_e.new_zeros((1, D))])
-    contrib = flat[dest] * top_p.reshape(-1)[perm][:, None].to(x.dtype)
-    # each token's k pairs in sorted (expert) order, added one at a time
-    # from the first, as the reference's scatter-add adds them
-    by_tok = contrib[torch.argsort(tok, stable=True)].reshape(T, k, D)
-    y = by_tok[:, 0]
-    for i in range(1, k):
-        y = y + by_tok[:, i]
+    def combine(out_e, top_p):
+        flat = torch.cat([out_e.reshape(E * cap, D),
+                          out_e.new_zeros((1, D))])
+        contrib = flat[dest] * top_p.reshape(-1)[perm][:, None].to(x.dtype)
+        # each token's k pairs in sorted (expert) order, added one at a
+        # time from the first, as the reference's scatter-add adds them
+        by_tok = contrib[torch.argsort(tok, stable=True)].reshape(T, k, D)
+        y = by_tok[:, 0]
+        for i in range(1, k):
+            y = y + by_tok[:, i]
+        return y
+
+    y = on_replicated(combine, out_e, top_p)
     if "shared" in params:
         y = y + mlp(params["shared"], x2d, act)
     return y.reshape(B, S, D), aux
@@ -186,7 +213,7 @@ def moe_ffn_gather(params, x, moe: MoEConfig, *, act="silu"):
     ``routed_combine``."""
     B, S, D = x.shape
     T = B * S
-    x2d = x.reshape(T, D)
+    x2d = shard(x.reshape(T, D), ("batch", None))
     cap = capacity(T, moe)
     E, k = moe.num_experts, moe.top_k
     top_e, top_p, aux = route(params["router"], x2d, moe)
@@ -203,8 +230,10 @@ def moe_ffn_gather(params, x, moe: MoEConfig, *, act="silu"):
     eb = routed_dispatch(x2d, slot_tok, dest_tk, k)
     out_e = _experts(params, eb.reshape(E, cap, D)).reshape(E * cap, D)
     contrib = routed_combine(out_e, dest_tk, slot_pair)      # [T*k, D]
+    contrib = shard(contrib, ("batch", None))
     w_tok = top_p.reshape(T, k).to(x.dtype)
-    y = torch.einsum("tkd,tk->td", contrib.reshape(T, k, D), w_tok)
+    y = einsum("tkd,tk->td", contrib.reshape(T, k, D), w_tok)
+    y = shard(y, ("batch", None))
     if "shared" in params:
         y = y + mlp(params["shared"], x2d, act)
     return y.reshape(B, S, D), aux
@@ -227,7 +256,7 @@ def moe_ffn_dense_oracle(params, x, moe: MoEConfig, *, act="silu"):
     out_all = _experts(params, xe)                           # [E,T,D]
     w = x2d.new_zeros((T, moe.num_experts))
     w[torch.arange(T, device=x.device)[:, None], top_e] = top_p.to(x.dtype)
-    y = torch.einsum("etd,te->td", out_all, w)
+    y = einsum("etd,te->td", out_all, w)
     if "shared" in params:
         y = y + mlp(params["shared"], x2d, act)
     return y.reshape(B, S, D)

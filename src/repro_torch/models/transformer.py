@@ -50,8 +50,11 @@ from repro_torch.devices import resolve
 from repro_torch.models.attention import (cross_attention, cross_kv,
                                           decode_attention, full_attention,
                                           init_attn)
-from repro_torch.models.common import (cast_tree, dense_init, embed_init,
-                                       layer_norm, matmul, rms_norm)
+from repro_torch.models.common import (MetaGenerator, cast_tree,
+                                       dense_init, embed_init, is_dtensor,
+                                       layer_norm, matmul, mm,
+                                       replicate_dims, rms_norm, roll_left,
+                                       shard)
 from repro_torch.models.mamba import (dims as mamba_dims, init_mamba,
                                       mamba_block, mamba_decode)
 from repro_torch.models.mla import init_mla, mla_decode, mla_full
@@ -188,9 +191,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     ``torch.Generator`` seeded with ``seed`` on ``device`` itself (billions
     of normals are quick there and slow on the host); the numbers differ
     from JAX's (tests carry JAX's across with ``params_from_jax``).
-    ``max_seq`` sizes the audio family's learned positions ``pos_emb``."""
-    dev = resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    ``max_seq`` sizes the audio family's learned positions ``pos_emb``.
+    On ``device="meta"`` the tree has the same shapes and types and holds
+    no memory (the counterpart of ``jax.eval_shape`` of the reference's
+    ``init_params``)."""
+    dev = resolve(device, allow_meta=True)
+    gen = (MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
     dt, D = _pdt(cfg), cfg.d_model
     vec = lambda fill: torch.full((D,), fill, dtype=dt,  # noqa: E731
                                   device=dev)
@@ -288,6 +295,7 @@ def _block(cfg: ModelConfig, bp, h, mixer: str, ffn, impl: str,
     """One layer over the full sequence: (h', the MoE balance loss or 0).
     The Mamba mixer runs its SSD as plain ops on both impls; whisper's
     encoder layers are the ``causal=False`` ones."""
+    h = shard(h, ("batch", None, None))
     bp = cast_tree(bp, _cdt(cfg))
     x = _norm_in(cfg, bp, h, "ln1")
     if mixer == "mamba":
@@ -356,9 +364,46 @@ def _splice(h, patch_embeds):
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens):
+    """The token embeddings in the compute type: a row gather. A DTensor
+    table takes the vocab-parallel gather GSPMD makes of it, by hand on
+    the local shards (DTensor's own leaves a masked partial sum that some
+    torch releases cannot reduce later): each rank reads the rows of its
+    vocab shard, zeros the others, and the rows are all-reduced."""
     emb = params["embed"]
+    if is_dtensor(emb):
+        return _vocab_parallel_rows(emb, tokens).to(_cdt(cfg))
     idx = torch.as_tensor(tokens, device=emb.device).long()
     return emb[idx].to(_cdt(cfg))
+
+
+def _vocab_parallel_rows(emb, tokens):
+    """The rows of the DTensor table ``emb`` [V, D] (vocab-sharded) for
+    ``tokens``, replicated on the vocab's mesh dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = emb.device_mesh
+    table = replicate_dims(emb, [1])
+    vocab = [m for m, p in enumerate(table.placements) if p.is_shard()]
+    if is_dtensor(tokens):
+        tok_pl = [Replicate() if m in vocab else p
+                  for m, p in enumerate(tokens.placements)]
+        tok = tokens.redistribute(mesh, tok_pl).to_local()
+    else:
+        tok_pl, tok = [Replicate()] * mesh.ndim, tokens
+    local = table.to_local()         # the vocab tiles evenly (_sanitize)
+    n, coord, shard_no = local.shape[0], mesh.get_coordinate(), 0
+    for m in vocab:
+        shard_no = shard_no * mesh.size(m) + coord[m]
+    idx = tok.long() - shard_no * n
+    hit = (idx >= 0) & (idx < n)
+    rows = local[idx.clamp(0, n - 1)] * hit[..., None]
+    out_pl = [Partial() if m in vocab else (Shard(p.dim) if p.is_shard()
+                                            else Replicate())
+              for m, p in enumerate(tok_pl)]
+    shape = torch.Size((*tokens.shape, emb.shape[1]))
+    y = DTensor.from_local(rows, mesh, out_pl, run_check=False, shape=shape,
+                           stride=torch.empty(shape, device="meta").stride())
+    return y.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                 for p in out_pl])
 
 
 def _unembed(cfg: ModelConfig, params, h):
@@ -373,24 +418,26 @@ def _unembed(cfg: ModelConfig, params, h):
     out_dtype=float32)`` (fp32 sums) and the two are added. A bf16
     ``torch.matmul`` would round the logits to bf16, and rounding ``h``
     alone would move it by up to 2^-9. Under autograd (training) the card
-    takes the CPU's fp32 product, which autograd differentiates."""
+    takes the CPU's fp32 product, which autograd differentiates. ``meta``
+    tensors (the launch analysis) take the card's path."""
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].T
     cdt = _cdt(cfg)
+    h = shard(h, ("batch", None, None))
     B, S, D = h.shape
     a, b = h.reshape(B * S, D), w.to(cdt)
-    if (cdt == torch.float32 or not a.is_cuda
+    if (cdt == torch.float32 or a.device.type == "cpu"
             or torch.is_grad_enabled() and (a.requires_grad
                                             or b.requires_grad)):
         logits = a.float() @ b.float()
     else:
         hi = a.to(cdt)
-        logits = torch.mm(hi, b, out_dtype=torch.float32)
+        logits = mm(hi, b, out_dtype=torch.float32)
         if a.dtype != cdt:
             lo = (a.float() - hi.float()).to(cdt)
-            logits += torch.mm(lo, b, out_dtype=torch.float32)
-    return logits.reshape(B, S, -1)
+            logits += mm(lo, b, out_dtype=torch.float32)
+    return shard(logits.reshape(B, S, -1), ("batch", None, "vocab"))
 
 
 def backbone(cfg: ModelConfig, params, batch, impl: str = "cuda",
@@ -430,8 +477,7 @@ def train_logits(cfg: ModelConfig, params, batch, remat: bool = True):
     logits = _unembed(cfg, params, h)
     if cfg.mtp and "mtp" in params:
         mp = params["mtp"]
-        emb_next = torch.roll(_embed_tokens(cfg, params, batch["tokens"]),
-                              -1, dims=1)
+        emb_next = roll_left(_embed_tokens(cfg, params, batch["tokens"]))
         x = matmul(torch.cat(
             [rms_norm(h, mp["norm_h"].to(h.dtype), cfg.norm_eps),
              rms_norm(emb_next, mp["norm_e"].to(h.dtype), cfg.norm_eps)],
@@ -471,8 +517,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     caller writes the encoder's keys and values there (``cross_kv`` of
     ``_encode``'s output, layer by layer), as in the reference. The VLM
     family decodes as the dense family: its patches enter through
-    prefill only."""
-    dev = resolve(device)
+    prefill only. ``device="meta"`` gives the same tree with no memory
+    (the reference's ``mode="specs"``)."""
+    dev = resolve(device, allow_meta=True)
     zeros = lambda *s: torch.zeros(s, dtype=CACHE_DTYPE,  # noqa: E731
                                    device=dev)
     kv = (cfg.n_kv_heads, cfg.resolved_head_dim)

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import roll_left
 from repro_torch.models.transformer import train_logits
 from repro_torch.train.optim import (AdamWConfig, OptState, apply_updates,
                                      value_and_grad)
@@ -29,7 +30,7 @@ def loss_fn(cfg: ModelConfig, params, batch, remat=True):
     total = loss + AUX_WEIGHT * aux
     if "mtp_logits" in extras:
         mtp_loss, _ = softmax_xent(extras["mtp_logits"],
-                                   torch.roll(labels, -1, dims=1))
+                                   roll_left(labels))
         total = total + MTP_WEIGHT * mtp_loss
     return total, {"xent": loss, "aux": aux}
 

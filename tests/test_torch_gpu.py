@@ -28,7 +28,9 @@ wgmma flash kernel at whisper's encoder shape (non-causal, D=64, ragged
 S=1500), the reduced whisper and pixtral prefill through the kernel
 against the plain path and the CPU, whisper's bf16 policy on the wgmma
 kernel, and one LM train step (whisper, and the MoE family's gather
-pair) on the card against the CPU. Skipped where no CUDA device is
+pair) on the card against the CPU. The launch analysis: each kernel's
+``note_kernel`` record for one launch equals its ``*_cost``, and a GNN
+cell's impl="torch" count on the card equals its ``meta`` count. Skipped where no CUDA device is
 present; on the GPU machine run
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
@@ -1030,3 +1032,79 @@ def test_lm_train_step_on_the_card_matches_the_cpu(dev, name):
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
                                    atol=0.0)
+
+
+# -- the launch analysis -------------------------------------------------------
+
+
+def test_kernel_notes_equal_their_costs(dev):
+    """One launch of each kernel under ``op_analysis.counting`` records its
+    ``*_cost`` once, under the kernel's name."""
+    from repro_torch.launch import op_analysis
+    rng = np.random.default_rng(0)
+    c, n, f = 4, 64, 128
+    adj, mask = (torch.from_numpy(a).to(dev) for a in _adj(rng, c, n))
+    h = torch.randn(c, n, f, device=dev)
+    wn, ws = (torch.randn(f, f, device=dev) / f ** 0.5 for _ in range(2))
+    b = torch.zeros(f, device=dev)
+    e = 256
+    src = torch.randint(0, n, (c, e), dtype=torch.int32, device=dev)
+    dst = torch.randint(0, n, (c, e), dtype=torch.int32, device=dev)
+    w = torch.rand(c, e, device=dev) * (torch.rand(c, e, device=dev) > 0.3)
+    z, ss, sd, st = (torch.from_numpy(a).to(dev)
+                     for a in _gat_inputs(rng, c, n, f, HEADS))
+    q = torch.randn(1, 4, 256, 128, device=dev, dtype=torch.bfloat16)
+    kv = torch.randn(1, 2, 256, 128, device=dev, dtype=torch.bfloat16)
+    cases = [
+        ("fused_gnn_layer", lambda: fused_gnn.fused_gnn_layer(
+            adj, h, wn, ws, b, mask),
+         fused_gnn.fused_cost(adj, h, wn, ws, b, mask)),
+        ("scatter_gather_aggregate", lambda: scatter_gather
+         .scatter_gather_aggregate(src, dst, w, h),
+         scatter_gather.sg_cost(src, dst, w, h)),
+        ("gat_attention", lambda: gat_attention.gat_attention(
+            z, ss, sd, st, n_heads=HEADS),
+         gat_attention.gat_cost(z, ss, sd, st, n_heads=HEADS)),
+        ("flash_attention", lambda: flash_attention.flash_attention(
+            q, kv, kv, causal=True),
+         flash_attention.flash_cost(1, 4, 256, 256, 128, causal=True)),
+    ]
+    for name, launch, cost in cases:
+        with op_analysis.counting() as s:
+            launch()
+        torch.cuda.synchronize()
+        assert s.kernels == {name: {"launches": 1, "flops": cost["flops"],
+                                    "hbm_bytes": cost["hbm_bytes"]}}, name
+
+
+def test_gnn_cell_count_on_the_card_equals_meta(dev):
+    """A measured GNN cell (gat L=3 N=128 at 16 targets, a real batch):
+    impl="torch" on the card counts the meta cell's FLOPs and argument
+    bytes exactly; impl="cuda" launches the fused and GAT kernels and
+    notes them."""
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.cells import build_gnn_cell
+    cfg = GNNConfig(kind="gat", n_layers=3, receptive_field=128, f_in=512)
+    g = get_graph("flickr", scale=0.05, seed=0)
+    with DecoupledEngine(g, dataclasses.replace(cfg, f_in=g.feature_dim),
+                         config=ServingConfig(device="cuda", batch_size=16,
+                                              mode="dense")) as eng:
+        sb = eng.plan(zipf_traffic(g, 16, seed=0)).sb
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    batch = {"feats": t(np.pad(sb.feats, ((0, 0), (0, 0),
+                                         (0, 512 - g.feature_dim)))),
+             "adj": t(sb.adj), "adj_mean": t(sb.adj_mean),
+             "mask": t(sb.mask)}
+    params = init_gnn(cfg, seed=0, device="cuda")
+    meta = dryrun.run_cell(*build_gnn_cell(cfg, None, C=16), 1)
+    card = dryrun.run_cell(*build_gnn_cell(
+        cfg, None, C=16, params=params, batch=batch), 1)
+    assert card["hlo"]["flops"] == meta["hlo"]["flops"]
+    assert card["memory"]["argument_bytes"] == \
+        meta["memory"]["argument_bytes"]
+    cuda = dryrun.run_cell(*build_gnn_cell(
+        cfg, None, C=16, impl="cuda", params=params, batch=batch), 1)
+    assert set(cuda["hlo"]["kernels"]) == {"fused_gnn_layer",
+                                           "gat_attention"}
+    assert op_analysis.active() is None
