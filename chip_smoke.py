@@ -46,7 +46,8 @@
    tests/test_kernels.py (causal and not, Sq != Sk), on ragged S=1000 at
    D=64 and 128 and with grouped KV heads; bf16 at D=32 to one bf16 ulp
    with at least 99 % of the outputs bitwise equal. The wgmma kernel (bf16,
-   D=64 and 128) on small, ragged, non-causal and grouped shapes and at
+   D=64 and 128; (192, 128) in step 15) on small, ragged, non-causal and
+   grouped shapes and at
    the prefill's shape (B=1, H=40, 10 KV heads, S=8192, D=128, causal):
    ``flash_bf16_check`` (every element within ``flash_bf16_tol``, the mean
    signed error within 0.1 bf16 ulp, two launches bitwise equal; planted
@@ -197,12 +198,14 @@
    (launching what the lanes launched); each lane's device-stage histogram
    counting its batches.
 15. ``[kernels] flash_attention`` at MLA prefill's shape (B=1, H=16,
-   S=8192, q and k 192 wide, v 128 zero-padded to 192, bf16, causal) on
-   the ``cuda_core`` kernel: ``flash_bf16_check`` against its plain
-   version (the padded output columns zero), timed beside its plain
-   version and ``scaled_dot_product_attention`` with v at 128 (timed only;
-   the package never calls it), and a bound from the function's own work
-   (Q.K^T at 192 and P.V at 128 over the causal half). Runs after step 4,
+   S=8192, q and k 192 wide, v 128, bf16, causal) on the ``wgmma``
+   kernel's (192, 128) instance, v at its own width: ``flash_bf16_check``
+   against its plain version, timed beside its plain version,
+   ``scaled_dot_product_attention`` with v at 128 (timed only; the package
+   never calls it) and, in the same run, the ``cuda_core`` kernel on v
+   zero-padded to 192 (the route before; checked too, its padded output
+   columns zero), with a bound from the function's own work (Q.K^T at 192
+   and P.V at 128 over the causal half: ``flash_cost(v_dim=128)``). Runs after step 4,
    and is followed by the wgmma kernel at Jamba's attention shape (B=1,
    H=64, 8 KV heads, S=8192, D=128, bf16, causal): ``flash_bf16_check``,
    timed beside its plain version and ``scaled_dot_product_attention(
@@ -226,9 +229,11 @@
    shared ff 2816, dense first layer ff 10944; vocab 102400; fp32 params,
    bf16 compute), depth cut to 8 layers, seed-0 weights, the 8192-token
    prompt. ``prefill(impl="cuda")`` must launch ``flash_attention`` once
-   a layer, all on ``cuda_core`` (D=192), and no other kernel; two such
-   prefills must be bitwise equal; impl="torch" launches none. Routing is
-   compared first (``MOE_ROUTE_AGREE``), then the logits at ``LM_TOL``
+   a layer, all on ``wgmma`` (q/k 192, v 128 unpadded) and none on
+   ``cuda_core``, and no other kernel; two such prefills must be bitwise
+   equal; impl="torch" launches none. Routing is compared first
+   (``MOE_ROUTE_AGREE``; the agreement by layer is printed), then the
+   logits at ``LM_TOL``
    with the plain path routed as the kernel path (``RouteLog``), and 16
    decode steps (which never drop: capacity 8 for one token) against the
    prefill of the same 16 tokens given capacity for every assignment, at
@@ -294,7 +299,11 @@
    process) at full width on the single 16x16 mesh: phi3-medium-14b
    prefill_32k, deepseek-v2-lite-16b train_4k, whisper-tiny decode_32k
    and the five GNN serve cells; every cell must be ``ok``, and the
-   roofline table of the records is printed. (b) Cells measured on one
+   roofline table of the records is printed. Beside them, in a fifth
+   process, the reduced train cells of mamba2-2.7b and
+   jamba-1.5-large-398b on the (2, 4) fake mesh (SSD's cumulative sum
+   and its backward on local shards, ``models.common.cumsum``): both must
+   be ``ok``. (b) Cells measured on one
    card, at one card's share of the survey's GNN batch (4096 / 256 = 16
    targets) and at ``[lm]``'s phi3 prefill (B=1, S=8192, 8 of 40
    layers): the GNN cells on a real Build + Pack batch of the
@@ -1294,7 +1303,7 @@ def variant_phase(graph, targets, x, dev, label):
 def flash_wgmma_check(name, q, k, v, causal=True):
     """Runs the wgmma kernel twice and holds it to ``flash_bf16_check``;
     returns the readings."""
-    check(flash_variant(q.dtype, q.shape[-1]) == "wgmma",
+    check(flash_variant(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma",
           f"{name}: not a shape of the wgmma kernel")
     before = flash_kernels.variant_launches["wgmma"]
     out = flash_attention(q, k, v, causal=causal)
@@ -3074,9 +3083,10 @@ def moe_lm_phase(label):
     want = {k: (cfg.n_layers if k == "flash_attention" else 0)
             for k in launches}
     check(launches == want, f"prefill launches {launches}, expected {want}")
-    check(variants == {"wgmma": 0, "cuda_core": cfg.n_layers},
+    check(variants == {"wgmma": cfg.n_layers, "cuda_core": 0},
           f"prefill's flash_attention launches by kernel {variants}, "
-          f"expected all {cfg.n_layers} on the cuda_core kernel (D=192)")
+          f"expected all {cfg.n_layers} on the wgmma kernel (q/k 192, "
+          f"v 128)")
     check(tuple(logits.shape) == (1, LM_SEQ, cfg.vocab_size)
           and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()), "bad prefill logits")
@@ -3935,9 +3945,12 @@ def flash_audio_vlm_rows(dev, label):
 
 
 def flash_mla_phase(dev, label):
-    """``flash_attention`` at MLA prefill's shape (v padded from 128 to
-    192) on the cuda_core kernel: checked, timed beside its plain version
-    and SDPA (q/k 192, v 128); returns its record."""
+    """``flash_attention`` at MLA prefill's shape (q/k 192, v 128) on the
+    wgmma kernel, v at its own width: checked (``flash_wgmma_check``),
+    timed beside its plain version, SDPA (q/k 192, v 128) and, in the
+    same run, the cuda_core kernel on v zero-padded to 192 (the route
+    before the (192, 128) wgmma kernel; checked too); returns the wgmma
+    record with the padded kernel's time as ``cuda_core_padded_ms``."""
     B, H, S, D, DV = 1, 16, LM_SEQ, 192, 128
     print("[kernels] flash_attention at the MLA prefill shape", flush=True)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3946,8 +3959,10 @@ def flash_mla_phase(dev, label):
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
     q, k, v = rnd(B, H, S, D), rnd(B, H, S, D), rnd(B, H, S, DV)
+    tag = f"B={B} H={H} S={S} q/k {D} v {DV} bf16 causal"
+    r = flash_wgmma_check(f"flash wgmma {tag}", q, k, v)
     vp = F.pad(v, (0, D - DV))
-    check(flash_variant(q.dtype, D) == "cuda_core", "D=192 variant")
+    check(flash_variant(q.dtype, D, D) == "cuda_core", "(192, 192) variant")
     before = flash_kernels.variant_launches["cuda_core"]
     out = flash_attention(q, k, vp)
     again = flash_attention(q, k, vp)
@@ -3955,41 +3970,38 @@ def flash_mla_phase(dev, label):
     check(flash_kernels.variant_launches["cuda_core"] == before + 2,
           "the cuda_core kernel was not launched")
     want = flash_attention_ref(q.float(), k.float(), vp.float())
-    r = flash_bf16_check(out, again, want, flash_bf16_tol(q, k, vp))
+    rp = flash_bf16_check(out, again, want, flash_bf16_tol(q, k, vp))
     pad_zero = bool((out[..., DV:] == 0).all())
-    del want, again
-    tag = f"B={B} H={H} S={S} D={D} (v {DV} padded to {D}) bf16 causal"
-    print(f"  flash cuda_core {tag}: max_abs_err={r['max_abs_err']:.3e}, "
-          f"worst {r['worst']:.3f} of flash_bf16_tol, mean signed error "
-          f"{r['bias_ulp']:+.4f} ulp, repeatable {r['repeatable']}, padded "
-          f"columns zero {pad_zero} "
-          f"{'ok' if r['ok'] and pad_zero else 'FAIL'}", flush=True)
-    check(r["ok"] and pad_zero, f"flash {tag} disagrees with its plain "
-                                f"version")
-    ms = cuda_ms(lambda: flash_attention(q, k, vp), iters=10)
-    plain = cuda_ms(lambda: flash_attention_ref(q, k, vp), iters=3,
+    del want, again, out
+    ptag = f"B={B} H={H} S={S} D={D} (v {DV} padded to {D}) bf16 causal"
+    print(f"  flash cuda_core {ptag}: max_abs_err={rp['max_abs_err']:.3e}, "
+          f"worst {rp['worst']:.3f} of flash_bf16_tol, mean signed error "
+          f"{rp['bias_ulp']:+.4f} ulp, repeatable {rp['repeatable']}, "
+          f"padded columns zero {pad_zero} "
+          f"{'ok' if rp['ok'] and pad_zero else 'FAIL'}", flush=True)
+    check(rp["ok"] and pad_zero, f"flash {ptag} disagrees with its plain "
+                                 f"version")
+    ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
+    padded = cuda_ms(lambda: flash_attention(q, k, vp), iters=5, warmup=1)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=3,
                     warmup=1)
-    try:
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), iters=10)
-    except RuntimeError as e:       # no SDPA backend for Ev != E here
-        lib = None
-        print(f"  scaled_dot_product_attention at q/k {D}, v {DV}: {e}",
-              flush=True)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
     # the function's work: Q.K^T at 192 and P.V at 128 over the causal
     # half; q, k, v and the 128-wide output each moved once
-    flops = 2.0 * B * H * S * S * 0.5 * (D + DV)
-    moved = 2 * B * H * S * (2 * D + 2 * DV)
+    c = flash_cost(B, H, S, S, D, causal=True, v_dim=DV)
+    flops, moved = c["flops"], c["hbm_bytes"]
     bnd, by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
-    print(f"  flash cuda_core {tag}: kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
-          f"{'none' if lib is None else f'{lib:.4f} ms'} "
-          f"(scaled_dot_product_attention, v {DV}), bound {bnd:.4f} ms "
-          f"({by}; {flops:.4g} operations, {moved:.4g} bytes) [{label}]",
+    print(f"  flash wgmma {tag}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), cuda_core on v padded to {D} "
+          f"{padded:.4f} ms ({padded / ms:.1f}x), plain {plain:.4f} ms, "
+          f"library {lib:.4f} ms (scaled_dot_product_attention, v {DV}), "
+          f"bound {bnd:.4f} ms ({by}; {flops:.4g} operations, "
+          f"{moved:.4g} bytes): {ms / bnd:.2f}x the bound [{label}]",
           flush=True)
-    return dict(variant="cuda_core", shape=tag, max_abs_err=r["max_abs_err"],
+    return dict(variant="wgmma", shape=tag, max_abs_err=r["max_abs_err"],
                 ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib)
+                library_ms=lib, cuda_core_padded_ms=padded)
 
 
 def serving_batch():
@@ -4019,22 +4031,32 @@ LAUNCH_SURVEY = (["--arch", "phi3-medium-14b", "--shape", "prefill_32k"],
                  ["--arch", "whisper-tiny", "--shape", "decode_32k"],
                  ["--gnn-only"])
 LAUNCH_DIR = ROOT / "build" / "dryrun_torch"
+# the SSD archs' train cells on the (2, 4) fake mesh: their backward
+# reaches cumsum's flip, which DTensor has no strategy for in some torch
+# releases (models.common.cumsum runs it on local shards)
+LAUNCH_TRAIN = ["--arch", "mamba2-2.7b,jamba-1.5-large-398b", "--shape",
+                "train_4k", "--test-mesh", "2,4", "--reduced"]
+LAUNCH_TRAIN_DIR = ROOT / "build" / "dryrun_torch_train"
 LAUNCH_GNN_C = 4096 // 256       # GNN_SERVE_BATCH over the 16x16 mesh
 LAUNCH_SHARE_MAX = 1.05
 LAUNCH_RUNS = 21
 
 
 def launch_survey(label):
-    """(a): the survey's four dry-runs at once, each in its own process
-    (one fake process group a process); prints the roofline table."""
-    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    """(a): the survey's four dry-runs and the SSD archs' train cells at
+    once, each in its own process (one fake process group a process);
+    prints the roofline table of the survey and the train cells' counts."""
+    runs = [["--mesh", "single", "--out", str(LAUNCH_DIR), *a]
+            for a in LAUNCH_SURVEY]
+    runs.append([*LAUNCH_TRAIN, "--out", str(LAUNCH_TRAIN_DIR)])
+    for d in (LAUNCH_DIR, LAUNCH_TRAIN_DIR):
+        shutil.rmtree(d, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
-         "single", "--out", str(LAUNCH_DIR), *a], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for a in LAUNCH_SURVEY]
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *a], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a in runs]
     try:
         logs = [p.communicate(timeout=900)[0] for p in procs]
     finally:
@@ -4042,7 +4064,7 @@ def launch_survey(label):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for a, p, log in zip(LAUNCH_SURVEY, procs, logs):
+    for a, p, log in zip(runs, procs, logs):
         for line in log.splitlines():
             if line.startswith(("[cell]", "  ok", "  FAIL", "done")):
                 print(f"[launch] {line}", flush=True)
@@ -4055,6 +4077,16 @@ def launch_survey(label):
     for line in roofline.render_md(rows).splitlines():
         print(f"[launch] {line}", flush=True)
     check(len(rows) == 8, f"the survey recorded {len(rows)} cells, not 8")
+    for arch in LAUNCH_TRAIN[1].split(","):
+        with open(LAUNCH_TRAIN_DIR / f"{arch}__train_4k__2x4.json") as f:
+            rec = json.load(f)
+        print(f"[launch] {arch} train_4k reduced on the (2, 4) fake mesh "
+              f"(torch {torch.__version__}): ok {rec['ok']}, "
+              f"{rec.get('hlo', {}).get('flops', 0):.6g} FLOP and "
+              f"{rec.get('hlo', {}).get('collective_link_bytes', 0):.6g} "
+              f"link bytes a device {'ok' if rec['ok'] else 'FAIL'} "
+              f"[{label}]", flush=True)
+        check(rec["ok"], f"the {arch} train cell failed: {rec.get('error')}")
 
 
 def _event_ms(fn, runs: int = LAUNCH_RUNS) -> float:

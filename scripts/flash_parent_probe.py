@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""One-off card probe: the wgmma flash kernel at D=64 and D=128 of this
+tree against an earlier commit's, bit for bit.
+
+    python3 scripts/flash_parent_probe.py --extract [--rev HEAD~1]  # in git
+    python3 scripts/flash_parent_probe.py                           # on a GPU
+
+``--extract`` writes the earlier commit's ``csrc/flash_attention.cu`` and
+the ``csrc`` headers it includes (``git show REV:...``) to
+``build/flash_parent/`` (which ``.gitignore`` covers) with the revision's
+hash beside them, and exits; the machine with the card need not hold the
+repository's history. Without it, the probe builds that copy with this
+tree's nvcc flags into the same directory, builds this tree's kernel
+(``kernels/build.py``), and at phi3's (B=1, H=40, 10 KV heads, S=8192,
+D=128, causal), pixtral's (B=1, H=32, 8 KV heads, S=8192, D=128, causal)
+and whisper's encoder (B=16, H=6, S=1500, D=64, non-causal) and decoder
+(B=16, H=6, S=448, D=64, causal) shapes launches both on the same bf16
+inputs (seeded on the card) and compares the outputs with
+``torch.equal``. It times both kernels there through the same host path,
+a direct ``ctypes`` call each (CUDA events; the earlier kernel, this
+tree's, this tree's, the earlier one) and this tree's through the
+``flash_attention`` wrapper, and prints one line a shape.
+Exits 1 unless every shape is bitwise equal.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+OUT = ROOT / "build" / "flash_parent"
+CSRC = "src/repro_torch/csrc"
+SHAPES = (  # what, B, H, Kh, S, D, causal
+    ("phi3", 1, 40, 10, 8192, 128, True),
+    ("pixtral", 1, 32, 8, 8192, 128, True),
+    ("whisper encoder", 16, 6, 6, 1500, 64, False),
+    ("whisper decoder", 16, 6, 6, 448, 64, True),
+)
+
+
+def extract(rev: str) -> None:
+    """The revision's kernel source and the headers it includes, to OUT."""
+    def show(name):
+        return subprocess.run(["git", "show", f"{rev}:{CSRC}/{name}"],
+                              cwd=ROOT, check=True, capture_output=True,
+                              text=True).stdout
+    OUT.mkdir(parents=True, exist_ok=True)
+    todo, seen = ["flash_attention.cu"], set()
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        text = show(name)
+        (OUT / name).write_text(text)
+        todo += [h for h in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text,
+                                       re.M)]
+    sha = subprocess.run(["git", "rev-parse", rev], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout.strip()
+    (OUT / "REV").write_text(sha + "\n")
+    print(f"extracted {sorted(seen)} of {sha} to {OUT}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--extract", action="store_true")
+    ap.add_argument("--rev", default="HEAD~1")
+    args = ap.parse_args()
+    if args.extract:
+        extract(args.rev)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_parent_probe: no CUDA device", file=sys.stderr)
+        return 1
+    if not (OUT / "flash_attention.cu").exists():
+        print(f"flash_parent_probe: no earlier source in {OUT}; run with "
+              f"--extract in a git checkout first", file=sys.stderr)
+        return 1
+    import chip_smoke as smoke
+    from repro_torch.kernels import build, flash_attention as fa
+    label = smoke.card()
+    rev = (OUT / "REV").read_text().strip()
+    print(f"[env] {label}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; earlier kernel from {rev}", flush=True)
+    so = OUT / "flash_attention_parent.so"
+    p = subprocess.run(build.nvcc_command(OUT / "flash_attention.cu", so),
+                       capture_output=True, text=True)
+    if p.returncode:
+        print(p.stderr, file=sys.stderr)
+        return 1
+    old = ctypes.CDLL(str(so))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    old.flash_attention_wgmma_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
+                                              i, ctypes.c_float, i, vp]
+    old.flash_attention_wgmma_fwd.restype = i
+
+    new = fa._lib()
+
+    def launch(lib, q, k, v, causal):
+        B, H, S, D = q.shape
+        out = torch.empty_like(q)
+        widths = (D,) if lib is old else (D, D)     # this tree's takes Dv
+        err = lib.flash_attention_wgmma_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            k.shape[1], S, k.shape[2], *widths, 1.0 / D ** 0.5, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"a kernel launch failed (error {err})")
+        return out
+
+    ok = True
+    for what, B, H, KH, S, D, causal in SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(S + D)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16)
+                   for shape in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D)))
+        check(fa.flash_variant(q.dtype, D) == "wgmma", what)
+        before = fa.variant_launches["wgmma"]
+        got = fa.flash_attention(q, k, v, causal=causal)
+        was = launch(old, q, k, v, causal)
+        torch.cuda.synchronize()
+        check(fa.variant_launches["wgmma"] == before + 1, what)
+        same = bool(torch.equal(got, was))
+        ok &= same
+        t = [smoke.cuda_ms(lambda lib=lib: launch(lib, q, k, v, causal))
+             for lib in (old, new, new, old)]
+        wrapped = smoke.cuda_ms(lambda: fa.flash_attention(q, k, v,
+                                                           causal=causal))
+        print(f"[parent] {what} B={B} H={H} Kh={KH} S={S} D={D} "
+              f"{'causal' if causal else 'non-causal'}: bitwise equal "
+              f"{same}; ms earlier / this / this / earlier "
+              f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f}, this "
+              f"through flash_attention {wrapped:.4f} "
+              f"{'ok' if same else 'FAIL'} [{label}]", flush=True)
+    print(f"[parent] all bitwise equal: {ok}", flush=True)
+    return 0 if ok else 1
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"flash_parent_probe: {what}: not on the wgmma "
+                         f"kernel")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,13 +8,21 @@
 //     online softmax over key tiles: m, l running max and sum
 //     out[r] = (sum_c exp(s[c] - m) v[c]) / max(l, 1e-20)   in q's type
 //
-// q [B,H,Sq,D], k/v [B,Kh,Sk,D] with H % Kh == 0: query head h reads KV
-// head h / (H/Kh) (grouped-query attention, read in place, no copies).
+// q [B,H,Sq,D], k [B,Kh,Sk,D], v [B,Kh,Sk,Dv], out [B,H,Sq,Dv] with
+// H % Kh == 0: query head h reads KV head h / (H/Kh) (grouped-query
+// attention, read in place, no copies).
 //
-// Two kernels; the caller picks one by dtype and D before launch
-// (kernels/flash_attention.py, flash_variant):
+// Two kernels; the caller picks one by dtype, D and v's width Dv before
+// launch (kernels/flash_attention.py, flash_variant):
 //
-// wgmma (bf16, D in {64, 128}): bound by operations. At the serving shape
+// wgmma (bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128)}): bound by
+// operations. The kernel is templated on both widths: Q.K^T runs D/16
+// k-steps over D/64 swizzled 64-column boxes of Q and K, P.V runs over
+// Dv/64 boxes of V into a [64, Dv] accumulator, and the output is Dv wide.
+// (192, 128) is MLA prefill's core (q and k nope + rope, v at its own
+// width: no padded third of P.V); it keeps D=128's registers (S and O 64
+// fp32 a thread) and needs 214,072 bytes of shared memory (Q 48 KiB, a
+// stage 48 KiB of K and 32 KiB of V). At the serving shape
 // (B=1, H=40, S=8192, D=128, causal) the function moves 335 MB and does
 // 6.87e11 operations: 0.69 ms at the tensor cores' 989 TFLOP/s (bf16).
 // One block of 384 threads per (b*h, 128 query rows), the heaviest causal
@@ -33,8 +41,9 @@
 // (TMA fills rows past Sq or Sk with zeros), so any Sq and Sk work.
 // Rounding P to bf16 before P.V is what the reference's model paths do.
 //
-// CUDA cores (float32 at any D <= 256, bf16 at other D): every product and
-// sum in fp32, as in the TPU kernel, P kept in fp32. One block of 256
+// CUDA cores (float32 at any D <= 256, bf16 at other widths; Dv = D, the
+// wrapper zero-pads a narrower v): every product and sum in fp32, as in
+// the TPU kernel, P kept in fp32. One block of 256
 // threads per (b*h, 64 query rows); the query tile sits in shared memory,
 // transposed; key and value tiles of 64 rows are staged through shared
 // memory one at a time (fp32, zero-padded to a multiple of 64 columns).
@@ -267,7 +276,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 
-// -- the wgmma kernel (bf16, D = 64 or 128) ---------------------------------
+// -- the wgmma kernel (bf16; (D, Dv) = (64, 64), (128, 128), (192, 128)) -----
 
 namespace wg {
 
@@ -281,13 +290,15 @@ constexpr int BOX_Q = BQ * 128;   // bytes of one 64-column TMA box of Q
 constexpr int BOX_KV = BK * 128;  // ... of K or V
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// Q is DK wide, K DK and V DV wide per stage.
+template <int DK, int DV>
 struct Smem {
-  static constexpr int Q = BQ * D * 2;
-  static constexpr int KV = BK * D * 2;
+  static constexpr int Q = BQ * DK * 2;
+  static constexpr int K = BK * DK * 2;
+  static constexpr int V = BK * DV * 2;
   // 1024 bytes of slack to align the tiles; 3 * STAGES + 1 barriers
   static constexpr int BYTES =
-      1024 + Q + 2 * STAGES * KV + 8 * (3 * STAGES + 1);
+      1024 + Q + STAGES * (K + V) + 8 * (3 * STAGES + 1);
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -308,8 +319,8 @@ __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float a,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <int D>
-__device__ __forceinline__ void pv_mma(float (&o)[D / 2],
+template <int DV>
+__device__ __forceinline__ void pv_mma(float (&o)[DV / 2],
                                        const uint32_t (&a)[4], uint64_t b);
 template <>
 __device__ __forceinline__ void pv_mma<128>(float (&o)[64],
@@ -323,20 +334,22 @@ __device__ __forceinline__ void pv_mma<64>(float (&o)[32],
   wgmma_rs_m64n64k16(o, a, b);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ out, int H, int Kh, int Sq,
                    int Sk, float scale_log2, int causal) {
-  using S = Smem<D>;
-  constexpr int BOXES = D / 64;
+  using S = Smem<DK, DV>;
+  static_assert(S::BYTES <= 232448, "more shared memory than a block has");
+  constexpr int QK_BOXES = DK / 64;
+  constexpr int V_BOXES = DV / 64;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
-  const uint32_t sK = sQ + S::Q;                    // + stage * S::KV
-  const uint32_t sV = sK + STAGES * S::KV;
-  const uint32_t bar = sV + STAGES * S::KV;
+  const uint32_t sK = sQ + S::Q;                    // + stage * S::K
+  const uint32_t sV = sK + STAGES * S::K;           // + stage * S::V
+  const uint32_t bar = sV + STAGES * S::V;
   const uint32_t q_full = bar;
   auto k_full = [&](int s) { return bar + 8 * (1 + s); };
   auto v_full = [&](int s) { return bar + 8 * (1 + STAGES + s); };
@@ -364,18 +377,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     regs_dealloc<24>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, S::Q);
-      for (int b = 0; b < BOXES; ++b)
+      for (int b = 0; b < QK_BOXES; ++b)
         tma_load_3d(sQ + b * BOX_Q, &tm_q, q_full, 64 * b, q0, bh);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         if (j >= STAGES) mbar_wait(empty(s), (j / STAGES - 1) & 1);
-        mbar_expect_tx(k_full(s), S::KV);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_3d(sK + s * S::KV + b * BOX_KV, &tm_k, k_full(s), 64 * b,
+        mbar_expect_tx(k_full(s), S::K);
+        for (int b = 0; b < QK_BOXES; ++b)
+          tma_load_3d(sK + s * S::K + b * BOX_KV, &tm_k, k_full(s), 64 * b,
                       j * BK, kvh);
-        mbar_expect_tx(v_full(s), S::KV);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_3d(sV + s * S::KV + b * BOX_KV, &tm_v, v_full(s), 64 * b,
+        mbar_expect_tx(v_full(s), S::V);
+        for (int b = 0; b < V_BOXES; ++b)
+          tma_load_3d(sV + s * S::V + b * BOX_KV, &tm_v, v_full(s), 64 * b,
                       j * BK, kvh);
       }
     }
@@ -390,9 +403,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int t = tid % 4;
   const int r0 = q0 + 64 * cw + 16 * (tid / 32) + (tid % 32) / 4;
   const int r1 = r0 + 8;
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
   float m0 = -INFINITY, m1 = -INFINITY;           // running max (raw q.k)
   float l0 = 0.0f, l1 = 0.0f;                     // this lane's part of l
   mbar_wait(q_full, 0);
@@ -406,12 +419,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;   // 16 columns = 32 bytes
       const uint64_t da = desc_sw128(
           sQ + (kk / 4) * BOX_Q + cw * 64 * 128 + col, 16, 1024);
       const uint64_t db =
-          desc_sw128(sK + s * S::KV + (kk / 4) * BOX_KV + col, 16, 1024);
+          desc_sw128(sK + s * S::K + (kk / 4) * BOX_KV + col, 16, 1024);
       wgmma_ss_m64n128k16(sc, da, db, kk > 0);
     }
     wgmma_commit();
@@ -460,7 +473,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       o[4 * i] *= alpha0;
       o[4 * i + 1] *= alpha0;
       o[4 * i + 2] *= alpha1;
@@ -478,7 +491,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
-      pv_mma<D>(o, a, desc_sw128(sV + s * S::KV + kk * 16 * 128, BOX_KV, 1024));
+      pv_mma<DV>(o, a,
+                 desc_sw128(sV + s * S::V + kk * 16 * 128, BOX_KV, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -492,15 +506,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float den0 = fmaxf(l0, 1e-20f), den1 = fmaxf(l1, 1e-20f);
-  __nv_bfloat16* ob = out + (long long)bh * Sq * D;
+  __nv_bfloat16* ob = out + (long long)bh * Sq * DV;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DV / 8; ++i) {
     const int c = 8 * i + 2 * t;
     if (r0 < Sq)
-      store_bf16x2(&ob[(long long)r0 * D + c], o[4 * i] / den0,
+      store_bf16x2(&ob[(long long)r0 * DV + c], o[4 * i] / den0,
                    o[4 * i + 1] / den0);
     if (r1 < Sq)
-      store_bf16x2(&ob[(long long)r1 * D + c], o[4 * i + 2] / den1,
+      store_bf16x2(&ob[(long long)r1 * DV + c], o[4 * i + 2] / den1,
                    o[4 * i + 3] / den1);
   }
 }
@@ -513,21 +527,22 @@ int make_map(CUtensorMap* map, const void* ptr, int heads, int rows, int D,
                      heads, 64, box_rows);
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Kh, int Sq, int Sk, float scale, int causal,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int err = make_map(&mq, q, B * H, Sq, D, BQ);
-  if (!err) err = make_map(&mk, k, B * Kh, Sk, D, BK);
-  if (!err) err = make_map(&mv, v, B * Kh, Sk, D, BK);
+  int err = make_map(&mq, q, B * H, Sq, DK, BQ);
+  if (!err) err = make_map(&mk, k, B * Kh, Sk, DK, BK);
+  if (!err) err = make_map(&mv, v, B * Kh, Sk, DV, BK);
   if (err) return err;
-  auto kernel = flash_wgmma_kernel<D>;
+  auto kernel = flash_wgmma_kernel<DK, DV>;
+  constexpr int smem = Smem<DK, DV>::BYTES;
   const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  kernel<<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, Kh, Sq, Sk,
       scale * LOG2E, causal);
   return static_cast<int>(cudaGetLastError());
@@ -567,15 +582,21 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The wgmma kernel: bfloat16, D = 64 or 128, pointers 16-byte aligned.
+// The wgmma kernel: bfloat16, pointers 16-byte aligned, q and k D wide,
+// v [B,Kh,Sk,Dv] and out [B,H,Sq,Dv] Dv wide, (D, Dv) one of (64, 64),
+// (128, 128) and (192, 128). (192, 192) would need 246,840 bytes of shared
+// memory at two stages, more than a block has.
 int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
                               void* out, int B, int H, int Kh, int Sq, int Sk,
-                              int D, float scale, int causal, void* stream) {
+                              int D, int Dv, float scale, int causal,
+                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return wg::launch<128>(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s);
-  if (D == 64)
-    return wg::launch<64>(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s);
+#define WG_LAUNCH(DK, DV) \
+  wg::launch<DK, DV>(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s)
+  if (D == 128 && Dv == 128) return WG_LAUNCH(128, 128);
+  if (D == 64 && Dv == 64) return WG_LAUNCH(64, 64);
+  if (D == 192 && Dv == 128) return WG_LAUNCH(192, 128);
+#undef WG_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -5,7 +5,9 @@ Per (batch, head): scores ``q . k^T * (1/sqrt(D))`` summed in fp32; when
 causal, ``row >= col`` (top-left aligned, counted from 0) or -1e30;
 softmax with the denominator clamped at 1e-20; ``@ v``; the result in q's
 type. Grouped-query attention is read in place: k and v carry Kh heads,
-H % Kh == 0, and query head h reads KV head h // (H // Kh).
+H % Kh == 0, and query head h reads KV head h // (H // Kh). v may be
+narrower than q and k (Dv <= D; MLA's core: q/k 192, v 128), and the
+output is then Dv wide.
 
 Replaces the TPU kernel ``flash_attention`` (src/repro/kernels/
 flash_attention.py, ``_kernel``), which walks key blocks in a sequential
@@ -14,12 +16,16 @@ on an H100: operations (causal S=8192, D=128 does ~2,050 operations a
 byte). Two kernels, chosen by ``flash_variant`` from the dtype and head
 dim before launch:
 
-- ``"wgmma"`` (bf16, D in {64, 128}: every attention config of the
-  registry): tensor-core products for Q.K^T and P.V, K/V tiles fed by TMA
-  through a two-stage ring, P rounded to bf16 before P.V (as the
-  reference's model paths and SDPA do).
-- ``"cuda_core"`` (fp32 at any D up to 256, bf16 at other D): fp32
-  products and sums on the CUDA cores, P kept in fp32.
+- ``"wgmma"`` (bf16, (D, Dv) in ``WGMMA_SHAPES``: (64, 64), (128, 128)
+  and MLA's (192, 128); every attention config of the registry):
+  tensor-core products for Q.K^T and P.V, K/V tiles fed by TMA through a
+  two-stage ring, P rounded to bf16 before P.V (as the reference's model
+  paths and SDPA do).
+- ``"cuda_core"`` (fp32 at any D up to 256, bf16 at other widths): fp32
+  products and sums on the CUDA cores, P kept in fp32. It takes v at D:
+  for Dv < D the wrapper zero-pads v and slices the output (a padded
+  column adds nothing to a real one). (192, 192) stays here: at two
+  stages the wgmma kernel would need 246,840 bytes of shared memory.
 
 Both skip tiles wholly above the diagonal and mask ragged tiles, so,
 unlike the TPU wrapper, any sequence length works.
@@ -43,7 +49,7 @@ from repro_torch.launch import op_analysis
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("wgmma", "cuda_core")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_SHAPES = ((64, 64), (128, 128), (192, 128))     # (D, Dv)
 MAX_Q_BLOCKS = 65535        # grid limit in y: query blocks (wgmma), B*H
 
 launches = 0
@@ -51,9 +57,11 @@ variant_launches = dict.fromkeys(VARIANTS, 0)
 _count_lock = threading.Lock()
 
 
-def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that takes inputs of ``dtype`` at head dim ``head_dim``."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+def flash_variant(dtype: torch.dtype, head_dim: int, v_dim=None) -> str:
+    """The kernel that takes inputs of ``dtype`` with q and k
+    ``head_dim`` wide and v ``v_dim`` wide (``head_dim`` when None)."""
+    v_dim = head_dim if v_dim is None else v_dim
+    if dtype == torch.bfloat16 and (head_dim, v_dim) in WGMMA_SHAPES:
         return "wgmma"
     return "cuda_core"
 
@@ -61,7 +69,7 @@ def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
 def _parts(q, k, v, causal):
     """fp32 unnormalized probabilities exp(s - max) [B,H,Sq,Sk], their
     clamped row sums [B,H,Sq,1] and v in fp32 with each KV head repeated
-    for its query heads [B,H,Sk,D]."""
+    for its query heads [B,H,Sk,Dv] (Dv <= D: the scale is q's 1/sqrt(D))."""
     D = q.shape[-1]
     Sq, Sk = q.shape[2], k.shape[2]
     G = q.shape[1] // k.shape[1]
@@ -134,7 +142,7 @@ def _lib():
                                         ctypes.c_float, i, i, p]
     lib.flash_attention_fwd.restype = i
     lib.flash_attention_wgmma_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                              ctypes.c_float, i, p]
+                                              i, ctypes.c_float, i, p]
     lib.flash_attention_wgmma_fwd.restype = i
     lib.flash_attention_smem_bytes.argtypes = [i]
     lib.flash_attention_smem_bytes.restype = i
@@ -142,18 +150,21 @@ def _lib():
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """q [B,H,Sq,D]; k/v [B,Kh,Sk,D] with H % Kh == 0, all float32 or all
-    bfloat16. Returns [B,H,Sq,D] in q's type."""
+    """q [B,H,Sq,D]; k [B,Kh,Sk,D] and v [B,Kh,Sk,Dv] with H % Kh == 0
+    and Dv <= D, all float32 or all bfloat16. Returns [B,H,Sq,Dv] in q's
+    type."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B,H,S,D]")
     B, H, Sq, D = q.shape
-    Kh, Sk = k.shape[1], k.shape[2]
-    if (tuple(k.shape) != (B, Kh, Sk, D) or tuple(v.shape) != tuple(k.shape)
+    Kh, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (tuple(k.shape) != (B, Kh, Sk, D)
+            or tuple(v.shape[:3]) != tuple(k.shape[:3]) or Dv > D
             or Kh == 0 or H % Kh):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} and v {tuple(v.shape)} do not "
-                         f"match (k and v must be [B,Kh,Sk,D], H % Kh == 0)")
-    if Sq == 0 or Sk == 0 or D == 0:
+                         f"match (k must be [B,Kh,Sk,D] and v [B,Kh,Sk,Dv] "
+                         f"with Dv <= D, H % Kh == 0)")
+    if Sq == 0 or Sk == 0 or D == 0 or Dv == 0:
         raise ValueError("flash_attention: empty sequence or head dim")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must all be float32 or "
@@ -169,9 +180,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
-    variant = flash_variant(q.dtype, D)
+    variant = flash_variant(q.dtype, D, Dv)
     lib = _lib()
-    out = torch.empty_like(q)
     scale = 1.0 / D ** 0.5
     if variant == "wgmma":
         if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -180,9 +190,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
         if -(-Sq // 128) > MAX_Q_BLOCKS:
             raise ValueError(f"flash_attention: Sq={Sq} exceeds the grid's "
                              f"{MAX_Q_BLOCKS} query blocks")
+        out = q.new_empty((B, H, Sq, Dv))
         launch = lambda s: lib.flash_attention_wgmma_fwd(  # noqa: E731
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            Kh, Sq, Sk, D, scale, int(bool(causal)), s)
+            Kh, Sq, Sk, D, Dv, scale, int(bool(causal)), s)
     else:
         if B * H > MAX_Q_BLOCKS:
             raise ValueError(f"flash_attention: B*H={B * H} exceeds the "
@@ -192,8 +203,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
                              f"{lib.flash_attention_smem_bytes(D)} bytes of "
                              f"shared memory, more than a block has "
                              f"({build.MAX_SMEM})")
+        # the kernel takes v at D: a narrower v is zero-padded, the
+        # output sliced back below
+        vp = v if Dv == D else torch.nn.functional.pad(v, (0, D - Dv))
+        out = torch.empty_like(q)
         launch = lambda s: lib.flash_attention_fwd(  # noqa: E731
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            q.data_ptr(), k.data_ptr(), vp.data_ptr(), out.data_ptr(), B, H,
             Kh, Sq, Sk, D, scale, int(bool(causal)), DTYPES[q.dtype], s)
     with torch.cuda.device(dev):
         err = launch(torch.cuda.current_stream(dev).cuda_stream)
@@ -206,18 +221,21 @@ def flash_attention(q, k, v, *, causal: bool = True):
         variant_launches[variant] += 1
     if op_analysis.active() is not None:
         c = flash_cost(B, H, Sq, Sk, D, causal=causal,
-                       bytes_per=q.element_size())
+                       bytes_per=q.element_size(), v_dim=Dv)
         op_analysis.note_kernel(
             "flash_attention", c["flops"], c["hbm_bytes"],
             torch.bfloat16 if variant == "wgmma" else torch.float32)
-    return out
+    return out if Dv == D else out[..., :Dv].contiguous()
 
 
-def flash_cost(B, H, Sq, Sk, D, causal=True, bytes_per=2):
+def flash_cost(B, H, Sq, Sk, D, causal=True, bytes_per=2, v_dim=None):
     """Analytic roofline terms of the function (the reference's
     ``flash_cost``): operations, halved when causal and square, and the
-    bytes of q, k, v and the output each moved once."""
+    bytes of q, k, v and the output each moved once. With ``v_dim``, v
+    and the output are that wide: Q.K^T at D and P.V at ``v_dim``,
+    2·B·H·Sq·Sk·(D + v_dim)·frac operations."""
     frac = 0.5 if causal and Sq == Sk else 1.0
-    flops = 4.0 * B * H * Sq * Sk * D * frac
-    hbm = bytes_per * B * H * (Sq * D * 2 + Sk * D * 2)
+    v_dim = D if v_dim is None else v_dim
+    flops = 2.0 * B * H * Sq * Sk * (D + v_dim) * frac
+    hbm = bytes_per * B * H * (Sq + Sk) * (D + v_dim)
     return {"flops": flops, "hbm_bytes": hbm}

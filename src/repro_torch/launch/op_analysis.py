@@ -9,8 +9,14 @@ placements, which it hands on (``NotImplemented``), and then as the local
 ops DTensor runs on this rank's shards, collectives included, which it
 counts. So every number is a per-device quantity of rank 0, whether the
 step runs on one card, on ``meta`` tensors, or on ``meta`` DTensors over
-the fake process group of ``launch.mesh``. The fake tensors DTensor uses
-to propagate shapes are not counted.
+the fake process group of ``launch.mesh``. What DTensor runs to propagate
+an op's output shape and placements is not counted: its fake tensors, and
+every op dispatched inside its sharding propagator's shape propagation and
+decomposition strategy (torch 2.11 registers no strategy for leaky_relu
+and ELU, so DTensor traces their decompositions, ``gt``, ``mul``,
+``where``, ``expm1``, on ``meta`` tensors at global shapes for each
+candidate placement: counted, the GAT survey cell read 410 times its HBM
+bytes).
 
 Conventions:
   * FLOPs: ``torch.utils.flop_counter``'s formulas for the matmul-type ops
@@ -118,6 +124,9 @@ class OpSummary:
 
 
 _tls = threading.local()
+_prop_lock = threading.Lock()
+_prop_users = 0
+_prop_undo: list = []
 
 
 def active() -> "OpSummary | None":
@@ -154,9 +163,11 @@ def _is_fake(t) -> bool:
 
 
 class _Counter(TorchDispatchMode):
-    def __init__(self, summary: OpSummary):
+    def __init__(self, summary: OpSummary, exits: contextlib.ExitStack):
         super().__init__()
         self.s = summary
+        self.exits = exits               # closed after the mode is popped
+        self.saw_dtensor = False
 
     def _track(self, t) -> None:
         n = _nbytes(t)
@@ -172,8 +183,12 @@ class _Counter(TorchDispatchMode):
         kwargs = kwargs or {}
         from torch.distributed.tensor import DTensor
         if any(issubclass(t, DTensor) for t in types):
+            if not self.saw_dtensor:     # plain counts never wrap torch's
+                self.saw_dtensor = True  # propagation methods
+                self.exits.enter_context(_uncounted_propagation())
             return NotImplemented        # count the local ops it runs
-        if isinstance(func, torch._ops.HigherOrderOperator):
+        if isinstance(func, torch._ops.HigherOrderOperator) or getattr(
+                _tls, "propagating", 0):
             return func(*args, **kwargs)
         packet = func._overloadpacket
         if packet in _SHAPE_OPS:
@@ -227,6 +242,73 @@ def id_storage(t) -> int:
     return t.untyped_storage()._cdata
 
 
+def _shape_propagation(real):
+    """DTensor's shape propagation ``real``, marking this thread as
+    propagating while it runs (the counter skips what it dispatches)."""
+    def propagate(*args, **kwargs):
+        _tls.propagating = getattr(_tls, "propagating", 0) + 1
+        try:
+            return real(*args, **kwargs)
+        finally:
+            _tls.propagating -= 1
+    return propagate
+
+
+def _propagation_methods():
+    """(owner, method name) of each step by which DTensor derives an op's
+    output shape and placements by running it on stand-ins: the sharding
+    propagator's shape propagation (the op on fake tensors), and, for an
+    op with no registered strategy, ``DecompShardingStrategy``'s trace of
+    its decomposition on ``meta`` tensors at global shapes for each
+    candidate placement (a staticmethod on torch 2.11, a method of the
+    propagator's ``decomp_strategy`` on 2.13)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._decompositions import \
+        DecompShardingStrategy
+    return [(DTensor._op_dispatcher.sharding_propagator,
+             "_propagate_tensor_meta_non_cached"),
+            (DecompShardingStrategy, "propagate_strategy")]
+
+
+def _wrap_method(owner, name):
+    """``owner.name`` run through ``_shape_propagation``: on a class, its
+    function or staticmethod replaced; on an instance, an attribute over
+    the method. Returns what undoes it."""
+    if isinstance(owner, type):
+        raw = owner.__dict__[name]
+        if isinstance(raw, staticmethod):
+            setattr(owner, name,
+                    staticmethod(_shape_propagation(raw.__func__)))
+        else:
+            setattr(owner, name, _shape_propagation(raw))
+        return lambda: setattr(owner, name, raw)
+    setattr(owner, name, _shape_propagation(getattr(owner, name)))
+    return lambda: delattr(owner, name)
+
+
+@contextlib.contextmanager
+def _uncounted_propagation():
+    """While any ``counting()`` block that has seen a DTensor op is open,
+    the propagation methods run through ``_shape_propagation``, so the
+    counter skips what they dispatch. A count of plain tensors never
+    enters it."""
+    global _prop_users, _prop_undo
+    with _prop_lock:
+        if _prop_users == 0:
+            _prop_undo = [_wrap_method(o, n)
+                          for o, n in _propagation_methods()]
+        _prop_users += 1
+    try:
+        yield
+    finally:
+        with _prop_lock:
+            _prop_users -= 1
+            if _prop_users == 0:
+                for undo in _prop_undo:
+                    undo()
+                _prop_undo = []
+
+
 @contextlib.contextmanager
 def counting():
     """Count the ops dispatched inside the block; yields the
@@ -236,7 +318,7 @@ def counting():
     old = active()
     _tls.summary = summary
     try:
-        with _Counter(summary):
+        with contextlib.ExitStack() as exits, _Counter(summary, exits):
             yield summary
     finally:
         _tls.summary = old

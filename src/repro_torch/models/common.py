@@ -242,6 +242,43 @@ def roll_left(x):
     return torch.cat([x[:, 1:], x[:, :1]], dim=1)
 
 
+def _along_local(x, d: int, fn):
+    """``fn`` of a DTensor's local shard, rewrapped with its placements
+    (a mesh dim that shards dim ``d`` gathered first): for a scan along
+    ``d``."""
+    from torch.distributed.tensor import DTensor
+    x = replicate_dims(x, [d])
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+class _LocalCumsum(torch.autograd.Function):
+    """A DTensor's cumulative sum and its backward (the reversed sum, as
+    autograd's: flip, cumsum, flip) on local shards, each under its own
+    tensor's placements."""
+
+    @staticmethod
+    def forward(ctx, x, d):
+        ctx.d = d
+        return _along_local(x, d, lambda t: torch.cumsum(t, d))
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.d
+        return _along_local(g, d, lambda t: t.flip(d).cumsum(d).flip(d)), None
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``. On a DTensor it runs on the local shards,
+    forward and backward (``_LocalCumsum``): DTensor has no strategy for
+    the ``aten.flip`` of cumsum's backward in some torch releases. The
+    same local ops as DTensor's own, and no more collectives."""
+    if not is_dtensor(x):
+        return torch.cumsum(x, dim)
+    return _LocalCumsum.apply(x, dim % x.dim())
+
+
 def full_local(x):
     """A DTensor gathered whole on this rank as a plain tensor (for the
     index arithmetic DTensor has no strategy for); ``x`` itself

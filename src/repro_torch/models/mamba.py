@@ -23,9 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.models.common import (dense_init, einsum, fit_merge,
-                                       is_dtensor, matmul, randn, rms_norm,
-                                       shard)
+from repro_torch.models.common import (cumsum, dense_init, einsum,
+                                       fit_merge, is_dtensor, matmul, randn,
+                                       rms_norm, shard)
 
 
 def dims(d_model: int, ssm: SSMConfig):
@@ -107,7 +107,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
 
     xc, dtc, Bc, Cc = rs(x), rs(dt), rs(B), rs(C)
     a = dtc * A.to(f32)                                      # [b,nc,Q,H]
-    cum = torch.cumsum(a, dim=2)                             # inclusive
+    cum = cumsum(a, 2)                                       # inclusive
     total = cum[:, :, -1]                                    # [b,nc,H]
     cum_t = cum.transpose(2, 3)                              # [b,nc,H,Q]
     # intra-chunk: the masked decay matrix, masked BEFORE the exp (t < s

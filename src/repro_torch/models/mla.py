@@ -12,9 +12,10 @@ reference's plain branches: the full [S, S] softmax, and the online one
 over query blocks of ``chunk_q``. ``"cuda"`` runs it through
 ``kernels.flash_attention``: q = [q_nope | roped q_rope] and k = [k_nope |
 roped k_rope, the same for every head], each nope + rope wide, so the
-kernel's 1/sqrt(D) is the reference's 1/sqrt(nope + rope); v is
-zero-padded to that width and the output sliced back (a padded column of
-v adds nothing to a real one). Where the reference asks for fp32 results
+kernel's 1/sqrt(D) is the reference's 1/sqrt(nope + rope); v goes at its
+own width (``v_head_dim``, at most nope + rope), as in the reference's
+einsum, and the output comes back that wide (deepseek's (192, 128) runs
+on the wgmma kernel). Where the reference asks for fp32 results
 (``preferred_element_type``), the operands are upcast first: products of
 bf16 values are exact in fp32.
 """
@@ -23,7 +24,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -87,8 +87,7 @@ def _scale(mla: MLAConfig) -> float:
 
 def _flash_core(q_nope, q_rope, k_nope, k_rope, v, causal):
     """[B,S,H,*] operands through ``flash_attention``: q and k nope + rope
-    wide, v zero-padded to that width, heads to the front; returns
-    [B,S,H,vd]."""
+    wide, v at its own width, heads to the front; returns [B,S,H,vd]."""
     B, S, H, vd = v.shape
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, k_rope.shape[-1])],
@@ -97,10 +96,8 @@ def _flash_core(q_nope, q_rope, k_nope, k_rope, v, causal):
     if vd > D:
         raise ValueError(f"mla_full: v_head_dim={vd} is wider than "
                          f"nope + rope = {D}")
-    v = F.pad(v, (0, D - vd))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    o = flash_attention(qt, kt, vt, causal=causal)
-    return o[..., :vd].transpose(1, 2)
+    return flash_attention(qt, kt, vt, causal=causal).transpose(1, 2)
 
 
 def mla_full(params, x, *, n_heads, mla: MLAConfig, rope_theta=1e4,

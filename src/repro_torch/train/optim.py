@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.devices import resolve
+from repro_torch.models.common import is_dtensor
 from repro_torch.models.transformer import params_from_jax
 
 
@@ -81,6 +82,17 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _placed_as(g, m):
+    """A DTensor gradient ``g`` redistributed to its moment ``m``'s
+    placements before the update's arithmetic (a partial sum over the
+    data axes reduce-scattered to the moment's ZeRO-1 shard), so DTensor
+    never has to move the moment instead: some torch releases cannot
+    redistribute a ``Shard`` to a ``Partial``. ``g`` itself otherwise."""
+    if not is_dtensor(g) or tuple(g.placements) == tuple(m.placements):
+        return g
+    return g.redistribute(m.device_mesh, m.placements)
+
+
 def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
     """Returns (new_params, new_state, metrics). Runs under
     ``torch.no_grad()``: the update is not part of any graph."""
@@ -96,7 +108,7 @@ def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
         mdt = getattr(torch, cfg.moment_dtype)
 
         def upd(p, g, m, v):
-            g32 = g.float() * scale
+            g32 = _placed_as(g, m).float() * scale
             m32 = b1 * m.float() + (1 - b1) * g32
             v32 = b2 * v.float() + (1 - b2) * g32.square()
             step_dir = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)

@@ -1,8 +1,10 @@
 """``flash_attention``'s two CUDA kernels, checked on the CPU where they
-cannot run: the choice between them, the tolerance and checks that hold
-the wgmma kernel (which rounds P to bf16 before P.V), grouped KV heads read
-in place against the reference's Pallas kernel (interpret mode) on K/V
-repeated by numpy, and the build hash over included headers. The kernels
+cannot run: the choice between them (by dtype, q/k width and v width), the
+tolerance and checks that hold the wgmma kernel (which rounds P to bf16
+before P.V), v narrower than q and k (MLA's core) against the
+padded-then-sliced call, the cost model with v at its own width, grouped
+KV heads read in place against the reference's Pallas kernel (interpret
+mode) on K/V repeated by numpy, and the build hash over included headers. The kernels
 themselves are held to these checks on a card (tests/test_torch_gpu.py,
 chip_smoke.py).
 
@@ -130,6 +132,27 @@ class TestVariant:
         assert t_flash.flash_variant(torch.bfloat16,
                                      cfg.resolved_head_dim) == "wgmma"
 
+    @pytest.mark.parametrize("dtype,d,dv,want", [
+        (torch.bfloat16, 192, 128, "wgmma"),
+        (torch.bfloat16, 192, None, "cuda_core"),
+        (torch.bfloat16, 192, 192, "cuda_core"),
+        (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 128, None, "wgmma"),
+        (torch.bfloat16, 128, 64, "cuda_core"),
+        (torch.float32, 192, 128, "cuda_core")])
+    def test_choice_by_v_width(self, dtype, d, dv, want):
+        """(q/k width, v width): the wgmma kernel takes (64, 64),
+        (128, 128) and MLA's (192, 128); (192, 192) does not fit its
+        shared memory; v_dim=None is v as wide as q."""
+        assert t_flash.flash_variant(dtype, d, dv) == want
+
+    @pytest.mark.parametrize("name", [
+        n for n in registry.ARCHS if registry.get_config(n).mla is not None])
+    def test_every_mla_config_serves_on_the_wgmma_kernel(self, name):
+        a = registry.get_config(name).mla
+        assert t_flash.flash_variant(
+            torch.bfloat16, a.qk_nope_head_dim + a.qk_rope_head_dim,
+            a.v_head_dim) == "wgmma"
+
     def test_reset_zeroes_each_kernels_count(self, monkeypatch):
         monkeypatch.setattr(t_flash, "variant_launches",
                             {"wgmma": 3, "cuda_core": 2})
@@ -185,6 +208,76 @@ class TestGroupedKV:
             q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(4, 1),
             v.transpose(1, 2).repeat_interleave(4, 1)).transpose(1, 2)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+class TestNarrowV:
+    """v narrower than q and k (Dv < D, MLA's core): the plain version
+    computes at v's width what the padded-then-sliced call computes."""
+
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("kh", [1, 2])
+    def test_ref_equals_padded_then_sliced(self, kh, causal):
+        rng = np.random.default_rng(10 + kh)
+        q = torch.from_numpy(rng.standard_normal((2, 2, 40, 24))
+                             .astype(np.float32))
+        k = torch.from_numpy(rng.standard_normal((2, kh, 56, 24))
+                             .astype(np.float32))
+        v = torch.from_numpy(rng.standard_normal((2, kh, 56, 16))
+                             .astype(np.float32))
+        vp = torch.nn.functional.pad(v, (0, 8))
+        got = t_flash.flash_attention_ref(q, k, v, causal=causal)
+        want = t_flash.flash_attention_ref(q, k, vp, causal=causal)
+        assert tuple(got.shape) == (2, 2, 40, 16)
+        torch.testing.assert_close(got, want[..., :16], rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(
+            t_flash.flash_bf16_tol(q, k, v, causal=causal),
+            t_flash.flash_bf16_tol(q, k, vp, causal=causal)[..., :16],
+            rtol=1e-6, atol=1e-6)
+        # the wrapper on the CPU: the plain version at v's width
+        assert torch.equal(t_flash.flash_attention(q, k, v, causal=causal),
+                           got)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_emulated_wgmma_at_d192_v128_passes_the_check(self, causal):
+        """The wgmma kernel's arithmetic at MLA's widths (q/k 192, v 128)
+        is held by flash_bf16_check at v's width."""
+        rng = np.random.default_rng(19)
+        q, k = (torch.from_numpy(rng.standard_normal((1, 2, 130, 192))
+                                 .astype(np.float32)).to(torch.bfloat16)
+                for _ in range(2))
+        v = torch.from_numpy(rng.standard_normal((1, 2, 130, 128))
+                             .astype(np.float32)).to(torch.bfloat16)
+        out = _emulate(q, k, v, causal)
+        assert tuple(out.shape) == (1, 2, 130, 128)
+        r = t_flash.flash_bf16_check(out, out.clone(), _ref(q, k, v, causal),
+                                     t_flash.flash_bf16_tol(q, k, v,
+                                                            causal=causal))
+        assert r["ok"], r
+
+    def test_refuses_v_wider_than_q(self):
+        q = torch.zeros(1, 2, 8, 16)
+        with pytest.raises(ValueError, match="Dv <= D"):
+            t_flash.flash_attention(q, q, torch.zeros(1, 2, 8, 32))
+        with pytest.raises(ValueError, match="do not match"):
+            t_flash.flash_attention(q, q, torch.zeros(1, 2, 9, 8))
+
+    @pytest.mark.parametrize("args", [(1, 16, 8192, 8192, 192, True, 2, 128),
+                                      (2, 4, 64, 128, 32, False, 4, 16),
+                                      (1, 2, 64, 64, 16, True, 4, 16)])
+    def test_flash_cost_counts_v_at_its_width(self, args):
+        """With v_dim: Q.K^T at D and P.V at v_dim, 2·B·H·Sq·Sk·(D + Dv)
+        operations (halved when causal and square), and q, k, v and the
+        output each moved once at their own widths; at v_dim = D the
+        reference's model."""
+        B, H, Sq, Sk, D, causal, bp, dv = args
+        frac = 0.5 if causal and Sq == Sk else 1.0
+        c = t_flash.flash_cost(B, H, Sq, Sk, D, causal, bp, v_dim=dv)
+        assert c["flops"] == 2.0 * B * H * Sq * Sk * (D + dv) * frac
+        assert c["hbm_bytes"] == bp * B * H * (Sq * D + Sk * D + Sk * dv
+                                               + Sq * dv)
+        assert t_flash.flash_cost(B, H, Sq, Sk, D, causal, bp, v_dim=D) == \
+            j_flash.flash_cost(B, H, Sq, Sk, D, causal, bp)
 
 
 class TestBuildHash:

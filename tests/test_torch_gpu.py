@@ -11,8 +11,10 @@ and one batch of the engine through the kernels
 against the plain path; flash_attention against its plain version (fp32
 at 2e-5 on ragged and square shapes on the CUDA-core kernel; bf16 to one
 ulp there, and to ``flash_bf16_check`` on the wgmma kernel, which rounds P
-to bf16), with grouped KV heads, and a reduced dense LM's prefill through
-it against the plain path. The scatter-gather's bucket kernel past the
+to bf16), with grouped KV heads, the wgmma kernel at MLA's q/k 192 and v
+128 (and MLA's core handing it v unpadded), the cuda_core kernel at
+D=192 with v zero-padded by the wrapper, and a reduced dense LM's prefill
+through it against the plain path. The scatter-gather's bucket kernel past the
 sort kernel's 16-bit edge indices (E = 65,537) and at N=1024 with the
 Flickr-sized graph's 74,496 edge slots; the three GNN kernels in bf16
 within one bf16 ulp of their plain versions' fp32 results; and a
@@ -782,10 +784,10 @@ def test_gnn_train_step_on_the_card_matches_the_cpu(dev, kind):
 
 def test_mla_core_through_flash_attention_at_d192(dev):
     """MLA prefill's core under impl="cuda": q and k 192 wide (128 nope +
-    64 rope, the rope key shared by the 16 heads), v padded from 128, bf16,
-    a ragged 300-token prompt, on the cuda_core kernel; held to
-    flash_bf16_check against the plain version (fp32) on the same padded
-    inputs, the padded columns sliced off."""
+    64 rope, the rope key shared by the 16 heads), v at its own 128, bf16,
+    a ragged 300-token prompt, on the wgmma kernel (two launches, v handed
+    over unpadded); held to flash_bf16_check against the plain version
+    (fp32) on the same inputs."""
     from repro_torch.models import mla
     gen = torch.Generator(device=dev).manual_seed(0)
     B, S, H = 1, 300, 16
@@ -796,22 +798,86 @@ def test_mla_core_through_flash_attention_at_d192(dev):
     qn, qr, kn, kr, v = (rnd(B, S, H, 128), rnd(B, S, H, 64),
                          rnd(B, S, H, 128), rnd(B, S, 1, 64),
                          rnd(B, S, H, 128))
+    seen = []
+    real = mla.flash_attention
+
+    def spy(q, k, v, *, causal=True):
+        seen.append(tuple(v.shape))
+        return real(q, k, v, causal=causal)
     before = dict(flash_attention.variant_launches)
-    got = mla._flash_core(qn, qr, kn, kr, v, True)
-    again = mla._flash_core(qn, qr, kn, kr, v, True)
+    mla.flash_attention = spy
+    try:
+        got = mla._flash_core(qn, qr, kn, kr, v, True)
+        again = mla._flash_core(qn, qr, kn, kr, v, True)
+    finally:
+        mla.flash_attention = real
+    assert seen == [(B, H, S, 128)] * 2
+    assert flash_attention.variant_launches["wgmma"] == before["wgmma"] + 2
     assert flash_attention.variant_launches["cuda_core"] == \
-        before["cuda_core"] + 2
+        before["cuda_core"]
     q = torch.cat([qn, qr], -1).transpose(1, 2).contiguous()
     k = torch.cat([kn, kr.expand(B, S, H, 64)], -1).transpose(1, 2) \
         .contiguous()
-    vp = torch.nn.functional.pad(v, (0, 64)).transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
     want = flash_attention.flash_attention_ref(q.float(), k.float(),
-                                               vp.float())
-    tol = flash_attention.flash_bf16_tol(q, k, vp)
+                                               vt.float())
     r = flash_attention.flash_bf16_check(
-        got.transpose(1, 2), again.transpose(1, 2), want[..., :128],
-        tol[..., :128])
+        got.transpose(1, 2), again.transpose(1, 2), want,
+        flash_attention.flash_bf16_tol(q, k, vt))
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("h,kh", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 127, 128, 300])
+def test_flash_wgmma_at_d192_v128(dev, s, causal, h, kh):
+    """The wgmma kernel at q/k 192 and v 128 (MLA's widths): ragged and
+    exact tiles, one row, causal and not, H = Kh and grouped KV heads;
+    held by flash_bf16_check (within tolerance, mean signed error within
+    0.1 ulp, two launches bitwise equal)."""
+    gen = torch.Generator(device=dev).manual_seed(s + 7 * h)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v = rnd(2, h, s, 192), rnd(2, kh, s, 192), rnd(2, kh, s, 128)
+    assert flash_attention.flash_variant(q.dtype, 192, 128) == "wgmma"
+    before = flash_attention.variant_launches["wgmma"]
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    again = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.variant_launches["wgmma"] == before + 2
+    assert tuple(got.shape) == (2, h, s, 128)
+    k2, v2 = (t.repeat_interleave(h // kh, dim=1) for t in (k, v))
+    r = flash_attention.flash_bf16_check(
+        got, again, flash_attention.flash_attention_ref(
+            q.float(), k2.float(), v2.float(), causal=causal),
+        flash_attention.flash_bf16_tol(q, k2, v2, causal=causal))
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cuda_core_at_d192(dev, dtype):
+    """At q/k 192 and v 128 in fp32, and at (192, 192) in bf16 (no wgmma
+    kernel fits that), the cuda_core kernel: the wrapper zero-pads v to
+    192 and slices the output; held to the plain version at v's width."""
+    rng = np.random.default_rng(11)
+    dv = 128 if dtype == torch.float32 else 192
+    q, k = (torch.from_numpy(rng.standard_normal((1, 2, 300, 192))
+                             .astype(np.float32)).to(dev, dtype)
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((1, 2, 300, dv))
+                         .astype(np.float32)).to(dev, dtype)
+    assert flash_attention.flash_variant(dtype, 192, dv) == "cuda_core"
+    before = flash_attention.variant_launches["cuda_core"]
+    got = flash_attention.flash_attention(q, k, v)
+    assert flash_attention.variant_launches["cuda_core"] == before + 1
+    assert tuple(got.shape) == (1, 2, 300, dv) and got.is_contiguous()
+    want = flash_attention.flash_attention_ref(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -7, atol=2e-5)
 
 
 def test_moe_prefill_bitwise_repeatable(dev):
@@ -1055,6 +1121,8 @@ def test_kernel_notes_equal_their_costs(dev):
                      for a in _gat_inputs(rng, c, n, f, HEADS))
     q = torch.randn(1, 4, 256, 128, device=dev, dtype=torch.bfloat16)
     kv = torch.randn(1, 2, 256, 128, device=dev, dtype=torch.bfloat16)
+    q192 = torch.randn(1, 4, 256, 192, device=dev, dtype=torch.bfloat16)
+    kv192 = torch.randn(1, 2, 256, 192, device=dev, dtype=torch.bfloat16)
     cases = [
         ("fused_gnn_layer", lambda: fused_gnn.fused_gnn_layer(
             adj, h, wn, ws, b, mask),
@@ -1068,6 +1136,10 @@ def test_kernel_notes_equal_their_costs(dev):
         ("flash_attention", lambda: flash_attention.flash_attention(
             q, kv, kv, causal=True),
          flash_attention.flash_cost(1, 4, 256, 256, 128, causal=True)),
+        ("flash_attention", lambda: flash_attention.flash_attention(
+            q192, kv192, kv, causal=True),
+         flash_attention.flash_cost(1, 4, 256, 256, 192, causal=True,
+                                    v_dim=128)),
     ]
     for name, launch, cost in cases:
         with op_analysis.counting() as s:

@@ -192,6 +192,15 @@ for name, pa, pb in [("replicated", [Replicate(), Replicate()],
     with op_analysis.counting() as s:
         r = da @ db
     out[name] = [s.flops, [p.is_partial() for p in r.placements]]
+prop = DTensor._op_dispatcher.sharding_propagator
+wrapped = lambda: "_propagate_tensor_meta_non_cached" in vars(prop)
+out["wrapped"] = [wrapped()]
+with op_analysis.counting():
+    torch.ones(4) * 2
+    out["wrapped"].append(wrapped())
+    x * 2
+    out["wrapped"].append(wrapped())
+out["wrapped"].append(wrapped())
 print("RESULT" + json.dumps(out))
 """
 
@@ -225,6 +234,13 @@ def test_sharded_matmul_flops_per_device(fake_mesh_counts):
     flops, partial = fake_mesh_counts["contraction"]
     assert flops == whole / 4
     assert partial == [False, True]     # summed across "model" later
+
+
+def test_only_dtensor_counts_wrap_propagation(fake_mesh_counts):
+    """DTensor's propagation methods are wrapped from a count's first
+    DTensor op to the end of its block: a count of plain tensors leaves
+    torch's internals as they are."""
+    assert fake_mesh_counts["wrapped"] == [False, False, True, False]
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +484,155 @@ def test_sharded_cells_agree_with_the_reference(dryrun_records,
             _FLOPS_DIFFER.get((arch, shape), 1.0), abs=0.01)
         if arch in _LINKS_AGREE:
             assert links[0] == links[1]
+
+
+_FLIP_GAP = """
+import sys
+import pytest, torch
+from torch.distributed.tensor import DTensor
+from repro_torch.launch import dryrun
+out, archs, cut = sys.argv[1], sys.argv[2], sys.argv[3] == "cut"
+prop = DTensor._op_dispatcher.sharding_propagator
+flip = torch.ops.aten.flip.default
+tables = [getattr(prop, n) for n in dir(prop)
+          if isinstance(getattr(prop, n, None), dict)]
+with pytest.MonkeyPatch.context() as mp:
+    if cut:
+        for table in tables:
+            if flip in table:
+                mp.delitem(table, flip)
+        assert not any(flip in t for t in tables)
+        prop.propagate_op_sharding.cache_clear()
+    sys.exit(dryrun.main(["--arch", archs, "--shape", "train_4k",
+                          "--test-mesh", "2,4", "--reduced", "--out", out]))
+"""
+SSD_ARCHS = ("mamba2-2.7b", "jamba-1.5-large-398b")
+
+
+@pytest.fixture(scope="module")
+def flip_gap_records(tmp_path_factory):
+    """The SSD archs' reduced train cells on the (2, 4) fake mesh, run
+    whole and with ``aten.flip`` taken out of DTensor's sharding
+    propagator (torch 2.11 registers no strategy for it; 2.13 does), each
+    in its own subprocess (a second run of a cell in one process counts
+    other HBM bytes than the first): records by (run, arch)."""
+    root = tmp_path_factory.mktemp("flip_gap")
+    procs = {run: subprocess.Popen(
+        [sys.executable, "-c", _FLIP_GAP, str(root / run),
+         ",".join(SSD_ARCHS), run], env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for run in ("whole", "cut")}
+    log = "".join(p.communicate(timeout=600)[0][-3000:]
+                  for p in procs.values())
+    recs = {}
+    for run in procs:
+        for arch in SSD_ARCHS:
+            path = root / run / f"{arch}__train_4k__2x4.json"
+            if path.exists():
+                recs[run, arch] = json.loads(path.read_text())
+    return recs, log
+
+
+@pytest.mark.parametrize("arch", SSD_ARCHS)
+def test_ssd_train_cell_needs_no_flip_strategy(flip_gap_records, arch):
+    """SSD's cumulative sum runs on local shards forward and backward
+    (``models.common.cumsum``), so its backward's ``flip`` never reaches
+    DTensor: the train cell is ``ok`` without a strategy for it, and every
+    count equals the whole run's."""
+    recs, log = flip_gap_records
+    whole, cut = recs.get(("whole", arch)), recs.get(("cut", arch))
+    assert whole is not None and cut is not None, log
+    assert whole["ok"], (whole.get("error"), whole.get("traceback"))
+    assert cut["ok"], (cut.get("error"), cut.get("traceback"))
+    assert cut["hlo"]["flops"] == whole["hlo"]["flops"] > 0
+    assert cut["hlo"] == whole["hlo"]
+    assert cut["memory"] == whole["memory"]
+
+
+_GAT_ACT_BYTES = """
+import json, sys
+import torch
+import torch.nn.functional as TF
+from repro_torch.core import program
+from repro_torch.launch import op_analysis
+from repro_torch.launch.cells import build_gnn_cell
+from repro_torch.launch.dryrun import GNN_CELLS
+from repro_torch.launch.mesh import make_mesh, start_fake_group
+start_fake_group(256)
+mesh = make_mesh((16, 16), ("data", "model"))
+if sys.argv[1] == "cut":
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    ops = (torch.ops.aten.leaky_relu.default, torch.ops.aten.elu.default)
+    for n in dir(prop):
+        table = getattr(prop, n, None)
+        if isinstance(table, dict):
+            for op in ops:
+                table.pop(op, None)
+    prop.propagate_op_sharding.cache_clear()
+cell = {c.display: c for c in GNN_CELLS}["gat-L3-N128"]
+fn, args = build_gnn_cell(cell, mesh)
+now = [None]
+sites = {"leaky_relu": {"counted": 0.0, "tensors": 0.0, "calls": 0},
+         "elu": {"counted": 0.0, "tensors": 0.0, "calls": 0}}
+dispatch = op_analysis._Counter.__torch_dispatch__
+
+
+def counted(self, func, types, args=(), kwargs=None):
+    before = self.s.hbm_bytes
+    out = dispatch(self, func, types, args, kwargs)
+    if now[0] is not None:
+        sites[now[0]]["counted"] += self.s.hbm_bytes - before
+    return out
+
+
+def watched(name, real):
+    def act(x, *a, **kw):
+        now[0] = name
+        try:
+            y = real(x, *a, **kw)
+        finally:
+            now[0] = None
+        local = lambda t: t._local_tensor.numel() * t.element_size()
+        sites[name]["tensors"] += local(x) + local(y)
+        sites[name]["calls"] += 1
+        return y
+    return act
+
+
+op_analysis._Counter.__torch_dispatch__ = counted
+TF.leaky_relu = watched("leaky_relu", TF.leaky_relu)
+program.ACTS["elu"] = watched("elu", program.ACTS["elu"])
+with op_analysis.counting() as s:
+    fn(*args)
+print(json.dumps({"sites": sites, "hbm_bytes": s.hbm_bytes,
+                  "torch": torch.__version__}))
+"""
+
+
+@pytest.mark.parametrize("strategies", ["registered", "cut"])
+def test_gat_activation_bytes_are_their_tensors(strategies):
+    """The GAT survey cell (gat-L3-N128, 4096 targets on the 16x16 fake
+    mesh): the HBM bytes the op analysis counts inside each leaky ReLU
+    (``core/program.py``, the dense attention scores) and each ELU (the
+    layer's activation) are that call's input and output, each once, at
+    the local shard's size; three layers, three calls each. "cut" takes
+    the two ops' strategies out of DTensor's sharding propagator, as torch
+    2.11 has none: DTensor then traces their decompositions on global
+    ``meta`` stand-ins, which the analysis must not count (it did: 410
+    times the cell's bytes on 2.11)."""
+    r = subprocess.run([sys.executable, "-c", _GAT_ACT_BYTES, strategies],
+                       env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    C, heads, N, F = 4096 // 256, 4, 128, 256
+    want = {"leaky_relu": 2 * C * heads * N * N * 4,      # e [C,h,N,N]
+            "elu": 2 * C * N * F * 4}                     # [C,N,F]
+    for name, per_call in want.items():
+        site = got["sites"][name]
+        assert site["calls"] == 3, (name, site)
+        assert site["tensors"] == 3 * per_call, (name, site)
+        assert site["counted"] == site["tensors"], (name, site, got["torch"])
 
 
 def test_roofline_reads_the_records(dryrun_records):

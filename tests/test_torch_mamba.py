@@ -98,6 +98,21 @@ class TestSSD:
         np.testing.assert_allclose(st.numpy(), st_ref.numpy(), **SSD_TOL)
         _close(y_ref, j_mb.ssd_reference(*(jnp.asarray(a) for a in args)))
 
+    def test_cumsum_on_plain_tensors_is_torch_cumsum(self):
+        """``models.common.cumsum``, which SSD's chunk sums go through, is
+        ``torch.cumsum`` bitwise on plain tensors, forward and backward
+        (its local-shard route is for DTensors only)."""
+        from repro_torch.models.common import cumsum
+        rng = np.random.default_rng(4)
+        x = _t(rng.standard_normal((2, 3, 16, 4)).astype(np.float32))
+        g = _t(rng.standard_normal((2, 3, 16, 4)).astype(np.float32))
+        a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+        got, want = cumsum(a, 2), torch.cumsum(b, dim=2)
+        assert torch.equal(got, want)
+        got.backward(g)
+        want.backward(g)
+        assert torch.equal(a.grad, b.grad)
+
     def test_reference_in_float64(self):
         """The oracle computes in the type it is given (float64 for the
         card's check at the full layer shape) and returns x's type."""

@@ -1,7 +1,7 @@
 """The MoE family of the PyTorch package against the reference on the CPU:
 MoE routing and dispatch (``models.moe``), Multi-head Latent Attention
 (``models.mla``; its prefill core also through the ``flash_attention``
-kernel's plain version with v zero-padded), and ``prefill`` /
+kernel's plain version, v at its own width), and ``prefill`` /
 ``decode_step`` of deepseek-v2-lite-16b and deepseek-v3-671b
 (``reduced=True``) with the reference's weights carried across by
 ``params_from_jax``. Inputs come from numpy seeds and are handed to both.
@@ -248,7 +248,7 @@ class TestMLA:
                                               ("cuda", 0)])
     def test_full_matches_reference(self, q_lora, impl, chunk_q):
         """Both plain branches (the [S, S] softmax, query blocks of 8) and
-        impl="cuda": q and k 12 wide, v padded from 6 to 12 for the flash
+        impl="cuda": q and k 12 wide, v at its own 6 through the flash
         kernel (its plain version here)."""
         jm, tm = _mla_cfg(q_lora)
         rng = np.random.default_rng(20 + q_lora + chunk_q)
@@ -263,8 +263,10 @@ class TestMLA:
         _close(tk, jk)
 
     def test_flash_core_pads_v(self, monkeypatch):
-        """impl="cuda" hands flash_attention q, k and v all nope + rope
-        wide, contiguous [B,H,S,D], v's padded columns zero."""
+        """impl="cuda" pads v no more: it hands flash_attention q and k
+        nope + rope wide and v at its own width (v_head_dim), each
+        contiguous [B,H,S,*], v equal to the layer's own (only the wrapper
+        pads, for its cuda_core kernel)."""
         jm, tm = _mla_cfg()
         rng = np.random.default_rng(3)
         p, x = _mla_params(rng, jm), _normal(rng, (1, 10, D))
@@ -277,10 +279,30 @@ class TestMLA:
         t_mla.mla_full(_t(p), _t(x), n_heads=H, mla=tm, impl="cuda")
         (q, k, v, causal), = seen
         assert causal
-        for t in (q, k, v):
-            assert tuple(t.shape) == (1, H, 10, 12) and t.is_contiguous()
-        assert torch.equal(v[..., 6:], torch.zeros_like(v[..., 6:]))
+        for t, w in ((q, 12), (k, 12), (v, 6)):
+            assert tuple(t.shape) == (1, H, 10, w) and t.is_contiguous()
+        c_kv = t_mla.rms_norm(t_mla.matmul(_t(x), _t(p["w_dkv"])),
+                              _t(p["kv_norm"]))
+        want_v = t_mla.matmul(c_kv, _t(p["w_uv"])).reshape(1, 10, H, 6)
+        assert torch.equal(v, want_v.transpose(1, 2))
         assert torch.equal(k[:, 0, :, 8:], k[:, 2, :, 8:])   # shared rope
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_cuda_impl_at_deepseek_widths_matches_reference(self, causal):
+        """impl="cuda" at deepseek's head widths (q and k 128 nope + 64
+        rope, v 128: the wgmma kernel's (192, 128) on a card; its plain
+        version here) against the reference's einsum core."""
+        kw = dict(kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=128,
+                  qk_rope_head_dim=64, v_head_dim=128)
+        jm, tm = j_base.MLAConfig(**kw), t_base.MLAConfig(**kw)
+        assert t_flash.flash_variant(torch.bfloat16, 192, 128) == "wgmma"
+        rng = np.random.default_rng(50 + causal)
+        p, x = _mla_params(rng, jm), _normal(rng, (1, 24, D))
+        want, _ = j_mla.mla_full(_j(p), jnp.asarray(x), mla=jm, n_heads=H,
+                                 causal=causal)
+        got, _ = t_mla.mla_full(_t(p), _t(x), mla=tm, n_heads=H,
+                                causal=causal, impl="cuda")
+        _close(got, want)
 
     def test_bad_impl(self):
         jm, tm = _mla_cfg()
