@@ -379,7 +379,8 @@ from repro_torch.kernels.fused_gnn import (ACTS,  # noqa: E402
                                            fused_gnn_layer_ref)
 from repro_torch.kernels.gat_attention import (  # noqa: E402
     gat_attention, gat_attention_ref, gat_cost, gat_variant)
-from repro_torch.kernels.ref import bf16_reading  # noqa: E402
+from repro_torch.kernels.ref import (BF16_BIAS_ULP,  # noqa: E402
+                                     bf16_bias_ulp, bf16_reading)
 from repro_torch.kernels.scatter_gather import (  # noqa: E402
     scatter_gather_aggregate, scatter_gather_aggregate_ref, sg_cost,
     sg_variant)
@@ -614,6 +615,39 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Mean device milliseconds of one call of ``fn``: ``calls`` calls
+    captured in a CUDA graph and replayed, so no host time lies between
+    the launches (``cuda_ms`` of back-to-back calls reads the host's time
+    where that is longer than the device's)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, iters=10, warmup=2) / calls
+    del graph
+    return ms
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Mean host microseconds one call of ``fn`` takes to return (no
+    synchronize between the calls, so launches queue behind the device):
+    what back-to-back calls cost when the host, not the card, is slower."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops=PEAK_FP32_FLOPS):
@@ -1145,14 +1179,76 @@ def sg_bucket_checks(x, big, dev):
     return out
 
 
+def bf16_args(adj, h, wn, ws, b, m):
+    """A fused row's arguments with h, the weights and b in bf16."""
+    bf = lambda t: None if t is None else t.to(torch.bfloat16)  # noqa: E731
+    return (adj, bf(h), bf(wn), bf(ws), bf(b), m)
+
+
+def fused_bf16_rows(x):
+    """The fused layer's bf16 rows, (tag, args, kwargs, variant): the
+    serving rows (wgmma_bf16), N=100 with Fin=200 (not a multiple of the
+    kernel's 64-wide k-tile; rows past N in each box) in each form
+    (wgmma_bf16), and Fin=500 (1,000-byte rows, which TMA cannot stride:
+    cuda_core)."""
+    rows = [(f"{tag} bf16", bf16_args(*args), kw, "wgmma_bf16")
+            for tag, args, kw in fused_rows(x)]
+    cc, n, fin = 5, 100, 200
+    h = x["feats"][:cc, :n, :fin].contiguous()
+    a = x["adj"][:cc, :n, :n].contiguous()
+    m = x["mask"][:cc, :n].contiguous()
+    wn, ws = (x[w][:fin].contiguous() for w in ("wn512", "ws512"))
+    for form, args, kw in (("w_neigh", (a, h, wn, None, x["b"], m), {}),
+                           ("+w_self", (a, h, wn, ws, x["b"], m),
+                            dict(act="elu")),
+                           ("self-only", (None, h, None, ws, x["b"], m),
+                            dict(act="none"))):
+        rows.append((f"C={cc} N={n} Fin={fin} Fout={F_HID} {form} bf16",
+                     bf16_args(*args), kw, "wgmma_bf16"))
+    h500 = x["feats"][:2, :64, :F_IN].contiguous()
+    rows.append((f"C=2 N=64 Fin={F_IN} Fout={F_HID} +w_self bf16",
+                 bf16_args(x["adj"][:2, :64, :64].contiguous(), h500,
+                           x["w500"], x["w500"], x["b"],
+                           x["mask"][:2, :64].contiguous()),
+                 dict(act="elu"), "cuda_core"))
+    return rows
+
+
+def fused_bf16_checks(x):
+    """Each bf16 row of the fused layer (``fused_bf16_rows``) against the
+    plain version's fp32 result on the same bf16 inputs (``bf16_reading``:
+    one bf16 ulp outside 2e-5, the reference's 2e-2; ``bf16_bias_ulp``: the
+    mean signed error within 0.1 ulp, which a truncating store misses),
+    output in bf16, two launches bitwise equal, both on the row's kernel.
+    [(name, ok, text)]"""
+    out = []
+    for tag, args, kw, variant in fused_bf16_rows(x):
+        before = dict(fused_kernels.variant_launches)
+        got = fused_gnn_layer(*args, **kw)
+        again = fused_gnn_layer(*args, **kw)
+        ran = {k: n - before[k]
+               for k, n in fused_kernels.variant_launches.items()}
+        on = ran == {k: 2 if k == variant else 0 for k in ran}
+        want = fused_gnn_layer_ref(*widened(args), **kw)
+        ok, worst, err = bf16_reading(got, want)
+        bias = bf16_bias_ulp(got, want)
+        same = bool(torch.equal(got, again))
+        out.append((f"fused_gnn_layer {tag}", ok and same and on
+                    and abs(bias) <= BF16_BIAS_ULP
+                    and got.dtype == torch.bfloat16,
+                    f"max_abs_err={err:.3e} against the fp32 result, worst "
+                    f"{worst} bf16 ulp outside 2e-5, mean signed error "
+                    f"{bias:+.4f} ulp, repeat bitwise {same}, launches "
+                    f"{ran} ({variant} expected)"))
+    return out
+
+
 def bf16_rows(x, big, dev):
     """The three GNN kernels' bf16 rows at the serving shapes: (kernel, tag,
     args, kwargs); h, z, the weights and b in bf16, the rest fp32."""
     bf = lambda t: None if t is None else t.to(torch.bfloat16)  # noqa: E731
-    rows = []
-    for tag, (adj, h, wn, ws, b, m), kw in fused_rows(x):
-        rows.append(("fused_gnn_layer", f"{tag} bf16",
-                     (adj, bf(h), bf(wn), bf(ws), bf(b), m), kw))
+    rows = [("fused_gnn_layer", f"{tag} bf16", bf16_args(*args), kw)
+            for tag, args, kw in fused_rows(x)]
     for tag, (src, dst, w, h) in sg_rows(x) + sg_wide_rows(x, big, dev)[1:]:
         rows.append(("scatter_gather_aggregate", f"{tag} bf16",
                      (src, dst, w, bf(h)), {}))
@@ -1182,9 +1278,12 @@ def bf16_checks(x, big, dev):
     """Each bf16 row against its plain version's fp32 result on the same
     (bf16) inputs: within one bf16 ulp of it rounded to bf16 outside the
     fp32 kernels' 2e-5 (``bf16_reading``), within the reference's 2e-2,
-    output in bf16, two launches bitwise equal. [(name, ok, text)]"""
-    out = []
+    output in bf16, two launches bitwise equal; the fused layer's rows as
+    ``fused_bf16_checks``. [(name, ok, text)]"""
+    out = fused_bf16_checks(x)
     for kernel, tag, args, kw in bf16_rows(x, big, dev):
+        if kernel == "fused_gnn_layer":
+            continue
         fn, ref, mod = KERNELS_BY_NAME[kernel]
         before = dict(mod.variant_launches)
         got = fn(*args, **kw)
@@ -1277,8 +1376,11 @@ def variant_phase(graph, targets, x, dev, label):
                                             ws.expand(h.shape[0], -1, -1))
                 return act(acc) * m[..., None].to(h.dtype)
             lib = cuda_ms(library)
+            fp32_chain, fp32_name = fused_bf16_library_fp32(args, act)
+            lib32 = cuda_ms(fp32_chain)
             bnd, by = fused_bf16_bound(args)
-            lib_name = "baddbmm chain, bf16"
+            lib_name = (f"baddbmm chain, bf16; {lib32:.4f} ms the chain "
+                        f"with HW and A.HW in fp32 ({fp32_name})")
         elif kernel == "scatter_gather_aggregate":
             lib = cuda_ms(sg_library(args))
             bnd, by = sg_bound(args)
@@ -1291,10 +1393,49 @@ def variant_phase(graph, targets, x, dev, label):
               f"{plain:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'} ({lib_name}), "
               f"bound {bnd:.4f} ms ({by}) [{label}]", flush=True)
-        recs[kernel].append(dict(
-            variant=variant, shape=tag, max_abs_err=err, ms=ms,
-            plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib))
+        rec = dict(variant=variant, shape=tag, max_abs_err=err, ms=ms,
+                   plain_ms=plain, bound_ms=bnd, bound_by=by,
+                   library_ms=lib)
+        if kernel == "fused_gnn_layer":
+            rec["library_fp32_ms"] = lib32
+            print(f"  fused_gnn_layer {tag}: kernel / bf16 chain "
+                  f"{ms / lib:.3f}, kernel / fp32-HW chain {ms / lib32:.3f} "
+                  f"(target: no slower than the bf16 chain) [{label}]",
+                  flush=True)
+        recs[kernel].append(rec)
     return recs
+
+
+def fused_bf16_library_fp32(args, act):
+    """(fn, name): PyTorch calls that compute a bf16 fused row's function
+    with HW and A.HW kept in fp32, as the kernel and the reference do:
+    bf16 products with an fp32 output (``torch.mm(..., out_dtype=)`` where
+    this torch has it, else the same products on inputs widened to fp32),
+    A.HW and the sums in fp32, one rounding to bf16."""
+    adj, h, wn, ws, b, m = args
+    Cc, Nn, fin = h.shape
+    h2 = h.reshape(Cc * Nn, fin)
+    try:
+        torch.mm(h2[:8], (wn if wn is not None else ws)[:, :8],
+                 out_dtype=torch.float32)
+        name = "mm out_dtype=float32, fp32 baddbmm"
+
+        def mm32(w):
+            return torch.mm(h2, w, out_dtype=torch.float32).view(Cc, Nn, -1)
+    except (TypeError, RuntimeError, NotImplementedError):
+        name = "fp32 matmuls on widened inputs"
+
+        def mm32(w):
+            return torch.mm(h2.float(), w.float()).view(Cc, Nn, -1)
+
+    def fn():
+        acc = b.float().expand(Cc, Nn, -1)
+        if wn is not None:
+            acc = torch.baddbmm(acc, adj, mm32(wn))
+        if ws is not None:
+            acc = acc + mm32(ws)
+        return (act(acc) * m[..., None]).to(h.dtype)
+    return fn, name
 
 
 # -- phase 4: flash_attention against its plain version --------------------
@@ -1438,7 +1579,7 @@ def engine_phase(graph, targets, label):
     print(f"[engine] fused_gnn_layer launches by kernel over the six "
           f"engines: {variants} [{label}]", flush=True)
     check(variants == {"tf32x3": main_path["fused_gnn_layer"],
-                       "cuda_core": 0},
+                       "wgmma_bf16": 0, "cuda_core": 0},
           f"fused_gnn_layer launches by kernel {variants}, expected all "
           f"{main_path['fused_gnn_layer']} on the tf32x3 kernel")
     gat_split = dict(gat_kernels.variant_launches)
@@ -3911,7 +4052,10 @@ def flash_row(dev, label, what, B, H, KH, S, D, causal, seed):
     tag = (f"B={B} H={H} Kh={KH} S={S} D={D} bf16 "
            f"{'causal' if causal else 'non-causal'}")
     r = flash_wgmma_check(f"flash wgmma {tag} ({what})", q, k, v, causal)
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), iters=20)
+    call = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    ms = cuda_ms(call, iters=20)
+    dev_ms = graph_ms(call)
+    host = host_us(call)
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
                     iters=3, warmup=1)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -3919,15 +4063,17 @@ def flash_row(dev, label, what, B, H, KH, S, D, causal, seed):
     flops = flash_cost(B, H, S, S, D, causal=causal)["flops"]
     moved = 2 * nbytes(q) + nbytes(k, v)
     bnd, by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
-    print(f"  flash wgmma {tag} ({what}): kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
-          f"{lib:.4f} ms (scaled_dot_product_attention"
-          f"{', enable_gqa' if KH < H else ''}), bound {bnd:.4f} ms ({by}; "
-          f"{flops:.4g} operations, {moved:.4g} bytes) [{label}]",
-          flush=True)
+    print(f"  flash wgmma {tag} ({what}): kernel {ms:.4f} ms through "
+          f"flash_attention ({host:.1f} us of host time a call), "
+          f"{dev_ms:.4f} ms on the device (CUDA graph) "
+          f"({flops / dev_ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+          f"library {lib:.4f} ms (scaled_dot_product_attention"
+          f"{', enable_gqa' if KH < H else ''}; kernel / library "
+          f"{ms / lib:.3f}), bound {bnd:.4f} ms ({by}; {flops:.4g} "
+          f"operations, {moved:.4g} bytes) [{label}]", flush=True)
     return dict(variant="wgmma", shape=tag, max_abs_err=r["max_abs_err"],
-                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib)
+                ms=ms, graph_ms=dev_ms, host_us=host, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=lib)
 
 
 def flash_audio_vlm_rows(dev, label):

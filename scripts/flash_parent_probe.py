@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""One-off card probe: the wgmma flash kernel at D=64 and D=128 of this
-tree against an earlier commit's, bit for bit.
+"""Card probe: the wgmma flash kernel of this tree against an earlier
+commit's, at phi3's, pixtral's, MLA's and whisper's shapes.
 
     python3 scripts/flash_parent_probe.py --extract [--rev HEAD~1]  # in git
     python3 scripts/flash_parent_probe.py                           # on a GPU
@@ -12,15 +12,19 @@ hash beside them, and exits; the machine with the card need not hold the
 repository's history. Without it, the probe builds that copy with this
 tree's nvcc flags into the same directory, builds this tree's kernel
 (``kernels/build.py``), and at phi3's (B=1, H=40, 10 KV heads, S=8192,
-D=128, causal), pixtral's (B=1, H=32, 8 KV heads, S=8192, D=128, causal)
-and whisper's encoder (B=16, H=6, S=1500, D=64, non-causal) and decoder
-(B=16, H=6, S=448, D=64, causal) shapes launches both on the same bf16
-inputs (seeded on the card) and compares the outputs with
-``torch.equal``. It times both kernels there through the same host path,
-a direct ``ctypes`` call each (CUDA events; the earlier kernel, this
-tree's, this tree's, the earlier one) and this tree's through the
-``flash_attention`` wrapper, and prints one line a shape.
-Exits 1 unless every shape is bitwise equal.
+D=128, causal), pixtral's (B=1, H=32, 8 KV heads, S=8192, D=128, causal),
+MLA's (B=1, H=16, S=8192, q/k 192, v 128, causal) and whisper's encoder
+(B=16, H=6, S=1500, D=64, non-causal) and decoder (B=16, H=6, S=448, D=64,
+causal) shapes launches both on the same bf16 inputs (seeded on the card).
+Where ``SAME_CODE`` says this tree runs the earlier kernel's code (D=128
+and (192, 128)) the outputs must be bitwise equal (``torch.equal``); at
+D=64, whose kernel this tree redesigned, each is held by
+``flash_bf16_check`` instead. It times both kernels there through the same
+host path, a direct ``ctypes`` call each (CUDA events; the earlier kernel,
+this tree's, this tree's, the earlier one) and this tree's through the
+``flash_attention`` wrapper, and prints one line a shape. The earlier
+kernel's C entry must take v's width (Dv) as this tree's does. Exits 1 unless
+every check holds.
 """
 from __future__ import annotations
 
@@ -37,12 +41,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 OUT = ROOT / "build" / "flash_parent"
 CSRC = "src/repro_torch/csrc"
-SHAPES = (  # what, B, H, Kh, S, D, causal
-    ("phi3", 1, 40, 10, 8192, 128, True),
-    ("pixtral", 1, 32, 8, 8192, 128, True),
-    ("whisper encoder", 16, 6, 6, 1500, 64, False),
-    ("whisper decoder", 16, 6, 6, 448, 64, True),
+SHAPES = (  # what, B, H, Kh, S, D, Dv, causal
+    ("phi3", 1, 40, 10, 8192, 128, 128, True),
+    ("pixtral", 1, 32, 8, 8192, 128, 128, True),
+    ("MLA", 1, 16, 16, 8192, 192, 128, True),
+    ("whisper encoder", 16, 6, 6, 1500, 64, 64, False),
+    ("whisper decoder", 16, 6, 6, 448, 64, 64, True),
 )
+SAME_CODE = {128, 192}      # q/k widths whose kernel code this tree keeps
 
 
 def extract(rev: str) -> None:
@@ -97,50 +103,66 @@ def main() -> int:
         print(p.stderr, file=sys.stderr)
         return 1
     old = ctypes.CDLL(str(so))
+    new = fa._lib()
     vp, i = ctypes.c_void_p, ctypes.c_int
     old.flash_attention_wgmma_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
-                                              i, ctypes.c_float, i, vp]
+                                              i, i, ctypes.c_float, i, vp]
     old.flash_attention_wgmma_fwd.restype = i
-
-    new = fa._lib()
 
     def launch(lib, q, k, v, causal):
         B, H, S, D = q.shape
-        out = torch.empty_like(q)
-        widths = (D,) if lib is old else (D, D)     # this tree's takes Dv
+        out = q.new_empty((B, H, S, v.shape[-1]))
         err = lib.flash_attention_wgmma_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            k.shape[1], S, k.shape[2], *widths, 1.0 / D ** 0.5, int(causal),
-            torch.cuda.current_stream().cuda_stream)
+            k.shape[1], S, k.shape[2], D, v.shape[-1], 1.0 / D ** 0.5,
+            int(causal), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"a kernel launch failed (error {err})")
         return out
 
     ok = True
-    for what, B, H, KH, S, D, causal in SHAPES:
+    for what, B, H, KH, S, D, DV, causal in SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(S + D)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    .to(torch.bfloat16)
-                   for shape in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D)))
-        check(fa.flash_variant(q.dtype, D) == "wgmma", what)
+                   for shape in ((B, H, S, D), (B, KH, S, D), (B, KH, S, DV)))
+        check(fa.flash_variant(q.dtype, D, DV) == "wgmma", what)
         before = fa.variant_launches["wgmma"]
         got = fa.flash_attention(q, k, v, causal=causal)
+        again = fa.flash_attention(q, k, v, causal=causal)
         was = launch(old, q, k, v, causal)
         torch.cuda.synchronize()
-        check(fa.variant_launches["wgmma"] == before + 1, what)
-        same = bool(torch.equal(got, was))
-        ok &= same
+        check(fa.variant_launches["wgmma"] == before + 2, what)
+        if D in SAME_CODE:
+            held = bool(torch.equal(got, was))
+            verdict = f"bitwise equal {held}"
+        else:
+            kv = [t.repeat_interleave(H // KH, dim=1) for t in (k, v)]
+            want = fa.flash_attention_ref(q.float(), *(t.float() for t in kv),
+                                          causal=causal)
+            tol = fa.flash_bf16_tol(q, *kv, causal=causal)
+            r = fa.flash_bf16_check(got, again, want, tol)
+            r_old = fa.flash_bf16_check(was, launch(old, q, k, v, causal),
+                                        want, tol)
+            held = r["ok"] and r_old["ok"]
+            verdict = (f"flash_bf16_check this: worst {r['worst']:.3f}, "
+                       f"mean signed error {r['bias_ulp']:+.4f} ulp, "
+                       f"repeatable {r['repeatable']}; earlier: worst "
+                       f"{r_old['worst']:.3f}, {r_old['bias_ulp']:+.4f} "
+                       f"ulp; equal to the earlier "
+                       f"{float((got == was).float().mean()):.4f}")
+        ok &= held
         t = [smoke.cuda_ms(lambda lib=lib: launch(lib, q, k, v, causal))
              for lib in (old, new, new, old)]
         wrapped = smoke.cuda_ms(lambda: fa.flash_attention(q, k, v,
                                                            causal=causal))
-        print(f"[parent] {what} B={B} H={H} Kh={KH} S={S} D={D} "
-              f"{'causal' if causal else 'non-causal'}: bitwise equal "
-              f"{same}; ms earlier / this / this / earlier "
-              f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f}, this "
-              f"through flash_attention {wrapped:.4f} "
-              f"{'ok' if same else 'FAIL'} [{label}]", flush=True)
-    print(f"[parent] all bitwise equal: {ok}", flush=True)
+        print(f"[parent] {what} B={B} H={H} Kh={KH} S={S} D={D} Dv={DV} "
+              f"{'causal' if causal else 'non-causal'}: {verdict}; ms "
+              f"earlier / this / this / earlier {t[0]:.4f} / {t[1]:.4f} / "
+              f"{t[2]:.4f} / {t[3]:.4f}, this through flash_attention "
+              f"{wrapped:.4f} {'ok' if held else 'FAIL'} [{label}]",
+              flush=True)
+    print(f"[parent] all held: {ok}", flush=True)
     return 0 if ok else 1
 
 

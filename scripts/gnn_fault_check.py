@@ -8,24 +8,29 @@ GPU: ``fused_gnn_layer``, ``scatter_gather_aggregate`` and
 Builds copies of ``src/repro_torch/csrc/fused_gnn.cu``,
 ``src/repro_torch/csrc/scatter_gather.cu`` and
 ``src/repro_torch/csrc/gat_attention.cu`` with one fault planted in each
-(in a temporary directory; the repository is not written), and runs the
+(in a temporary directory; the repository is not written; a fault in a
+``csrc`` header is planted in a copy of the header beside the kernel's
+copy, which the kernel's ``#include "..."`` finds first), and runs the
 unchanged kernels and each faulty one through the checks ``chip_smoke.py``
-holds them to (``fused_checks``, ``sg_checks`` and ``gat_checks``), on the
-serving batch of the Flickr-sized graph (C=64, N=256, Fin 512 and 256,
-Fout 256, E=18,688, 4 heads): every check against the plain version at
-rtol = atol = 2e-5, two launches bitwise equal, the fused layer on its
-tf32x3 kernel and GAT on its slab kernel, block_f invariance, NaN from
-weight-0 edges and from z rows with inf or NaN behind a GAT weight of 0
-where the plain version has it, 64 edges into one vertex, empty, dense and
-all -inf GAT rows, a subnormal GAT weight.
+holds them to (``fused_checks`` and ``fused_bf16_checks``, ``sg_checks``
+and ``gat_checks``), on the serving batch of the Flickr-sized graph (C=64,
+N=256, Fin 512 and 256, Fout 256, E=18,688, 4 heads): every fp32 check
+against the plain version at rtol = atol = 2e-5, every bf16 fused row
+within one bf16 ulp of the plain version's fp32 result and its mean
+signed error within 0.1 ulp, two launches bitwise equal, the fused layer
+on its tf32x3 (fp32) or wgmma_bf16 kernel and GAT on its slab kernel,
+block_f invariance, NaN from weight-0 edges and from z rows with inf or
+NaN behind a GAT weight of 0 where the plain version has it, 64 edges into
+one vertex, empty, dense and all -inf GAT rows, a subnormal GAT weight.
 
 Prints each fault's prediction (written before its first run: which checks
 it fails), then one line per kernel with the checks it failed. Exits 1
 unless the unchanged kernels pass every check and every planted fault fails
 at least one; whether each fault failed exactly the predicted checks is
-printed beside it. A change in ``NOT_GATING`` (``__expf`` for ``expf``, not
-a fault of the semantics) is built, run and reported the same way, and does
-not decide the exit code.
+printed beside it. The changes in ``NOT_GATING`` (``__expf`` for ``expf``,
+not a fault of the semantics; the bf16 kernel's sums over all of Fin
+without fresh partials, whose error is far below a bf16 ulp) are built,
+run and reported the same way, and do not decide the exit code.
 """
 from __future__ import annotations
 
@@ -49,12 +54,52 @@ FUSED_ROWS = [f"fused C=64 N=256 Fin={fin} Fout=256 {form}"
 SG_ROWS = [f"sg C=64 N=256 F={f} " for f in (512, 256)]
 GAT_NAN = ["gat inf/NaN in z outside the structure",
            "gat inf in z behind a subnormal weight"]
+BF16 = "fused_gnn_layer "
+BF16_NEIGH = [BF16 + f"C=64 N=256 Fin={fin} Fout=256 {form} bf16"
+              for fin in (512, 256) for form in ("w_neigh", "+w_self")] + \
+    [BF16 + f"C=5 N=100 Fin=200 Fout=256 {form} bf16"
+     for form in ("w_neigh", "+w_self")]
+BF16_SELF = [BF16 + f"C=64 N=256 Fin={fin} Fout=256 +w_self bf16"
+             for fin in (512, 256)] + \
+    [BF16 + "C=64 N=256 Fin=256 Fout=256 self-only bf16"] + \
+    [BF16 + f"C=5 N=100 Fin=200 Fout=256 {form} bf16"
+     for form in ("+w_self", "self-only")]
+BF16_WGMMA = sorted(set(BF16_NEIGH + BF16_SELF))  # every wgmma_bf16 row
 
-# name -> (kernel, text of its source, what replaces it, the checks it is
-# predicted to fail: each a prefix of a check's name)
+# the bf16 kernel's tile_product with its products summed into the output
+# registers over all of Fin (no fresh partial, nothing added on the CUDA
+# cores)
+_FRESH = """  fence_regs(p[0]);
+  fence_regs(p[1]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      wgmma_ss_m64n64k16_tb(
+          p[mt],
+          desc_sw128(h_tile + (row0 + 64 * mt) * 128 + 32 * kk, 16, 1024),
+          desc_sw128(w_tile + kk * 16 * 128, TILE_W, 1024), kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(p[0]);
+  fence_regs(p[1]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] += p[mt][i];
+"""
+_ONE_SUM = _FRESH.split("#pragma unroll\n  for (int mt = 0; mt < 2; ++mt)\n"
+                        "#pragma unroll\n    for (int i = 0;")[0] \
+    .replace("p[mt],", "acc[mt],").replace("kk > 0);", "1);") \
+    .replace("p[0]", "acc[0]").replace("p[1]", "acc[1]")
+
+# name -> (kernel, the file planted in (the kernel's .cu or a csrc header),
+# text of that file, what replaces it, the checks it is predicted to fail:
+# each a prefix of a check's name)
 FAULTS = {
     "fused: one product (1xTF32)": (
-        "fused_gnn",
+        "fused_gnn", "fused_gnn.cu",
         "  wgmma_rs_m64n64k8_tf32(acc, al, desc_sw128(b_hi, 16, 1024), "
         "!first);\n"
         "  wgmma_rs_m64n64k8_tf32(acc, ah, desc_sw128(b_lo, 16, 1024), 1);\n"
@@ -62,32 +107,34 @@ FAULTS = {
         "  wgmma_rs_m64n64k8_tf32(acc, ah, desc_sw128(b_hi, 16, 1024), "
         "!first);\n",
         # plain TF32 is far outside the tolerance on the CPU emulation
-        # (tests/test_torch_split.py); block_f and repeats stay bitwise
+        # (tests/test_torch_split.py); block_f and repeats stay bitwise.
+        # The wgmma_bf16 kernel's A.HW runs the same three products: where
+        # a row's sum cancels, 2^-11 of its terms is more than a bf16 ulp
         FUSED_ROWS + ["fused C=64 N=256 Fin=256 Fout=256 self-only",
                       "fused unaligned f_in=500", "fused f_in=500 +w_self",
-                      "fused self-only f_in=500"]),
+                      "fused self-only f_in=500"] + BF16_NEIGH),
     "fused: last k-tile of A.HW skipped": (
-        "fused_gnn",
+        "fused_gnn", "fused_gnn.cu",
         "const int kt2 = NEIGH ? (N + BK - 1) / BK : 0;",
         "const int kt2 = NEIGH ? (N + BK - 1) / BK - 1 : 0;",
         # A's columns 224-255 (N=256) or 32-63 (the f_in=500 cases, N=64)
         # are real vertices in most subgraphs; the self-only rows have no A
         FUSED_ROWS + ["fused unaligned f_in=500", "fused f_in=500 +w_self"]),
     "sg: weight-0 repair removed": (
-        "scatter_gather",
+        "scatter_gather", "scatter_gather.cu",
         "      if (in && !live)\n",
         "      if (false)\n",
         # the finite results are bitwise the same; no NaN from padding
         ["sg weight-0 edges from inf/NaN sources"]),
     "sg: last edge of each bucket dropped": (
-        "scatter_gather",
+        "scatter_gather", "scatter_gather.cu",
         "const int b0 = start[row], b1 = start[row + 1];",
         "const int b0 = start[row], b1 = max(b0, start[row + 1] - 1);",
         # every destination with an edge loses one: 63 of 64 into vertex 3
         SG_ROWS + ["sg weight-0 edges from inf/NaN sources",
                    "sg 64 edges into one vertex"]),
     "gat: NaN from z rows outside the structure dropped": (
-        "gat_attention",
+        "gat_attention", "gat_attention.cu",
         "    if (any_bad) {",
         "    if (false) {",
         # the first CUDA kernel's skip of the entries outside the
@@ -95,14 +142,14 @@ FAULTS = {
         # inputs bitwise the same
         GAT_NAN),
     "gat: zero weights skipped in the list walk": (
-        "gat_attention",
+        "gat_attention", "gat_attention.cu",
         "          fma4(acc, __int_as_float(e[u].y), zv[u]);",
         "          if (e[u].y != 0) fma4(acc, __int_as_float(e[u].y), zv[u]);",
         # only the structural weight that underflows to 0 (in front of an
         # inf) tells; a subnormal weight is not 0 and stays
         GAT_NAN[:1]),
     "gat: each row's last list entry dropped": (
-        "gat_attention",
+        "gat_attention", "gat_attention.cu",
         "      if (n + lane < np) lst[n + lane] = make_int2(N * q4, 0);",
         "      if (n - 1 + lane < np) lst[n - 1 + lane] = make_int2(N * q4, 0);",
         # every non-empty slab row loses an entry (the row kernel at N=320
@@ -111,15 +158,45 @@ FAULTS = {
          "gat empty, dense and all -inf rows", "gat rows sum to one"]
         + GAT_NAN),
     "gat: max seeded at -inf": (
-        "gat_attention",
+        "gat_attention", "gat_attention.cu",
         "      if (n < N) m = fmaxf(m, NEG_BIG);",
         "",
         # only a row whose structural scores are all -inf has no finite
         # max: exp(-inf - -inf) is NaN where the oracle gives 0
         ["gat empty, dense and all -inf rows",
          "gat empty and all -inf rows are 0"]),
+    "fused bf16: W read without the transpose bit": (
+        "fused_gnn", "hopper.cuh",
+        "%33, p, 1, 1, 0, 1;",
+        "%33, p, 1, 1, 0, 0;",
+        # H.W reads W^T's tiles as W's: every wgmma_bf16 row is wrong
+        BF16_WGMMA),
+    "fused bf16: the last k-tile of H.Ws skipped": (
+        "fused_gnn", "fused_gnn.cu",
+        "    if (SELF) tile_product(st, st + TILE_H + TILE_W, 128 * cw, p, as);",
+        "    if (SELF && kt + 1 < kt1)\n"
+        "      tile_product(st, st + TILE_H + TILE_W, 128 * cw, p, as);",
+        # the rows with a self weight lose Fin's last 64 (or 8) columns
+        BF16_SELF),
+    "fused bf16: truncating store": (
+        "fused_gnn", "elem.cuh",
+        "    const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);\n"
+        "    const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);",
+        "    const __nv_bfloat162 a = __halves2bfloat162(\n"
+        "        __float2bfloat16_rz(x[0]), __float2bfloat16_rz(x[1]));\n"
+        "    const __nv_bfloat162 b = __halves2bfloat162(\n"
+        "        __float2bfloat16_rz(x[2]), __float2bfloat16_rz(x[3]));",
+        # within one ulp of the fp32 result, but about -0.5 ulp on average:
+        # the wgmma_bf16 rows (16-byte stores); cuda_core stores one
+        # element at a time and keeps rounding to nearest
+        BF16_WGMMA),
+    "fused bf16: one sum over all of Fin, no fresh partials": (
+        "fused_gnn", "fused_gnn.cu", _FRESH, _ONE_SUM,
+        # the tensor cores' truncated sums over 512 products stay ~2^-14 of
+        # the result, far inside a bf16 ulp: no check sees it
+        []),
     "gat: __expf for expf": (
-        "gat_attention",
+        "gat_attention", "gat_attention.cu",
         "{ return expf(v); }",
         "{ return __expf(v); }",
         # the fast exp flushes the subnormal weight e^-95 to 0, so its inf
@@ -127,20 +204,26 @@ FAULTS = {
         ["gat inf in z behind a subnormal weight"]),
 }
 # Reported beside their prediction; they do not decide the exit code.
-NOT_GATING = {"gat: __expf for expf"}
+NOT_GATING = {"gat: __expf for expf",
+              "fused bf16: one sum over all of Fin, no fresh partials"}
 
 
 def build_faults(tmp: Path):
-    """One nvcc per faulty copy, all started together; {name: CDLL}."""
+    """One nvcc per faulty copy, all started together; {name: CDLL}. Each
+    copy gets a directory of its own, with the edited header beside the
+    kernel's source where the fault lies in a header."""
     procs = {}
-    for i, (name, (kernel, old, new, _)) in enumerate(FAULTS.items()):
-        src = (build.CSRC / f"{kernel}.cu").read_text()
+    for i, (name, (kernel, path, old, new, _)) in enumerate(FAULTS.items()):
+        src = (build.CSRC / path).read_text()
         if src.count(old) != 1:
-            raise RuntimeError(f"fault {name!r}: {old!r} is not in "
-                               f"{kernel}.cu once")
-        src = src.replace(old, new)
-        cu, so = tmp / f"fault{i}.cu", tmp / f"fault{i}.so"
-        cu.write_text(src)
+            raise RuntimeError(f"fault {name!r}: {old!r} is not in {path} "
+                               f"once")
+        here = tmp / f"fault{i}"
+        here.mkdir()
+        (here / path).write_text(src.replace(old, new))
+        cu, so = here / f"{kernel}.cu", here / f"{kernel}.so"
+        if path != cu.name:
+            cu.write_text((build.CSRC / cu.name).read_text())
         procs[name] = (so, subprocess.Popen(
             build.nvcc_command(cu, so), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
@@ -173,9 +256,11 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for name, (_, _, _, predicted) in FAULTS.items():
+    for name, (*_, predicted) in FAULTS.items():
         print(f"[predicted] {name}: fails {predicted}", flush=True)
-    run = {"fused_gnn": smoke.fused_checks, "scatter_gather": smoke.sg_checks,
+    run = {"fused_gnn": lambda x: smoke.fused_checks(x)
+           + smoke.fused_bf16_checks(x),
+           "scatter_gather": smoke.sg_checks,
            "gat_attention": smoke.gat_checks}
     good = {k: build.load(k) for k in run}
     _, _, sb = smoke.serving_batch()
@@ -186,7 +271,7 @@ def main() -> int:
                  for k in run}
         caught, as_predicted = {}, {}
         for name, lib in faults.items():
-            kernel, _, _, predicted = FAULTS[name]
+            kernel, *_, predicted = FAULTS[name]
             build._libs[kernel] = lib
             try:
                 checks = run[kernel](x)

@@ -16,7 +16,10 @@
 // launch (kernels/flash_attention.py, flash_variant):
 //
 // wgmma (bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128)}): bound by
-// operations. The kernel is templated on both widths: Q.K^T runs D/16
+// operations. (64, 64), whisper's width, has a kernel of its own
+// (namespace w64, below: three consumer warpgroups, a persistent grid,
+// Q.K^T overlapped with the softmax). The others share a template on both
+// widths: Q.K^T runs D/16
 // k-steps over D/64 swizzled 64-column boxes of Q and K, P.V runs over
 // Dv/64 boxes of V into a [64, Dv] accumulator, and the output is Dv wide.
 // (192, 128) is MLA prefill's core (q and k nope + rope, v at its own
@@ -276,7 +279,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 
-// -- the wgmma kernel (bf16; (D, Dv) = (64, 64), (128, 128), (192, 128)) -----
+// -- the wgmma template (bf16; (D, Dv) = (128, 128), (192, 128)) -----------
 
 namespace wg {
 
@@ -327,11 +330,6 @@ __device__ __forceinline__ void pv_mma<128>(float (&o)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
   wgmma_rs_m64n128k16(o, a, b);
-}
-template <>
-__device__ __forceinline__ void pv_mma<64>(float (&o)[32],
-                                           const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_m64n64k16(o, a, b);
 }
 
 template <int DK, int DV>
@@ -521,10 +519,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // [heads, rows, D] bf16, boxes of 64 columns x `box_rows` rows x 1 head,
 // 128-byte swizzle; rows past the end read as zeros. Returns 0 or an error.
-int make_map(CUtensorMap* map, const void* ptr, int heads, int rows, int D,
-             int box_rows) {
-  return make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, D, rows,
-                     heads, 64, box_rows);
+// [heads, rows, D] bf16 through the host thread's map cache.
+int make_map_cached(CUtensorMap* map, const void* ptr, int heads, int rows,
+                    int D, int box_rows) {
+  thread_local MapCache cache;
+  return make_map_3d_cached(cache, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                            ptr, D, rows, heads, 64, box_rows);
 }
 
 template <int DK, int DV>
@@ -532,15 +532,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Kh, int Sq, int Sk, float scale, int causal,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int err = make_map(&mq, q, B * H, Sq, DK, BQ);
-  if (!err) err = make_map(&mk, k, B * Kh, Sk, DK, BK);
-  if (!err) err = make_map(&mv, v, B * Kh, Sk, DV, BK);
+  int err = make_map_cached(&mq, q, B * H, Sq, DK, BQ);
+  if (!err) err = make_map_cached(&mk, k, B * Kh, Sk, DK, BK);
+  if (!err) err = make_map_cached(&mv, v, B * Kh, Sk, DV, BK);
   if (err) return err;
   auto kernel = flash_wgmma_kernel<DK, DV>;
   constexpr int smem = Smem<DK, DV>::BYTES;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static std::atomic<unsigned long long> limit_set{0};
+  err = smem_limit_once(reinterpret_cast<const void*>(kernel), smem,
+                        limit_set);
+  if (err) return err;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, Kh, Sq, Sk,
@@ -549,6 +550,330 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 }  // namespace wg
+
+// -- the wgmma kernel at (D, Dv) = (64, 64): whisper's shapes ----------------
+//
+// At D=64 the scores' exp2 pass is about twice D=128's share of a tile, so
+// this instance is designed on its own:
+// - three consumer warpgroups (192 query rows an item) at 160 registers and
+//   a producer at 32: 512 threads, one block an SM;
+// - inside a warpgroup, Q.K_j^T is issued before the softmax of tile j - 1
+//   ends: tile j's scores are computed while P_{j-1}.V_{j-1} runs, and O is
+//   rescaled after it (O = (O + P_{j-1} V_{j-1}) alpha_j; the D=128
+//   instances rescale first), so S (64 fp32), P (32) and O (32) fit 160;
+// - a persistent grid (one block an SM) walks the items (b*h, 192 query
+//   rows), the heaviest causal ones first; Q is double-buffered, so the
+//   producer loads an item's Q and K/V tiles while the consumers finish the
+//   previous one, and the four-stage K/V ring runs on across items;
+// - a warpgroup computes only the tiles its own rows need (causal) and
+//   none when its rows lie past Sq; for the others it waits and releases.
+// Every warp arrives on the empty barriers itself, after its own wait.
+
+namespace w64 {
+
+using namespace hopper;
+using wg::exp2_fast;
+using wg::pack_bf16;
+using wg::store_bf16x2;
+
+constexpr int D = 64;
+constexpr int CONSUMERS = 3;
+constexpr int BQ = 64 * CONSUMERS;             // query rows an item
+constexpr int BK = 128;                        // key rows a tile
+constexpr int STAGES = 4;                      // K/V ring depth
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int WARPS = 4 * CONSUMERS;           // consumer warps
+constexpr int Q_BYTES = BQ * D * 2;            // one Q buffer
+constexpr int KV_BYTES = BK * D * 2;           // one K or V tile
+constexpr int NBARS = 4 + 3 * STAGES;
+constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * NBARS;
+static_assert(SMEM <= 232448, "more shared memory than a block has");
+
+struct Item {
+  int bh, q0, n_tiles;
+};
+
+// Item i: query tile n_qb - 1 - i / BH (the last, heaviest when causal,
+// first) of head i % BH; its K/V tiles run to its last row's diagonal.
+__device__ __forceinline__ Item item_of(int i, int BH, int n_qb, int Sq,
+                                        int Sk, int causal) {
+  Item w;
+  w.bh = i % BH;
+  w.q0 = (n_qb - 1 - i / BH) * BQ;
+  const int q_last = min(w.q0 + BQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  w.n_tiles = (k_end + BK - 1) / BK;
+  return w;
+}
+
+// S = Q.K^T for this warpgroup's 64 rows (Q at sq) and a 128-row K tile.
+__device__ __forceinline__ void qk(float (&sc)[64], uint32_t sq, uint32_t sk) {
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_m64n128k16(sc, desc_sw128(sq + 32 * kk, 16, 1024),
+                        desc_sw128(sk + 32 * kk, 16, 1024), kk > 0);
+  wgmma_commit();
+}
+
+// O += P.V for a 128-row V tile (MN-major) with P in registers.
+__device__ __forceinline__ void pv(float (&o)[32], const uint32_t (&p)[32],
+                                   uint32_t sv) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    wgmma_rs_m64n64k16(o, a, desc_sw128(sv + kk * 16 * 128, KV_BYTES, 1024));
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one tile of scores (the D=128 instances'
+// arithmetic): masks (causal, past Sk), moves the running max m, replaces
+// sc by exp2(s c - m c), and returns alpha (the old sums' factor) and this
+// thread's part of the tile's row sums.
+__device__ __forceinline__ void softmax(float (&sc)[64], int k0, int r0,
+                                        int r_first, int Sk, int causal,
+                                        float scale_log2, float (&m)[2],
+                                        float (&alpha)[2], float (&rs)[2],
+                                        int t) {
+  const int r1 = r0 + 8;
+  if ((causal && k0 + BK - 1 > r_first) || k0 + BK > Sk) {
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = k0 + 8 * i + 2 * t + e;
+        if ((causal && c > r0) || c >= Sk) sc[4 * i + e] = -INFINITY;
+        if ((causal && c > r1) || c >= Sk) sc[4 * i + 2 + e] = -INFINITY;
+      }
+  }
+  float mx0 = m[0], mx1 = m[1];
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float ms0 = mx0 == -INFINITY ? 0.0f : mx0 * scale_log2;
+  const float ms1 = mx1 == -INFINITY ? 0.0f : mx1 * scale_log2;
+  alpha[0] = exp2_fast(m[0] * scale_log2 - ms0);
+  alpha[1] = exp2_fast(m[1] * scale_log2 - ms1);
+  m[0] = mx0;
+  m[1] = mx1;
+  rs[0] = rs[1] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * i + e] = exp2_fast(fmaf(sc[4 * i + e], scale_log2, -ms0));
+      sc[4 * i + 2 + e] = exp2_fast(fmaf(sc[4 * i + 2 + e], scale_log2, -ms1));
+      rs[0] += sc[4 * i + e];
+      rs[1] += sc[4 * i + 2 + e];
+    }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma64_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     __nv_bfloat16* __restrict__ out, int H, int Kh, int Sq,
+                     int Sk, float scale_log2, int causal, int n_items,
+                     int n_qb) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;   // + buffer * Q
+  const uint32_t sK = sQ + 2 * Q_BYTES;                   // + stage * KV
+  const uint32_t sV = sK + STAGES * KV_BYTES;             // + stage * KV
+  const uint32_t bar = sV + STAGES * KV_BYTES;
+  auto q_full = [&](int b) { return bar + 8 * b; };
+  auto q_empty = [&](int b) { return bar + 8 * (2 + b); };
+  auto k_full = [&](int s) { return bar + 8 * (4 + s); };
+  auto v_full = [&](int s) { return bar + 8 * (4 + STAGES + s); };
+  auto empty = [&](int s) { return bar + 8 * (4 + 2 * STAGES + s); };
+  const int BH = n_items / n_qb;                  // B * H
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_empty(b), WARPS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                        // producer warpgroup
+    regs_dealloc<32>();
+    if (threadIdx.x != 0) return;
+    int g = 0;                                    // tiles loaded so far
+    for (int i = blockIdx.x, it = 0; i < n_items; i += gridDim.x, ++it) {
+      const Item w = item_of(i, BH, n_qb, Sq, Sk, causal);
+      const int kvh = (w.bh / H) * Kh + (w.bh % H) / (H / Kh);
+      const int b = it & 1;
+      if (it >= 2) mbar_wait(q_empty(b), ((it >> 1) - 1) & 1);
+      mbar_expect_tx(q_full(b), Q_BYTES);
+      tma_load_3d(sQ + b * Q_BYTES, &tm_q, q_full(b), 0, w.q0, w.bh);
+      for (int j = 0; j < w.n_tiles; ++j, ++g) {
+        const int s = g % STAGES;
+        if (g >= STAGES) mbar_wait(empty(s), (g / STAGES - 1) & 1);
+        mbar_expect_tx(k_full(s), KV_BYTES);
+        tma_load_3d(sK + s * KV_BYTES, &tm_k, k_full(s), 0, j * BK, kvh);
+        mbar_expect_tx(v_full(s), KV_BYTES);
+        tma_load_3d(sV + s * KV_BYTES, &tm_v, v_full(s), 0, j * BK, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup cw owns rows q0 + 64 cw .. + 63 of each item; this
+  // thread holds rows r0 and r0 + 8, columns 8 j + 2 t + {0, 1}
+  regs_alloc<160>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int t = tid % 4;
+  const bool lead = (tid & 31) == 0;              // arrives for its warp
+  int g = 0;                                      // tiles consumed so far
+  for (int i = blockIdx.x, it = 0; i < n_items; i += gridDim.x, ++it) {
+    const Item w = item_of(i, BH, n_qb, Sq, Sk, causal);
+    const int b = it & 1;
+    const int r_first = w.q0 + 64 * cw;
+    const int r0 = r_first + 16 * (tid / 32) + (tid % 32) / 4;
+    const int r_last = min(r_first + 63, Sq - 1);
+    // the tiles this warpgroup's rows need: none past Sq, to its last
+    // row's diagonal when causal
+    const int mine =
+        r_first >= Sq ? 0
+        : causal      ? min(w.n_tiles, (min(Sk, r_last + 1) + BK - 1) / BK)
+                      : w.n_tiles;
+    const uint32_t sq = sQ + b * Q_BYTES + cw * 64 * 128;
+    mbar_wait(q_full(b), (it >> 1) & 1);
+
+    float o[32], sc[64];
+    uint32_t p[32];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    float alpha[2], rs[2];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] = 0.0f;
+    if (mine > 0) {
+      int s = g % STAGES;
+      mbar_wait(k_full(s), (g / STAGES) & 1);
+      qk(sc, sq, sK + s * KV_BYTES);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (mine == 1 && lead) mbar_arrive(q_empty(b));
+      softmax(sc, 0, r0, r_first, Sk, causal, scale_log2, m, alpha, rs, t);
+      l[0] = rs[0];
+      l[1] = rs[1];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) p[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
+      for (int j = 1; j < mine; ++j) {
+        const int sp = g % STAGES;                // tile j - 1's stage
+        s = (g + 1) % STAGES;
+        mbar_wait(k_full(s), ((g + 1) / STAGES) & 1);
+        qk(sc, sq, sK + s * KV_BYTES);
+        mbar_wait(v_full(sp), (g / STAGES) & 1);
+        pv(o, p, sV + sp * KV_BYTES);
+        wgmma_wait<1>();                          // S_j done, PV in flight
+        fence_regs(sc);
+        if (j == mine - 1 && lead) mbar_arrive(q_empty(b));
+        softmax(sc, j * BK, r0, r_first, Sk, causal, scale_log2, m, alpha, rs,
+                t);
+        wgmma_wait<0>();                          // P_{j-1} V_{j-1} done
+        fence_regs(o);
+        fence_regs(p);
+        if (lead) mbar_arrive(empty(sp));         // release tile j - 1
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          o[4 * e] *= alpha[0];
+          o[4 * e + 1] *= alpha[0];
+          o[4 * e + 2] *= alpha[1];
+          o[4 * e + 3] *= alpha[1];
+        }
+        l[0] = l[0] * alpha[0] + rs[0];
+        l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          p[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
+        ++g;
+      }
+      s = g % STAGES;
+      mbar_wait(v_full(s), (g / STAGES) & 1);
+      pv(o, p, sV + s * KV_BYTES);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      if (lead) mbar_arrive(empty(s));
+      ++g;
+    } else if (lead) {
+      mbar_arrive(q_empty(b));
+    }
+    for (int j = mine; j < w.n_tiles; ++j, ++g) { // tiles past its rows
+      const int s = g % STAGES;
+      mbar_wait(k_full(s), (g / STAGES) & 1);
+      mbar_wait(v_full(s), (g / STAGES) & 1);
+      if (lead) mbar_arrive(empty(s));
+    }
+    if (mine == 0) continue;
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
+      l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
+    }
+    const float inv0 = 1.0f / fmaxf(l[0], 1e-20f);
+    const float inv1 = 1.0f / fmaxf(l[1], 1e-20f);
+    __nv_bfloat16* ob = out + (long long)w.bh * Sq * D;
+    const int r1 = r0 + 8;
+#pragma unroll
+    for (int e = 0; e < D / 8; ++e) {
+      const int c = 8 * e + 2 * t;
+      if (r0 < Sq)
+        store_bf16x2(&ob[(long long)r0 * D + c], o[4 * e] * inv0,
+                     o[4 * e + 1] * inv0);
+      if (r1 < Sq)
+        store_bf16x2(&ob[(long long)r1 * D + c], o[4 * e + 2] * inv1,
+                     o[4 * e + 3] * inv1);
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int Kh, int Sq, int Sk, float scale, int causal,
+           cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = wg::make_map_cached(&mq, q, B * H, Sq, D, BQ);
+  if (!err) err = wg::make_map_cached(&mk, k, B * Kh, Sk, D, BK);
+  if (!err) err = wg::make_map_cached(&mv, v, B * Kh, Sk, D, BK);
+  if (err) return err;
+  static std::atomic<unsigned long long> limit_set{0};
+  err = smem_limit_once(reinterpret_cast<const void*>(flash_wgmma64_kernel),
+                        SMEM, limit_set);
+  if (err) return err;
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int n_qb = (Sq + BQ - 1) / BQ;
+  const long long items = (long long)B * H * n_qb;
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_items = static_cast<int>(items);
+  const int grid = n_items < sms ? n_items : sms;
+  flash_wgmma64_kernel<<<grid, THREADS, SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, Kh, Sq, Sk,
+      scale * wg::LOG2E, causal, n_items, n_qb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace w64
 
 }  // namespace
 
@@ -594,7 +919,8 @@ int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
 #define WG_LAUNCH(DK, DV) \
   wg::launch<DK, DV>(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s)
   if (D == 128 && Dv == 128) return WG_LAUNCH(128, 128);
-  if (D == 64 && Dv == 64) return WG_LAUNCH(64, 64);
+  if (D == 64 && Dv == 64)
+    return w64::launch(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s);
   if (D == 192 && Dv == 128) return WG_LAUNCH(192, 128);
 #undef WG_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,14 +1,15 @@
-// Fused GNN layer for Hopper (sm_90a): fp32 in and out, or (cuda_core only)
-// bf16 h, weights, bias and out with fp32 adj and mask, as the reference
-// takes them (every product and sum in fp32, the output rounded once).
+// Fused GNN layer for Hopper (sm_90a): fp32 in and out, or bf16 h,
+// weights, bias and out with fp32 adj and mask, as the reference takes them
+// (every product exact or in fp32, every sum in fp32, the output rounded
+// once).
 //
 // Replaces the TPU kernel fused_gnn_layer (src/repro/kernels/fused_gnn.py,
 // _kernel):
 //
 //     out[c] = act(A[c] @ (H[c] @ Wn) + H[c] @ Ws + b) * mask[c]
 //
-// Either weight may be absent; act is none, relu or elu. Two kernels; the
-// caller picks one by shape before launch (kernels/fused_gnn.py,
+// Either weight may be absent; act is none, relu or elu. Three kernels; the
+// caller picks one by dtype and shape before launch (kernels/fused_gnn.py,
 // fused_variant).
 //
 // tf32x3 (N <= 256, Fin and, with Wn, N multiples of 4, h and A 16-byte
@@ -54,8 +55,27 @@
 //   a k-tile's partial: 192) and the split A fragments of two k-steps (32)
 //   in the consumers (setmaxnreg 232); the producer keeps 40.
 //
-// cuda_core (every other shape, and every bf16 call: the tf32x3 layout is
-// fp32's): fp32 on the CUDA cores, one tiled
+// wgmma_bf16 (bf16 at tf32x3's shapes, Fin and Fout multiples of 8, h and
+// the weights 16-byte aligned): tf32x3's pipeline with phase 1 in bf16.
+// Bound: at C=64 N=256 Fin=512 Fout=256 (w_neigh) the layer does 4.29
+// GFLOP of bf16 products (4.3 us at 989 TFLOP/s) and 2.15 GFLOP of A @ HW
+// in three tf32 products (13.0 us at 494.7), above its bytes' 10.8 us.
+//   Phase 1 runs on bf16 wgmma m64n64k16 with both operands straight from
+//   the TMA-loaded tiles: a [256][64] bf16 box of H (K-major, 128-byte
+//   swizzle) and [64][64] tiles of Wn and Ws read MN-major with the
+//   transpose bit, so the producer's threads split and stage nothing (one
+//   thread issues every load). A three-stage ring of { H box 32,768; Wn,
+//   Ws tiles 8,192 each }. bf16 products are exact in fp32; each 64-wide
+//   k-tile's products go into a fresh partial (scale-d = 0) added on the
+//   CUDA cores, as in tf32x3, so the tensor cores' truncating sums never
+//   run over all of Fin. HW stays fp32 and phase 2 and the epilogue are
+//   tf32x3's (A @ HW in three tf32 products), with one rounding to bf16 at
+//   the store. Every consumer warp arrives on the empty barriers itself,
+//   after its own wgmma wait. Shared memory: ring 1 147,456 (HW^T hi + lo
+//   and the output tile reuse it), ring 2 65,536, 10 mbarriers, 1,024 of
+//   slack: 214,096.
+//
+// cuda_core (every other shape): fp32 on the CUDA cores, one tiled
 // shared-memory GEMM with a fused epilogue, batched over C through
 // blockIdx.z. A launch computes
 //
@@ -69,10 +89,11 @@
 // does the standard register blocking (4x4 outputs a thread, 64x64 a
 // block, K in steps of 16) with two shared-memory stages.
 //
-// Numerics (both): every output element sums its products in one fixed
-// order whatever the grid (tf32x3: over k-tiles of H @ Ws, then of
-// A @ HW; cuda_core: H @ Wn's products in increasing k, then A @ HW's, then
-// H @ Ws's), with no atomics, so two launches are bitwise equal; col_block
+// Numerics (all three): every output element sums its products in one
+// fixed order whatever the grid (tf32x3 and wgmma_bf16: over k-tiles of
+// H @ Ws, then of A @ HW; cuda_core: H @ Wn's products in increasing k,
+// then A @ HW's, then H @ Ws's), with no atomics, so two launches are
+// bitwise equal; col_block
 // (the TPU kernel's block_f) only groups column tiles and never changes a
 // result.
 #include <cuda.h>
@@ -379,6 +400,79 @@ __device__ __forceinline__ void tile_product(const uint8_t* tile,
     for (int i = 0; i < 32; ++i) acc[mt][i] += p[mt][i];
 }
 
+// HW (this thread's fragment of the [256][64] fp32 tile) leaves the
+// registers as HW^T [64][256] tf32 hi and lo at sm and sm + HWT, in boxes
+// of 32 rows of HW (K-major for phase 2's B operand); fenced for the async
+// proxy. The caller brackets it with barriers of the consumers.
+__device__ __forceinline__ void store_hwt(uint8_t* sm, const float (&an)[2][32],
+                                          int r0, int t) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 64 * mt + 8 * (e >> 1);
+        const int n = 8 * i + 2 * t + (e & 1);
+        const int off = (r >> 5) * TILE_W + swz(n, r & 31);
+        const float x = an[mt][4 * i + e];
+        const uint32_t h = tf32_rna(x);
+        *reinterpret_cast<uint32_t*>(sm + off) = h;
+        *reinterpret_cast<uint32_t*>(sm + HWT + off) =
+            tf32_rna(x - __uint_as_float(h));
+      }
+  fence_proxy_async();
+}
+
+// The consumers' epilogue (256 threads): the output tile (this thread's
+// fragment `as`) goes to shared memory at sm ([256][OT] fp32, over ring 1,
+// which no one reads any more), then each thread takes 4 columns of every
+// 16th row: + b, act, * mask, one rounding to O, stored as whole rows.
+template <typename O>
+__device__ __forceinline__ void epilogue(uint8_t* sm, const float (&as)[2][32],
+                                         int r0, int t, int n0, int c, int N,
+                                         int Fout, int act,
+                                         const O* __restrict__ bias,
+                                         const float* __restrict__ mask,
+                                         O* __restrict__ out) {
+  float* ot = reinterpret_cast<float*>(sm);       // [256][OT] fp32
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float2*>(
+            ot + (r0 + 64 * mt + 8 * half) * OT + 8 * i + 2 * t) =
+            make_float2(as[mt][4 * i + 2 * half],
+                        as[mt][4 * i + 2 * half + 1]);
+  bar_sync(1, 256);
+  const int cid = threadIdx.x - 128;              // 0 .. 255
+  const int q = cid % 16;                         // columns 4q .. 4q + 3
+  const int n = n0 + 4 * q;
+  float bb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (bias != nullptr)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bb[j] = n + j < Fout ? elem::to_f32(bias[n + j]) : 0.0f;
+  const bool vec_o = (Fout & 3) == 0 && n + 3 < Fout &&
+                     (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (int r = cid / 16; r < N; r += 16) {
+    const float4 a4 = *reinterpret_cast<const float4*>(ot + r * OT + 4 * q);
+    const float m = mask != nullptr ? mask[(long long)c * N + r] : 1.0f;
+    float v[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] += bb[j];
+      if (act == ACT_RELU) v[j] = fmaxf(v[j], 0.0f);
+      else if (act == ACT_ELU) v[j] = v[j] > 0.0f ? v[j] : expm1f(v[j]);
+      v[j] *= m;
+    }
+    elem::store4(out + ((long long)c * N + r) * Fout + n, Fout - n, vec_o,
+                 v);
+  }
+}
+
 template <bool NEIGH, bool SELF>
 __global__ void __launch_bounds__(THREADS, 1) fused_tf32x3_kernel(
     const __grid_constant__ CUtensorMap tm_h,
@@ -477,22 +571,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_tf32x3_kernel(
     // HW leaves the registers as HW^T [64][256] tf32 hi and lo, in boxes
     // of 32 rows of HW (K-major for phase 2's B), over ring 1
     bar_sync(1, 256);                             // ring 1 read by both
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = r0 + 64 * mt + 8 * (e >> 1);
-          const int n = 8 * i + 2 * t + (e & 1);
-          const int off = (r >> 5) * TILE_W + swz(n, r & 31);
-          const float x = an[mt][4 * i + e];
-          const uint32_t h = tf32_rna(x);
-          *reinterpret_cast<uint32_t*>(sm + off) = h;
-          *reinterpret_cast<uint32_t*>(sm + HWT + off) =
-              tf32_rna(x - __uint_as_float(h));
-        }
-    fence_proxy_async();
+    store_hwt(sm, an, r0, t);
     bar_sync(1, 256);                             // HW^T whole
 
     for (int j = 0; j < kt2; ++j) {
@@ -507,48 +586,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_tf32x3_kernel(
   // epilogue: the tile goes through shared memory (ring 1, read by no one
   // any more), so that it leaves as whole 256-byte rows
   bar_sync(1, 256);
-  float* ot = reinterpret_cast<float*>(sm);       // [256][OT] fp32
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        *reinterpret_cast<float2*>(
-            ot + (r0 + 64 * mt + 8 * half) * OT + 8 * i + 2 * t) =
-            make_float2(as[mt][4 * i + 2 * half],
-                        as[mt][4 * i + 2 * half + 1]);
-  bar_sync(1, 256);
-  const int cid = threadIdx.x - 128;              // 0 .. 255
-  const int q = cid % 16;                         // columns 4q .. 4q + 3
-  const int n = n0 + 4 * q;
-  float bb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (bias != nullptr)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = n + j < Fout ? bias[n + j] : 0.0f;
-  const bool vec_o = (Fout & 3) == 0 && n + 3 < Fout &&
-                     (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  for (int r = cid / 16; r < N; r += 16) {
-    const float4 a4 = *reinterpret_cast<const float4*>(ot + r * OT + 4 * q);
-    const float m = mask != nullptr ? mask[(long long)c * N + r] : 1.0f;
-    float v[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] += bb[j];
-      if (act == ACT_RELU) v[j] = fmaxf(v[j], 0.0f);
-      else if (act == ACT_ELU) v[j] = v[j] > 0.0f ? v[j] : expm1f(v[j]);
-      v[j] *= m;
-    }
-    float* orow = out + ((long long)c * N + r) * Fout;
-    if (vec_o) {
-      *reinterpret_cast<float4*>(orow + n) = make_float4(v[0], v[1], v[2],
-                                                         v[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (n + j < Fout) orow[n + j] = v[j];
-    }
-  }
+  epilogue(sm, as, r0, t, n0, c, N, Fout, act, bias, mask, out);
 }
 
 template <bool NEIGH, bool SELF>
@@ -563,9 +601,10 @@ int launch(const float* adj, const float* h, const float* wn, const float* ws,
                       NEIGH ? adj : h, NEIGH ? N : Fin, N, C, BK, ROWS);
   if (err) return err;
   auto kernel = fused_tf32x3_kernel<NEIGH, SELF>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static std::atomic<unsigned long long> limit_set{0};
+  err = smem_limit_once(reinterpret_cast<const void*>(kernel), SMEM,
+                        limit_set);
+  if (err) return err;
   const float* w_any = NEIGH ? wn : ws;
   const int vec_w = aligned16(w_any, Fout) && (!NEIGH || !SELF ||
                                                aligned16(ws, Fout));
@@ -576,6 +615,201 @@ int launch(const float* adj, const float* h, const float* wn, const float* ws,
 }
 
 }  // namespace tc
+
+
+// -- the wgmma_bf16 kernel ---------------------------------------------------
+
+namespace bt {
+
+using namespace hopper;
+using tc::HWT;
+using tc::ROWS;
+using tc::THREADS;
+using tc::TILE_A;
+
+constexpr int BK = 64;                       // k per stage: one 128-byte row
+constexpr int STAGES = 3;                    // ring 1's depth
+constexpr int TILE_H = ROWS * BK * 2;        // a box of H: 32 KB
+constexpr int TILE_W = BK * tc::BN * 2;      // a k-tile of Wn or Ws: 8 KB
+constexpr int STAGE1 = TILE_H + 2 * TILE_W;  // H box, Wn and Ws tiles
+constexpr int RING2 = STAGES * STAGE1;       // offset of the A[c] ring
+constexpr int BARS = RING2 + 2 * TILE_A;     // offset of the mbarriers
+constexpr int NBARS = 2 * STAGES + 4;
+constexpr int SMEM = 1024 + BARS + 8 * NBARS;
+constexpr int WARPS = 8;                     // consumer warps: one arrive each
+static_assert(2 * HWT <= RING2, "HW^T must fit in ring 1");
+static_assert(ROWS * tc::OT * 4 <= RING2, "the output tile must fit in ring 1");
+static_assert(SMEM <= 232448, "more shared memory than a block has");
+
+// acc += one k-tile's product: this warpgroup's 128 rows (from row0) of
+// the [256][64] bf16 H box at h_tile times the [64][64] bf16 W tile at
+// w_tile (MN-major: the transpose bit). The tensor cores sum the tile's
+// products (exact in fp32) into the partial p from zero; p is then added
+// to acc on the CUDA cores, rounded to nearest, so their truncating sums
+// run over one tile, never over the whole of Fin.
+__device__ __forceinline__ void tile_product(uint32_t h_tile, uint32_t w_tile,
+                                             int row0, float (&p)[2][32],
+                                             float (&acc)[2][32]) {
+  fence_regs(p[0]);
+  fence_regs(p[1]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      wgmma_ss_m64n64k16_tb(
+          p[mt],
+          desc_sw128(h_tile + (row0 + 64 * mt) * 128 + 32 * kk, 16, 1024),
+          desc_sw128(w_tile + kk * 16 * 128, TILE_W, 1024), kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(p[0]);
+  fence_regs(p[1]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] += p[mt][i];
+}
+
+template <bool NEIGH, bool SELF>
+__global__ void __launch_bounds__(THREADS, 1) fused_bf16_kernel(
+    const __grid_constant__ CUtensorMap tm_h,
+    const __grid_constant__ CUtensorMap tm_wn,
+    const __grid_constant__ CUtensorMap tm_ws,
+    const __grid_constant__ CUtensorMap tm_a,
+    const elem::bf16* __restrict__ bias, const float* __restrict__ mask,
+    elem::bf16* __restrict__ out, int N, int Fin, int Fout, int act) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = smem_u32(sm);
+  const uint32_t bar = s0 + BARS;
+  auto full1 = [&](int s) { return bar + 8 * s; };
+  auto empty1 = [&](int s) { return bar + 8 * (STAGES + s); };
+  auto full_a = [&](int s) { return bar + 8 * (2 * STAGES + s); };
+  auto empty_a = [&](int s) { return bar + 8 * (2 * STAGES + 2 + s); };
+  const int n0 = blockIdx.x * tc::BN;
+  const int c = blockIdx.y;
+  const int kt1 = (Fin + BK - 1) / BK;
+  const int kt2 = NEIGH ? (N + tc::BK - 1) / tc::BK : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full1(s), 1);
+      mbar_init(empty1(s), WARPS);                // every consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full_a(s), 1);
+      mbar_init(empty_a(s), WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                        // producer warpgroup
+    regs_dealloc<40>();
+    if (threadIdx.x != 0) return;
+    auto load1 = [&](int kt) {                    // one stage of ring 1
+      const int s = kt % STAGES;
+      const uint32_t st = s0 + s * STAGE1;
+      mbar_expect_tx(full1(s), TILE_H + (NEIGH + SELF) * TILE_W);
+      tma_load_3d(st, &tm_h, full1(s), BK * kt, 0, c);
+      if (NEIGH) tma_load_3d(st + TILE_H, &tm_wn, full1(s), n0, BK * kt, 0);
+      if (SELF)
+        tma_load_3d(st + TILE_H + TILE_W, &tm_ws, full1(s), n0, BK * kt, 0);
+    };
+    auto load_a = [&](int j) {                    // one box of A[c]
+      const int s = j & 1;
+      mbar_expect_tx(full_a(s), TILE_A);
+      tma_load_3d(s0 + RING2 + s * TILE_A, &tm_a, full_a(s), tc::BK * j, 0,
+                  c);
+    };
+    for (int kt = 0; kt < STAGES && kt < kt1; ++kt) load1(kt);
+    for (int j = 0; j < 2 && j < kt2; ++j) load_a(j);
+    for (int kt = STAGES; kt < kt1; ++kt) {
+      mbar_wait(empty1(kt % STAGES), (kt / STAGES - 1) & 1);
+      load1(kt);
+    }
+    for (int j = 2; j < kt2; ++j) {
+      mbar_wait(empty_a(j & 1), ((j >> 1) - 1) & 1);
+      load_a(j);
+    }
+    return;
+  }
+
+  // consumer warpgroup cw owns rows 128 cw .. + 127: this thread's rows are
+  // r0 + 64 mt and + 8, its columns 8 i + 2 t + {0, 1} of the tile
+  regs_alloc<232>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int t = tid % 4;
+  const int r0 = 128 * cw + 16 * (tid / 32) + (tid % 32) / 4;
+  const bool lead = (tid & 31) == 0;              // arrives for its warp
+  float an[2][32], as[2][32], p[2][32];           // HW, the output, a tile
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) an[mt][i] = as[mt][i] = 0.0f;
+
+  // phase 1: HW = H . Wn and S = H . Ws, bf16 products on the tensor cores
+  for (int kt = 0; kt < kt1; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full1(s), (kt / STAGES) & 1);
+    const uint32_t st = s0 + s * STAGE1;
+    if (NEIGH) tile_product(st, st + TILE_H, 128 * cw, p, an);
+    if (SELF) tile_product(st, st + TILE_H + TILE_W, 128 * cw, p, as);
+    if (lead) mbar_arrive(empty1(s));             // release the stage
+  }
+
+  if (NEIGH) {
+    // phase 2: S += A[c] . HW in three tf32 products, as the tf32x3 kernel
+    bar_sync(1, 256);                             // ring 1 read by both
+    tc::store_hwt(sm, an, r0, t);
+    bar_sync(1, 256);                             // HW^T whole
+    for (int j = 0; j < kt2; ++j) {
+      const int s = j & 1;
+      mbar_wait(full_a(s), (j >> 1) & 1);
+      tc::tile_product(sm + RING2 + s * TILE_A, s0 + j * tc::TILE_W,
+                       s0 + HWT + j * tc::TILE_W, r0, t, p, as);
+      if (lead) mbar_arrive(empty_a(s));
+    }
+  }
+
+  bar_sync(1, 256);
+  tc::epilogue(sm, as, r0, t, n0, c, N, Fout, act, bias, mask, out);
+}
+
+template <bool NEIGH, bool SELF>
+int launch(const float* adj, const elem::bf16* h, const elem::bf16* wn,
+           const elem::bf16* ws, const elem::bf16* b, const float* mask,
+           elem::bf16* out, int C, int N, int Fin, int Fout, int act,
+           cudaStream_t stream) {
+  CUtensorMap mh, mwn, mws, ma;
+  constexpr auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const elem::bf16* w_any = NEIGH ? wn : ws;
+  int err = make_map_3d(&mh, BF16, 2, h, Fin, N, C, BK, ROWS);
+  if (!err)
+    err = make_map_3d(&mwn, BF16, 2, w_any, Fout, Fin, 1, tc::BN, BK);
+  if (!err)
+    err = make_map_3d(&mws, BF16, 2, SELF ? ws : w_any, Fout, Fin, 1, tc::BN,
+                      BK);
+  if (!err)
+    err = make_map_3d(&ma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                      NEIGH ? static_cast<const void*>(adj)
+                            : static_cast<const void*>(h),
+                      NEIGH ? N : Fin / 2, N, C, tc::BK, ROWS);
+  if (err) return err;
+  auto kernel = fused_bf16_kernel<NEIGH, SELF>;
+  static std::atomic<unsigned long long> limit_set{0};
+  err = smem_limit_once(reinterpret_cast<const void*>(kernel), SMEM,
+                        limit_set);
+  if (err) return err;
+  const dim3 grid((Fout + tc::BN - 1) / tc::BN, C);
+  kernel<<<grid, THREADS, SMEM, stream>>>(mh, mwn, mws, ma, b, mask, out, N,
+                                          Fin, Fout, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bt
 
 // The cuda_core kernel's passes for element type T of h, the weights, b and
 // out (HW and adj stay fp32).
@@ -634,6 +868,30 @@ int fused_gnn_layer_tf32x3(const float* adj, const float* h,
     return tc::launch<true, false>(adj, h, w_neigh, w_self, b, mask, out, C,
                                    N, Fin, Fout, act, s);
   return tc::launch<false, true>(adj, h, w_neigh, w_self, b, mask, out, C, N,
+                                 Fin, Fout, act, s);
+}
+
+// Shared memory of one wgmma_bf16 block.
+int fused_bf16_smem_bytes() { return bt::SMEM; }
+
+// The wgmma_bf16 kernel: h, the weights, b and out bf16, adj and mask fp32;
+// N <= 256; Fin and Fout multiples of 8; h and both weights 16-byte
+// aligned; with w_neigh also N % 4 == 0 and adj 16-byte aligned.
+int fused_gnn_layer_wgmma_bf16(const float* adj, const elem::bf16* h,
+                               const elem::bf16* w_neigh,
+                               const elem::bf16* w_self, const elem::bf16* b,
+                               const float* mask, elem::bf16* out, int C,
+                               int N, int Fin, int Fout, int act,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N > tc::ROWS) return static_cast<int>(cudaErrorInvalidValue);
+  if (w_neigh != nullptr && w_self != nullptr)
+    return bt::launch<true, true>(adj, h, w_neigh, w_self, b, mask, out, C,
+                                  N, Fin, Fout, act, s);
+  if (w_neigh != nullptr)
+    return bt::launch<true, false>(adj, h, w_neigh, w_self, b, mask, out, C,
+                                   N, Fin, Fout, act, s);
+  return bt::launch<false, true>(adj, h, w_neigh, w_self, b, mask, out, C, N,
                                  Fin, Fout, act, s);
 }
 

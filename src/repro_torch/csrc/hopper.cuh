@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory
 // addresses, mbarriers, named barriers, proxy fences, TMA tile loads and
-// the host side of their tensor maps, wgmma descriptors and instructions
-// (bf16 and tf32), tf32 rounding, register reallocation. Header-only;
-// included by the kernels of csrc/.
+// the host side of their tensor maps (with a per-thread cache), wgmma
+// descriptors and instructions (bf16 and tf32), tf32 rounding, register
+// reallocation; on the host, a kernel's shared-memory limit set once per
+// device and the SM count. Header-only; included by the kernels of csrc/.
 #pragma once
 #include <cuda.h>              // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -95,6 +98,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N of this warp's committed wgmma groups are pending
+// (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across an asynchronous wgmma.
 template <int N>
@@ -167,6 +176,20 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A K-major and B MN-major
+// (transpose bit set) in shared memory, fp32 accumulators (overwritten
+// where `accumulate` is 0).
+__device__ __forceinline__ void wgmma_ss_m64n64k16_tb(float (&d)[32],
+                                                      uint64_t a, uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T in tf32 with fp32 accumulators
 // (the tensor cores truncate each sum rather than round it): A in
 // registers (thread (warp w, lane l) holds rows 16 w + l/4 and + 8, columns
@@ -236,6 +259,73 @@ inline int make_map_3d(CUtensorMap* map, CUtensorMapDataType type, int elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
+}
+
+// make_map_3d through a small cache of one host thread's recent maps: a map
+// is a function of its arguments alone, so a map encoded before for the
+// same arguments is copied instead of encoded again.
+struct MapCache {
+  struct Entry {
+    const void* ptr = nullptr;
+    int args[7] = {};
+    CUtensorMap map;
+  };
+  Entry slot[8];
+  int next = 0;
+};
+inline int make_map_3d_cached(MapCache& cache, CUtensorMap* map,
+                              CUtensorMapDataType type, int elem,
+                              const void* ptr, int d0, int d1, int d2,
+                              int box0, int box1) {
+  const int args[7] = {static_cast<int>(type), elem, d0, d1, d2, box0, box1};
+  for (const MapCache::Entry& e : cache.slot) {
+    bool same = e.ptr == ptr;
+    for (int i = 0; i < 7 && same; ++i) same = e.args[i] == args[i];
+    if (same) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  const int err = make_map_3d(map, type, elem, ptr, d0, d1, d2, box0, box1);
+  if (err) return err;
+  MapCache::Entry& e = cache.slot[cache.next];
+  cache.next = (cache.next + 1) % 8;
+  e.ptr = ptr;
+  for (int i = 0; i < 7; ++i) e.args[i] = args[i];
+  e.map = *map;
+  return 0;
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device, once per device and kernel (`done`: the caller's flags, a bit a
+// device): the attribute stays set, and setting it on every launch costs
+// host time.
+inline int smem_limit_once(const void* kernel, int bytes,
+                           std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
+
+// The current device's number of SMs (asked once per device).
+inline int sm_count() {
+  static std::atomic<int> count[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int n = count[dev & 63].load(std::memory_order_relaxed);
+  if (n == 0 &&
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess)
+    count[dev & 63].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 }  // namespace hopper

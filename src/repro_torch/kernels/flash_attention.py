@@ -19,8 +19,11 @@ dim before launch:
 - ``"wgmma"`` (bf16, (D, Dv) in ``WGMMA_SHAPES``: (64, 64), (128, 128)
   and MLA's (192, 128); every attention config of the registry):
   tensor-core products for Q.K^T and P.V, K/V tiles fed by TMA through a
-  two-stage ring, P rounded to bf16 before P.V (as the reference's model
-  paths and SDPA do).
+  ring, P rounded to bf16 before P.V (as the reference's model paths and
+  SDPA do). (64, 64) runs a design of its own for whisper's shapes: three
+  consumer warpgroups of 64 query rows, a persistent grid over (b*h, 192
+  rows) items, Q.K^T of the next tile issued before the softmax of the
+  last ends, O rescaled after the previous tile's P.V.
 - ``"cuda_core"`` (fp32 at any D up to 256, bf16 at other widths): fp32
   products and sums on the CUDA cores, P kept in fp32. It takes v at D:
   for Dv < D the wrapper zero-pads v and slices the output (a padded
@@ -135,8 +138,17 @@ def flash_bf16_check(out, again, ref, tol) -> dict:
                 bias_ulp=bias, repeatable=same, ok=ok)
 
 
+_typed = None       # the library whose argument types are set
+
+
 def _lib():
+    """The kernels' library, its functions' argument types set once a
+    library (ctypes checks them on every call; setting them per call cost
+    host time)."""
+    global _typed
     lib = build.load("flash_attention")
+    if lib is _typed:
+        return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                         ctypes.c_float, i, i, p]
@@ -146,45 +158,70 @@ def _lib():
     lib.flash_attention_wgmma_fwd.restype = i
     lib.flash_attention_smem_bytes.argtypes = [i]
     lib.flash_attention_smem_bytes.restype = i
+    _typed = lib
     return lib
+
+
+# the raw handle of a device's current stream as an int (CUDA builds of
+# torch); the public Stream object costs a few microseconds a call
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _launch_on(idx: int, launch):
+    """Runs ``launch(stream)`` on device ``idx``'s current stream; the
+    device context is switched only when ``idx`` is not the current
+    device."""
+    def stream():
+        return _raw_stream(idx) if _raw_stream is not None \
+            else torch.cuda.current_stream(idx).cuda_stream
+    if idx == torch.cuda.current_device():
+        return launch(stream())
+    with torch.cuda.device(idx):
+        return launch(stream())
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """q [B,H,Sq,D]; k [B,Kh,Sk,D] and v [B,Kh,Sk,Dv] with H % Kh == 0
     and Dv <= D, all float32 or all bfloat16. Returns [B,H,Sq,Dv] in q's
-    type."""
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+    type. (Each tensor attribute read costs a fraction of a microsecond,
+    and whisper's decoder calls take ~20 us on the card: the checks read
+    each once.)"""
+    qs, ks, vs = q.shape, k.shape, v.shape
+    if len(qs) != 4 or len(ks) != 4 or len(vs) != 4:
         raise ValueError("flash_attention: q, k, v must be [B,H,S,D]")
-    B, H, Sq, D = q.shape
-    Kh, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if (tuple(k.shape) != (B, Kh, Sk, D)
-            or tuple(v.shape[:3]) != tuple(k.shape[:3]) or Dv > D
-            or Kh == 0 or H % Kh):
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)} and v {tuple(v.shape)} do not "
+    B, H, Sq, D = qs
+    Kh, Sk, Dv = ks[1], ks[2], vs[3]
+    if (ks != (B, Kh, Sk, D) or vs[:3] != ks[:3] or Dv > D or Kh == 0
+            or H % Kh):
+        raise ValueError(f"flash_attention: q {tuple(qs)}, k "
+                         f"{tuple(ks)} and v {tuple(vs)} do not "
                          f"match (k must be [B,Kh,Sk,D] and v [B,Kh,Sk,Dv] "
                          f"with Dv <= D, H % Kh == 0)")
     if Sq == 0 or Sk == 0 or D == 0 or Dv == 0:
         raise ValueError("flash_attention: empty sequence or head dim")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dt = q.dtype
+    if dt not in DTYPES or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"flash_attention: q, k, v must all be float32 or "
-                        f"all bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"all bfloat16, got {dt}, {k.dtype}, "
                         f"{v.dtype}")
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention: inputs on different devices")
-    if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
-    if dev.type != "cuda":
+    if not q.is_cuda:
+        if dev.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal)
         raise ValueError(f"flash_attention: unsupported device {dev}")
-    build.refuse_grad("flash_attention", q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
     variant = flash_variant(q.dtype, D, Dv)
     lib = _lib()
     scale = 1.0 / D ** 0.5
     if variant == "wgmma":
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
+        ptr = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        if (ptr[0] | ptr[1] | ptr[2]) & 15:
             raise ValueError("flash_attention: the wgmma kernel needs "
                              "16-byte aligned inputs")
         if -(-Sq // 128) > MAX_Q_BLOCKS:
@@ -192,8 +229,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
                              f"{MAX_Q_BLOCKS} query blocks")
         out = q.new_empty((B, H, Sq, Dv))
         launch = lambda s: lib.flash_attention_wgmma_fwd(  # noqa: E731
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            Kh, Sq, Sk, D, Dv, scale, int(bool(causal)), s)
+            *ptr, out.data_ptr(), B, H, Kh, Sq, Sk, D, Dv, scale,
+            int(bool(causal)), s)
     else:
         if B * H > MAX_Q_BLOCKS:
             raise ValueError(f"flash_attention: B*H={B * H} exceeds the "
@@ -210,8 +247,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
         launch = lambda s: lib.flash_attention_fwd(  # noqa: E731
             q.data_ptr(), k.data_ptr(), vp.data_ptr(), out.data_ptr(), B, H,
             Kh, Sq, Sk, D, scale, int(bool(causal)), DTYPES[q.dtype], s)
-    with torch.cuda.device(dev):
-        err = launch(torch.cuda.current_stream(dev).cuda_stream)
+    err = _launch_on(dev.index, launch)
     if err:
         raise RuntimeError(f"flash_attention: {variant} kernel launch "
                            f"failed (error {err})")

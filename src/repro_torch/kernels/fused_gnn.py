@@ -4,8 +4,8 @@ PyTorch version.
     out[c] = act(A[c] @ (H[c] @ W_neigh) + H[c] @ W_self + b) * mask[c]
 
 Replaces the TPU kernel ``fused_gnn_layer`` (src/repro/kernels/fused_gnn.py,
-``_kernel``). Two kernels, chosen by ``fused_variant`` from the shapes before
-launch:
+``_kernel``). Three kernels, chosen by ``fused_variant`` from the dtype and
+shapes before launch:
 
 - ``"tf32x3"`` (N <= 256, Fin a multiple of 4 and, with W_neigh, N too;
   16-byte aligned h and adj: every shape of the serving path): the tensor
@@ -14,11 +14,17 @@ launch:
   HW kept in shared memory as the TPU kernel keeps it in VMEM. Bound on an
   H100 at the serving shape: tensor-core operations (3 x 6.44 GFLOP over
   494.7 TFLOP/s dense TF32).
-- ``"cuda_core"`` (the rest, and every bfloat16 call: the tf32x3 kernel's
-  TMA boxes and split are laid out for fp32): fp32 on the CUDA cores, a
-  register-blocked shared-memory GEMM in two passes (H @ W_neigh into an
-  fp32 scratch buffer, then A @ HW + H @ W_self with bias, activation and
-  row mask in the epilogue).
+- ``"wgmma_bf16"`` (bfloat16 at the same shapes, with Fin and Fout
+  multiples of 8 and 16-byte aligned weights): the tf32x3 kernel's
+  pipeline with H.W_neigh and H.W_self as bf16 ``wgmma`` products (exact in
+  fp32) straight from the TMA-loaded bf16 tiles, W read MN-major with the
+  transpose bit, each 64-wide k-tile summed into a fresh fp32 partial; HW
+  stays fp32 and A @ HW runs in three tf32 products as in tf32x3; one
+  rounding to bf16 at the end.
+- ``"cuda_core"`` (the rest): fp32 on the CUDA cores, a register-blocked
+  shared-memory GEMM in two passes (H @ W_neigh into an fp32 scratch
+  buffer, then A @ HW + H @ W_self with bias, activation and row mask in
+  the epilogue).
 
 h, the weights, the bias and the output are float32, or all bfloat16 as
 the reference takes them (adj and mask stay float32; products and sums in
@@ -51,13 +57,15 @@ TILE_N = 64
 # block_f values that autotune sweeps (the reference's BLOCK_F_CANDIDATES);
 # only the cuda_core kernel groups tiles by it
 BLOCK_F_CANDIDATES = (64, 128, 256, 512)
-VARIANTS = ("tf32x3", "cuda_core")
-TF32X3_MAX_N = 256          # the tf32x3 kernel keeps all N rows in a block
+VARIANTS = ("tf32x3", "wgmma_bf16", "cuda_core")
+TF32X3_MAX_N = 256          # the tensor-core kernels keep all N rows a block
 # shared memory of one block (bytes): tf32x3's fixed layout (two ring-1
 # stages of an H box and four W k-tiles, two A boxes, 10 mbarriers, 1,024
-# of alignment; the library's fused_tf32x3_smem_bytes must agree), and
-# cuda_core's two stages of a 16 x 64 X tile and Y tile
-SMEM_BYTES = {"tf32x3": 197_712, "cuda_core": 16_384}
+# of alignment; the library's fused_tf32x3_smem_bytes must agree),
+# wgmma_bf16's (three ring-1 stages of a bf16 H box and two W k-tiles, two
+# A boxes, 10 mbarriers, 1,024; fused_bf16_smem_bytes), and cuda_core's two
+# stages of a 16 x 64 X tile and Y tile
+SMEM_BYTES = {"tf32x3": 197_712, "wgmma_bf16": 214_096, "cuda_core": 16_384}
 
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
@@ -65,15 +73,17 @@ _count_lock = threading.Lock()
 
 
 def fused_variant(N: int, Fin: int, neigh: bool, aligned: bool = True,
-                  bf16: bool = False) -> str:
-    """The kernel that takes h [C,N,Fin] (and adj [C,N,N] when ``neigh``);
-    ``aligned``: h and adj start on 16-byte boundaries. The tf32x3 kernel
-    reads them with TMA, whose row strides must be multiples of 16 bytes;
-    it takes fp32 only (``bf16`` goes to cuda_core)."""
-    if (not bf16 and aligned and N <= TF32X3_MAX_N and Fin % 4 == 0
-            and (not neigh or N % 4 == 0)):
-        return "tf32x3"
-    return "cuda_core"
+                  bf16: bool = False, Fout: int = 8) -> str:
+    """The kernel that takes h [C,N,Fin] (and adj [C,N,N] when ``neigh``)
+    and weights [Fin, Fout]; ``aligned``: h, adj and (bf16) the weights
+    start on 16-byte boundaries. The tensor-core kernels read them with
+    TMA, whose row strides must be multiples of 16 bytes: fp32 h needs Fin
+    % 4 == 0 (tf32x3), bf16 h and weights Fin and Fout % 8 == 0
+    (wgmma_bf16), fp32 adj N % 4 == 0."""
+    if (not aligned or N > TF32X3_MAX_N or (neigh and N % 4)
+            or Fin % (8 if bf16 else 4) or (bf16 and Fout % 8)):
+        return "cuda_core"
+    return "wgmma_bf16" if bf16 else "tf32x3"
 
 
 def fused_gnn_layer_ref(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
@@ -96,21 +106,31 @@ def fused_gnn_layer_ref(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
     return out.to(h.dtype)
 
 
+_typed = None       # the library whose argument types are set
+
+
 def _lib():
+    """The kernels' library, its functions' argument types set and its
+    shared-memory table checked once a library."""
+    global _typed
     lib = build.load("fused_gnn")
+    if lib is _typed:
+        return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.fused_gnn_layer_f32, lib.fused_gnn_layer_bf16):
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
-    lib.fused_gnn_layer_tf32x3.argtypes = [p, p, p, p, p, p, p,
-                                           i, i, i, i, i, p]
-    lib.fused_gnn_layer_tf32x3.restype = i
-    lib.fused_tf32x3_smem_bytes.restype = i
-    if lib.fused_tf32x3_smem_bytes() != SMEM_BYTES["tf32x3"]:
-        raise RuntimeError(f"fused_gnn_layer: the library's tf32x3 block "
-                           f"takes {lib.fused_tf32x3_smem_bytes()} bytes of "
-                           f"shared memory, the wrapper's table "
-                           f"{SMEM_BYTES['tf32x3']}")
+    for fn in (lib.fused_gnn_layer_tf32x3, lib.fused_gnn_layer_wgmma_bf16):
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+    for variant, fn in (("tf32x3", lib.fused_tf32x3_smem_bytes),
+                        ("wgmma_bf16", lib.fused_bf16_smem_bytes)):
+        fn.restype = i
+        if fn() != SMEM_BYTES[variant]:
+            raise RuntimeError(f"fused_gnn_layer: the library's {variant} "
+                               f"block takes {fn()} bytes of shared memory, "
+                               f"the wrapper's table {SMEM_BYTES[variant]}")
+    _typed = lib
     return lib
 
 
@@ -173,15 +193,18 @@ def fused_gnn_layer(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
         if t is not None and not t.is_contiguous():
             raise ValueError("fused_gnn_layer: inputs must be contiguous")
     neigh = w_neigh is not None
-    aligned = h.data_ptr() % 16 == 0 and (not neigh
-                                          or adj.data_ptr() % 16 == 0)
     bf16 = dt == torch.bfloat16
-    variant = fused_variant(N, Fin, neigh, aligned, bf16)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (
+        h, adj if neigh else None, *((w_neigh, w_self) if bf16 else ()))
+        if t is not None)
+    variant = fused_variant(N, Fin, neigh, aligned, bf16, Fout)
     lib = _lib()
     out = torch.empty((C, N, Fout), dtype=dt, device=dev)
-    if variant == "tf32x3":
+    if variant != "cuda_core":
+        fn = lib.fused_gnn_layer_wgmma_bf16 if bf16 \
+            else lib.fused_gnn_layer_tf32x3
         ptr = [t.data_ptr() if t is not None else None for t in (*args, out)]
-        launch = lambda s: lib.fused_gnn_layer_tf32x3(  # noqa: E731
+        launch = lambda s: fn(  # noqa: E731
             *ptr, C, N, Fin, Fout, ACT_CODES[act], s)
     else:
         hw = torch.empty((C, N, Fout), dtype=torch.float32, device=dev) \
@@ -203,9 +226,14 @@ def fused_gnn_layer(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
         variant_launches[variant] += 1
     if op_analysis.active() is not None:
         c = fused_cost(adj, h, w_neigh, w_self, b, mask)
-        op_analysis.note_kernel(
-            "fused_gnn_layer", c["flops"], c["hbm_bytes"],
-            "tf32x3" if variant == "tf32x3" else torch.float32)
+        if variant == "wgmma_bf16":
+            # H.W's products in bf16, A.HW's in three tf32 products
+            agg = 2.0 * C * N * N * Fout if neigh else 0.0
+            flops = {torch.bfloat16: c["flops"] - agg, "tf32x3": agg}
+        else:
+            flops = {"tf32x3" if variant == "tf32x3" else torch.float32:
+                     c["flops"]}
+        op_analysis.note_kernel("fused_gnn_layer", flops, c["hbm_bytes"])
     return out
 
 

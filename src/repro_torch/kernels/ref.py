@@ -2,12 +2,14 @@
 reference's ``repro.kernels.ref`` oracles. Each lives beside its kernel
 wrapper; this module collects them, with the distance in bf16 ulps that
 holds a kernel's bf16 output to its plain version's fp32 result."""
+from repro_torch.kernels.flash_attention import BIAS_ULP, bf16_ulp
 from repro_torch.kernels.fused_gnn import fused_gnn_layer_ref
 from repro_torch.kernels.gat_attention import gat_attention_ref
 from repro_torch.kernels.scatter_gather import scatter_gather_aggregate_ref
 
 __all__ = ["fused_gnn_layer_ref", "scatter_gather_aggregate_ref",
-           "gat_attention_ref", "bf16_ulps", "bf16_reading"]
+           "gat_attention_ref", "bf16_ulps", "bf16_reading",
+           "bf16_bias_ulp"]
 
 
 def bf16_ulps(got, want):
@@ -52,3 +54,23 @@ def bf16_reading(got, want):
     ok = worst <= 1 and bool(torch.allclose(
         g, w, rtol=BF16_REF_TOL, atol=BF16_REF_TOL, equal_nan=True))
     return ok, worst, err
+
+
+BF16_BIAS_ULP = BIAS_ULP    # largest |mean signed error| in ulps
+
+
+def bf16_bias_ulp(got, want):
+    """The mean signed error ``sign(want) (got - want)`` over the elements
+    finite in both where ``want`` is not 0 (a zero has no side to round
+    towards; a GNN layer's ReLU and row mask make many), in units of their
+    mean bf16 ulp (``flash_attention``'s check (b)): near 0 for a store
+    that rounds to nearest, about -0.5 for one that truncates, which
+    ``bf16_reading``'s one ulp lets through."""
+    import torch
+
+    g, w = got.float(), want.float()
+    keep = torch.isfinite(g) & torch.isfinite(w) & (w != 0)
+    g, w = g[keep], w[keep]
+    if w.numel() == 0:
+        return 0.0
+    return float((torch.sign(w) * (g - w)).sum() / bf16_ulp(w).sum())

@@ -123,7 +123,15 @@ class OpSummary:
         }
 
 
-_tls = threading.local()
+class _Local(threading.local):
+    """Per-thread state, its defaults class attributes: ``active()`` runs
+    on every kernel launch, and a missing attribute of a plain
+    ``threading.local`` is found only after a raised AttributeError."""
+    summary = None
+    propagating = 0
+
+
+_tls = _Local()
 _prop_lock = threading.Lock()
 _prop_users = 0
 _prop_undo: list = []
@@ -131,22 +139,25 @@ _prop_undo: list = []
 
 def active() -> "OpSummary | None":
     """The summary of the innermost ``counting()`` on this thread."""
-    return getattr(_tls, "summary", None)
+    return _tls.summary
 
 
-def note_kernel(name: str, flops: float, hbm_bytes: float, dtype) -> None:
+def note_kernel(name: str, flops, hbm_bytes: float, dtype=None) -> None:
     """Record one launch of hand kernel ``name`` in the active summary:
-    its operations (of type ``dtype``) and the bytes it moves. Nothing
-    without an active summary."""
+    its operations (of type ``dtype``, or ``{type: operations}`` for a
+    kernel that mixes types) and the bytes it moves. Nothing without an
+    active summary."""
     s = active()
     if s is None:
         return
-    s.add_flops(float(flops), dtype)
+    by_type = flops if isinstance(flops, dict) else {dtype: flops}
+    for dt, f in by_type.items():
+        s.add_flops(float(f), dt)
     s.hbm_bytes += float(hbm_bytes)
     k = s.kernels.setdefault(name, {"launches": 0, "flops": 0.0,
                                     "hbm_bytes": 0.0})
     k["launches"] += 1
-    k["flops"] += float(flops)
+    k["flops"] += float(sum(by_type.values()))
     k["hbm_bytes"] += float(hbm_bytes)
 
 

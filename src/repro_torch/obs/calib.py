@@ -330,11 +330,15 @@ def run_block_autotune(program, params, batch, table: CalibrationTable,
     with torch.inference_mode():
         if adj is not None and w is not None:
             _, n, fin = h.shape
-            aligned = h.data_ptr() % 16 == 0 and adj.data_ptr() % 16 == 0
-            no_block = dev.type == "cuda" and fused_variant(
-                n, fin, True, aligned, h.dtype == torch.bfloat16) \
-                == "tf32x3"
             fout = int(w.shape[1])
+            bf16 = h.dtype == torch.bfloat16
+            aligned = all(t.data_ptr() % 16 == 0
+                          for t in (h, adj, *((w,) if bf16 else ())))
+            # the tensor-core kernels take one column tile a block: block_f
+            # changes nothing there
+            no_block = dev.type == "cuda" and fused_variant(
+                n, fin, True, aligned, bf16, fout) \
+                != "cuda_core"
             for bf in () if no_block else BLOCK_F_CANDIDATES:
                 if bf > fout or fout % bf:
                     continue

@@ -164,14 +164,42 @@ class TestVariants:
 
     def test_bf16_goes_to_the_simpler_kernels(self):
         assert fused_gnn.fused_variant(256, 512, True) == "tf32x3"
-        assert fused_gnn.fused_variant(256, 512, True, bf16=True) == \
-            "cuda_core"
+        # bf16 fused: the wgmma_bf16 kernel wherever TMA can stride h and
+        # the weights (Fin, Fout multiples of 8; adj's N a multiple of 4),
+        # cuda_core for the rest
+        v = fused_gnn.fused_variant
+        assert v(256, 512, True, bf16=True, Fout=256) == "wgmma_bf16"
+        assert v(100, 200, True, bf16=True, Fout=256) == "wgmma_bf16"
+        assert v(37, 64, False, bf16=True, Fout=64) == "wgmma_bf16"
+        assert v(256, 500, True, bf16=True, Fout=256) == "cuda_core"
+        assert v(256, 512, True, bf16=True, Fout=100) == "cuda_core"
+        assert v(37, 64, True, bf16=True, Fout=64) == "cuda_core"
+        assert v(257, 512, False, bf16=True, Fout=256) == "cuda_core"
+        assert v(256, 512, True, aligned=False, bf16=True,
+                 Fout=256) == "cuda_core"
+        assert fused_gnn.SMEM_BYTES["wgmma_bf16"] <= build.MAX_SMEM
         assert gat_attention.gat_variant(256, 256, 4, aligned=True) == "slab"
         assert gat_attention.gat_variant(256, 256, 4, aligned=True,
                                          bf16=True) == "row"
         # csrc/gat_attention.cu: 111,888 bytes at N=256
         assert gat_attention.slab_smem_bytes(256) == 111_888
         assert gat_attention.row_smem_bytes(320) == 9 * 320 * 4
+
+
+def test_bf16_bias_ulp_tells_a_truncating_store():
+    """Rounding to nearest leaves no mean signed error; truncating leaves
+    about half an ulp, inside bf16_reading's one ulp."""
+    from repro_torch.kernels.ref import BF16_BIAS_ULP, bf16_bias_ulp
+    want = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        50_000).astype(np.float32))
+    assert abs(bf16_bias_ulp(want.to(torch.bfloat16), want)) < 0.02
+    cut = (want.view(torch.int32) & ~0xFFFF).view(torch.float32)
+    assert bf16_reading(cut.to(torch.bfloat16), want)[0]
+    assert bf16_bias_ulp(cut.to(torch.bfloat16), want) < -BF16_BIAS_ULP
+    # zeros (a ReLU's, a masked row's) neither count nor dilute the mean
+    relu = torch.cat([want.clamp_min(0), torch.zeros(200_000)])
+    cut = (relu.view(torch.int32) & ~0xFFFF).view(torch.float32)
+    assert -0.6 < bf16_bias_ulp(cut.to(torch.bfloat16), relu) < -0.4
 
 
 def test_bf16_reading():

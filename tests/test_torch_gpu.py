@@ -124,8 +124,8 @@ def test_fused_tf32x3_forms(dev, n, f_in, form):
     again = fused_gnn.fused_gnn_layer(*args, act="elu")
     wide = fused_gnn.fused_gnn_layer(*args, act="elu", block_f=128)
     torch.cuda.synchronize()
-    assert fused_gnn.variant_launches == {
-        "tf32x3": before["tf32x3"] + 3, "cuda_core": before["cuda_core"]}
+    assert fused_gnn.variant_launches == dict(before,
+                                              tf32x3=before["tf32x3"] + 3)
     torch.testing.assert_close(
         got, fused_gnn.fused_gnn_layer_ref(*args, act="elu"), **TOL)
     assert torch.equal(got, again) and torch.equal(got, wide)
@@ -314,12 +314,52 @@ def test_fused_gnn_layer_bf16(dev, form):
     args = (t(adj) if form != "self" else None, h,
             wn if form != "self" else None,
             ws if form != "neigh" else None, b, t(mask))
-    before = fused_gnn.variant_launches["cuda_core"]
+    before = fused_gnn.variant_launches["wgmma_bf16"]
     got = fused_gnn.fused_gnn_layer(*args)
-    assert fused_gnn.variant_launches["cuda_core"] == before + 1
+    assert fused_gnn.variant_launches["wgmma_bf16"] == before + 1
     want = fused_gnn.fused_gnn_layer_ref(
         *[a.float() if a is not None else None for a in args])
     _bf16_held(got, want)
+
+
+@pytest.mark.parametrize("c,n,f_in,f_out,variant", [
+    (64, 256, 512, 256, "wgmma_bf16"),      # the serving shape
+    (5, 100, 200, 256, "wgmma_bf16"),       # ragged N, Fin not 64k
+    (3, 8, 16, 64, "wgmma_bf16"),           # one k-tile, mostly padding
+    (4, 252, 72, 200, "wgmma_bf16"),        # ragged Fout tile
+    (2, 64, 500, 256, "cuda_core"),         # rows TMA cannot stride
+    (2, 37, 64, 64, "cuda_core")])          # N not a multiple of 4
+@pytest.mark.parametrize("form", ["neigh", "neigh+self", "self"])
+def test_fused_bf16_variants(dev, c, n, f_in, f_out, variant, form):
+    """bf16 on the wgmma_bf16 kernel at every form, ragged N, Fin not a
+    multiple of its 64-wide k-tile and a ragged column tile, and on
+    cuda_core where TMA cannot stride the rows: within one bf16 ulp of the
+    plain version's fp32 result, two launches bitwise equal, both on the
+    kernel named (N=37 takes wgmma_bf16 in the self-only form)."""
+    rng = np.random.default_rng(n + f_in + f_out)
+    adj, mask = _adj(rng, c, n)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    h = t(rng.standard_normal((c, n, f_in)).astype(np.float32)
+          * mask[..., None]).to(torch.bfloat16)
+    wn, ws = (t(0.05 * rng.standard_normal((f_in, f_out)).astype(np.float32))
+              .to(torch.bfloat16) for _ in range(2))
+    b = t(0.1 * rng.standard_normal(f_out).astype(np.float32)) \
+        .to(torch.bfloat16)
+    args = (t(adj) if form != "self" else None, h,
+            wn if form != "self" else None,
+            ws if form != "neigh" else None, b, t(mask))
+    if form == "self" and n == 37:
+        variant = "wgmma_bf16"
+    assert fused_gnn.fused_variant(n, f_in, form != "self", True, True,
+                                   f_out) == variant
+    before = dict(fused_gnn.variant_launches)
+    got = fused_gnn.fused_gnn_layer(*args, act="elu", block_f=f_out)
+    again = fused_gnn.fused_gnn_layer(*args, act="elu", block_f=f_out)
+    ran = {k: v - before[k] for k, v in fused_gnn.variant_launches.items()}
+    assert ran == {k: 2 if k == variant else 0 for k in ran}
+    _bf16_held(got, fused_gnn.fused_gnn_layer_ref(
+        *[a.float() if a is not None else None for a in args], act="elu"))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("n,e", [(N, E), (1024, 74496)])
@@ -997,6 +1037,36 @@ def test_ssd_chunked_on_the_card(dev):
     for got, want in ((y, y64), (st, st64)):
         err = float((got.double() - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("h,kh", [(6, 6), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (100, 100), (128, 128),
+                                   (448, 448), (300, 777), (777, 300),
+                                   (1500, 1500)])
+def test_flash_wgmma_at_d64(dev, sq, sk, causal, h, kh):
+    """The D=64 wgmma instance (three consumer warpgroups, a persistent
+    grid, Q.K^T issued before the previous tile's softmax ends): one row,
+    S < 128, exact tiles, whisper's decoder and encoder lengths, Sq != Sk
+    both ways, causal and not, H = Kh and grouped KV heads; held by
+    flash_bf16_check."""
+    gen = torch.Generator(device=dev).manual_seed(sq + 3 * sk + h)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v = rnd(2, h, sq, 64), rnd(2, kh, sk, 64), rnd(2, kh, sk, 64)
+    assert flash_attention.flash_variant(q.dtype, 64) == "wgmma"
+    before = flash_attention.variant_launches["wgmma"]
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    again = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.variant_launches["wgmma"] == before + 2
+    k2, v2 = (t.repeat_interleave(h // kh, dim=1) for t in (k, v))
+    r = flash_attention.flash_bf16_check(
+        got, again, flash_attention.flash_attention_ref(
+            q.float(), k2.float(), v2.float(), causal=causal),
+        flash_attention.flash_bf16_tol(q, k2, v2, causal=causal))
+    assert r["ok"], r
 
 
 def test_flash_wgmma_non_causal_ragged_at_whisper_encoder_shape(dev):
