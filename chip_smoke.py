@@ -82,11 +82,16 @@
    forced-sg batch of the Flickr-sized graph at N=1024 (74,496 edge
    slots, C cut to 8, F=256), NaN in the same places on the weight-0
    probe, and on the serving batch's edge lists padded to E = 65,537. The
-   three GNN kernels in bf16 at the serving shapes (fused: cuda_core; GAT:
-   row; sg: sort, and bucket at N=1024), each within one bf16 ulp of its
-   plain version's fp32 result rounded to bf16 (``bf16_reading``) and
-   within the reference's 2e-2; each timed beside its bound, plain and
-   library times. The [engine] phase's 75 sg launches must all be on the
+   three GNN kernels in bf16 at the serving shapes (fused: wgmma_bf16, and
+   cuda_core at Fin=500; GAT: row; sg: sort, and bucket at N=1024), each
+   within one bf16 ulp of its plain version's fp32 result rounded to bf16
+   (``bf16_reading``) and within the reference's 2e-2; the fused rows also
+   with a mean signed error within 0.1 ulp (``bf16_bias_ulp``), two
+   launches bitwise equal, on the row's kernel (``fused_bf16_checks``).
+   Each row timed beside its bound, plain and library times; the fused
+   rows beside two library chains (bf16, and HW and A.HW in fp32), each
+   in turns with the kernel, through the host and in a CUDA graph
+   (``turns``). The [engine] phase's 75 sg launches must all be on the
    sort kernel.
 8. ``[serve]``: one ``GNNServer`` on the Flickr-sized graph registers GCN
    (mode sg), GraphSAGE (dense, resident feature store) and GAT (dense)
@@ -208,11 +213,12 @@
    and P.V at 128 over the causal half: ``flash_cost(v_dim=128)``). Runs after step 4,
    and is followed by the wgmma kernel at Jamba's attention shape (B=1,
    H=64, 8 KV heads, S=8192, D=128, bf16, causal): ``flash_bf16_check``,
-   timed beside its plain version and ``scaled_dot_product_attention(
-   enable_gqa=True)``, bound from the operations; then at whisper's
-   encoder shape (B=16, H=6, S=1500, D=64, non-causal, ragged) and
-   pixtral's (B=1, H=32, 8 KV heads, S=8192, D=128, causal), each the same
-   way (``flash_row``).
+   timed beside its plain version and in turns with
+   ``scaled_dot_product_attention(enable_gqa=True)`` (``turns``: through
+   the host and in a CUDA graph), bound from the operations; then at
+   whisper's encoder shape (B=16, H=6, S=1500, D=64, non-causal, ragged)
+   and decoder shape (S=448, causal) and pixtral's (B=1, H=32, 8 KV heads,
+   S=8192, D=128, causal), each the same way (``flash_row``).
 16. ``[train]``: ``train_gnn`` for GCN, GraphSAGE and GAT at the
    [engine] width and depth (L=5, N=256, f_hidden=256, 4 heads, the
    graph's label count) on the Flickr-sized graph, batch 32, lr 3e-3, 30
@@ -617,23 +623,41 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def graph_ms(fn, calls: int = 20) -> float:
-    """Mean device milliseconds of one call of ``fn``: ``calls`` calls
-    captured in a CUDA graph and replayed, so no host time lies between
-    the launches (``cuda_ms`` of back-to-back calls reads the host's time
-    where that is longer than the device's)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
+def turns(fns, rounds: int = 5, iters: int = 50, calls: int = 20):
+    """Times each callable of ``fns`` ({name: fn}) in turns, ``rounds``
+    rounds of each in the order given (reversed every other round): through
+    the host (``cuda_ms`` of ``iters`` back-to-back calls) and on the device
+    (a CUDA graph of ``calls`` calls, captured once a callable and replayed
+    5 times a round). Returns {name: {"host": [ms a round], "graph": [ms a
+    round]}}. The card's SM clock falls from 1980 MHz to 1240-1800 MHz
+    under sustained load as it heats (``scripts/timing_probe.py``), so one
+    reading moves with what ran before it; in turns, the calls compared
+    see the same states, and the rounds give a median and a spread."""
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
             fn()
-    ms = cuda_ms(graph.replay, iters=10, warmup=2) / calls
-    del graph
-    return ms
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(calls):
+                fn()
+    out = {name: {"host": [], "graph": []} for name in fns}
+    names = list(fns)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            out[name]["host"].append(cuda_ms(fns[name], iters=iters))
+            out[name]["graph"].append(
+                cuda_ms(graphs[name].replay, iters=5, warmup=1) / calls)
+    del graphs
+    return out
+
+
+def spread(xs) -> str:
+    """'median [min-max]' of a list of milliseconds."""
+    return (f"{statistics.median(xs):.4f} [{min(xs):.4f}-{max(xs):.4f}]")
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -1375,12 +1399,15 @@ def variant_phase(graph, targets, x, dev, label):
                         acc = torch.baddbmm(acc, h,
                                             ws.expand(h.shape[0], -1, -1))
                 return act(acc) * m[..., None].to(h.dtype)
-            lib = cuda_ms(library)
-            fp32_chain, fp32_name = fused_bf16_library_fp32(args, act)
-            lib32 = cuda_ms(fp32_chain)
+            t = turns({"kernel": lambda: fn(*args, **kw), "bf16": library,
+                       "fp32": fused_bf16_library_fp32(args, act)},
+                      iters=200)
+            ms, lib, lib32 = (statistics.median(t[n]["host"])
+                              for n in ("kernel", "bf16", "fp32"))
             bnd, by = fused_bf16_bound(args)
             lib_name = (f"baddbmm chain, bf16; {lib32:.4f} ms the chain "
-                        f"with HW and A.HW in fp32 ({fp32_name})")
+                        f"with HW and A.HW in fp32 (mm out_dtype=float32, "
+                        f"fp32 baddbmm)")
         elif kernel == "scatter_gather_aggregate":
             lib = cuda_ms(sg_library(args))
             bnd, by = sg_bound(args)
@@ -1397,36 +1424,39 @@ def variant_phase(graph, targets, x, dev, label):
                    plain_ms=plain, bound_ms=bnd, bound_by=by,
                    library_ms=lib)
         if kernel == "fused_gnn_layer":
-            rec["library_fp32_ms"] = lib32
-            print(f"  fused_gnn_layer {tag}: kernel / bf16 chain "
-                  f"{ms / lib:.3f}, kernel / fp32-HW chain {ms / lib32:.3f} "
-                  f"(target: no slower than the bf16 chain) [{label}]",
-                  flush=True)
+            dev_ms, lib_dev, lib32_dev = (statistics.median(t[n]["graph"])
+                                          for n in ("kernel", "bf16", "fp32"))
+            rec.update(library_fp32_ms=lib32, graph_ms=dev_ms,
+                       library_graph_ms=lib_dev,
+                       library_fp32_graph_ms=lib32_dev)
+            print(f"  fused_gnn_layer {tag}: medians [min-max] of 5 rounds "
+                  f"in turns; through the host: kernel "
+                  f"{spread(t['kernel']['host'])} ms, bf16 chain "
+                  f"{spread(t['bf16']['host'])}, fp32-HW chain "
+                  f"{spread(t['fp32']['host'])}; on the device (CUDA graph): "
+                  f"kernel {spread(t['kernel']['graph'])} ms, bf16 chain "
+                  f"{spread(t['bf16']['graph'])}, fp32-HW chain "
+                  f"{spread(t['fp32']['graph'])}; kernel / bf16 chain "
+                  f"{ms / lib:.3f} through the host, {dev_ms / lib_dev:.3f} "
+                  f"on the device; kernel / fp32-HW chain {ms / lib32:.3f} / "
+                  f"{dev_ms / lib32_dev:.3f} (target: no slower than the "
+                  f"bf16 chain, both ways: {ms <= lib and dev_ms <= lib_dev})"
+                  f" [{label}]", flush=True)
         recs[kernel].append(rec)
     return recs
 
 
 def fused_bf16_library_fp32(args, act):
-    """(fn, name): PyTorch calls that compute a bf16 fused row's function
-    with HW and A.HW kept in fp32, as the kernel and the reference do:
-    bf16 products with an fp32 output (``torch.mm(..., out_dtype=)`` where
-    this torch has it, else the same products on inputs widened to fp32),
-    A.HW and the sums in fp32, one rounding to bf16."""
+    """PyTorch calls that compute a bf16 fused row's function with HW and
+    A.HW kept in fp32, as the kernel and the reference do: bf16 products
+    with an fp32 output (``torch.mm(..., out_dtype=torch.float32)``), A.HW
+    and the sums in fp32, one rounding to bf16."""
     adj, h, wn, ws, b, m = args
     Cc, Nn, fin = h.shape
     h2 = h.reshape(Cc * Nn, fin)
-    try:
-        torch.mm(h2[:8], (wn if wn is not None else ws)[:, :8],
-                 out_dtype=torch.float32)
-        name = "mm out_dtype=float32, fp32 baddbmm"
 
-        def mm32(w):
-            return torch.mm(h2, w, out_dtype=torch.float32).view(Cc, Nn, -1)
-    except (TypeError, RuntimeError, NotImplementedError):
-        name = "fp32 matmuls on widened inputs"
-
-        def mm32(w):
-            return torch.mm(h2.float(), w.float()).view(Cc, Nn, -1)
+    def mm32(w):
+        return torch.mm(h2, w, out_dtype=torch.float32).view(Cc, Nn, -1)
 
     def fn():
         acc = b.float().expand(Cc, Nn, -1)
@@ -1435,7 +1465,7 @@ def fused_bf16_library_fp32(args, act):
         if ws is not None:
             acc = acc + mm32(ws)
         return (act(acc) * m[..., None]).to(h.dtype)
-    return fn, name
+    return fn
 
 
 # -- phase 4: flash_attention against its plain version --------------------
@@ -4041,8 +4071,9 @@ def lm_train_phase(label):
 def flash_row(dev, label, what, B, H, KH, S, D, causal, seed):
     """``flash_attention`` at one model's attention shape (bf16, q [B,H,S,D],
     k/v [B,KH,S,D]) on the wgmma kernel: checked, timed beside its plain
-    version and SDPA (``enable_gqa`` where KH < H), with the bound from
-    the operations and bytes; returns its record."""
+    version and in turns with SDPA (``enable_gqa`` where KH < H) through
+    the host and in a CUDA graph (``turns``), with the bound from the
+    operations and bytes; returns its record."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape):
@@ -4053,27 +4084,34 @@ def flash_row(dev, label, what, B, H, KH, S, D, causal, seed):
            f"{'causal' if causal else 'non-causal'}")
     r = flash_wgmma_check(f"flash wgmma {tag} ({what})", q, k, v, causal)
     call = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
-    ms = cuda_ms(call, iters=20)
-    dev_ms = graph_ms(call)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=causal, enable_gqa=KH < H)
+    t = turns({"kernel": call, "sdpa": sdpa}, iters=50 if S > 4096 else 200)
+    ms, lib = (statistics.median(t[n]["host"]) for n in ("kernel", "sdpa"))
+    dev_ms, lib_dev = (statistics.median(t[n]["graph"])
+                       for n in ("kernel", "sdpa"))
     host = host_us(call)
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
                     iters=3, warmup=1)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=KH < H), iters=20)
     flops = flash_cost(B, H, S, S, D, causal=causal)["flops"]
     moved = 2 * nbytes(q) + nbytes(k, v)
     bnd, by = bound_ms(moved, flops, PEAK_BF16_FLOPS)
-    print(f"  flash wgmma {tag} ({what}): kernel {ms:.4f} ms through "
-          f"flash_attention ({host:.1f} us of host time a call), "
-          f"{dev_ms:.4f} ms on the device (CUDA graph) "
-          f"({flops / dev_ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
-          f"library {lib:.4f} ms (scaled_dot_product_attention"
-          f"{', enable_gqa' if KH < H else ''}; kernel / library "
-          f"{ms / lib:.3f}), bound {bnd:.4f} ms ({by}; {flops:.4g} "
-          f"operations, {moved:.4g} bytes) [{label}]", flush=True)
+    sd = f"scaled_dot_product_attention{', enable_gqa' if KH < H else ''}"
+    print(f"  flash wgmma {tag} ({what}): medians [min-max] of 5 rounds in "
+          f"turns; through the host: kernel {spread(t['kernel']['host'])} "
+          f"ms through flash_attention ({host:.1f} us of host time a call),"
+          f" library {spread(t['sdpa']['host'])} ms ({sd}), kernel / "
+          f"library {ms / lib:.3f}; on the device (CUDA graph): kernel "
+          f"{spread(t['kernel']['graph'])} ms ({flops / dev_ms / 1e9:.1f} "
+          f"TFLOP/s), library {spread(t['sdpa']['graph'])} ms, kernel / "
+          f"library {dev_ms / lib_dev:.3f}; no slower than the library both "
+          f"ways: {ms <= lib and dev_ms <= lib_dev}; plain {plain:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by}; {flops:.4g} operations, {moved:.4g} "
+          f"bytes) [{label}]", flush=True)
     return dict(variant="wgmma", shape=tag, max_abs_err=r["max_abs_err"],
                 ms=ms, graph_ms=dev_ms, host_us=host, plain_ms=plain,
-                bound_ms=bnd, bound_by=by, library_ms=lib)
+                bound_ms=bnd, bound_by=by, library_ms=lib,
+                library_graph_ms=lib_dev)
 
 
 def flash_audio_vlm_rows(dev, label):

@@ -162,22 +162,15 @@ def _lib():
     return lib
 
 
-# the raw handle of a device's current stream as an int (CUDA builds of
-# torch); the public Stream object costs a few microseconds a call
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
 def _launch_on(idx: int, launch):
-    """Runs ``launch(stream)`` on device ``idx``'s current stream; the
+    """Runs ``launch(stream)`` on device ``idx``'s current stream (its raw
+    handle: the public Stream object costs a few microseconds a call); the
     device context is switched only when ``idx`` is not the current
     device."""
-    def stream():
-        return _raw_stream(idx) if _raw_stream is not None \
-            else torch.cuda.current_stream(idx).cuda_stream
     if idx == torch.cuda.current_device():
-        return launch(stream())
+        return launch(torch._C._cuda_getCurrentRawStream(idx))
     with torch.cuda.device(idx):
-        return launch(stream())
+        return launch(torch._C._cuda_getCurrentRawStream(idx))
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

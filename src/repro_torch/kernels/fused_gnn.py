@@ -73,13 +73,15 @@ _count_lock = threading.Lock()
 
 
 def fused_variant(N: int, Fin: int, neigh: bool, aligned: bool = True,
-                  bf16: bool = False, Fout: int = 8) -> str:
+                  bf16: bool = False, Fout: int | None = None) -> str:
     """The kernel that takes h [C,N,Fin] (and adj [C,N,N] when ``neigh``)
     and weights [Fin, Fout]; ``aligned``: h, adj and (bf16) the weights
     start on 16-byte boundaries. The tensor-core kernels read them with
     TMA, whose row strides must be multiples of 16 bytes: fp32 h needs Fin
     % 4 == 0 (tf32x3), bf16 h and weights Fin and Fout % 8 == 0
-    (wgmma_bf16), fp32 adj N % 4 == 0."""
+    (wgmma_bf16), fp32 adj N % 4 == 0. bf16 needs ``Fout``."""
+    if bf16 and Fout is None:
+        raise ValueError("fused_variant: bf16 weights' rows need Fout")
     if (not aligned or N > TF32X3_MAX_N or (neigh and N % 4)
             or Fin % (8 if bf16 else 4) or (bf16 and Fout % 8)):
         return "cuda_core"

@@ -185,6 +185,12 @@ class TestVariants:
         assert gat_attention.slab_smem_bytes(256) == 111_888
         assert gat_attention.row_smem_bytes(320) == 9 * 320 * 4
 
+    def test_bf16_variant_needs_the_weights_width(self):
+        # bf16 weights' rows must be a multiple of 16 bytes for TMA: a
+        # width left out cannot be checked, so it is refused
+        with pytest.raises(ValueError, match="Fout"):
+            fused_gnn.fused_variant(256, 512, True, bf16=True)
+
 
 def test_bf16_bias_ulp_tells_a_truncating_store():
     """Rounding to nearest leaves no mean signed error; truncating leaves

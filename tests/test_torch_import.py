@@ -93,7 +93,9 @@ class TestImportIsolation:
                                         "gat_phase_probe",
                                         "sg_softmax_probe",
                                         "tier_precision_probe",
-                                        "torch_metrics_smoke"])
+                                        "torch_metrics_smoke",
+                                        "timing_probe",
+                                        "prefill_turns"])
     def test_fault_checks_import_without_jax_or_repro(self, script):
         assert _loaded_after(f"sys.path.insert(0, {str(ROOT / 'scripts')!r})"
                              f"\nimport {script}") == []
@@ -105,7 +107,9 @@ class TestImportIsolation:
                   ROOT / "scripts" / "gat_phase_probe.py",
                   ROOT / "scripts" / "sg_softmax_probe.py",
                   ROOT / "scripts" / "tier_precision_probe.py",
-                  ROOT / "scripts" / "torch_metrics_smoke.py"]:
+                  ROOT / "scripts" / "torch_metrics_smoke.py",
+                  ROOT / "scripts" / "timing_probe.py",
+                  ROOT / "scripts" / "prefill_turns.py"]:
             for line in p.read_text().splitlines():
                 assert not bad.match(line), (p, line)
 
