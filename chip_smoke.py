@@ -77,11 +77,16 @@
    same 16 tokens (tolerances at ``LM_TOL`` and ``DECODE_TOL``, with their
    reasons). Prints latency, tokens/s and peak device memory on ``[lm]``
    lines, and the device time by kernel from ``torch.profiler``.
-7. The scatter-gather's bucket kernel (32-bit edge indices, scratch in
-   device memory) against its plain version at ``KERNEL_TOL``: on a real
-   forced-sg batch of the Flickr-sized graph at N=1024 (74,496 edge
-   slots, C cut to 8, F=256), NaN in the same places on the weight-0
-   probe, and on the serving batch's edge lists padded to E = 65,537. The
+7. The scatter-gather's bucket kernel (its sort split over tiles of
+   2048 edge slots, scratch in device memory, n_out output rows) against
+   its plain version at ``KERNEL_TOL`` and bitwise against
+   ``sg_edge_order`` (each destination's edges added one at a time in
+   edge order in plain PyTorch): on a real forced-sg batch of the
+   Flickr-sized graph at N=1024 (74,496 edge slots, C cut to 8, F=256)
+   and its first 512 destinations (n_out=512), NaN in the same places on
+   the weight-0 probe, and on the serving batch's edge lists padded to
+   E = 65,537; the scatter-gather rows timed in turns beside
+   ``index_add_`` (host and CUDA graph). The
    three GNN kernels in bf16 at the serving shapes (fused: wgmma_bf16, and
    cuda_core at Fin=500; GAT: row; sg: sort, and bucket at N=1024), each
    within one bf16 ulp of its plain version's fp32 result rounded to bf16
@@ -150,10 +155,13 @@
    engine's.
 12. ``[precompute]``: the scatter-gather at the offline build's chunk
    shape (C=1, the largest chunk of 2048 destinations, its distinct
-   sources gathered from the [V, F] register, F 500 and 256) against its
-   plain version (``KERNEL_TOL``, two launches bitwise equal, the bucket
-   kernel, NaN from an inf/NaN row 0 behind the padding edges), timed
-   beside its bound, plain and ``index_add_`` times. Then GCN (sg online)
+   sources gathered from the [V, F] register, F 500 and 256, n_out = the
+   chunk's 2048 rows) against its plain version (``KERNEL_TOL``, bitwise
+   ``sg_edge_order``, two launches bitwise equal, the bucket kernel, NaN
+   from an inf/NaN row 0 behind the padding edges), timed in turns beside
+   ``index_add_`` into the same 2048 rows, with its bound (and the bound
+   with all N rows written), plain time and the wrapper's host time a
+   call. Then GCN (sg online)
    and GraphSAGE (dense online) with readout="target" through the tier:
    the offline build on the Flickr-sized graph under impl="cuda" (its
    scatter-gather launches exactly chunks x Aggregates, nothing else
@@ -1108,9 +1116,13 @@ def kernel_phase(x, dev, label):
             f"[{label}]",
             flush=True)
     tag, err, ms, plain, lib, bnd, by = rows[0]     # layer-0 width
+    args = sg_rows(x)[0][1]
+    us = host_us(lambda: scatter_gather_aggregate(*args))
+    print(f"  sg {tag}: the wrapper's host time {us:.2f} us a call "
+          f"[{label}]", flush=True)
     rec["scatter_gather_aggregate"] = dict(
         shape=tag, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-        bound_by=by, library_ms=lib, block_cols_ms=by_cols)
+        bound_by=by, library_ms=lib, block_cols_ms=by_cols, host_us=us)
     rec["softmax"] = [dict(shape=t, max_abs_err=e, ms=m, plain_ms=p,
                            bound_ms=b, bound_by=y, library_ms=l)
                       for t, e, m, p, l, b, y in rows[2:]]
@@ -1173,33 +1185,90 @@ def sg_wide_rows(x, big, dev):
     return x["wide"]
 
 
+def sg_edge_order(src, dst, w, h, n_out=None):
+    """``scatter_gather_aggregate``'s function with each destination's live
+    edges added one at a time in edge order, every product and every sum
+    rounded to fp32 (the kernels' order), in plain PyTorch: one step a
+    rank in the buckets. NaN where a weight-0 edge's source is non-finite.
+    The kernels' outputs are bitwise this, NaN in the same places."""
+    C, E = src.shape
+    _, N, F = h.shape
+    n = N if n_out is None else n_out
+    dev = h.device
+    s, d, wf = src.long(), dst.long(), w.float()
+    at = torch.arange(C, device=dev)[:, None]
+    inr = (s >= 0) & (s < N) & (d >= 0) & (d < n)
+    live = inr & (wf != 0)
+    key = torch.where(live, d + at * n, C * n).reshape(-1)
+    order = torch.sort(key, stable=True).indices
+    nlive = int(live.sum())
+    order = order[:nlive]
+    key = key[order]
+    counts = torch.bincount(key, minlength=C * n)
+    rank = torch.arange(nlive, device=dev) - (counts.cumsum(0) - counts)[key]
+    by_rank = torch.sort(rank, stable=True).indices
+    sizes = torch.bincount(rank).tolist() if nlive else []
+    hs = h.float().reshape(C * N, F)
+    fsrc = (s + at * N).reshape(-1)[order][by_rank]
+    fw = wf.reshape(-1)[order][by_rank, None]
+    fdst = key[by_rank]
+    acc = torch.zeros(C * n, F, device=dev)
+    p = 0
+    for m in sizes:
+        rows = fdst[p:p + m]
+        acc[rows] = acc[rows] + hs[fsrc[p:p + m]] * fw[p:p + m]
+        p += m
+    zero = inr & (wf == 0)
+    pairs = torch.unique(((s + at * N) * (C * n) + d + at * n)[zero])
+    bad = torch.zeros(C * n, F, device=dev)
+    bad.index_add_(0, pairs % (C * n),
+                   (~torch.isfinite(hs[pairs // (C * n)])).float())
+    acc[bad > 0] = float("nan")
+    return acc.reshape(C, n, F).to(h.dtype)
+
+
+def same_bits(got, want) -> bool:
+    """Bitwise equal, NaN in the same places (any NaN payload)."""
+    torch.cuda.synchronize()
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    return bool(torch.equal(ng, nw)) and bool(torch.equal(got[~ng],
+                                                          want[~nw]))
+
+
 def sg_bucket_checks(x, big, dev):
     """The bucket kernel against its plain version: [(name, ok, text)]. Its
-    rows (two launches bitwise equal, both on the bucket kernel), and inf
-    and NaN on the source row of the N=1024 batch's weight-0 padding edges
-    (NaN exactly where the plain version puts it)."""
+    rows (two launches bitwise equal, both on the bucket kernel, bitwise
+    equal to ``sg_edge_order``), the N=1024 batch's first 512 destinations
+    (n_out=512: the rows of the others dropped), and inf and NaN on the
+    source row of the N=1024 batch's weight-0 padding edges (NaN exactly
+    where the plain version puts it)."""
     out = []
     rows = sg_wide_rows(x, big, dev)
-    for tag, args in rows:
+    src, dst, w, h = rows[1][1]
+    for tag, args, n_out in [(t, a, None) for t, a in rows] + [
+            (rows[1][0] + " n_out=512", rows[1][1], 512)]:
         check(sg_variant(args[3].shape[1], args[0].shape[1]) == "bucket",
               f"sg {tag}: not a shape of the bucket kernel")
         before = sg_kernels.variant_launches["bucket"]
-        got = scatter_gather_aggregate(*args)
-        again = scatter_gather_aggregate(*args)
-        ok, text, _ = reading(got, scatter_gather_aggregate_ref(*args))
+        got = scatter_gather_aggregate(*args, n_out=n_out)
+        again = scatter_gather_aggregate(*args, n_out=n_out)
+        ok, text, _ = reading(got, scatter_gather_aggregate_ref(
+            *args, n_out=n_out))
         same = bool(torch.equal(got, again))
+        order = same_bits(got, sg_edge_order(*args, n_out))
         on = sg_kernels.variant_launches["bucket"] == before + 2
-        out.append((f"sg bucket {tag}", ok and same and on,
-                    f"{text}, repeat bitwise {same}, bucket {on}"))
-    src, dst, w, h = rows[1][1]
+        out.append((f"sg bucket {tag}", ok and same and on and order,
+                    f"{text}, repeat bitwise {same}, bitwise the edge-order "
+                    f"sums {order}, bucket {on}"))
     h = h.clone()
     h[0, BIG_N - 1, 1] = float("inf")    # the padding edges' source
     h[3, BIG_N - 1, 7] = float("nan")
     h[5, BIG_N - 1, 200] = float("-inf")
-    ok, text = nan_reading(scatter_gather_aggregate(src, dst, w, h),
-                           scatter_gather_aggregate_ref(src, dst, w, h))
+    got = scatter_gather_aggregate(src, dst, w, h)
+    ok, text = nan_reading(got, scatter_gather_aggregate_ref(src, dst, w, h))
+    order = same_bits(got, sg_edge_order(src, dst, w, h))
     out.append((f"sg bucket N={BIG_N} weight-0 edges from inf/NaN sources",
-                ok, text))
+                ok and order, f"{text}, bitwise the edge-order sums {order}"))
     return out
 
 
@@ -1343,19 +1412,23 @@ def fused_bf16_bound(args):
         else (t_ops * 1e3, "operations")
 
 
-def sg_bound(args):
-    c = sg_cost(*args)
+def sg_bound(args, n_out=None):
+    c = sg_cost(*args, n_out)
     return bound_ms(c["hbm_bytes"], c["flops"])
 
 
-def sg_library(args):
-    """``index_add_`` of the weighted source rows, in h's dtype."""
+def sg_library(args, n_out=None):
+    """``index_add_`` of the weighted source rows into the n_out (None: N)
+    destination rows, in h's dtype (every destination of ``args`` lies
+    below n_out)."""
     src, dst, w, h = args
     Cc, Nn, f = h.shape
-    off = (torch.arange(Cc, device=h.device) * Nn)[:, None]
-    fs, fd = (src.long() + off).reshape(-1), (dst.long() + off).reshape(-1)
+    n = Nn if n_out is None else n_out
+    at = torch.arange(Cc, device=h.device)[:, None]
+    fs = (src.long() + at * Nn).reshape(-1)
+    fd = (dst.long() + at * n).reshape(-1)
     wf = w.reshape(-1, 1).to(h.dtype)
-    return lambda: torch.zeros(Cc * Nn, f, dtype=h.dtype,
+    return lambda: torch.zeros(Cc * n, f, dtype=h.dtype,
                                device=h.device).index_add_(
         0, fd, h.reshape(Cc * Nn, f)[fs] * wf)
 
@@ -1409,9 +1482,19 @@ def variant_phase(graph, targets, x, dev, label):
                         f"with HW and A.HW in fp32 (mm out_dtype=float32, "
                         f"fp32 baddbmm)")
         elif kernel == "scatter_gather_aggregate":
-            lib = cuda_ms(sg_library(args))
+            t = turns({"kernel": lambda: fn(*args, **kw),
+                       "index_add_": sg_library(args)})
+            ms, lib = (statistics.median(t[n]["host"])
+                       for n in ("kernel", "index_add_"))
             bnd, by = sg_bound(args)
             lib_name = f"index_add_, {str(args[3].dtype)[6:]}"
+            print(f"  scatter_gather_aggregate {tag}: medians [min-max] of "
+                  f"5 rounds in turns, host / graph: kernel "
+                  f"{spread(t['kernel']['host'])} / "
+                  f"{spread(t['kernel']['graph'])} ms, index_add_ "
+                  f"{spread(t['index_add_']['host'])} / "
+                  f"{spread(t['index_add_']['graph'])} [{label}]",
+                  flush=True)
         else:
             lib, lib_name = None, "none"
             c = gat_cost(*args, n_heads=HEADS)
@@ -1423,6 +1506,10 @@ def variant_phase(graph, targets, x, dev, label):
         rec = dict(variant=variant, shape=tag, max_abs_err=err, ms=ms,
                    plain_ms=plain, bound_ms=bnd, bound_by=by,
                    library_ms=lib)
+        if kernel == "scatter_gather_aggregate":
+            rec.update(graph_ms=statistics.median(t["kernel"]["graph"]),
+                       library_graph_ms=statistics.median(
+                           t["index_add_"]["graph"]))
         if kernel == "fused_gnn_layer":
             dev_ms, lib_dev, lib32_dev = (statistics.median(t[n]["graph"])
                                           for n in ("kernel", "bf16", "fp32"))
@@ -2243,24 +2330,33 @@ def chunk_args(local, i, H):
     return src, dst, local._weights("gcn")[i], h[None].contiguous()
 
 
-def offline_chunk_phase(graph, label):
-    """``scatter_gather_aggregate`` at the offline build's chunk shape (C=1,
-    one chunk of 2048 destinations, its distinct sources gathered from the
-    full [V, F] register): the chunk with the most edges, at F=500 (layer
-    0, unaligned) and 256, against its plain version (two launches bitwise
-    equal, the bucket kernel), with inf and NaN on row 0, the source of the
-    chunk's weight-0 padding edges; then timed. Returns the JSON records."""
+def offline_chunk(graph):
+    """The offline build's compute set over the whole graph (``_LocalCSR``,
+    chunks of PRE_CHUNK destinations) and its chunk with the most edges."""
     t0 = time.perf_counter()
     local = _LocalCSR(graph, np.arange(graph.num_vertices), PRE_CHUNK,
                       "cuda", torch.device("cuda"))
     sizes = [e1 - e0 for e0, e1 in local.e_ranges]
-    i = int(np.argmax(sizes))
     print(f"[kernels] offline chunk shape: {local.num_chunks} chunks of "
           f"{local.chunk} destinations, e_cap {local.e_cap} (edges a chunk "
           f"mean {np.mean(sizes):.1f}, max {max(sizes)}), distinct sources "
           f"{min(len(c[0]) for c in local._chunks)}-"
           f"{max(len(c[0]) for c in local._chunks)}; compute set built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return local, int(np.argmax(sizes)), sizes
+
+
+def offline_chunk_checks(graph, chunk):
+    """``scatter_gather_aggregate`` at the offline build's chunk shape
+    (``chunk = offline_chunk(graph)``: C=1, its distinct sources gathered
+    from the full [V, F] register, n_out = the chunk's 2048 rows), at
+    F=500 (layer 0, unaligned) and 256, against its plain version (two
+    launches bitwise equal, the bucket kernel, bitwise equal to
+    ``sg_edge_order``), with inf and NaN on row 0, the source of the
+    chunk's weight-0 padding edges. Returns ([(name, ok, text)], [(tag,
+    args, max_abs_err, variant)])."""
+    local, i, sizes = chunk
+    n_out = local.chunk
     gen = torch.Generator().manual_seed(0)
     recs, checks = [], []
     for f in (F_IN, F_HID):
@@ -2268,40 +2364,74 @@ def offline_chunk_phase(graph, label):
             local.device)
         args = chunk_args(local, i, H)
         Nn = args[3].shape[1]
-        tag = (f"offline chunk C=1 N={Nn} ({local.chunk} destinations) "
-               f"F={f} E={local.e_cap} real_edges={sizes[i]}")
+        tag = (f"offline chunk C=1 N={Nn} n_out={n_out} F={f} "
+               f"E={local.e_cap} real_edges={sizes[i]}")
         before = dict(sg_kernels.variant_launches)
-        got = scatter_gather_aggregate(*args)
-        again = scatter_gather_aggregate(*args)
+        got = scatter_gather_aggregate(*args, n_out=n_out)
+        again = scatter_gather_aggregate(*args, n_out=n_out)
         variant = ",".join(k for k, n in sg_kernels.variant_launches.items()
                            if n > before[k])
-        ok, text, err = reading(got, scatter_gather_aggregate_ref(*args))
+        ok, text, err = reading(got, scatter_gather_aggregate_ref(
+            *args, n_out=n_out))
         same = bool(torch.equal(got, again))
-        checks.append((f"sg {tag}", ok and same and variant == "bucket",
-                       f"{text}, repeat bitwise {same}, kernel {variant}"))
+        order = same_bits(got, sg_edge_order(*args, n_out))
+        checks.append((f"sg {tag}", ok and same and order
+                       and variant == "bucket"
+                       and tuple(got.shape) == (1, n_out, f),
+                       f"{text}, repeat bitwise {same}, bitwise the "
+                       f"edge-order sums {order}, kernel {variant}, shape "
+                       f"{tuple(got.shape)}"))
         Hn = H.clone()
         Hn[0, 7] = float("inf")
         Hn[0, f - 1] = float("nan")
         nargs = chunk_args(local, i, Hn)
-        ok, text = nan_reading(scatter_gather_aggregate(*nargs),
-                               scatter_gather_aggregate_ref(*nargs))
+        got = scatter_gather_aggregate(*nargs, n_out=n_out)
+        ok, text = nan_reading(got, scatter_gather_aggregate_ref(
+            *nargs, n_out=n_out))
+        order = same_bits(got, sg_edge_order(*nargs, n_out))
         checks.append((f"sg offline chunk F={f} weight-0 padding from an "
-                       f"inf/NaN row 0", ok, text))
+                       f"inf/NaN row 0", ok and order,
+                       f"{text}, bitwise the edge-order sums {order}"))
         recs.append((tag, args, err, variant))
+    return checks, recs
+
+
+def offline_chunk_phase(graph, label):
+    """``offline_chunk_checks``, then each row timed in turns beside
+    ``index_add_`` into the same n_out rows, with the wrapper's host time a
+    call. Returns the JSON records."""
+    chunk = offline_chunk(graph)
+    n_out = chunk[0].chunk
+    checks, recs = offline_chunk_checks(graph, chunk)
     run_checks(checks)
     out = []
     for tag, args, err, variant in recs:
-        ms = cuda_ms(lambda: scatter_gather_aggregate(*args))
-        plain = cuda_ms(lambda: scatter_gather_aggregate_ref(*args))
-        lib = cuda_ms(sg_library(args))
-        bnd, by = sg_bound(args)
-        print(f"  scatter_gather_aggregate {tag}: kernel {ms:.4f} ms "
-              f"({variant}), plain {plain:.4f} ms, library {lib:.4f} ms "
-              f"(index_add_, float32), bound {bnd:.4f} ms ({by}) "
-              f"[{label}]", flush=True)
+        t = turns({"kernel": lambda: scatter_gather_aggregate(
+            *args, n_out=n_out), "index_add_": sg_library(args, n_out)})
+        ms, lib = (statistics.median(t[n]["host"])
+                   for n in ("kernel", "index_add_"))
+        g_ms, g_lib = (statistics.median(t[n]["graph"])
+                       for n in ("kernel", "index_add_"))
+        plain = cuda_ms(lambda: scatter_gather_aggregate_ref(
+            *args, n_out=n_out))
+        bnd, by = sg_bound(args, n_out)
+        bnd_all = sg_bound(args)[0]
+        us = host_us(lambda: scatter_gather_aggregate(*args, n_out=n_out))
+        print(f"  scatter_gather_aggregate {tag}: medians [min-max] of 5 "
+              f"rounds in turns, host / graph: kernel "
+              f"{spread(t['kernel']['host'])} / "
+              f"{spread(t['kernel']['graph'])} ms ({variant}), index_add_ "
+              f"into {n_out} rows {spread(t['index_add_']['host'])} / "
+              f"{spread(t['index_add_']['graph'])}; kernel / index_add_ "
+              f"{ms / lib:.3f} / {g_ms / g_lib:.3f} (target below 1: "
+              f"{ms < lib and g_ms < g_lib}); plain {plain:.4f} ms; bound "
+              f"{bnd:.4f} ms ({by}; {bnd_all:.4f} with all {args[3].shape[1]}"
+              f" rows written); wrapper host {us:.2f} us a call [{label}]",
+              flush=True)
         out.append(dict(variant=variant, shape=tag, max_abs_err=err, ms=ms,
-                        plain_ms=plain, bound_ms=bnd, bound_by=by,
-                        library_ms=lib))
+                        graph_ms=g_ms, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by, library_ms=lib, library_graph_ms=g_lib,
+                        host_us=us))
     return out
 
 

@@ -6,13 +6,15 @@ GPU: ``fused_gnn_layer``, ``scatter_gather_aggregate`` and
     python3 scripts/gnn_fault_check.py
 
 Builds copies of ``src/repro_torch/csrc/fused_gnn.cu``,
-``src/repro_torch/csrc/scatter_gather.cu`` and
-``src/repro_torch/csrc/gat_attention.cu`` with one fault planted in each
+``src/repro_torch/csrc/scatter_gather.cu`` (its sort and its bucket
+kernels) and ``src/repro_torch/csrc/gat_attention.cu`` with one fault
+planted in each
 (in a temporary directory; the repository is not written; a fault in a
 ``csrc`` header is planted in a copy of the header beside the kernel's
 copy, which the kernel's ``#include "..."`` finds first), and runs the
 unchanged kernels and each faulty one through the checks ``chip_smoke.py``
-holds them to (``fused_checks`` and ``fused_bf16_checks``, ``sg_checks``
+holds them to (``fused_checks`` and ``fused_bf16_checks``, ``sg_checks``,
+``sg_bucket_checks`` and ``offline_chunk_checks`` for the bucket kernel,
 and ``gat_checks``), on the serving batch of the Flickr-sized graph (C=64,
 N=256, Fin 512 and 256, Fout 256, E=18,688, 4 heads): every fp32 check
 against the plain version at rtol = atol = 2e-5, every bf16 fused row
@@ -21,13 +23,21 @@ signed error within 0.1 ulp, two launches bitwise equal, the fused layer
 on its tf32x3 (fp32) or wgmma_bf16 kernel and GAT on its slab kernel,
 block_f invariance, NaN from weight-0 edges and from z rows with inf or
 NaN behind a GAT weight of 0 where the plain version has it, 64 edges into
-one vertex, empty, dense and all -inf GAT rows, a subnormal GAT weight.
+one vertex, empty, dense and all -inf GAT rows, a subnormal GAT weight;
+the bucket kernel on the forced-sg batch at N=1024 (and its first 512
+rows), the serving batch padded to 65,537 edge slots and the offline
+build's largest chunk at F=500 and 256, each also bitwise equal to
+``sg_edge_order`` (the sums one edge at a time in edge order), which is
+what sees a change of order alone.
 
 Prints each fault's prediction (written before its first run: which checks
-it fails), then one line per kernel with the checks it failed. Exits 1
-unless the unchanged kernels pass every check and every planted fault fails
-at least one; whether each fault failed exactly the predicted checks is
-printed beside it. The changes in ``NOT_GATING`` (``__expf`` for ``expf``,
+it fails), then one line per kernel with the checks it failed. Each bucket
+fault runs its checks in a process of its own (``--bucket-fault <so>``): a
+fault that makes the kernel write or read outside its buffers ends that
+process's CUDA context, and counts as caught, as chip_smoke.py would fail.
+Exits 1 unless the unchanged kernels pass every check and every planted
+fault fails at least one; whether each fault failed exactly the predicted
+checks is printed beside it. The changes in ``NOT_GATING`` (``__expf`` for ``expf``,
 not a fault of the semantics; the bf16 kernel's sums over all of Fin
 without fresh partials, whose error is far below a bf16 ulp) are built,
 run and reported the same way, and do not decide the exit code.
@@ -35,6 +45,7 @@ run and reported the same way, and do not decide the exit code.
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 import tempfile
@@ -54,6 +65,12 @@ FUSED_ROWS = [f"fused C=64 N=256 Fin={fin} Fout=256 {form}"
 SG_ROWS = [f"sg C=64 N=256 F={f} " for f in (512, 256)]
 GAT_NAN = ["gat inf/NaN in z outside the structure",
            "gat inf in z behind a subnormal weight"]
+# the bucket kernel's checks (sg_bucket_checks, offline_chunk_checks)
+BUCKET_ROWS = ["sg bucket C="]
+BUCKET_NAN = ["sg bucket N="]
+CHUNK_ROWS = ["sg offline chunk C=1"]
+CHUNK_NAN = ["sg offline chunk F="]
+BUCKET_ALL = BUCKET_ROWS + BUCKET_NAN + CHUNK_ROWS + CHUNK_NAN
 BF16 = "fused_gnn_layer "
 BF16_NEIGH = [BF16 + f"C=64 N=256 Fin={fin} Fout=256 {form} bf16"
               for fin in (512, 256) for form in ("w_neigh", "+w_self")] + \
@@ -133,6 +150,46 @@ FAULTS = {
         # every destination with an edge loses one: 63 of 64 into vertex 3
         SG_ROWS + ["sg weight-0 edges from inf/NaN sources",
                    "sg 64 edges into one vertex"]),
+    "bucket: tiles 0 and 1 take each other's cursors": (
+        "bucket", "scatter_gather.cu",
+        "  int* cur = base + (long long)t * B.n_out;",
+        "  int* cur = base + (long long)(t < 2 && B.T > 1 ? 1 - t : t) * "
+        "B.n_out;",
+        # a destination in both tiles gets their edges in another order
+        # (only a bitwise check sees that); one in either alone gets them
+        # at the other tile's offset, over its neighbours' slots
+        BUCKET_ALL),
+    "bucket: the last tile's edges dropped": (
+        "bucket", "scatter_gather.cu",
+        "    T = E > 0 ? (E + TILE - 1) / TILE : 1;",
+        "    T = E > TILE ? (E + TILE - 1) / TILE - 1 : 1;",
+        # neither counted nor placed: the chunk's last tile holds ~550 real
+        # edges and its weight-0 padding; the serving rows' last tiles hold
+        # padding only, marked in earlier tiles too
+        CHUNK_ROWS + CHUNK_NAN),
+    "bucket: n_out off by one": (
+        "bucket", "scatter_gather.cu",
+        "  const Bucket B(N, n_out, E, F);",
+        "  const Bucket B(N, n_out - 1, E, F);",
+        # the last row is never written and its edges are dropped
+        BUCKET_ALL),
+    "bucket: a hub's last column slice skipped": (
+        "bucket", "scatter_gather.cu",
+        "      if (it >= items) return;\n",
+        "      if (it >= items) return;\n"
+        "      if (it % slices == slices - 1) continue;\n",
+        # the tail columns of a row with HUB live edges or more are never
+        # written: the chunk's hubs (14,266 and 9,990 edges, and nine more
+        # over 512)
+        CHUNK_ROWS + CHUNK_NAN),
+    "bucket: weight-0 marks of tile 0 only": (
+        "bucket", "scatter_gather.cu",
+        "    for (int t = lane; t < B.T; t += 32) m |= mark[(long long)t * "
+        "B.NW + wd];",
+        "    for (int t = lane; t < 1; t += 32) m |= mark[(long long)t * "
+        "B.NW + wd];",
+        # the padding (weight 0, from the inf/NaN row) sits past tile 0
+        BUCKET_NAN + CHUNK_NAN),
     "gat: NaN from z rows outside the structure dropped": (
         "gat_attention", "gat_attention.cu",
         "    if (any_bad) {",
@@ -208,12 +265,18 @@ NOT_GATING = {"gat: __expf for expf",
               "fused bf16: one sum over all of Fin, no fresh partials"}
 
 
+# the library each suite of checks holds (the bucket kernel's own checks
+# hold scatter_gather.cu's bucket code)
+LIBRARY = {"bucket": "scatter_gather"}
+
+
 def build_faults(tmp: Path):
     """One nvcc per faulty copy, all started together; {name: CDLL}. Each
     copy gets a directory of its own, with the edited header beside the
     kernel's source where the fault lies in a header."""
     procs = {}
-    for i, (name, (kernel, path, old, new, _)) in enumerate(FAULTS.items()):
+    for i, (name, (suite, path, old, new, _)) in enumerate(FAULTS.items()):
+        kernel = LIBRARY.get(suite, suite)
         src = (build.CSRC / path).read_text()
         if src.count(old) != 1:
             raise RuntimeError(f"fault {name!r}: {old!r} is not in {path} "
@@ -247,7 +310,45 @@ def failed(checks, kernel: str, label: str, name: str):
     return bad
 
 
+def bucket_setup(dev):
+    """The bucket suite's inputs and its checks, as a function of x."""
+    graph, targets, sb = smoke.serving_batch()
+    x = smoke.gnn_inputs(sb, dev)
+    big = smoke.big_batch(graph, targets)
+    chunk = smoke.offline_chunk(graph)
+    return x, lambda x: (smoke.sg_bucket_checks(x, big, dev)
+                         + smoke.offline_chunk_checks(graph, chunk)[0])
+
+
+def bucket_fault(so: str) -> int:
+    """One faulty bucket library's checks, in a process of its own (a
+    fault that writes or reads outside its buffers ends the process's CUDA
+    context): prints them as one JSON line."""
+    x, checks = bucket_setup(torch.device("cuda"))
+    build._libs["scatter_gather"] = ctypes.CDLL(so)
+    got = checks(x)
+    print(json.dumps([[n, bool(ok), text] for n, ok, text in got]),
+          flush=True)
+    return 0
+
+
+def bucket_checks_apart(so: Path):
+    """``bucket_fault`` in a subprocess: its checks, or a failing check
+    "CUDA fault" where the process ended without them (chip_smoke.py would
+    fail there too)."""
+    p = subprocess.run([sys.executable, __file__, "--bucket-fault", str(so)],
+                       capture_output=True, text=True)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[[")]
+    if p.returncode == 0 and lines:
+        return [tuple(c) for c in json.loads(lines[-1])]
+    tail = (p.stderr.strip().splitlines() or ["no output"])[-1]
+    return [("CUDA fault", False, f"the checks' process ended with exit "
+                                  f"code {p.returncode}: {tail}")]
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--bucket-fault":
+        return bucket_fault(sys.argv[2])
     if not torch.cuda.is_available():
         print("gnn_fault_check: no CUDA device", file=sys.stderr)
         return 1
@@ -258,26 +359,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     for name, (*_, predicted) in FAULTS.items():
         print(f"[predicted] {name}: fails {predicted}", flush=True)
+    x, bucket = bucket_setup(torch.device("cuda"))
     run = {"fused_gnn": lambda x: smoke.fused_checks(x)
            + smoke.fused_bf16_checks(x),
            "scatter_gather": smoke.sg_checks,
+           "bucket": bucket,
            "gat_attention": smoke.gat_checks}
-    good = {k: build.load(k) for k in run}
-    _, _, sb = smoke.serving_batch()
-    x = smoke.gnn_inputs(sb, torch.device("cuda"))
+    good = {k: build.load(LIBRARY.get(k, k)) for k in run}
     with tempfile.TemporaryDirectory() as tmp:
         faults = build_faults(Path(tmp))
         clean = {k: failed(run[k](x), k, label, "unchanged kernel")
                  for k in run}
         caught, as_predicted = {}, {}
         for name, lib in faults.items():
-            kernel, *_, predicted = FAULTS[name]
-            build._libs[kernel] = lib
-            try:
-                checks = run[kernel](x)
-            finally:
-                build._libs[kernel] = good[kernel]
-            bad = failed(checks, kernel, label, name)
+            suite, *_, predicted = FAULTS[name]
+            kernel = LIBRARY.get(suite, suite)
+            if suite == "bucket":
+                checks = bucket_checks_apart(Path(lib._name))
+            else:
+                build._libs[kernel] = lib
+                try:
+                    checks = run[suite](x)
+                finally:
+                    build._libs[kernel] = good[suite]
+            bad = failed(checks, suite, label, name)
             expected = bad == sorted(
                 n for n, _, _ in checks
                 if any(n.startswith(p) for p in predicted))

@@ -66,26 +66,55 @@
 // E=18,688, BF=128; one block an SM.
 //
 // "bucket" (the rest: E > 65,536, or N too large for the sort's shared
-// memory, as forced sg on the Flickr-sized graph at N=1024 with its edge
-// budget of 74,496 slots). The same sort with 32-bit indices and its
-// scratch in device memory, in two launches. bucket_sort_kernel, one block
-// of 16 warps a subgraph: the per-warp counts, the bucket starts and the
-// weight-0 marks in a [C]-sliced scratch, the live edges written stably
-// by destination as (src, w) pairs into a [C, E] scratch, and each
-// weight-0 edge from a source row with non-finite columns ORing that row's
-// column mask (one bit a column) into its destination's. bucket_gather_
-// kernel, a warp per (destination row, 128 columns): the row's pairs in
-// bucket (edge) order, h[c, src] read from device memory (L2), acc =
-// __fadd_rn(acc, __fmul_rn(h, w)) in registers, NaN where the mask says,
-// the row written once. The same sums in the same order as "sort": no
-// atomics in any sum, the same result on every run. Bound: as "sort", by
-// bytes; it re-reads a source row from L2 for every live edge.
+// memory: forced sg on the Flickr-sized graph at N=1024 with its 74,496
+// edge slots, and the offline build's chunk, C=1 with N=32,868 source rows
+// and 2048 destinations). Its output has n_out rows of the caller's
+// choosing (destinations in [0, n_out); edges to others are dropped, as
+// segment_sum(num_segments=n_out) drops them), so a chunk writes only its
+// own rows. The same stable sort by destination, spread over many blocks,
+// its scratch in device memory, in four launches:
+//   1. bucket_count_kernel, a block per (tile of TILE = 2048 edge slots,
+//      subgraph): the tile's live edges counted by destination and its
+//      weight-0 sources marked, into the tile's own rows of the scratch.
+//   2. bucket_scan_kernel: block 0 of each subgraph scans the counts over
+//      (destination, tile), destination-major: each destination's bucket
+//      start and each tile's offset inside each bucket, so that the tiles'
+//      edges follow one another in edge order; and it lists the hub rows
+//      (HUB = 512 live edges or more). The other blocks OR every tile's
+//      weight-0 marks, test each marked source row for non-finite columns
+//      and zero the destinations' NaN masks.
+//   3. bucket_place_kernel, a block a tile: a block-wide stable radix sort
+//      of the tile's (destination, edge) pairs (cub::BlockRadixSort, on
+//      the destination's bits only), then each live edge written as
+//      (src, w) at bucket start + tile offset + its rank in the tile's run;
+//      weight-0 edges from a flagged source OR the row's column mask into
+//      their destination's.
+//   4. bucket_gather_kernel, a warp per (output row, 128 columns): the
+//      row's bucket walked in edge order, three stages of 8 edges' h rows
+//      in flight through a ring in shared memory (cp.async, or plain loads
+//      where rows or columns are not 16-byte aligned, as bf16 at F=500), a
+//      stage's values in registers while the stage before it is summed,
+//      acc = __fadd_rn(acc, __fmul_rn(h, w)), NaN where the mask says, the
+//      row written once. A hub row (HUB = 512 live edges or more) takes a
+//      block per 8 columns instead, launched first: one warp sums while
+//      three copy six stages of 32 edges ahead, a barrier a stage (the
+//      copies, not the sums, bound a warp that copies for itself: ~68
+//      cycles a 16-byte-a-lane cp.async over four rows).
+// The same sums in the same order as "sort", and as this variant before
+// the split: no atomics in any sum, the same result on every run. Bound:
+// bytes (src, dst, w, h once, the n_out rows once); it reads a source row
+// from L2 for every live edge, and a hub row's chain of dependent adds
+// (18,406 of them on the Flickr-sized graph) takes ~37 us at 1.98 GHz.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+#include <cub/block/block_radix_sort.cuh>
 #include <type_traits>
 
 #include "elem.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -352,21 +381,22 @@ __global__ void __launch_bounds__(THREADS, 1) scatter_gather_kernel(
   }
 }
 
+constexpr int MAX_SMEM = 232448;       // bytes a block may have (H100)
+
 template <typename T, int V>
 int launch(const int* src, const int* dst, const float* w, const T* h,
            T* out, int C, int N, int E, int F, int vec,
            cudaStream_t stream) {
   const int smem = Layout(N, E, 32 * V).bytes;
   auto kernel = scatter_gather_kernel<T, V>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static std::atomic<unsigned long long> limit_set{0};
+  const int err = hopper::smem_limit_once(
+      reinterpret_cast<const void*>(kernel), MAX_SMEM, limit_set);
+  if (err) return err;
   const dim3 grid((F + 32 * V - 1) / (32 * V), C);
   kernel<<<grid, THREADS, smem, stream>>>(src, dst, w, h, out, N, E, F, vec);
   return static_cast<int>(cudaGetLastError());
 }
-
-constexpr int MAX_SMEM = 232448;       // bytes a block may have (H100)
 
 // The default columns a block at (N, E, F): the narrowest candidate that
 // covers F, capped at the widest that fits; 0 where none fits.
@@ -381,186 +411,677 @@ int block_cols(int N, int E, int F) {
 
 // -- "bucket" ----------------------------------------------------------------
 
-constexpr int GROWS = 8;               // destination rows (warps) a block
+constexpr int TB = 256;                // threads of a tile's block
+constexpr int TITEMS = 8;              // edge slots a thread of a tile
+constexpr int TILE = TB * TITEMS;      // edge slots a tile
+constexpr int HUB = 512;               // live in-edges that make a row a hub
+constexpr int GWARPS = 4;              // warps a gather block
+// A gather warp's shared memory: a ring of RING bytes of h rows (4
+// stages of 8 edges at 128 columns), then PAIRS bytes of the stages'
+// sources and weights, 8 stages of them; a hub's block takes the four
+// warps' shares as one ring.
+constexpr int RING = 16384;
+constexpr int PAIRS = 512;
+constexpr int WARP_SMEM = RING + PAIRS;
+constexpr int GATHER_SMEM = GWARPS * WARP_SMEM;
 
-// Per-subgraph slices of the bucket variant's int32 scratch.
-struct Scratch {
-  int *cnt, *start, *zsrc;             // [WARPS][N], [N + 2], [N]
-  uint32_t *bad, *poison;              // [N][FW] each: one bit a column
-  int2* pairs;                         // [E]: (src, w bits) by destination
-  __host__ __device__ static long long words(int N, int E, int FW) {
-    // N + 2 starts (one of padding): the pairs stay 8-byte aligned
-    return (long long)WARPS * N + (N + 2) + N + 2LL * N * FW + 2LL * E;
+// The bucket variant's shapes, and the offsets (int32 words) of its
+// per-subgraph scratch.
+struct Bucket {
+  int N, n_out, E, F;
+  int T;      // tiles of TILE edge slots
+  int NW;     // 32-row words of a source bitmap
+  int FW;     // 32-column words of a column mask
+  int HMAX;   // rows that can hold HUB live edges
+  __host__ __device__ Bucket(int N_, int n_out_, int E_, int F_)
+      : N(N_), n_out(n_out_), E(E_), F(F_) {
+    T = E > 0 ? (E + TILE - 1) / TILE : 1;
+    NW = (N + 31) / 32;
+    FW = (F + 31) / 32;
+    HMAX = E / HUB < n_out ? E / HUB : n_out;
   }
-  __device__ Scratch(int* base, int c, int N, int E, int FW) {
-    int* p = base + (long long)c * words(N, E, FW);
-    cnt = p;
-    start = cnt + WARPS * N;
-    zsrc = start + N + 2;
-    bad = reinterpret_cast<uint32_t*>(zsrc + N);
-    poison = bad + (long long)N * FW;
-    pairs = reinterpret_cast<int2*>(poison + (long long)N * FW);
+  // cnt [T][n_out]: a tile's live edges by destination, then (scan) its
+  // offset inside each destination's bucket
+  __host__ __device__ long long o_mark() const {   // uint32 [T][NW]
+    return (long long)T * n_out;
+  }
+  __host__ __device__ long long o_start() const {  // int [n_out + 1]
+    return o_mark() + (long long)T * NW;
+  }
+  // hubs: their count, the gather's next work item, the rows as listed,
+  // the rows by live edges, most first
+  __host__ __device__ long long o_hubs() const {   // int [2 + 2 HMAX]
+    return o_start() + n_out + 1;
+  }
+  __host__ __device__ long long o_flag() const {   // uint32 [NW]
+    return o_hubs() + 2 + 2LL * HMAX;
+  }
+  __host__ __device__ long long o_bad() const {    // uint32 [N][FW]
+    return o_flag() + NW;
+  }
+  __host__ __device__ long long o_poison() const { // uint32 [n_out][FW]
+    return o_bad() + (long long)N * FW;
+  }
+  __host__ __device__ long long o_pairs() const {  // int2 [E], 8-aligned
+    return (o_poison() + (long long)n_out * FW + 1) & ~1LL;
+  }
+  __host__ __device__ long long words() const {
+    return o_pairs() + 2LL * E;
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) bucket_sort_kernel(
+__device__ __forceinline__ bool bit(const uint32_t* m, int i) {
+  return (m[i >> 5] >> (i & 31)) & 1u;
+}
+
+// 1. Per tile: its live edges counted by destination and its weight-0
+// sources marked, each into the tile's own rows of the scratch (zeroed
+// here first: no other block writes them). Lanes of a 32-edge chunk that
+// share a destination (or a weight-0 source) add once.
+__global__ void __launch_bounds__(TB) bucket_count_kernel(
     const int* __restrict__ src, const int* __restrict__ dst,
-    const float* __restrict__ w, const T* __restrict__ h,
-    int* __restrict__ scratch, int N, int E, int F) {
-  const int c = blockIdx.x;
-  const int FW = (F + 31) / 32;
-  Scratch S(scratch, c, N, E, FW);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int* sc = src + (long long)c * E;
-  const int* dc = dst + (long long)c * E;
-  const float* wc = w + (long long)c * E;
-  const T* hc = h + (long long)c * N * F;
-  const int per = (E + WARPS - 1) / WARPS;
-  const int lo = min(E, warp * per), hi = min(E, lo + per);
-
-  for (int i = threadIdx.x; i < WARPS * N; i += THREADS) S.cnt[i] = 0;
-  for (int i = threadIdx.x; i < N; i += THREADS) S.zsrc[i] = 0;
-  for (int i = threadIdx.x; i < N * FW; i += THREADS)
-    S.bad[i] = S.poison[i] = 0;
+    const float* __restrict__ w, int* __restrict__ scratch, Bucket B) {
+  const int c = blockIdx.y, t = blockIdx.x, lane = threadIdx.x % 32;
+  int* base = scratch + (long long)c * B.words();
+  int* cnt = base + (long long)t * B.n_out;
+  uint32_t* mark =
+      reinterpret_cast<uint32_t*>(base + B.o_mark()) + (long long)t * B.NW;
+  for (int i = threadIdx.x; i < B.n_out; i += TB) cnt[i] = 0;
+  for (int i = threadIdx.x; i < B.NW; i += TB) mark[i] = 0;
   __syncthreads();
-
-  // per-warp counts of live edges by destination; weight-0 sources marked
-  for (int e = lo + lane; e < hi; e += 32) {
-    const int s = sc[e], d = dc[e];
-    if (static_cast<unsigned>(s) >= static_cast<unsigned>(N) ||
-        static_cast<unsigned>(d) >= static_cast<unsigned>(N))
-      continue;
-    if (wc[e] != 0.0f) atomicAdd(&S.cnt[warp * N + d], 1);
-    else S.zsrc[s] = 1;
-  }
-  __syncthreads();
-
-  // the non-finite columns of each marked source row (a warp a row); the
-  // mark becomes 2 where the row has any
-  for (int s = warp; s < N; s += WARPS) {
-    if (!S.zsrc[s]) continue;
-    unsigned any = 0;
-    for (int k = 0; k < FW; ++k) {
-      const int f = 32 * k + lane;
-      const float x = f < F ? elem::to_f32(hc[(long long)s * F + f]) : 0.0f;
-      const unsigned m = __ballot_sync(FULL, !isfinite(x));
-      any |= m;
-      if (lane == 0) S.bad[s * FW + k] = m;
-    }
-    if (lane == 0 && any) S.zsrc[s] = 2;
-  }
-  // each destination's total and each warp's offset inside its bucket
-  for (int d = threadIdx.x; d < N; d += THREADS) {
-    int run = 0;
-    for (int k = 0; k < WARPS; ++k) {
-      const int n = S.cnt[k * N + d];
-      S.cnt[k * N + d] = run;
-      run += n;
-    }
-    S.start[d] = run;
-  }
-  __syncthreads();
-  if (warp == 0) {                     // exclusive scan of the totals
-    const int chunk = (N + 31) / 32;
-    const int a = min(N, lane * chunk), b = min(N, a + chunk);
-    int sum = 0;
-    for (int d = a; d < b; ++d) sum += S.start[d];
-    int incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl += y;
-    }
-    int run = incl - sum;
-    for (int d = a; d < b; ++d) {
-      const int n = S.start[d];
-      S.start[d] = run;
-      run += n;
-    }
-    if (lane == 31) S.start[N] = incl;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < WARPS * N; i += THREADS)
-    S.cnt[i] += S.start[i % N];
-  __syncthreads();
-
-  // each warp writes its live edges in edge order (lanes of a 32-edge
-  // chunk that share a destination ranked by match.any); weight-0 edges
-  // from marked rows OR the row's mask into their destination's
+  const long long off = (long long)c * B.E;
   const unsigned below = (1u << lane) - 1u;
-  for (int e0 = lo; e0 < hi; e0 += 32) {
-    const int e = e0 + lane;
-    int s = -1, d = -1;
-    float we = 0.0f;
-    if (e < hi) {
-      s = sc[e];
-      d = dc[e];
-      we = wc[e];
+  int s[TITEMS], d[TITEMS];
+  float we[TITEMS];
+#pragma unroll
+  for (int k = 0; k < TITEMS; ++k) {
+    const int e = t * TILE + k * TB + threadIdx.x;
+    s[k] = d[k] = -1;
+    we[k] = 0.0f;
+    if (e < B.E) {
+      s[k] = src[off + e];
+      d[k] = dst[off + e];
+      we[k] = w[off + e];
     }
-    const bool ok = static_cast<unsigned>(s) < static_cast<unsigned>(N) &&
-                    static_cast<unsigned>(d) < static_cast<unsigned>(N);
-    const bool take = ok && we != 0.0f;
-    const unsigned peers = __match_any_sync(FULL, take ? d : -1);
-    const int rank = __popc(peers & below);
-    int* cur = take ? &S.cnt[warp * N + d] : nullptr;
-    if (take) S.pairs[*cur + rank] = make_int2(s, __float_as_int(we));
-    __syncwarp();
-    if (take && rank == 0) *cur += __popc(peers);
-    __syncwarp();
-    if (ok && !take && S.zsrc[s] == 2)
-      for (int k = 0; k < FW; ++k) {
-        const uint32_t m = S.bad[s * FW + k];
-        if (m) atomicOr(&S.poison[d * FW + k], m);
-      }
+  }
+#pragma unroll
+  for (int k = 0; k < TITEMS; ++k) {
+    const bool in = static_cast<unsigned>(s[k]) < static_cast<unsigned>(B.N) &&
+                    static_cast<unsigned>(d[k]) <
+                        static_cast<unsigned>(B.n_out);
+    const bool live = in && we[k] != 0.0f;
+    const unsigned lp = __match_any_sync(FULL, live ? d[k] : -1);
+    if (live && (lp & below) == 0) atomicAdd(&cnt[d[k]], __popc(lp));
+    const bool zero = in && we[k] == 0.0f;
+    const unsigned zp = __match_any_sync(FULL, zero ? s[k] : -1);
+    if (zero && (zp & below) == 0)
+      atomicOr(&mark[s[k] >> 5], 1u << (s[k] & 31));
   }
 }
 
+// An exclusive scan of x over the block's THREADS threads (`part`: WARPS
+// ints of shared memory).
+__device__ __forceinline__ int block_exclusive(int x, int* part) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < WARPS ? part[lane] : 0;
+    int vi = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, vi, o);
+      if (lane >= o) vi += y;
+    }
+    if (lane < WARPS) part[lane] = vi - v;
+  }
+  __syncthreads();
+  return part[warp] + incl - x;
+}
+
+// 2. Block 0 of each subgraph: each destination's total over the tiles and
+// each tile's offset inside its bucket (a running sum over the tiles, in
+// tile order), the bucket starts (an exclusive scan of the totals) and the
+// list of hub rows. The other blocks: the marks of all tiles ORed, each
+// marked source row's non-finite columns (a warp a 32-row word: the row's
+// column mask where any, and the word's flags), and the destinations'
+// NaN masks zeroed. Every tile's marks are in before any row is tested.
 template <typename T>
-__global__ void __launch_bounds__(32 * GROWS) bucket_gather_kernel(
-    const T* __restrict__ h, const int* __restrict__ scratch,
-    T* __restrict__ out, int N, int E, int F, int vec) {
-  const int c = blockIdx.z;
-  const int FW = (F + 31) / 32;
-  Scratch S(const_cast<int*>(scratch), c, N, E, FW);
+__global__ void __launch_bounds__(THREADS) bucket_scan_kernel(
+    const T* __restrict__ h, int* __restrict__ scratch, Bucket B) {
+  const int c = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i = blockIdx.x * GROWS + warp;
-  if (i >= N) return;
-  const int f = blockIdx.y * 128 + 4 * lane;   // this lane's 4 columns
-  const T* hc = h + (long long)c * N * F;
-  const int first = S.start[i], last = S.start[i + 1];
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int j0 = first; j0 < last; j0 += 32) {
-    const int n = min(32, last - j0);
-    const int2 mine = lane < n ? S.pairs[j0 + lane] : make_int2(0, 0);
-    for (int q0 = 0; q0 < n; q0 += GATHER) {
-      float v[GATHER][4];
+  int* base = scratch + (long long)c * B.words();
+  if (blockIdx.x == 0) {
+    __shared__ int part[WARPS];
+    __shared__ int nhub;
+    int* start = base + B.o_start();
+    int* hubs = base + B.o_hubs();
+    if (threadIdx.x == 0) nhub = 0;
+    __syncthreads();
+    for (int d = threadIdx.x; d < B.n_out; d += THREADS) {
+      int run = 0;
+      for (int t0 = 0; t0 < B.T; t0 += UNROLL) {   // UNROLL loads in flight
+        int n[UNROLL];
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
-        const int sj = __shfl_sync(FULL, mine.x, q0 + u);
-        if (q0 + u < n) {
-          elem::load4(hc + (long long)sj * F + f, F - f, vec, v[u]);
-        } else {
+        for (int u = 0; u < UNROLL; ++u)
+          n[u] = t0 + u < B.T ? base[(long long)(t0 + u) * B.n_out + d] : 0;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) v[u][j] = 0.0f;
+        for (int u = 0; u < UNROLL; ++u) {
+          if (t0 + u < B.T) base[(long long)(t0 + u) * B.n_out + d] = run;
+          run += n[u];
         }
       }
-#pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
-        const float wj = __int_as_float(__shfl_sync(FULL, mine.y, q0 + u));
-        if (q0 + u < n)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(v[u][j], wj));
+      start[d] = run;
+      if (run >= HUB) hubs[2 + atomicAdd(&nhub, 1)] = d;
+    }
+    __syncthreads();
+    const int per = (B.n_out + THREADS - 1) / THREADS;
+    const int lo = min(B.n_out, threadIdx.x * per);
+    const int hi = min(B.n_out, lo + per);
+    int sum = 0;
+    for (int d = lo; d < hi; ++d) sum += start[d];
+    int run = block_exclusive(sum, part);
+    for (int d = lo; d < hi; ++d) {
+      const int n = start[d];
+      start[d] = run;
+      run += n;
+    }
+    if (threadIdx.x == THREADS - 1) {
+      start[B.n_out] = run;
+      hubs[0] = nhub;
+      hubs[1] = 0;
+    }
+    __syncthreads();
+    // the hubs by live edges, most first (rows in order among equals): the
+    // gather's blocks take the longest chains first
+    for (int a = threadIdx.x; a < nhub; a += THREADS) {
+      const int d = hubs[2 + a], n = start[d + 1] - start[d];
+      int rank = 0;
+      for (int b = 0; b < nhub; ++b) {
+        const int d2 = hubs[2 + b], n2 = start[d2 + 1] - start[d2];
+        rank += n2 > n || (n2 == n && d2 < d);
       }
+      hubs[2 + B.HMAX + rank] = d;
+    }
+    return;
+  }
+  const int b = blockIdx.x - 1, nb = gridDim.x - 1;
+  const uint32_t* mark = reinterpret_cast<const uint32_t*>(base + B.o_mark());
+  uint32_t* flag = reinterpret_cast<uint32_t*>(base + B.o_flag());
+  uint32_t* bad = reinterpret_cast<uint32_t*>(base + B.o_bad());
+  uint32_t* poison = reinterpret_cast<uint32_t*>(base + B.o_poison());
+  const long long np = (long long)B.n_out * B.FW;
+  for (long long i = (long long)b * THREADS + threadIdx.x; i < np;
+       i += (long long)nb * THREADS)
+    poison[i] = 0;
+  const T* hc = h + (long long)c * B.N * B.F;
+  for (int wd = b * WARPS + warp; wd < B.NW; wd += nb * WARPS) {
+    uint32_t m = 0;
+    for (int t = lane; t < B.T; t += 32) m |= mark[(long long)t * B.NW + wd];
+    m = __reduce_or_sync(FULL, m);
+    uint32_t flagged = 0;
+    while (m) {
+      const int r = __ffs(m) - 1;
+      m &= m - 1;
+      const int s = 32 * wd + r;
+      unsigned any = 0;
+      for (int k = 0; k < B.FW; ++k) {
+        const int f = 32 * k + lane;
+        const float x =
+            f < B.F ? elem::to_f32(hc[(long long)s * B.F + f]) : 0.0f;
+        const unsigned bm = __ballot_sync(FULL, !isfinite(x));
+        any |= bm;
+        if (lane == 0) bad[(long long)s * B.FW + k] = bm;
+      }
+      if (any) flagged |= 1u << r;
+    }
+    if (lane == 0) flag[wd] = flagged;
+  }
+}
+
+// 3. Per tile: its live edges sorted stably by destination (a block-wide
+// radix sort of (destination, edge) in the tile's edge order; the dead
+// slots keyed n_out, past every destination), each written as (src, w) at
+// its bucket's start + the tile's offset in the bucket + its rank among
+// the tile's edges to that destination; weight-0 edges from a flagged
+// source OR its column mask into their destination's.
+__global__ void __launch_bounds__(TB) bucket_place_kernel(
+    const int* __restrict__ src, const int* __restrict__ dst,
+    const float* __restrict__ w, int* __restrict__ scratch, Bucket B,
+    int end_bit) {
+  using Sort = cub::BlockRadixSort<unsigned, TB, TITEMS, int>;
+  __shared__ typename Sort::TempStorage tmp;
+  __shared__ unsigned tail[TB];
+  const int c = blockIdx.y, t = blockIdx.x;
+  int* base = scratch + (long long)c * B.words();
+  int* cur = base + (long long)t * B.n_out;
+  const int* start = base + B.o_start();
+  const uint32_t* flag =
+      reinterpret_cast<const uint32_t*>(base + B.o_flag());
+  const uint32_t* bad = reinterpret_cast<const uint32_t*>(base + B.o_bad());
+  uint32_t* poison = reinterpret_cast<uint32_t*>(base + B.o_poison());
+  int2* pairs = reinterpret_cast<int2*>(base + B.o_pairs());
+  const long long off = (long long)c * B.E;
+  const int p0 = threadIdx.x * TITEMS;       // this thread's first slot
+  unsigned key[TITEMS];
+  int val[TITEMS];
+#pragma unroll
+  for (int k = 0; k < TITEMS; ++k) {
+    const int e = t * TILE + p0 + k;
+    int s = -1, d = -1;
+    float we = 0.0f;
+    if (e < B.E) {
+      s = src[off + e];
+      d = dst[off + e];
+      we = w[off + e];
+    }
+    const bool in = static_cast<unsigned>(s) < static_cast<unsigned>(B.N) &&
+                    static_cast<unsigned>(d) < static_cast<unsigned>(B.n_out);
+    key[k] = in && we != 0.0f ? static_cast<unsigned>(d)
+                              : static_cast<unsigned>(B.n_out);
+    val[k] = e;
+    if (in && we == 0.0f && bit(flag, s))
+      for (int j = 0; j < B.FW; ++j) {
+        const uint32_t m = bad[(long long)s * B.FW + j];
+        if (m) atomicOr(&poison[(long long)d * B.FW + j], m);
+      }
+  }
+  Sort(tmp).Sort(key, val, 0, end_bit);
+  tail[threadIdx.x] = key[TITEMS - 1];
+  __syncthreads();
+  // the first of each destination's run turns the tile's offset into the
+  // run's base (bucket start + offset - its sorted position)
+#pragma unroll
+  for (int k = 0; k < TITEMS; ++k) {
+    const unsigned d = key[k];
+    const unsigned prev =
+        k ? key[k - 1] : (threadIdx.x ? tail[threadIdx.x - 1] : ~0u);
+    if (d < static_cast<unsigned>(B.n_out) && prev != d)
+      cur[d] = start[d] + cur[d] - (p0 + k);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < TITEMS; ++k) {
+    const unsigned d = key[k];
+    if (d < static_cast<unsigned>(B.n_out)) {
+      const long long e = off + val[k];
+      pairs[cur[d] + p0 + k] = make_int2(src[e], __float_as_int(w[e]));
     }
   }
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four consecutive elements of shared memory as fp32.
+template <typename T>
+__device__ __forceinline__ void lds4_as_f32(const uint8_t* p, float (&x)[4]) {
+  if constexpr (std::is_same<T, float>::value) {
+    lds<4>(reinterpret_cast<const float*>(p), x);
+  } else {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+    x[0] = __low2float(a); x[1] = __high2float(a);
+    x[2] = __low2float(b); x[3] = __high2float(b);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// One warp's output row, columns [col0, col0 + 128), four a lane: the
+// row's bucket walked in edge order in stages of 8 edges; three stages of
+// h rows in flight through a ring in shared memory (cp.async 16-byte
+// pieces where VEC says rows and columns are 16-byte aligned, plain loads
+// otherwise), each stage's sources and weights fetched with the stage
+// three before it; a stage's values read into registers while the stage
+// before it is summed, its weights four at a time; acc = __fadd_rn(acc,
+// __fmul_rn(h, w)), NaN where the row's mask says, the row written once.
+template <typename T, bool VEC>
+__device__ __forceinline__ void gather(
+    const T* __restrict__ hc, const int2* __restrict__ pairs,
+    const uint32_t* __restrict__ poison, T* __restrict__ orow, int first,
+    int deg, int col0, int F, int vec_o, uint8_t* ring, int lane) {
+  constexpr int V = 4;                           // columns a lane
+  constexpr int EPS = 8;                         // edges a stage
+  constexpr int STAGES = 4;
+  constexpr int EB = 32 * V * sizeof(T);         // bytes an edge's columns
+  constexpr int SB = EPS * EB;                   // bytes a stage
+  constexpr int CPE = EB / 16;                   // 16-byte pieces an edge
+  constexpr int EPW = 32 / CPE;                  // edges a warp's copy
+  constexpr int EPC = 16 / sizeof(T);            // elements a piece
+  static_assert(STAGES * SB <= RING && 2 * STAGES * EPS * 8 <= PAIRS &&
+                EPW * CPE == 32 && EPS % EPW == 0, "");
+  int* ps = reinterpret_cast<int*>(ring + RING);              // [2S][EPS]
+  float* pw = reinterpret_cast<float*>(ps + 2 * STAGES * EPS);  // [2S][EPS]
+  const int nst = (deg + EPS - 1) / EPS;
+  // this lane's piece of each edge it copies: edges lane / CPE + EPW q
+  const int le = lane / CPE, col = col0 + (lane % CPE) * EPC;
+  const bool mine = col < F;
+  const T* hcol = hc + col;
+  uint8_t* ldst = ring + le * EB + (lane % CPE) * 16;
+  auto fetch_pairs = [&](int m) {
+    const int p = m * EPS + lane, slot = (m % (2 * STAGES)) * EPS + lane;
+    if (lane < EPS && p < deg) {
+      cp_async4(ps + slot, &pairs[first + p].x);
+      cp_async4(pw + slot, &pairs[first + p].y);
+    }
+  };
+  auto fetch_rows = [&](int m) {
+    if (m >= nst || !mine) return;
+    const int* sp = ps + (m % (2 * STAGES)) * EPS + le;
+    uint8_t* slot = ldst + (m % STAGES) * SB;
+    const int n = deg - m * EPS - le;
+#pragma unroll
+    for (int q = 0; q < EPS / EPW; ++q) {
+      if (EPW * q < n) {
+        const T* g = hcol + (long long)sp[EPW * q] * F;
+        uint8_t* s = slot + EPW * q * EB;
+        if constexpr (VEC) {
+          cp_async16(s, g);
+        } else {
+          T* st = reinterpret_cast<T*>(s);
+#pragma unroll
+          for (int j = 0; j < EPC; ++j)
+            st[j] = col + j < F ? g[j] : elem::from_f32<T>(0.0f);
+        }
+      }
+    }
+  };
+  auto load_stage = [&](int k, float (&x)[EPS][V]) {
+    const uint8_t* s = ring + (k % STAGES) * SB + lane * V * sizeof(T);
+#pragma unroll
+    for (int e = 0; e < EPS; ++e) lds4_as_f32<T>(s + e * EB, x[e]);
+  };
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+  auto add = [&](const float (&x)[V], float w) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(x[j], w));
+  };
+  auto sum_stage = [&](int k, const float (&x)[EPS][V]) {
+    const float* w = pw + (k % (2 * STAGES)) * EPS;
+    const int n = min(EPS, deg - k * EPS);
+    if (n == EPS) {
+#pragma unroll
+      for (int i = 0; i < EPS / 4; ++i) {
+        const float4 w4 = reinterpret_cast<const float4*>(w)[i];
+        add(x[4 * i], w4.x);
+        add(x[4 * i + 1], w4.y);
+        add(x[4 * i + 2], w4.z);
+        add(x[4 * i + 3], w4.w);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPS; ++e)
+        if (e < n) add(x[e], w[e]);
+    }
+  };
+  // stage k: fetch stage k + STAGES - 1 (group k + STAGES - 1: its rows
+  // and the pairs of stage k + 2 STAGES - 2; the slots they overwrite were
+  // last read before the previous stage's __syncwarp), read stage k + 1
+  // into registers, sum stage k
+  auto step = [&](int k, const float (&cur)[EPS][V], float (&nxt)[EPS][V]) {
+    fetch_rows(k + STAGES - 1);
+    fetch_pairs(k + 2 * STAGES - 2);
+    cp_async_commit();
+    if (k + 1 < nst) {
+      cp_async_wait<STAGES - 2>();
+      __syncwarp();
+      load_stage(k + 1, nxt);
+    }
+    sum_stage(k, cur);
+  };
+  for (int m = 0; m < STAGES - 1; ++m) fetch_pairs(m);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  for (int m = 0; m < STAGES - 1; ++m) {   // group m: stage m's rows, and
+    fetch_rows(m);                         // stage m + STAGES - 1's pairs
+    fetch_pairs(m + STAGES - 1);
+    cp_async_commit();
+  }
+  float xa[EPS][V], xb[EPS][V];
+  if (nst > 0) {
+    cp_async_wait<STAGES - 2>();
+    __syncwarp();
+    load_stage(0, xa);
+  }
+  for (int k = 0; k < nst; k += 2) {
+    step(k, xa, xb);
+    if (k + 1 < nst) step(k + 1, xb, xa);
+  }
+  cp_async_wait<0>();                  // no copy outlives the warp
+  const int f = col0 + V * lane;
   const float nan = __int_as_float(0x7fffffff);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (f + j < F && ((S.poison[i * FW + (f + j) / 32] >> ((f + j) % 32)) & 1u))
+  for (int j = 0; j < V; ++j)
+    if (f + j < F && ((poison[(f + j) / 32] >> ((f + j) % 32)) & 1u))
       acc[j] = nan;
-  elem::store4(out + ((long long)c * N + i) * F + f, F - f, vec, acc);
+  elem::store4(orow + f, F - f, vec_o, acc);
+}
+
+// A hub row's HW columns [col0, col0 + HW), by a whole block: warp 0 sums
+// (a column a lane) while warps 1-3 copy. The row's bucket is walked in
+// stages of 32 edges through a ring of HS stages in shared memory; at each
+// stage boundary the copiers issue stage k + HD (cp.async 16-byte pieces
+// where VEC says rows and columns are 16-byte aligned, plain loads
+// otherwise) and the (src, w) pairs of stage k + 2 HD, and wait for stage
+// k + 2; the summer reads stage k + 1 into registers (values and weights)
+// while it adds stage k's, acc = __fadd_rn(acc, __fmul_rn(h, w)) in edge
+// order; one barrier of the block's 128 threads a stage.
+constexpr int HW = 8;                  // columns of a hub's block
+constexpr int HD = 6;                  // stages of a hub's rows in flight
+constexpr int HS = 8;                  // stages of a hub's ring
+constexpr int HP = 2 * HD + 2;         // stages of its pairs kept
+template <typename T, bool VEC>
+__device__ __forceinline__ void gather_hub(
+    const T* __restrict__ hc, const int2* __restrict__ pairs,
+    const uint32_t* __restrict__ poison, T* __restrict__ orow, int first,
+    int deg, int col0, int F, uint8_t* smem) {
+  constexpr int EPS = 32;                        // edges a stage
+  constexpr int EB = HW * sizeof(T);             // bytes an edge's columns
+  constexpr int SB = EPS * EB;                   // bytes a stage
+  constexpr int CPE = EB >= 16 ? EB / 16 : 1;    // 16-byte pieces an edge
+  constexpr int PIECES = EPS * CPE;              // pieces a stage
+  constexpr int EPC = 16 / sizeof(T);            // elements a piece
+  constexpr int COPIERS = 32 * (GWARPS - 1);
+  static_assert(EB % 16 == 0, "");
+  static_assert(HS * SB + HP * EPS * 8 <= GATHER_SMEM && HD < HS, "");
+  int* ps = reinterpret_cast<int*>(smem + HS * SB);           // [HP][EPS]
+  float* pw = reinterpret_cast<float*>(ps + HP * EPS);        // [HP][EPS]
+  const int nst = (deg + EPS - 1) / EPS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = threadIdx.x - 32;                // copier index
+  auto sync = [] { asm volatile("bar.sync 1, %0;\n" ::"n"(32 * GWARPS)
+                                : "memory"); };
+  auto fetch_pairs = [&](int m) {                // copiers t < EPS
+    const int p = m * EPS + t, slot = (m % HP) * EPS + t;
+    if (t < EPS && p < deg) {
+      cp_async4(ps + slot, &pairs[first + p].x);
+      cp_async4(pw + slot, &pairs[first + p].y);
+    }
+  };
+  auto fetch_rows = [&](int m) {                 // stage m's pairs landed
+    if (m >= nst) return;
+    const int n = min(EPS, deg - m * EPS);
+#pragma unroll
+    for (int q = t; q < PIECES; q += COPIERS) {
+      const int e = q / CPE, piece = q % CPE;
+      const int col = col0 + piece * EPC;
+      if (e < n && col < F) {
+        const T* g = hc + (long long)ps[(m % HP) * EPS + e] * F + col;
+        uint8_t* s = smem + (m % HS) * SB + e * EB + piece * 16;
+        if constexpr (VEC) {
+          cp_async16(s, g);
+        } else {
+          T* st = reinterpret_cast<T*>(s);
+#pragma unroll
+          for (int j = 0; j < EPC; ++j)
+            st[j] = col + j < F ? g[j] : elem::from_f32<T>(0.0f);
+        }
+      }
+    }
+  };
+  // the summer reads stage k + 1 into registers while it sums stage k
+  auto load = [&](int k, float (&x)[EPS], float4 (&w)[EPS / 4]) {
+    const uint8_t* s = smem + (k % HS) * SB + (lane % HW) * sizeof(T);
+#pragma unroll
+    for (int e = 0; e < EPS; ++e)
+      x[e] = elem::to_f32(*reinterpret_cast<const T*>(s + e * EB));
+#pragma unroll
+    for (int i = 0; i < EPS / 4; ++i)
+      w[i] = reinterpret_cast<const float4*>(pw + (k % HP) * EPS)[i];
+  };
+  float acc = 0.0f;
+  auto sum = [&](int k, const float (&x)[EPS], const float4 (&w)[EPS / 4]) {
+    const int n = min(EPS, deg - k * EPS);
+    if (n == EPS) {
+#pragma unroll
+      for (int i = 0; i < EPS / 4; ++i) {
+        acc = __fadd_rn(acc, __fmul_rn(x[4 * i], w[i].x));
+        acc = __fadd_rn(acc, __fmul_rn(x[4 * i + 1], w[i].y));
+        acc = __fadd_rn(acc, __fmul_rn(x[4 * i + 2], w[i].z));
+        acc = __fadd_rn(acc, __fmul_rn(x[4 * i + 3], w[i].w));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPS; ++e) {
+        const float4 q = w[e / 4];
+        const float we = e % 4 == 0 ? q.x : e % 4 == 1 ? q.y
+                         : e % 4 == 2 ? q.z : q.w;
+        if (e < n) acc = __fadd_rn(acc, __fmul_rn(x[e], we));
+      }
+    }
+  };
+  // stage k: the copiers issue group k + HD (stage k + HD's rows, into the
+  // slot of stage k + HD - HS, read before stage k - 1's barrier, and
+  // stage k + 2 HD's pairs) and wait for stage k + 2's rows; the summer
+  // reads stage k + 1 and sums stage k; then the barrier
+  auto step = [&](int k, const float (&x)[EPS], const float4 (&w)[EPS / 4],
+                  float (&nx)[EPS], float4 (&nw)[EPS / 4]) {
+    if (warp == 0) {
+      if (k + 1 < nst) load(k + 1, nx, nw);
+      sum(k, x, w);
+    } else {
+      fetch_rows(k + HD);
+      fetch_pairs(k + 2 * HD);
+      cp_async_commit();
+      cp_async_wait<HD - 2>();
+    }
+    sync();
+  };
+  if (warp) {                          // copiers: pairs of stages < HD,
+    for (int m = 0; m < HD; ++m) fetch_pairs(m);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  sync();
+  if (warp) {                          // group j: rows of stage j, pairs of
+    for (int j = 0; j < HD; ++j) {     // stage j + HD
+      fetch_rows(j);
+      fetch_pairs(j + HD);
+      cp_async_commit();
+    }
+    cp_async_wait<HD - 2>();           // stages 0 and 1's rows
+  }
+  sync();
+  float xa[EPS], xb[EPS];
+  float4 wa[EPS / 4], wb[EPS / 4];
+  if (warp == 0 && nst > 0) load(0, xa, wa);
+  for (int k = 0; k < nst; k += 2) {
+    step(k, xa, wa, xb, wb);
+    if (k + 1 < nst) step(k + 1, xb, wb, xa, wa);
+  }
+  if (warp) cp_async_wait<0>();        // no copy outlives the block
+  const int f = col0 + lane;
+  if (warp == 0 && lane < HW && f < F) {
+    if ((poison[f / 32] >> (f % 32)) & 1u) acc = __int_as_float(0x7fffffff);
+    orow[f] = elem::from_f32<T>(acc);
+  }
+}
+
+// 4. The first `hub_blocks` blocks take (hub row, HW columns) items, the
+// hubs' (HUB live edges or more) longest first, from a counter until none
+// is left; then a warp per (output row, 128 columns), those of hub rows
+// returning at once.
+template <typename T>
+__global__ void __launch_bounds__(32 * GWARPS) bucket_gather_kernel(
+    const T* __restrict__ h, int* __restrict__ scratch, T* __restrict__ out,
+    Bucket B, int hub_blocks, int vec_h, int vec_o) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int c = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int* base = scratch + (long long)c * B.words();
+  const int* start = base + B.o_start();
+  int* hubs = base + B.o_hubs();
+  const T* hc = h + (long long)c * B.N * B.F;
+  const int2* pairs = reinterpret_cast<const int2*>(base + B.o_pairs());
+  const uint32_t* poison =
+      reinterpret_cast<const uint32_t*>(base + B.o_poison());
+  T* oc = out + (long long)c * B.n_out * B.F;
+  const int NT = (B.F + 127) / 128;
+  if (blockIdx.x < hub_blocks) {
+    __shared__ int item;
+    const int slices = (B.F + HW - 1) / HW;
+    const int items = hubs[0] * slices;
+    for (;;) {
+      if (threadIdx.x == 0) item = atomicAdd(&hubs[1], 1);
+      __syncthreads();
+      const int it = item;
+      __syncthreads();
+      if (it >= items) return;
+      const int i = hubs[2 + B.HMAX + it / slices];
+      const int col0 = HW * (it % slices);
+      const int first = start[i], deg = start[i + 1] - first;
+      if (vec_h)
+        gather_hub<T, true>(hc, pairs, poison + (long long)i * B.FW,
+                            oc + (long long)i * B.F, first, deg, col0, B.F,
+                            smem);
+      else
+        gather_hub<T, false>(hc, pairs, poison + (long long)i * B.FW,
+                             oc + (long long)i * B.F, first, deg, col0, B.F,
+                             smem);
+    }
+  }
+  const long long g = ((long long)blockIdx.x - hub_blocks) * GWARPS + warp;
+  if (g >= (long long)B.n_out * NT) return;
+  const int i = static_cast<int>(g % B.n_out);
+  const int col0 = 128 * static_cast<int>(g / B.n_out);
+  const int first = start[i], deg = start[i + 1] - first;
+  if (deg >= HUB) return;              // a hub's columns: the blocks above
+  if (vec_h)
+    gather<T, true>(hc, pairs, poison + (long long)i * B.FW,
+                    oc + (long long)i * B.F, first, deg, col0, B.F, vec_o,
+                    smem + warp * WARP_SMEM, lane);
+  else
+    gather<T, false>(hc, pairs, poison + (long long)i * B.FW,
+                     oc + (long long)i * B.F, first, deg, col0, B.F, vec_o,
+                     smem + warp * WARP_SMEM, lane);
 }
 
 // Whether the sort variant takes (N, E) at bc columns a block.
@@ -587,18 +1108,40 @@ int launch_sort(const int* src, const int* dst, const float* w, const T* h,
 
 template <typename T>
 int launch_bucket(const int* src, const int* dst, const float* w, const T* h,
-                  T* out, int* scratch, int C, int N, int E, int F,
+                  T* out, int* scratch, int C, int N, int n_out, int E, int F,
                   void* stream) {
+  if (C == 0 || n_out == 0 || F == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = F % 4 == 0 && (reinterpret_cast<uintptr_t>(h) & 15) == 0 &&
-                  (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  bucket_sort_kernel<T><<<C, THREADS, 0, s>>>(src, dst, w, h, scratch, N, E,
-                                               F);
-  const cudaError_t err = cudaGetLastError();
+  const Bucket B(N, n_out, E, F);
+  const int vec_h = (F * static_cast<int>(sizeof(T))) % 16 == 0 &&
+                    (reinterpret_cast<uintptr_t>(h) & 15) == 0;
+  const int vec_o = F % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  bucket_count_kernel<<<dim3(B.T, C), TB, 0, s>>>(src, dst, w, scratch, B);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + GROWS - 1) / GROWS, (F + 127) / 128, C);
-  bucket_gather_kernel<T><<<grid, 32 * GROWS, 0, s>>>(h, scratch, out, N, E,
-                                                       F, vec);
+  const int rb = std::min(1024, std::max(1, (B.NW + WARPS - 1) / WARPS));
+  bucket_scan_kernel<T><<<dim3(1 + rb, C), THREADS, 0, s>>>(h, scratch, B);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int end_bit = 32 - __builtin_clz(static_cast<unsigned>(n_out));
+  bucket_place_kernel<<<dim3(B.T, C), TB, 0, s>>>(src, dst, w, scratch, B,
+                                                   end_bit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = bucket_gather_kernel<T>;
+  static std::atomic<unsigned long long> limit_set{0};
+  const int e = hopper::smem_limit_once(
+      reinterpret_cast<const void*>(kernel), GATHER_SMEM, limit_set);
+  if (e) return e;
+  // hub blocks: as many as can be resident (3 a SM), at most one an item
+  const long long NT = (F + 127) / 128;
+  const int hub_blocks = static_cast<int>(std::min<long long>(
+      (long long)B.HMAX * ((F + HW - 1) / HW),
+      3LL * std::max(1, hopper::sm_count())));
+  const long long blocks =
+      hub_blocks + ((long long)n_out * NT + GWARPS - 1) / GWARPS;
+  kernel<<<dim3(static_cast<unsigned>(blocks), C), 32 * GWARPS, GATHER_SMEM,
+           s>>>(h, scratch, out, B, hub_blocks, vec_h, vec_o);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -614,16 +1157,23 @@ int scatter_gather_block_cols(int N, int E, int F) {
   return block_cols(N, E, F);
 }
 
-// int32 words of scratch the bucket variant needs for C subgraphs.
-long long scatter_gather_bucket_scratch_words(int C, int N, int E, int F) {
-  return (long long)C * Scratch::words(N, E, (F + 31) / 32);
+// int32 words of scratch the bucket variant needs for C subgraphs of N
+// source rows, n_out destinations, E edge slots and F columns.
+long long scatter_gather_bucket_scratch_words(int C, int N, int n_out, int E,
+                                              int F) {
+  return (long long)C * Bucket(N, n_out, E, F).words();
 }
 
-// src/dst [C,E] int32, w [C,E] fp32, h [C,N,F] and out [C,N,F] fp32 (_f32)
-// or bf16 (_bf16), contiguous. The sort variant needs
-// scatter_gather_block_cols(N, E, F) != 0 and takes block_cols columns a
-// block (128, 64 or 32; 0 = scatter_gather_block_cols(N, E, F)); the bucket
-// variant takes any shape and `scratch` of
+// The bucket variant's edge slots a tile and live in-edges of a hub row.
+int scatter_gather_bucket_tile() { return TILE; }
+int scatter_gather_bucket_hub() { return HUB; }
+
+// src/dst [C,E] int32, w [C,E] fp32, h [C,N,F] fp32 (_f32) or bf16 (_bf16),
+// contiguous. The sort variant needs scatter_gather_block_cols(N, E, F) != 0,
+// takes block_cols columns a block (128, 64 or 32; 0 =
+// scatter_gather_block_cols(N, E, F)) and writes out [C,N,F]; the bucket
+// variant takes any shape, writes out [C,n_out,F] (destinations in
+// [0, n_out); edges to others are dropped) and takes `scratch` of
 // scatter_gather_bucket_scratch_words int32. Each returns cudaGetLastError
 // (cudaErrorInvalidValue where the sort's shared memory does not fit at
 // the width asked for).
@@ -642,16 +1192,16 @@ int scatter_gather_sort_bf16(const int* src, const int* dst, const float* w,
 }
 int scatter_gather_bucket_f32(const int* src, const int* dst, const float* w,
                               const float* h, float* out, int* scratch, int C,
-                              int N, int E, int F, void* stream) {
-  return launch_bucket<float>(src, dst, w, h, out, scratch, C, N, E, F,
+                              int N, int n_out, int E, int F, void* stream) {
+  return launch_bucket<float>(src, dst, w, h, out, scratch, C, N, n_out, E, F,
                               stream);
 }
 int scatter_gather_bucket_bf16(const int* src, const int* dst,
                                const float* w, const elem::bf16* h,
                                elem::bf16* out, int* scratch, int C, int N,
-                               int E, int F, void* stream) {
-  return launch_bucket<elem::bf16>(src, dst, w, h, out, scratch, C, N, E, F,
-                                   stream);
+                               int n_out, int E, int F, void* stream) {
+  return launch_bucket<elem::bf16>(src, dst, w, h, out, scratch, C, N, n_out,
+                                   E, F, stream);
 }
 
 }  // extern "C"

@@ -18,17 +18,23 @@ rounded once on the store); w is float32. Two kernels, chosen by
   and sorts the live edges (w != 0) by destination there, stably, with
   16-bit edge indices.
 - ``"bucket"`` (the rest, e.g. forced sg at N=1024 with the Flickr-sized
-  graph's 74,496 edge slots): the same stable sort with 32-bit indices
-  into a scratch in device memory (one block a subgraph), then a second
-  launch that gives each (destination row, 128 columns) to a warp reading
-  h from device memory.
+  graph's 74,496 edge slots, and the offline build's chunks): the same
+  stable sort spread over many blocks (a block per tile of
+  ``BUCKET_TILE`` edge slots counts, a scan gives each tile its offset in
+  each destination's bucket, a block per tile places its edges), then a
+  warp per (destination row, 128 columns), or per 32 columns for a row of
+  ``BUCKET_HUB`` live edges or more, reading h through a ring in shared
+  memory. Its output has ``n_out`` rows: destinations at or past
+  ``n_out`` are dropped, as ``segment_sum(num_segments=n_out)`` drops
+  them.
 
 Both then sum each destination row's edges in edge order in registers
 and write the row once: no atomics, the same result on every run, many
 edges into one vertex summed exactly. Weight-0 edges (the padding) are
 not walked, yet keep the oracle's 0 * h[src]: where such an edge's source
 row holds inf or NaN in a column, its destination gets NaN there. Edges
-with an index outside [0, N) are skipped.
+with a source outside [0, N) or a destination outside [0, n_out) are
+skipped.
 
 The wrapper takes the plain version for tensors on the CPU; for CUDA
 tensors it launches the chosen kernel or raises. ``launches`` counts
@@ -53,6 +59,8 @@ SORT_MAX_EDGES = 65536      # the sort kernel's 16-bit edge indices
 # order whatever the width, so the width never changes a result
 BLOCK_COLS_CANDIDATES = (128, 64, 32)
 _SORT_WARPS = 16
+BUCKET_TILE = 2048          # the bucket kernel's edge slots a tile
+BUCKET_HUB = 512            # live in-edges from which it splits a row finer
 
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
@@ -99,37 +107,55 @@ def sg_variant(N: int, E: int) -> str:
     return "sort" if sort_block_cols(N, E) else "bucket"
 
 
-def scatter_gather_aggregate_ref(src, dst, w, h, **_):
+def scatter_gather_aggregate_ref(src, dst, w, h, n_out=None, **_):
     """Plain PyTorch version (``repro.kernels.ref.scatter_gather_
-    aggregate_ref``): per subgraph, gather the source rows, scale by the
-    edge weight and ``index_add_`` them at the destinations (fp32, cast
-    back to h's dtype)."""
+    aggregate_ref``, and ``segment_sum(num_segments=n_out)``): per
+    subgraph, gather the source rows, scale by the edge weight and
+    ``index_add_`` them at the destinations (fp32, cast back to h's
+    dtype). Returns [C, n_out, F] (``n_out`` None: N). Edges with a source
+    outside [0, N) or a destination outside [0, n_out) add into one
+    spare row that is dropped, as the kernels skip them."""
     C, E = src.shape
     _, N, F = h.shape
-    off = (torch.arange(C, device=h.device) * N)[:, None]
-    upd = h.float().reshape(C * N, F)[(src.long() + off).reshape(-1)] \
+    n = N if n_out is None else n_out
+    s, d = src.long(), dst.long()
+    ok = (s >= 0) & (s < N) & (d >= 0) & (d < n)
+    spare = C * n
+    rows = h.float().reshape(C * N, F)
+    if N == 0:
+        rows = rows.new_zeros(1, F)
+    at = torch.arange(C, device=h.device)[:, None]
+    upd = rows[torch.where(ok, s + at * N, 0).reshape(-1)] \
         * w.float().reshape(-1, 1)
-    out = torch.zeros((C * N, F), dtype=torch.float32, device=h.device)
-    out.index_add_(0, (dst.long() + off).reshape(-1), upd)
-    return out.reshape(C, N, F).to(h.dtype)
+    out = torch.zeros((spare + 1, F), dtype=torch.float32, device=h.device)
+    out.index_add_(0, torch.where(ok, d + at * n, spare).reshape(-1), upd)
+    return out[:spare].reshape(C, n, F).to(h.dtype)
 
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_typed = None       # the library whose argument types are set and checked
 
 
 def _lib():
+    """The kernels' library, its functions' argument types set and its
+    constants checked against the wrapper's once a library (ctypes checks
+    argument types on every call; setting them per call cost host
+    time)."""
+    global _typed
     lib = build.load("scatter_gather")
+    if lib is _typed:
+        return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in _SUFFIX.values():
         fn = getattr(lib, f"scatter_gather_sort_{dt}")
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
         fn = getattr(lib, f"scatter_gather_bucket_{dt}")
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
     lib.scatter_gather_block_cols.argtypes = [i, i, i]
     lib.scatter_gather_block_cols.restype = i
-    lib.scatter_gather_bucket_scratch_words.argtypes = [i, i, i, i]
+    lib.scatter_gather_bucket_scratch_words.argtypes = [i, i, i, i, i]
     lib.scatter_gather_bucket_scratch_words.restype = ctypes.c_longlong
     for n, e, f in ((256, 18688, 512), (256, 18944, 68), (256, 18944, 64),
                     (256, 18944, 1), (256, 65537, 512), (1024, 74496, 256),
@@ -139,15 +165,24 @@ def _lib():
                                f"at N={n}, E={e}, F={f} is "
                                f"{lib.scatter_gather_block_cols(n, e, f)}, "
                                f"the wrapper's {sort_block_cols(n, e, f)}")
+    got = (lib.scatter_gather_bucket_tile(), lib.scatter_gather_bucket_hub())
+    if got != (BUCKET_TILE, BUCKET_HUB):
+        raise RuntimeError(f"scatter_gather: the library's bucket tile and "
+                           f"hub are {got}, the wrapper's "
+                           f"{(BUCKET_TILE, BUCKET_HUB)}")
+    _typed = lib
     return lib
 
 
-def scatter_gather_aggregate(src, dst, w, h, block_cols=None):
+def scatter_gather_aggregate(src, dst, w, h, block_cols=None, n_out=None):
     """src/dst [C,E] int32 (padding edges carry w == 0 and any index in
     range); w [C,E] float32; h [C,N,F] float32 or bfloat16. Returns
-    [C,N,F] in h's dtype. ``block_cols`` (128, 64 or 32; None =
-    ``sort_block_cols(N, E, F)``) sets the sort kernel's columns a block;
-    a width the sort kernel cannot take at (N, E) raises."""
+    [C,n_out,F] in h's dtype (``n_out`` in [0, N]; None = N): the sums
+    of the destinations in [0, n_out), edges to the others dropped.
+    ``block_cols`` (128, 64 or 32; None = ``sort_block_cols(N, E, F)``)
+    sets the sort kernel's columns a block; a width the sort kernel cannot
+    take at (N, E) raises. The sort kernel writes all N rows, of which the
+    first n_out are returned; the bucket kernel writes n_out."""
     if src.dim() != 2 or h.dim() != 3:
         raise ValueError(f"scatter_gather_aggregate: src must be [C,E] and "
                          f"h [C,N,F], got {tuple(src.shape)} and "
@@ -159,6 +194,11 @@ def scatter_gather_aggregate(src, dst, w, h, block_cols=None):
         raise ValueError(f"scatter_gather_aggregate: shapes src "
                          f"{tuple(src.shape)}, dst {tuple(dst.shape)}, w "
                          f"{tuple(w.shape)}, h {tuple(h.shape)} disagree")
+    if n_out is None:
+        n_out = N
+    elif not 0 <= n_out <= N:
+        raise ValueError(f"scatter_gather_aggregate: n_out={n_out} outside "
+                         f"[0, N={N}]")
     if src.dtype != torch.int32 or dst.dtype != torch.int32:
         raise TypeError("scatter_gather_aggregate: src/dst must be int32")
     if w.dtype != torch.float32 or h.dtype not in _SUFFIX:
@@ -171,39 +211,45 @@ def scatter_gather_aggregate(src, dst, w, h, block_cols=None):
                          f"{BLOCK_COLS_CANDIDATES}, shared memory and E <= "
                          f"{SORT_MAX_EDGES} permitting)")
     dev = h.device
-    if any(t.device != dev for t in (src, dst, w)):
+    if src.device != dev or dst.device != dev or w.device != dev:
         raise ValueError("scatter_gather_aggregate: inputs on different "
                          "devices")
-    if dev.type == "cpu":
-        return scatter_gather_aggregate_ref(src, dst, w, h)
-    if dev.type != "cuda":
+    if not h.is_cuda:
+        if dev.type == "cpu":
+            return scatter_gather_aggregate_ref(src, dst, w, h, n_out)
         raise ValueError(f"scatter_gather_aggregate: unsupported device "
                          f"{dev}")
-    build.refuse_grad("scatter_gather_aggregate", w, h)
-    if not all(t.is_contiguous() for t in (src, dst, w, h)):
+    if torch.is_grad_enabled() and (w.requires_grad or h.requires_grad):
+        build.refuse_grad("scatter_gather_aggregate", w, h)
+    if not (src.is_contiguous() and dst.is_contiguous()
+            and w.is_contiguous() and h.is_contiguous()):
         raise ValueError("scatter_gather_aggregate: inputs must be "
                          "contiguous")
     variant = sg_variant(N, E)
     lib = _lib()
     dt = _SUFFIX[h.dtype]
-    out = torch.empty((C, N, F), dtype=h.dtype, device=dev)
-    ptrs = (src.data_ptr(), dst.data_ptr(), w.data_ptr(), h.data_ptr(),
-            out.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if variant == "sort":
-            block_cols = block_cols or sort_block_cols(N, E, F)
-            err = getattr(lib, f"scatter_gather_sort_{dt}")(
-                *ptrs, C, N, E, F, block_cols, stream)
-        else:
-            # freed on return: the caching allocator may hand it out again
-            # at once, but only to work queued behind these kernels on
-            # this stream
-            scratch = torch.empty(
-                lib.scatter_gather_bucket_scratch_words(C, N, E, F),
-                dtype=torch.int32, device=dev)
-            err = getattr(lib, f"scatter_gather_bucket_{dt}")(
-                *ptrs, scratch.data_ptr(), C, N, E, F, stream)
+    ptrs = (src.data_ptr(), dst.data_ptr(), w.data_ptr(), h.data_ptr())
+    idx = dev.index
+    if variant == "sort":
+        block_cols = block_cols or sort_block_cols(N, E, F)
+        out = torch.empty((C, N, F), dtype=h.dtype, device=dev)
+        launch = lambda s: getattr(lib, f"scatter_gather_sort_{dt}")(  # noqa
+            *ptrs, out.data_ptr(), C, N, E, F, block_cols, s)
+    else:
+        out = torch.empty((C, n_out, F), dtype=h.dtype, device=dev)
+        # sized from the shapes alone; freed on return: the caching
+        # allocator may hand it out again at once, but only to work
+        # queued behind these kernels on this stream
+        scratch = torch.empty(
+            lib.scatter_gather_bucket_scratch_words(C, N, n_out, E, F),
+            dtype=torch.int32, device=dev)
+        launch = lambda s: getattr(lib, f"scatter_gather_bucket_{dt}")(  # noqa
+            *ptrs, out.data_ptr(), scratch.data_ptr(), C, N, n_out, E, F, s)
+    if idx == torch.cuda.current_device():
+        err = launch(torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = launch(torch._C._cuda_getCurrentRawStream(idx))
     if err:
         raise RuntimeError(f"scatter_gather_aggregate: {variant} kernel "
                            f"launch failed (cudaError {err})")
@@ -214,18 +260,21 @@ def scatter_gather_aggregate(src, dst, w, h, block_cols=None):
         if variant == "sort":
             width_launches[block_cols] += 1
     if op_analysis.active() is not None:
-        c = sg_cost(src, dst, w, h)
+        c = sg_cost(src, dst, w, h, n_out)
         op_analysis.note_kernel("scatter_gather_aggregate", c["flops"],
                                 c["hbm_bytes"], torch.float32)
+    if variant == "sort" and n_out != N:
+        return out[:, :n_out].contiguous()
     return out
 
 
-def sg_cost(src, dst, w, h) -> dict:
+def sg_cost(src, dst, w, h, n_out=None) -> dict:
     """The function's operations and bytes (chip_smoke.py's bound and the
     launch analysis share it): 2 F for each edge of weight != 0 (this
     batch's count: it reads w, so it waits for the card), each input read
-    once and the output [C, N, F] written once."""
+    once and the output [C, n_out, F] (``n_out`` None: N) written once."""
     C, N, F = h.shape
+    n = N if n_out is None else n_out
     moved = sum(t.numel() * t.element_size() for t in (src, dst, w, h)) \
-        + h.element_size() * C * N * F
+        + h.element_size() * C * n * F
     return {"flops": 2.0 * int((w != 0).sum()) * F, "hbm_bytes": moved}

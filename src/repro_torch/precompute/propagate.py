@@ -13,14 +13,15 @@ what the online path produces for a full-coverage subgraph.
 
 Aggregate runs chunk by chunk on the scatter-gather kernel
 (``kernels.scatter_gather.scatter_gather_aggregate``, C=1) under
-``impl="cuda"`` and on its plain version under ``impl="torch"``. The
-kernel makes ``h`` and ``out`` share their row count N, while a chunk
+``impl="cuda"`` and on its plain version under ``impl="torch"``. A chunk
 gathers from the full [V, f] register into ``chunk_size`` destination
 rows; so each chunk is given in compact form: its distinct source rows
 (``index_select`` from the register), its edges' sources renumbered into
-them, and N = max(chunk, sources) rows, of which the first ``chunk`` are
-the chunk's destinations. The renumbering, computed once per compute set,
-changes no sum: the kernel adds each destination's edges in edge order.
+them, and N = max(chunk, sources) rows, and the kernel writes only the
+first ``chunk`` rows (``n_out``), the chunk's destinations, as the
+reference's ``segment_sum(num_segments=chunk)`` does. The renumbering,
+computed once per compute set, changes no sum: the kernel adds each
+destination's edges in edge order.
 Transform is ``torch.matmul`` (the reference's ``_ft`` is a jnp product
 outside any Pallas kernel), in fp32 as the process's TF32 setting leaves it
 (off by default).
@@ -115,16 +116,17 @@ def dependency_closure(graph, out_ids: np.ndarray,
     return ball
 
 
-def chunk_aggregate(src, dst, w, h, impl: str = "cuda") -> torch.Tensor:
+def chunk_aggregate(src, dst, w, h, impl: str = "cuda",
+                    n_out: Optional[int] = None) -> torch.Tensor:
     """One chunk's Aggregate in compact form: ``src``/``dst`` [1, E] int32
     (sources index ``h``'s rows, destinations the chunk's), ``w`` [1, E]
-    float32 (the padding edges carry 0), ``h`` [1, N, F]. Returns [1, N, F];
-    the chunk's rows are the first ``chunk`` of them. Under impl="cuda"
-    this is the scatter-gather kernel (its plain version for CPU tensors),
-    under impl="torch" the plain version."""
+    float32 (the padding edges carry 0), ``h`` [1, N, F]. Returns
+    [1, n_out, F] (``n_out`` None: N), the chunk's rows first. Under
+    impl="cuda" this is the scatter-gather kernel (its plain version for
+    CPU tensors), under impl="torch" the plain version."""
     if impl == "cuda":
-        return sg.scatter_gather_aggregate(src, dst, w, h)
-    return sg.scatter_gather_aggregate_ref(src, dst, w, h)
+        return sg.scatter_gather_aggregate(src, dst, w, h, n_out=n_out)
+    return sg.scatter_gather_aggregate_ref(src, dst, w, h, n_out)
 
 
 def compact_chunk(src: np.ndarray, rel: np.ndarray, e_cap: int,
@@ -231,7 +233,7 @@ class _LocalCSR:
                 h = torch.cat([h, h.new_zeros(nrows - h.shape[0],
                                               h.shape[1])])
             z = chunk_aggregate(src, dst, w, h[None].contiguous(),
-                                self.impl)
+                                self.impl, n_out=self.chunk)
             out.append(z[0, :min(self.chunk, self.n - c0)])
         z = torch.cat(out, dim=0) if len(out) > 1 else out[0]
         if norm == "gcn":

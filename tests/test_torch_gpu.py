@@ -666,6 +666,80 @@ def test_scatter_gather_at_the_offline_chunk_shape(dev, f):
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(again))
 
 
+def _same_bits(got, want):
+    torch.cuda.synchronize()
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    return bool(torch.equal(ng, nw)) and bool(torch.equal(got[~ng],
+                                                          want[~nw]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_gather_bucket_n_out_below_n(dev, dtype):
+    """The bucket kernel with n_out < N: [C, n_out, F], bitwise the first
+    n_out rows of its N-row output (edges to destinations at or past n_out
+    dropped), against the plain version with NaN from weight-0 edges of
+    inf/NaN sources; two launches bitwise equal; launches counted."""
+    c, n, n_out, e, f = 3, 3000, 700, 70000, 132
+    assert scatter_gather.sg_variant(n, e) == "bucket"
+    rng = np.random.default_rng(7)
+    src = rng.integers(0, n, size=(c, e)).astype(np.int32)
+    dst = rng.integers(0, n_out, size=(c, e)).astype(np.int32)
+    dst[:, ::3] = rng.integers(0, n, size=dst[:, ::3].shape)
+    w = rng.standard_normal((c, e)).astype(np.float32)
+    w[:, 60000:] = 0.0
+    src[:, 60000:] = n - 1
+    dst[:, 60000:] = 5
+    h = rng.standard_normal((c, n, f)).astype(np.float32)
+    h[1, n - 1, 4], h[2, n - 1, f - 1] = np.inf, np.nan
+    args = [torch.from_numpy(a).to(dev) for a in (src, dst, w)] + [
+        torch.from_numpy(h).to(dev).to(dtype)]
+    before = scatter_gather.variant_launches["bucket"]
+    got = scatter_gather.scatter_gather_aggregate(*args, n_out=n_out)
+    again = scatter_gather.scatter_gather_aggregate(*args, n_out=n_out)
+    full = scatter_gather.scatter_gather_aggregate(*args)
+    assert scatter_gather.variant_launches["bucket"] == before + 3
+    assert tuple(got.shape) == (c, n_out, f) and got.dtype == dtype
+    assert _same_bits(got, again) and _same_bits(got, full[:, :n_out])
+    want = scatter_gather.scatter_gather_aggregate_ref(
+        *args[:3], args[3].float(), n_out=n_out)
+    assert torch.isnan(want).sum() >= 2
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+    else:
+        fin = torch.isfinite(want)
+        _bf16_held(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("f", [96, 500])
+def test_scatter_gather_bucket_hub_spanning_tiles(dev, f):
+    """A hub destination whose ~9,900 live edges span all of the bucket
+    kernel's tiles, beside 63 rows of ~890 edges (all over 512: each row
+    split over 8-column blocks): every row bitwise equal to the same
+    products and sums
+    taken one edge at a time in edge order in float32 (numpy; the plain
+    version's index_add_ adds in another order on the card); two launches
+    bitwise equal."""
+    c, n, e, hub = 1, 5000, 66000, 11
+    rng = np.random.default_rng(f)
+    src = rng.integers(0, n, size=(c, e)).astype(np.int32)
+    dst = rng.integers(0, 64, size=(c, e)).astype(np.int32)
+    dst[0, rng.choice(e, 9000, replace=False)] = hub
+    at = np.flatnonzero(dst[0] == hub)          # in edge order
+    w = rng.standard_normal((c, e)).astype(np.float32)
+    h = rng.standard_normal((c, n, f)).astype(np.float32)
+    tiles = scatter_gather.BUCKET_TILE
+    assert len(set(at // tiles)) == -(-e // tiles)
+    args = [torch.from_numpy(a).to(dev) for a in (src, dst, w, h)]
+    got = scatter_gather.scatter_gather_aggregate(*args, n_out=64)
+    again = scatter_gather.scatter_gather_aggregate(*args, n_out=64)
+    assert _same_bits(got, again)
+    want = np.zeros((64, f), np.float32)
+    for k in range(e):
+        want[dst[0, k]] = want[dst[0, k]] + h[0, src[0, k]] * w[0, k]
+    assert np.array_equal(got[0].cpu().numpy(), want)
+
+
 @pytest.mark.parametrize("kind", ["gcn", "sage"])
 def test_offline_build_cuda_against_torch(dev, kind):
     """The layer-major build under impl="cuda" (every Aggregate on the
