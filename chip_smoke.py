@@ -52,16 +52,20 @@
    ``flash_bf16_check`` (every element within ``flash_bf16_tol``, the mean
    signed error within 0.1 bf16 ulp, two launches bitwise equal; planted
    faults in the kernel fail it: scripts/flash_fault_check.py). Times the
-   kernel, its plain version and ``scaled_dot_product_attention(
-   is_causal=True, enable_gqa=True)`` (timed only; the package never
-   calls it) there, and the kernel once more with K/V repeated to 40 heads.
+   kernel there beside its plain version and in turns with
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` (timed
+   only; the package never calls it) through the host and in a CUDA graph
+   (``flash_row``, as Jamba's and pixtral's rows in step 15), and the
+   kernel once more with K/V repeated to 40 heads.
 5. Drives ``DecoupledEngine.infer`` for GCN, GraphSAGE and GAT at the
    paper's width (L=5, N=256, f_hidden=256, 4 heads, C=64, impl="cuda") in
    forced dense and forced sg mode on Zipf traffic, with random weights from
    a seed; the kernels' launch counts are zeroed before and read after, and
    each must match the program's count per batch; every ``fused_gnn_layer``
    launch must be the tf32x3 kernel and every ``gat_attention`` launch the
-   slab kernel. Each engine's embeddings are compared with an impl="torch"
+   slab kernel; gat/sg's scatter-gather launches, and no other engine's,
+   count under ``SG_SOFTMAX_SUMS`` (its softmax sums: the launches of that
+   kernel row). Each engine's embeddings are compared with an impl="torch"
    engine on the same card and params (rtol 1e-4, atol 1e-5). Then one
    traced device step (``run_device``: the copy and the program) of a
    gat/dense, a gcn/sg and a gat/sg batch: device time by kernel and copy,
@@ -370,6 +374,7 @@ from repro_torch.core.dse import (H100Spec, PlanViolation,  # noqa: E402
                                   plan_covers)
 from repro_torch.core.engine import DecoupledEngine  # noqa: E402
 from repro_torch.core.program import (Aggregate,  # noqa: E402
+                                      SG_SOFTMAX_SUMS,
                                       AttentionSoftmax, Transform,
                                       compile_steps, lower, mux_sites,
                                       required_adjacency, respecialize)
@@ -1583,8 +1588,8 @@ def flash_wgmma_check(name, q, k, v, causal=True):
 
 def flash_phase(dev, label):
     """Checks both flash_attention kernels on the CPU tests' shapes and the
-    wgmma kernel at the prefill's shape, times it there; returns its
-    record."""
+    wgmma kernel at phi3's prefill shape, timed there in turns with SDPA
+    (``flash_row``); returns that record."""
     print("[kernels] flash_attention", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1617,22 +1622,9 @@ def flash_phase(dev, label):
         flash_wgmma_check(f"flash wgmma B={b} H={h} Kh={kh} Sq={sq} Sk={sk} "
                           f"D={d} causal={causal}", q, k, v, causal)
     B, H, KH, S, D = 1, 40, 10, LM_SEQ, 128
+    rec = flash_row(dev, label, "phi3", B, H, KH, S, D, True, 0)
     q = rnd((B, H, S, D), torch.bfloat16)
     k, v = (rnd((B, KH, S, D), torch.bfloat16) for _ in range(2))
-    tag = f"B={B} H={H} Kh={KH} S={S} D={D} bf16 causal"
-    r = flash_wgmma_check(f"flash wgmma {tag}", q, k, v)
-    ms = cuda_ms(lambda: flash_attention(q, k, v), iters=20)
-    plain = cuda_ms(lambda: flash_attention_ref(q, k, v), iters=5,
-                    warmup=1)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), iters=20)
-    flops = flash_cost(B, H, S, S, D, causal=True)["flops"]
-    bnd, by = bound_ms(2 * nbytes(q) + nbytes(k, v), flops, PEAK_BF16_FLOPS)
-    print(f"  flash wgmma {tag}: kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, library "
-          f"{lib:.4f} ms (scaled_dot_product_attention), bound {bnd:.4f} "
-          f"ms ({by}; {flops:.4g} operations, "
-          f"{2 * nbytes(q) + nbytes(k, v):.4g} bytes) [{label}]", flush=True)
     k4, v4 = (t.repeat_interleave(H // KH, dim=1) for t in (k, v))
     ms4 = cuda_ms(lambda: flash_attention(q, k4, v4), iters=20)
     lib4 = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -1640,9 +1632,7 @@ def flash_phase(dev, label):
     print(f"  flash wgmma B={B} H={H} Kh={H} S={S} D={D} bf16 causal (K/V "
           f"repeated, PR 12's shape): kernel {ms4:.4f} ms, library "
           f"{lib4:.4f} ms [{label}]", flush=True)
-    return dict(shape=tag, variant="wgmma", max_abs_err=r["max_abs_err"],
-                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib)
+    return rec
 
 
 # -- phase 5: the serving path ---------------------------------------------
@@ -1663,6 +1653,7 @@ def engine_phase(graph, targets, label):
             with DecoupledEngine(graph, cfg, params=params[kind],
                                  config=conf) as eng:
                 before = ops.launch_counts()
+                sums0 = sg_kernels.caller_launches.get(SG_SOFTMAX_SUMS, 0)
                 eng.infer(targets[:C])                   # warm-up batch
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1670,6 +1661,8 @@ def engine_phase(graph, targets, label):
                 torch.cuda.synchronize()
                 peak = torch.cuda.max_memory_allocated()
                 after = ops.launch_counts()
+                sums = sg_kernels.caller_launches.get(SG_SOFTMAX_SUMS, 0) \
+                    - sums0
             st = res.stats
             per = [h + d for h, d in zip(st.host_times, st.device_times)]
             delta = {k: after[k] - before[k] for k in after}
@@ -1680,6 +1673,12 @@ def engine_phase(graph, targets, label):
                   f"{kind}/{mode}: bad embeddings")
             check(delta == want, f"{kind}/{mode}: launches {delta}, "
                                  f"expected {want}")
+            # gat/sg's scatter-gather launches are its softmax sums, one
+            # a layer; no other engine makes them
+            want_sums = delta["scatter_gather_aggregate"] \
+                if (kind, mode) == ("gat", "sg") else 0
+            check(sums == want_sums, f"{kind}/{mode}: {sums} softmax-sum "
+                                     f"launches, expected {want_sums}")
             print(f"[engine] {kind}/{mode}: {N_BATCHES} batches x C={C}, "
                   f"p50 batch host+device {statistics.median(per)*1e3:.2f} "
                   f"ms (p50 device {statistics.median(st.device_times)*1e3:.2f}"
@@ -4576,7 +4575,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for k, rep in reports.items():
         for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "C7518" in line:
                 print(f"[build] {k}: {line.strip()}", flush=True)
     graph, targets, sb = serving_batch()
     dev = torch.device("cuda")
@@ -4596,6 +4595,15 @@ def main() -> int:
         flash_row(dev, label, "Jamba", 1, 64, 8, LM_SEQ, 128, True, 2))
     variants["flash_attention"] += flash_audio_vlm_rows(dev, label)
     launches = engine_phase(graph, targets, label)
+    # gat/sg's softmax sums, launched by the engine phase's gat/sg engine
+    # alone (the counts were zeroed as the phase began)
+    sg_softmax_sums = sg_kernels.caller_launches.get(SG_SOFTMAX_SUMS, 0)
+    print(f"[engine] gat/sg's softmax sums: {sg_softmax_sums} "
+          f"scatter_gather_aggregate launches ({N_BATCHES + 1} batches x "
+          f"{LAYERS} layers) [{label}]", flush=True)
+    for row in variants["scatter_gather_aggregate"]:
+        if row["shape"].startswith("gat sg softmax sums"):
+            row["launches"] = sg_softmax_sums
     profile_phase(graph, targets, label)
     served = serve_phase(graph, label)
     repeatability_phase(graph, targets, label)

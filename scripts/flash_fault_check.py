@@ -22,21 +22,26 @@ one through the checks of ``chip_smoke.py`` that reach it, at each
   ``prefill(impl="torch")``, at ``LM_TOL``.
 
 Each fault names the widths whose code it reaches, and is planted there:
-the D=128 template's (128, 128) and (192, 128) (``TEMPLATE``), what only
-the (192, 128) instance runs (the third 64-column box of Q and K, the V
-stage narrower than K's, the output's row stride DV), what only the D=64
-kernel runs (its overlapped Q.K^T, its rescale after P.V, its last P.V,
-its per-warpgroup tile count), and the bf16 store all of them share. No
-fault leaves a barrier waiting for bytes that never come, and none writes
-outside the output.
+the template that only (192, 128) runs now (``TEMPLATE``; its third
+64-column box of Q and K, its V stage narrower than K's, its output's row
+stride DV among them), what only the D=64 kernel runs (its overlapped
+Q.K^T, its rescale after P.V, its last P.V, its per-warpgroup tile count),
+what only the D=128 kernel runs (its rescale after the add, its last P.V,
+its double-buffered Q, its persistent walk, its V release), and the bf16
+store all of them share. A fault is one or
+more edits of the source. No fault leaves a barrier waiting for bytes that
+never come, and none writes outside the output. Before each launch the
+check fills, and frees, a block of the output's size with NaN, so that
+the output (allocated by the wrapper and never cleared) does not inherit
+the last kernel's values where a fault leaves rows unwritten.
 
 Prints each fault's prediction (written before its first run), then one
 line per kernel, width, shape and check with the reading and the verdict.
 Exits 1 unless the unchanged kernel passes every check and every planted
 fault fails (a), (b) or (c) at some shape of each width it is planted at,
-except a race (``RACES``): whether a race shows in the output depends on
-timing no check controls, so its verdict, caught or not, is printed and
-does not decide the exit code.
+except those of ``RACES``: whether a race shows in the output depends on
+timing no check controls, so their verdicts, caught or not, are printed
+and do not decide the exit code.
 """
 from __future__ import annotations
 
@@ -62,11 +67,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     _parts, flash_attention, flash_bf16_check, flash_bf16_tol)
 from repro_torch.models import transformer  # noqa: E402
 
-TEMPLATE = ((128, 128), (192, 128))
-ALL = ((64, 64),) + TEMPLATE
+TEMPLATE = ((192, 128),)
+W128 = ((128, 128),)
+ALL = ((64, 64), (128, 128), (192, 128))
 
 # name -> (text of the kernel source, what replaces it, prediction, the
-# (q/k, v) widths whose code it reaches)
+# (q/k, v) widths whose code it reaches); a fault of several edits gives
+# tuples of texts and replacements
 FAULTS = {
     "skip the diagonal tile": (
         "const int n_tiles = (k_end + BK - 1) / BK;",
@@ -131,10 +138,11 @@ FAULTS = {
         "fails (a) at both shapes: every tile after the first is scored "
         "against the keys before it", ((64, 64),)),
     "D=64: no rescale of O by alpha after P.V": (
+        "        for (int e = 0; e < 8; ++e) {\n"
         "          o[4 * e] *= alpha[0];\n          o[4 * e + 1] *= alpha[0];\n"
         "          o[4 * e + 2] *= alpha[1];\n"
         "          o[4 * e + 3] *= alpha[1];\n",
-        "",
+        "        for (int e = 0; e < 8; ++e) {\n",
         "fails (a) at both shapes (every row but the decoder's first 128 "
         "sees more than one tile)", ((64, 64),)),
     "D=64: the last tile's P.V dropped": (
@@ -161,30 +169,109 @@ FAULTS = {
         ((64, 64),)),
 }
 
+W128_RESCALE = (
+    "#pragma unroll\n      for (int e = 0; e < 16; ++e) {\n"
+    "        o[4 * e] *= alpha[0];\n        o[4 * e + 1] *= alpha[0];\n"
+    "        o[4 * e + 2] *= alpha[1];\n        o[4 * e + 3] *= alpha[1];\n"
+    "      }\n")
+W128_V_RELEASE = ("      if (lead) mbar_arrive(v_empty(sp));         // release V "
+                  "of tile j - 1\n")
+FAULTS.update({
+    # what only the D=128 kernel runs
+    "D=128: O rescaled before the add, not after": (
+        ("      qk(sc, sq, sK + s * TILE);\n      pv(o, p, sV + sp * TILE);\n",
+         W128_V_RELEASE + W128_RESCALE),
+        ("      qk(sc, sq, sK + s * TILE);\n" + W128_RESCALE
+         + "      pv(o, p, sV + sp * TILE);\n", W128_V_RELEASE),
+        "fails (a) and LM_TOL: O = O alpha_{j-1} + P_{j-1} V_{j-1} leaves "
+        "the last tile's alpha unapplied, so every row whose maximum rises "
+        "in its last tile sums its older tiles too large", W128),
+    "D=128: the last tile's P.V dropped": (
+        "    if (turns) bar_sync(TURN + cw, 256);\n"
+        "    pv(o, p, sV + s * TILE);\n",
+        "    if (turns) bar_sync(TURN + cw, 256);\n",
+        "fails (a) and LM_TOL: each row loses its last tile's values (its "
+        "diagonal, when causal)", W128),
+    "D=128: the other Q buffer read from a block's third item on": (
+        "const uint32_t sq = sQ + b * TILE + cw * 64 * 128;",
+        "const uint32_t sq = sQ + ((b + (r >= QBUF)) % QBUF) * TILE + "
+        "cw * 64 * 128;",
+        "fails (a) and LM_TOL: from its third item on, a block scores its "
+        "keys against the Q rows of the item before or after", W128),
+    "D=128: the persistent walk stops a round early": (
+        "return i < n_items ? i : -1;",
+        "return i < n_items && (r + 1) * grid < n_items ? i : -1;",
+        "fails (a): the last round's items (52 at phi3's shape: the first "
+        "256 rows of 12 heads, the first 128 of the other 40) are never "
+        "written and read the NaN left in their memory; likely LM_TOL",
+        W128),
+    "D=128: V released before its P.V is waited on": (
+        "      wgmma_wait<0>();                            // P_{j-1} "
+        "V_{j-1} done\n      fence_regs(o);\n      fence_regs(p);\n"
+        "      if (lead) mbar_arrive(v_empty(sp));         // release V of "
+        "tile j - 1\n",
+        "      if (lead) mbar_arrive(v_empty(sp));         // release V of "
+        "tile j - 1\n      wgmma_wait<0>();                            // "
+        "P_{j-1} V_{j-1} done\n      fence_regs(o);\n      "
+        "fence_regs(p);\n",
+        "a race: the producer, waiting on that stage, may load tile j + 1's "
+        "V over tile j - 1's while P.V still reads it; caught by (a) or (c) "
+        "only if the load lands first, which is likely (the producer is "
+        "already waiting) but not certain", W128),
+})
+
 RACES = {"stage released before its P.V wgmma is waited on",
-         "D=64: stage released before its P.V is waited on"}
+         "D=64: stage released before its P.V is waited on",
+         "D=128: V released before its P.V is waited on"}
 
 
-def build_faults(tmp: Path):
-    """One nvcc per faulty copy, all started together; {name: .so}."""
+def build_faults(tmp: Path, edits=None):
+    """One nvcc per copy of the kernel source, each with the edits of one
+    entry of ``edits`` ({name: (text, replacement, ...)}, ``FAULTS`` when
+    None; tuples of texts and replacements for several edits, empty tuples
+    for none), all started together; {name: (library, ptxas report)}."""
     src = (build.CSRC / "flash_attention.cu").read_text()
     procs = {}
-    for i, (name, (old, new, *_)) in enumerate(FAULTS.items()):
-        if src.count(old) != 1:
-            raise RuntimeError(f"fault {name!r}: its text is not in the "
-                               f"kernel source once")
-        cu, so = tmp / f"fault{i}.cu", tmp / f"fault{i}.so"
-        cu.write_text(src.replace(old, new))
+    for i, (name, (old, new, *_)) in enumerate(
+            (FAULTS if edits is None else edits).items()):
+        text = src
+        for o, n in zip(*((old, new) if isinstance(old, tuple)
+                          else ((old,), (new,)))):
+            if text.count(o) != 1:
+                raise RuntimeError(f"{name!r}: its text is not in the "
+                                   f"kernel source once")
+            text = text.replace(o, n)
+        cu, so = tmp / f"copy{i}.cu", tmp / f"copy{i}.so"
+        cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
             build.nvcc_command(cu, so), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, p) in procs.items():
-        _, err = p.communicate()
+        out, err = p.communicate()
         if p.returncode:
-            raise RuntimeError(f"fault {name!r} does not build:\n{err}")
-        libs[name] = ctypes.CDLL(str(so))
+            raise RuntimeError(f"{name!r} does not build:\n{err}")
+        libs[name] = (ctypes.CDLL(str(so)), out + err)
     return libs
+
+
+def launch(lib, q, k, v, causal=True):
+    """``lib``'s wgmma kernel on q [B,H,S,D], k [B,Kh,S,D], v [B,Kh,S,Dv]
+    by a direct ``ctypes`` call on the current stream (the wrapper's checks
+    left out); returns the new output."""
+    fwd = lib.flash_attention_wgmma_fwd
+    if fwd.argtypes is None:                     # once a library
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, ctypes.c_float,
+                        i, vp]
+    B, H, S, D = q.shape
+    out = q.new_empty((B, H, S, v.shape[-1]))
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+              k.shape[1], S, k.shape[2], D, v.shape[-1], 1.0 / D ** 0.5,
+              int(causal), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"a kernel launch failed (error {err})")
+    return out
 
 
 def use(lib) -> None:
@@ -211,6 +298,15 @@ def inputs(widths):
              rnd(B, Kh, smoke.LM_SEQ, widths[1]), True)]
 
 
+def poisoned(call, shape):
+    """``call()`` after a bf16 block of ``shape`` has been filled with NaN
+    and freed: the caching allocator hands the same block to the output the
+    call allocates next, so rows a kernel leaves unwritten read NaN."""
+    torch.full(tuple(shape), float("nan"), dtype=torch.bfloat16,
+               device="cuda")
+    return call()
+
+
 def kernel_checks(kernels, widths, label):
     """{kernel name: passes at every shape} of ``flash_bf16_check`` at
     ``widths``."""
@@ -225,8 +321,11 @@ def kernel_checks(kernels, widths, label):
         del kg, vg
         for name, lib in kernels.items():
             use(lib)
-            out = flash_attention(q, k, v, causal=causal)
-            again = flash_attention(q, k, v, causal=causal)
+            out = poisoned(lambda: flash_attention(q, k, v, causal=causal),
+                           want.shape)
+            again = poisoned(lambda: flash_attention(q, k, v,
+                                                     causal=causal),
+                             want.shape)
             torch.cuda.synchronize()
             r = flash_bf16_check(out, again, want, tol)
             kernel_ok[name] &= r["ok"]
@@ -286,7 +385,7 @@ def main(argv=None) -> int:
     good = build.load("flash_attention")
     checked = {}                     # (kernel name, check) -> passes
     with tempfile.TemporaryDirectory() as tmp:
-        faulty = build_faults(Path(tmp))
+        faulty = {n: lib for n, (lib, _) in build_faults(Path(tmp)).items()}
         for w in widths:
             planted = {n: lib for n, lib in faulty.items()
                        if w in FAULTS[n][3]}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Card probe: the wgmma flash kernel of this tree against an earlier
-commit's, at phi3's, pixtral's, MLA's and whisper's shapes.
+commit's, at phi3's, pixtral's, Jamba's, MLA's and whisper's shapes.
 
     python3 scripts/flash_parent_probe.py --extract [--rev HEAD~1]  # in git
     python3 scripts/flash_parent_probe.py                           # on a GPU
@@ -13,24 +13,27 @@ repository's history. Without it, the probe builds that copy with this
 tree's nvcc flags into the same directory, builds this tree's kernel
 (``kernels/build.py``), and at phi3's (B=1, H=40, 10 KV heads, S=8192,
 D=128, causal), pixtral's (B=1, H=32, 8 KV heads, S=8192, D=128, causal),
-MLA's (B=1, H=16, S=8192, q/k 192, v 128, causal) and whisper's encoder
-(B=16, H=6, S=1500, D=64, non-causal) and decoder (B=16, H=6, S=448, D=64,
-causal) shapes launches both on the same bf16 inputs (seeded on the card).
-Where ``SAME_CODE`` says this tree runs the earlier kernel's code (D=128
-and (192, 128)) the outputs must be bitwise equal (``torch.equal``); at
-D=64, whose kernel this tree redesigned, each is held by
-``flash_bf16_check`` instead. It times both kernels there through the same
-host path, a direct ``ctypes`` call each (CUDA events; the earlier kernel,
-this tree's, this tree's, the earlier one) and this tree's through the
-``flash_attention`` wrapper, and prints one line a shape. The earlier
-kernel's C entry must take v's width (Dv) as this tree's does. Exits 1 unless
-every check holds.
+Jamba's (B=1, H=64, 8 KV heads, S=8192, D=128, causal), MLA's (B=1, H=16,
+S=8192, q/k 192, v 128, causal) and whisper's encoder (B=16, H=6, S=1500,
+D=64, non-causal) and decoder (B=16, H=6, S=448, D=64, causal) shapes
+launches both on the same bf16 inputs (seeded on the card). Where
+``SAME_CODE`` says this tree runs the earlier kernel's code ((192, 128))
+the outputs must be bitwise equal (``torch.equal``); at D=64 and D=128,
+which run kernels of their own, each is held by ``flash_bf16_check``
+instead. It times the earlier kernel, this tree's
+and SDPA in turns (``chip_smoke.turns``: 5 rounds, the order reversed
+every other round, through the host and in a CUDA graph; the kernels by a
+direct ``ctypes`` call each, through the same host path) and this tree's
+kernel through the ``flash_attention`` wrapper, and prints one line a
+shape. The earlier kernel's C entry must take v's width (Dv) as this
+tree's does. Exits 1 unless every check holds.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import re
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -44,11 +47,12 @@ CSRC = "src/repro_torch/csrc"
 SHAPES = (  # what, B, H, Kh, S, D, Dv, causal
     ("phi3", 1, 40, 10, 8192, 128, 128, True),
     ("pixtral", 1, 32, 8, 8192, 128, 128, True),
+    ("Jamba", 1, 64, 8, 8192, 128, 128, True),
     ("MLA", 1, 16, 16, 8192, 192, 128, True),
     ("whisper encoder", 16, 6, 6, 1500, 64, 64, False),
     ("whisper decoder", 16, 6, 6, 448, 64, 64, True),
 )
-SAME_CODE = {128, 192}      # q/k widths whose kernel code this tree keeps
+SAME_CODE = {192}           # q/k widths whose kernel code this tree keeps
 
 
 def extract(rev: str) -> None:
@@ -91,6 +95,8 @@ def main() -> int:
               f"--extract in a git checkout first", file=sys.stderr)
         return 1
     import chip_smoke as smoke
+    from flash_fault_check import launch
+    import torch.nn.functional as F
     from repro_torch.kernels import build, flash_attention as fa
     label = smoke.card()
     rev = (OUT / "REV").read_text().strip()
@@ -104,21 +110,6 @@ def main() -> int:
         return 1
     old = ctypes.CDLL(str(so))
     new = fa._lib()
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    old.flash_attention_wgmma_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
-                                              i, i, ctypes.c_float, i, vp]
-    old.flash_attention_wgmma_fwd.restype = i
-
-    def launch(lib, q, k, v, causal):
-        B, H, S, D = q.shape
-        out = q.new_empty((B, H, S, v.shape[-1]))
-        err = lib.flash_attention_wgmma_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            k.shape[1], S, k.shape[2], D, v.shape[-1], 1.0 / D ** 0.5,
-            int(causal), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"a kernel launch failed (error {err})")
-        return out
 
     ok = True
     for what, B, H, KH, S, D, DV, causal in SHAPES:
@@ -152,16 +143,30 @@ def main() -> int:
                        f"ulp; equal to the earlier "
                        f"{float((got == was).float().mean()):.4f}")
         ok &= held
-        t = [smoke.cuda_ms(lambda lib=lib: launch(lib, q, k, v, causal))
-             for lib in (old, new, new, old)]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=KH < H)
+        t = smoke.turns({"earlier": lambda: launch(old, q, k, v, causal),
+                         "this": lambda: launch(new, q, k, v, causal),
+                         "sdpa": sdpa}, iters=50 if S > 4096 else 200)
+        med = {n: {w: statistics.median(x) for w, x in r.items()}
+               for n, r in t.items()}
         wrapped = smoke.cuda_ms(lambda: fa.flash_attention(q, k, v,
                                                            causal=causal))
         print(f"[parent] {what} B={B} H={H} Kh={KH} S={S} D={D} Dv={DV} "
-              f"{'causal' if causal else 'non-causal'}: {verdict}; ms "
-              f"earlier / this / this / earlier {t[0]:.4f} / {t[1]:.4f} / "
-              f"{t[2]:.4f} / {t[3]:.4f}, this through flash_attention "
-              f"{wrapped:.4f} {'ok' if held else 'FAIL'} [{label}]",
-              flush=True)
+              f"{'causal' if causal else 'non-causal'}: {verdict}; medians "
+              f"[min-max] of 5 rounds in turns, ms through the host / in a "
+              f"CUDA graph: earlier {smoke.spread(t['earlier']['host'])} / "
+              f"{smoke.spread(t['earlier']['graph'])}, this "
+              f"{smoke.spread(t['this']['host'])} / "
+              f"{smoke.spread(t['this']['graph'])}, SDPA "
+              f"{smoke.spread(t['sdpa']['host'])} / "
+              f"{smoke.spread(t['sdpa']['graph'])}; this / earlier "
+              f"{med['this']['host'] / med['earlier']['host']:.3f} / "
+              f"{med['this']['graph'] / med['earlier']['graph']:.3f}, this "
+              f"/ SDPA {med['this']['host'] / med['sdpa']['host']:.3f} / "
+              f"{med['this']['graph'] / med['sdpa']['graph']:.3f}; this "
+              f"through flash_attention {wrapped:.4f} "
+              f"{'ok' if held else 'FAIL'} [{label}]", flush=True)
     print(f"[parent] all held: {ok}", flush=True)
     return 0 if ok else 1
 

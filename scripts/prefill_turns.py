@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Card probe: whisper-tiny's prefill through an earlier commit's port and
+"""Card probe: one model's prefill through an earlier commit's port and
 this tree's, in turns.
 
     python3 scripts/prefill_turns.py --extract [--rev HEAD~1]   # in git
-    python3 scripts/prefill_turns.py [--order parent,this,this,parent]
+    python3 scripts/prefill_turns.py [--arch whisper|phi3|pixtral|jamba]
+        [--order parent,this,this,parent]
 
 ``--extract`` writes the earlier commit's ``src/repro_torch`` (``git
 archive``) to ``build/prefill_parent/`` (which ``.gitignore`` covers) with
@@ -11,14 +12,18 @@ the revision's hash beside it, and exits; the machine with the card need
 not hold the repository's history. Without it, the probe runs one process a
 turn, in the order given, each importing the port of one tree (``parent``:
 that copy, ``this``: this tree), building its kernels into that tree's own
-build directory, and serving whisper-tiny at full width and depth as
-``chip_smoke.py``'s ``[lm]`` phase does (random weights from seed 0, 16
-clips of 1500 frames and a 448-token prompt from seed 0, impl="cuda"):
-two warm-up prefills, ``--prefills`` timed ones (host wall clock around
-a synchronised call), then one traced by ``torch.profiler`` for the device
-time (all kernels, and the flash kernels' own). Each turn must launch 8
-flash kernels a prefill, all on the wgmma kernel. Prints one line a turn
-and the median of each tree's turns; exits 1 when a turn fails.
+build directory, and serving one model as ``chip_smoke.py``'s ``[lm]``
+phases do (random weights from seed 0, impl="cuda"): whisper-tiny at full
+width and depth (16 clips of 1500 frames and a 448-token prompt), or one
+8192-token prompt through phi3-medium-14b (8 of 40 layers), pixtral-12b (8
+of 40 layers, 256 random patch embeddings spliced) or one period of
+jamba-1.5-large-398b (8 layers, experts 16 -> 4), each at full width, the
+inputs from seed 0: two warm-up prefills, ``--prefills`` timed ones (host
+wall clock around a synchronised call), then one traced by
+``torch.profiler`` for the device time (all kernels, and the flash
+kernels' own). Each turn must launch the model's flash kernels a prefill
+(8, 8, 8, 1), all on the wgmma kernel. Prints one line a turn and the
+median of each tree's turns; exits 1 when a turn fails.
 """
 from __future__ import annotations
 
@@ -32,7 +37,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PARENT = ROOT / "build" / "prefill_parent"
-ARCH, B, SEQ = "whisper-tiny", 16, 448
+# --arch: (registry name, batch, prompt length, flash launches a prefill)
+ARCHS = {"whisper": ("whisper-tiny", 16, 448, 8),
+         "phi3": ("phi3-medium-14b", 1, 8192, 8),
+         "pixtral": ("pixtral-12b", 1, 8192, 8),
+         "jamba": ("jamba-1.5-large-398b", 1, 8192, 1)}
 
 
 def extract(rev: str) -> None:
@@ -46,27 +55,53 @@ def extract(rev: str) -> None:
     print(f"extracted src/repro_torch of {sha} to {PARENT}")
 
 
-def turn(tree: Path, prefills: int) -> dict:
-    """One tree's prefills, in this process."""
-    sys.path.insert(0, str(tree / "src"))
+def model(arch: str):
+    """(config, params, batch) of ``arch`` as chip_smoke.py serves it."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    name, B, seq, _ = ARCHS[arch]
+    full = get_config(name)
+    if arch in ("phi3", "pixtral"):
+        cfg = dataclasses.replace(full, n_layers=8)
+    elif arch == "jamba":
+        cfg = dataclasses.replace(
+            full, n_layers=full.hybrid_attn_period,
+            moe=dataclasses.replace(full.moe, num_experts=4))
+    else:
+        cfg = full
+    params = transformer.init_params(
+        cfg, seed=0, device="cuda",
+        **({"max_seq": seq} if arch == "whisper" else {}))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    if arch == "whisper":
+        frames = rng.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+        batch["frames"] = torch.from_numpy(frames).cuda()
+    elif arch == "pixtral":
+        patches = rng.standard_normal(
+            (B, cfg.vision.n_patches, cfg.d_model)).astype(np.float32)
+        batch["patch_embeds"] = torch.from_numpy(patches).cuda()
+    return cfg, params, batch
+
+
+def turn(tree: Path, arch: str, prefills: int) -> dict:
+    """One tree's prefills, in this process."""
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as flash_kernels
     from repro_torch.models import transformer
     assert Path(transformer.__file__).is_relative_to(tree)
     build.build()
-    cfg = get_config(ARCH)
-    params = transformer.init_params(cfg, seed=0, device="cuda",
-                                     max_seq=SEQ)
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab_size, (B, SEQ)).astype(np.int32)
-    frames = rng.standard_normal(
-        (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
-    batch = {"tokens": torch.from_numpy(tokens).cuda(),
-             "frames": torch.from_numpy(frames).cuda()}
+    cfg, params, batch = model(arch)
 
     def prefill():
         torch.cuda.synchronize()
@@ -100,6 +135,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--extract", action="store_true")
     ap.add_argument("--rev", default="HEAD~1")
+    ap.add_argument("--arch", default="whisper", choices=list(ARCHS))
     ap.add_argument("--order", default="parent,this,this,parent")
     ap.add_argument("--prefills", type=int, default=9)
     ap.add_argument("--turn", help=argparse.SUPPRESS)
@@ -108,7 +144,8 @@ def main() -> int:
         extract(args.rev)
         return 0
     if args.turn:
-        print(json.dumps(turn(Path(args.turn), args.prefills)), flush=True)
+        print(json.dumps(turn(Path(args.turn), args.arch, args.prefills)),
+              flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -119,21 +156,22 @@ def main() -> int:
     if rev is None:
         print("prefill_turns: run --extract first", file=sys.stderr)
         return 1
+    arch, B, seq, n_flash = ARCHS[args.arch]
     print(f"[env] {card}; parent {rev}", flush=True)
     got = {}
     for i, name in enumerate(args.order.split(",")):
         run = subprocess.run([sys.executable, __file__, "--turn",
-                              str(trees[name]), "--prefills",
-                              str(args.prefills)], capture_output=True,
-                             text=True)
+                              str(trees[name]), "--arch", args.arch,
+                              "--prefills", str(args.prefills)],
+                             capture_output=True, text=True)
         if run.returncode:
             print(f"prefill_turns: turn {i} ({name}) failed:\n"
                   f"{run.stderr[-3000:]}", file=sys.stderr)
             return 1
         r = json.loads(run.stdout.strip().splitlines()[-1])
-        ok = r["flash"] == 8 and r["wgmma"] == 8
+        ok = r["flash"] == n_flash and r["wgmma"] == n_flash
         got.setdefault(name, []).append(r)
-        print(f"[turn {i}] {name}: {ARCH} prefill B={B} S={SEQ} wall "
+        print(f"[turn {i}] {name}: {arch} prefill B={B} S={seq} wall "
               f"{', '.join(f'{t:.3f}' for t in r['wall_ms'])} ms (p50 "
               f"{r['p50_ms']:.3f}); traced {r['traced_wall_ms']:.3f} ms wall, "
               f"device {r['device_ms']:.3f} ms, flash kernels "

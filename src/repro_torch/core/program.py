@@ -798,6 +798,11 @@ def _step_attention_softmax(op: AttentionSoftmax, impl: str):
     return step
 
 
+# the caller name the sums' launches count under
+# (``kernels.scatter_gather.caller_launches``)
+SG_SOFTMAX_SUMS = "gat sg softmax sums"
+
+
 def _sg_softmax_sums(s_all, d_all, ex, z, nh):
     """The sg softmax's segment sums in one scatter-gather launch, one item
     a (subgraph, head) pair: h = [z_head | 1 | 0...] (padded to a multiple
@@ -822,7 +827,8 @@ def _sg_softmax_sums(s_all, d_all, ex, z, nh):
         C * nh, N, fh)
     h[..., fh] = 1
     sums = kops.scatter_gather_aggregate(
-        src.int().contiguous(), dst.int().contiguous(), w.contiguous(), h)
+        src.int().contiguous(), dst.int().contiguous(), w.contiguous(), h,
+        caller=SG_SOFTMAX_SUMS)
     out = sums[..., :fh] / torch.clamp(sums[..., fh:fh + 1], min=1e-20)
     return out.reshape(C, nh, N, fh).permute(0, 2, 1, 3).reshape(
         C * N, nh, fh)

@@ -16,18 +16,16 @@
 // launch (kernels/flash_attention.py, flash_variant):
 //
 // wgmma (bf16, (D, Dv) in {(64, 64), (128, 128), (192, 128)}): bound by
-// operations. (64, 64), whisper's width, has a kernel of its own
-// (namespace w64, below: three consumer warpgroups, a persistent grid,
-// Q.K^T overlapped with the softmax). The others share a template on both
-// widths: Q.K^T runs D/16
-// k-steps over D/64 swizzled 64-column boxes of Q and K, P.V runs over
-// Dv/64 boxes of V into a [64, Dv] accumulator, and the output is Dv wide.
-// (192, 128) is MLA prefill's core (q and k nope + rope, v at its own
-// width: no padded third of P.V); it keeps D=128's registers (S and O 64
-// fp32 a thread) and needs 214,072 bytes of shared memory (Q 48 KiB, a
-// stage 48 KiB of K and 32 KiB of V). At the serving shape
-// (B=1, H=40, S=8192, D=128, causal) the function moves 335 MB and does
-// 6.87e11 operations: 0.69 ms at the tensor cores' 989 TFLOP/s (bf16).
+// operations. (64, 64), whisper's width, and (128, 128), phi3's, pixtral's
+// and Jamba's, have kernels of their own (namespaces w64 and w128, below:
+// persistent grids, Q.K^T overlapped with the softmax; at 128 the two
+// consumers also take turns at the tensor cores). (192, 128), MLA
+// prefill's core, runs the template here, written for any width: Q.K^T
+// runs D/16 k-steps over D/64 swizzled 64-column boxes of Q and K, P.V
+// runs over Dv/64 boxes of V into a [64, Dv] accumulator, and the output
+// is Dv wide (q and k nope + rope, v at its own width: no padded third of
+// P.V). It keeps S and O at 64 fp32 a thread and needs 214,072 bytes of
+// shared memory (Q 48 KiB, a stage 48 KiB of K and 32 KiB of V).
 // One block of 384 threads per (b*h, 128 query rows), the heaviest causal
 // tiles launched first. Warpgroup 0 is the producer: one thread issues TMA
 // loads (128-byte swizzle) of Q once and of 128-row K and V tiles into a
@@ -279,7 +277,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 
-// -- the wgmma template (bf16; (D, Dv) = (128, 128), (192, 128)) -----------
+// -- the wgmma template (bf16; (D, Dv) = (192, 128)) --------------------------
 
 namespace wg {
 
@@ -875,6 +873,339 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace w64
 
+// -- the wgmma kernel at (D, Dv) = (128, 128): phi3's, pixtral's and Jamba's
+// prefill ---------------------------------------------------------------------
+//
+// Replaces src/repro/kernels/flash_attention.py:79 (flash_attention) at head
+// width 128. Bound by operations: at phi3's prefill shape (B=1, H=40, 10 KV
+// heads, S=8192, causal) 6.87e11 of them, 0.6948 ms at the tensor cores'
+// 989 TFLOP/s (bf16). The template above (namespace wg), which (192, 128)
+// runs, leaves the tensor cores idle three ways; this kernel answers each:
+// 1. inside a warpgroup, the template waits for Q.K^T and for P.V in full
+//    around the softmax. Here, as in w64, Q.K_j^T and P_{j-1}.V_{j-1} are
+//    issued together, tile j's softmax runs while P.V is in flight, O is
+//    rescaled after the add (O = (O + P_{j-1} V_{j-1}) alpha_j), and the
+//    last tile's P.V goes at the end. S (64 fp32), O (64) and P (32 words)
+//    a thread fit in 240 registers; a third consumer at 160 would not hold
+//    them, so
+// 2. the two consumer warpgroups (64 query rows each) take turns at the
+//    tensor cores (ping-pong): a warpgroup issues its GEMMs only while it
+//    holds a token, which it hands to the other by named barrier (bar.sync
+//    on its own barrier, bar.arrive on the other's; barriers 1 and 2), so
+//    one warpgroup's softmax runs under the other's GEMMs;
+// 3. the template's block per (b*h, 128 query rows) pays its barrier
+//    set-up, its Q load and its first tile's latency alone. Here a
+//    persistent grid of min(items, SMs) blocks walks the items, heaviest
+//    causal first, in a snake (round r gives item r * grid + c to block c
+//    when r is even, to block grid - 1 - c when odd, so the causal work
+//    that a plain stride leaves heavier on the first blocks evens out), b*h
+//    fastest, so the query heads of one KV group run together and share
+//    K/V in L2. Q is double-buffered and the two-stage K/V ring runs on
+//    across items, K and V released apart (K once Q.K^T is done, V once
+//    P.V is), so the producer loads the next item while the consumers
+//    finish this one.
+// Shared memory: two Q buffers (32 KiB each) and two stages of K and V
+// (64 KiB a stage), 197,728 bytes; one Q buffer and three stages would need
+// 230,512. Tiles wholly above the diagonal are never loaded; only diagonal
+// and ragged tiles are masked (w64::softmax, the same arithmetic), so any
+// Sq and Sk work. With BQ = BK and q0 a multiple of BK both warpgroups need
+// every tile of an item, unless warpgroup 1's rows lie past Sq: it then
+// computes nothing, and the item runs without turns.
+
+namespace w128 {
+
+using namespace hopper;
+using wg::pack_bf16;
+using wg::store_bf16x2;
+
+constexpr int D = 128;
+constexpr int BQ = 128;                        // query rows an item (2 x 64)
+constexpr int BK = 128;                        // key rows a tile
+constexpr int QBUF = 2;                        // Q buffers
+constexpr int STAGES = 2;                      // K/V ring depth
+constexpr int THREADS = 384;                   // producer + 2 consumers
+constexpr int WARPS = 8;                       // consumer warps
+constexpr int BOX = 128 * 128;                 // a 64-column box of 128 rows
+constexpr int TILE = 2 * BOX;                  // Q, K or V: 128 x 128 bf16
+constexpr int NBARS = 2 * QBUF + 4 * STAGES;
+constexpr int SMEM = 1024 + QBUF * TILE + 2 * STAGES * TILE + 8 * NBARS;
+static_assert(SMEM <= 232448, "more shared memory than a block has");
+constexpr int TURN = 1;                        // named barriers 1 and 2
+
+struct Item {
+  int bh, q0, n_tiles;
+};
+
+// Item i: query tile n_qb - 1 - i / BH (the last, heaviest when causal,
+// first) of head i % BH; its K/V tiles run to its last row's diagonal.
+__device__ __forceinline__ Item item_of(int i, int BH, int n_qb, int Sq,
+                                        int Sk, int causal) {
+  Item w;
+  w.bh = i % BH;
+  w.q0 = (n_qb - 1 - i / BH) * BQ;
+  const int q_last = min(w.q0 + BQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  w.n_tiles = (k_end + BK - 1) / BK;
+  return w;
+}
+
+// The item block `block` takes on round r (the snake), or -1 past the
+// last item.
+__device__ __forceinline__ int item_index(int r, int grid, int block,
+                                          int n_items) {
+  const int i = r * grid + ((r & 1) ? grid - 1 - block : block);
+  return i < n_items ? i : -1;
+}
+
+// S = Q.K^T for this warpgroup's 64 rows (Q at sq) and a 128-row K tile:
+// 8 k-steps over two swizzled 64-column boxes.
+__device__ __forceinline__ void qk(float (&sc)[64], uint32_t sq, uint32_t sk) {
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+    wgmma_ss_m64n128k16(sc, desc_sw128(sq + off, 16, 1024),
+                        desc_sw128(sk + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P.V for a 128-row V tile (MN-major, two 64-column boxes) with P in
+// registers.
+__device__ __forceinline__ void pv(float (&o)[64], const uint32_t (&p)[32],
+                                   uint32_t sv) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    wgmma_rs_m64n128k16(o, a, desc_sw128(sv + kk * 16 * 128, BOX, 1024));
+  }
+  wgmma_commit();
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma128_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      __nv_bfloat16* __restrict__ out, int H, int Kh, int Sq,
+                      int Sk, float scale_log2, int causal, int n_items,
+                      int n_qb) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;   // + buffer * TILE
+  const uint32_t sK = sQ + QBUF * TILE;                   // + stage * TILE
+  const uint32_t sV = sK + STAGES * TILE;                 // + stage * TILE
+  const uint32_t bar = sV + STAGES * TILE;
+  auto q_full = [&](int b) { return bar + 8 * b; };
+  auto q_empty = [&](int b) { return bar + 8 * (QBUF + b); };
+  auto k_full = [&](int s) { return bar + 8 * (2 * QBUF + s); };
+  auto v_full = [&](int s) { return bar + 8 * (2 * QBUF + STAGES + s); };
+  auto k_empty = [&](int s) { return bar + 8 * (2 * QBUF + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bar + 8 * (2 * QBUF + 3 * STAGES + s); };
+  const int BH = n_items / n_qb;                  // B * H
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < QBUF; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_empty(b), WARPS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), WARPS);
+      mbar_init(v_empty(s), WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                        // producer warpgroup
+    regs_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    int g = 0;                                    // tiles loaded so far
+    for (int r = 0;; ++r) {
+      const int i = item_index(r, gridDim.x, blockIdx.x, n_items);
+      if (i < 0) break;
+      const Item w = item_of(i, BH, n_qb, Sq, Sk, causal);
+      const int kvh = (w.bh / H) * Kh + (w.bh % H) / (H / Kh);
+      const int b = r % QBUF;
+      if (r >= QBUF) mbar_wait(q_empty(b), (r / QBUF - 1) & 1);
+      mbar_expect_tx(q_full(b), TILE);
+      for (int x = 0; x < 2; ++x)
+        tma_load_3d(sQ + b * TILE + x * BOX, &tm_q, q_full(b), 64 * x, w.q0,
+                    w.bh);
+      for (int j = 0; j < w.n_tiles; ++j, ++g) {
+        const int s = g % STAGES;
+        const uint32_t freed = (g / STAGES - 1) & 1;
+        if (g >= STAGES) mbar_wait(k_empty(s), freed);
+        mbar_expect_tx(k_full(s), TILE);
+        for (int x = 0; x < 2; ++x)
+          tma_load_3d(sK + s * TILE + x * BOX, &tm_k, k_full(s), 64 * x,
+                      j * BK, kvh);
+        if (g >= STAGES) mbar_wait(v_empty(s), freed);
+        mbar_expect_tx(v_full(s), TILE);
+        for (int x = 0; x < 2; ++x)
+          tma_load_3d(sV + s * TILE + x * BOX, &tm_v, v_full(s), 64 * x,
+                      j * BK, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup cw owns rows q0 + 64 cw .. + 63 of each item; this
+  // thread holds rows r0 and r0 + 8, columns 8 e + 2 t + {0, 1}
+  regs_alloc<240>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int t = tid % 4;
+  const bool lead = (tid & 31) == 0;              // arrives for its warp
+  // the turn at the tensor cores: warpgroup cw issues its GEMMs after
+  // bar_sync(TURN + cw) and passes the turn on with bar_arrive(TURN + 1 -
+  // cw); warpgroup 0 has the first
+  if (cw == 1) bar_arrive(TURN, 256);
+  int g = 0;                                      // tiles consumed so far
+  for (int r = 0;; ++r) {
+    const int i = item_index(r, gridDim.x, blockIdx.x, n_items);
+    if (i < 0) break;
+    const Item w = item_of(i, BH, n_qb, Sq, Sk, causal);
+    const int b = r % QBUF;
+    const int r_first = w.q0 + 64 * cw;
+    const int r0 = r_first + 16 * (tid / 32) + (tid % 32) / 4;
+    const bool turns = w.q0 + 64 < Sq;           // both warpgroups compute
+    const int mine = r_first < Sq ? w.n_tiles : 0;
+    const uint32_t sq = sQ + b * TILE + cw * 64 * 128;
+    mbar_wait(q_full(b), (r / QBUF) & 1);
+
+    if (mine == 0) {                              // rows past Sq
+      if (lead) mbar_arrive(q_empty(b));
+      for (int j = 0; j < w.n_tiles; ++j, ++g) {
+        const int s = g % STAGES;
+        mbar_wait(k_full(s), (g / STAGES) & 1);
+        if (lead) mbar_arrive(k_empty(s));
+        mbar_wait(v_full(s), (g / STAGES) & 1);
+        if (lead) mbar_arrive(v_empty(s));
+      }
+      continue;
+    }
+
+    float o[64], sc[64];
+    uint32_t p[32];
+    float m[2] = {-INFINITY, -INFINITY}, l[2];
+    float alpha[2], rs[2];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) o[e] = 0.0f;
+    int s = g % STAGES;
+    mbar_wait(k_full(s), (g / STAGES) & 1);
+    if (turns) bar_sync(TURN + cw, 256);
+    qk(sc, sq, sK + s * TILE);
+    if (turns) bar_arrive(TURN + 1 - cw, 256);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lead) {
+      mbar_arrive(k_empty(s));
+      if (mine == 1) mbar_arrive(q_empty(b));
+    }
+    w64::softmax(sc, 0, r0, r_first, Sk, causal, scale_log2, m, alpha, rs, t);
+    l[0] = rs[0];
+    l[1] = rs[1];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) p[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
+    for (int j = 1; j < mine; ++j) {
+      const int sp = g % STAGES;                  // tile j - 1's stage
+      s = (g + 1) % STAGES;
+      mbar_wait(k_full(s), ((g + 1) / STAGES) & 1);
+      mbar_wait(v_full(sp), (g / STAGES) & 1);
+      if (turns) bar_sync(TURN + cw, 256);
+      qk(sc, sq, sK + s * TILE);
+      pv(o, p, sV + sp * TILE);
+      if (turns) bar_arrive(TURN + 1 - cw, 256);
+      wgmma_wait<1>();                            // S_j done, P.V in flight
+      fence_regs(sc);
+      if (lead) {
+        mbar_arrive(k_empty(s));
+        if (j == mine - 1) mbar_arrive(q_empty(b));
+      }
+      w64::softmax(sc, j * BK, r0, r_first, Sk, causal, scale_log2, m, alpha,
+                   rs, t);
+      wgmma_wait<0>();                            // P_{j-1} V_{j-1} done
+      fence_regs(o);
+      fence_regs(p);
+      if (lead) mbar_arrive(v_empty(sp));         // release V of tile j - 1
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        o[4 * e] *= alpha[0];
+        o[4 * e + 1] *= alpha[0];
+        o[4 * e + 2] *= alpha[1];
+        o[4 * e + 3] *= alpha[1];
+      }
+      l[0] = l[0] * alpha[0] + rs[0];
+      l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) p[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
+      ++g;
+    }
+    s = g % STAGES;
+    mbar_wait(v_full(s), (g / STAGES) & 1);
+    if (turns) bar_sync(TURN + cw, 256);
+    pv(o, p, sV + s * TILE);
+    if (turns) bar_arrive(TURN + 1 - cw, 256);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    if (lead) mbar_arrive(v_empty(s));
+    ++g;
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
+      l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
+    }
+    const float inv0 = 1.0f / fmaxf(l[0], 1e-20f);
+    const float inv1 = 1.0f / fmaxf(l[1], 1e-20f);
+    __nv_bfloat16* ob = out + (long long)w.bh * Sq * D;
+    const int r1 = r0 + 8;
+#pragma unroll
+    for (int e = 0; e < D / 8; ++e) {
+      const int c = 8 * e + 2 * t;
+      if (r0 < Sq)
+        store_bf16x2(&ob[(long long)r0 * D + c], o[4 * e] * inv0,
+                     o[4 * e + 1] * inv0);
+      if (r1 < Sq)
+        store_bf16x2(&ob[(long long)r1 * D + c], o[4 * e + 2] * inv1,
+                     o[4 * e + 3] * inv1);
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int Kh, int Sq, int Sk, float scale, int causal,
+           cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int err = wg::make_map_cached(&mq, q, B * H, Sq, D, BQ);
+  if (!err) err = wg::make_map_cached(&mk, k, B * Kh, Sk, D, BK);
+  if (!err) err = wg::make_map_cached(&mv, v, B * Kh, Sk, D, BK);
+  if (err) return err;
+  static std::atomic<unsigned long long> limit_set{0};
+  err = smem_limit_once(reinterpret_cast<const void*>(flash_wgmma128_kernel),
+                        SMEM, limit_set);
+  if (err) return err;
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int n_qb = (Sq + BQ - 1) / BQ;
+  const long long items = (long long)B * H * n_qb;
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_items = static_cast<int>(items);
+  const int grid = sms < n_items ? sms : n_items;
+  flash_wgmma128_kernel<<<grid, THREADS, SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, Kh, Sq, Sk,
+      scale * wg::LOG2E, causal, n_items, n_qb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace w128
+
 }  // namespace
 
 extern "C" {
@@ -918,7 +1249,8 @@ int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define WG_LAUNCH(DK, DV) \
   wg::launch<DK, DV>(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s)
-  if (D == 128 && Dv == 128) return WG_LAUNCH(128, 128);
+  if (D == 128 && Dv == 128)
+    return w128::launch(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s);
   if (D == 64 && Dv == 64)
     return w64::launch(q, k, v, out, B, H, Kh, Sq, Sk, scale, causal, s);
   if (D == 192 && Dv == 128) return WG_LAUNCH(192, 128);

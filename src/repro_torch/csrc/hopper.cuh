@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory
-// addresses, mbarriers, named barriers, proxy fences, TMA tile loads and
-// the host side of their tensor maps (with a per-thread cache), wgmma
-// descriptors and instructions (bf16 and tf32), tf32 rounding, register
-// reallocation; on the host, a kernel's shared-memory limit set once per
-// device and the SM count. Header-only; included by the kernels of csrc/.
+// addresses, mbarriers, named barriers (sync and arrive), proxy fences,
+// TMA tile loads and the host side of their tensor maps (with a per-thread
+// cache), wgmma descriptors and instructions (bf16 and tf32), tf32
+// rounding, register reallocation; on the host, a kernel's shared-memory
+// limit set once per device and the SM count. Header-only; included by the
+// kernels of csrc/.
 #pragma once
 #include <cuda.h>              // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -52,6 +53,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // of 32: synchronises a subset of the block's warps.
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// Counts this warp's threads towards barrier `id`'s `count` without
+// waiting: the other side of a bar_sync by other warps.
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 // Orders this thread's ordinary writes to shared memory before later reads
 // of it by the async proxy (wgmma operands, TMA).

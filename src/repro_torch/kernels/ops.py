@@ -5,7 +5,8 @@ version for CPU tensors; ``impl="torch"`` programs call the plain versions
 (``kernels.ref``) directly. ``launch_counts`` / ``reset_launch_counts``
 read and zero the wrappers' launch counters (``flash_attention`` also
 counts each of its two kernels: ``flash_attention.variant_launches``; the
-scatter-gather also its sort kernel's widths: ``width_launches``).
+scatter-gather also its sort kernel's widths, ``width_launches``, and its
+launches by named caller, ``caller_launches``).
 """
 from __future__ import annotations
 
@@ -37,3 +38,5 @@ def reset_launch_counts() -> None:
                 m.variant_launches = dict.fromkeys(m.variant_launches, 0)
             if hasattr(m, "width_launches"):
                 m.width_launches = dict.fromkeys(m.width_launches, 0)
+            if hasattr(m, "caller_launches"):
+                m.caller_launches = {}

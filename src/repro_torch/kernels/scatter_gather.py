@@ -38,8 +38,9 @@ skipped.
 
 The wrapper takes the plain version for tensors on the CPU; for CUDA
 tensors it launches the chosen kernel or raises. ``launches`` counts
-launches (one a call), ``variant_launches`` each kernel's and
-``width_launches`` the sort kernel's by columns a block.
+launches (one a call), ``variant_launches`` each kernel's,
+``width_launches`` the sort kernel's by columns a block and
+``caller_launches`` those of calls that name a ``caller``.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ BUCKET_HUB = 512            # live in-edges from which it splits a row finer
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
 width_launches = dict.fromkeys(BLOCK_COLS_CANDIDATES, 0)
+caller_launches: dict = {}
 _count_lock = threading.Lock()
 
 
@@ -174,7 +176,8 @@ def _lib():
     return lib
 
 
-def scatter_gather_aggregate(src, dst, w, h, block_cols=None, n_out=None):
+def scatter_gather_aggregate(src, dst, w, h, block_cols=None, n_out=None,
+                             caller=None):
     """src/dst [C,E] int32 (padding edges carry w == 0 and any index in
     range); w [C,E] float32; h [C,N,F] float32 or bfloat16. Returns
     [C,n_out,F] in h's dtype (``n_out`` in [0, N]; None = N): the sums
@@ -182,7 +185,8 @@ def scatter_gather_aggregate(src, dst, w, h, block_cols=None, n_out=None):
     ``block_cols`` (128, 64 or 32; None = ``sort_block_cols(N, E, F)``)
     sets the sort kernel's columns a block; a width the sort kernel cannot
     take at (N, E) raises. The sort kernel writes all N rows, of which the
-    first n_out are returned; the bucket kernel writes n_out."""
+    first n_out are returned; the bucket kernel writes n_out. A launch made
+    for a named ``caller`` also counts in ``caller_launches[caller]``."""
     if src.dim() != 2 or h.dim() != 3:
         raise ValueError(f"scatter_gather_aggregate: src must be [C,E] and "
                          f"h [C,N,F], got {tuple(src.shape)} and "
@@ -259,6 +263,8 @@ def scatter_gather_aggregate(src, dst, w, h, block_cols=None, n_out=None):
         variant_launches[variant] += 1
         if variant == "sort":
             width_launches[block_cols] += 1
+        if caller is not None:
+            caller_launches[caller] = caller_launches.get(caller, 0) + 1
     if op_analysis.active() is not None:
         c = sg_cost(src, dst, w, h, n_out)
         op_analysis.note_kernel("scatter_gather_aggregate", c["flops"],

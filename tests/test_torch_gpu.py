@@ -27,7 +27,7 @@ the local engine's bits through the kernels. The reduced mamba2 and Jamba
 on the card against the CPU (Jamba's attention on the flash kernel once),
 and the chunked SSD against the float64 recurrence on the card. The
 wgmma flash kernel at whisper's encoder shape (non-causal, D=64, ragged
-S=1500), the reduced whisper and pixtral prefill through the kernel
+S=1500), its D=128 kernel at ragged, grouped and few-item shapes, the reduced whisper and pixtral prefill through the kernel
 against the plain path and the CPU, whisper's bf16 policy on the wgmma
 kernel, and one LM train step (whisper, and the MoE family's gather
 pair) on the card against the CPU. The launch analysis: each kernel's
@@ -230,6 +230,29 @@ def test_gat_sg_device_steps_bitwise_repeatable(dev):
     # one launch a layer (both sums) and step
     assert ops.launch_counts()["scatter_gather_aggregate"] == 2 * 3
     assert torch.equal(a, b)
+
+
+def test_gat_sg_softmax_sums_count_under_their_caller(dev):
+    """Each of gat/sg's scatter-gather launches is its softmax sums: the
+    wrapper counts it under ``SG_SOFTMAX_SUMS``, one a layer and step, and
+    a gcn/sg step's aggregations under no caller."""
+    from repro_torch.core.program import SG_SOFTMAX_SUMS
+    g = get_graph("flickr", scale=0.05, seed=0)
+    for kind, want in (("gat", 2 * 3), ("gcn", 0)):
+        cfg = GNNConfig(kind=kind, n_layers=3, receptive_field=128,
+                        f_in=g.feature_dim, n_heads=HEADS)
+        conf = ServingConfig(device="cuda", batch_size=16, mode="sg",
+                             impl="cuda", num_threads=2)
+        with DecoupledEngine(g, cfg, params=init_gnn(cfg, seed=0,
+                                                     device="cuda"),
+                             config=conf) as eng:
+            plan = eng.plan(zipf_traffic(g, 16, seed=1))
+            ops.reset_launch_counts()
+            eng.run_device(plan)
+            eng.run_device(plan)
+            torch.cuda.synchronize()
+        assert scatter_gather.launches == 2 * 3
+        assert scatter_gather.caller_launches.get(SG_SOFTMAX_SUMS, 0) == want
 
 
 def test_scatter_gather_weight0_edges_from_nonfinite_sources(dev):
@@ -1131,6 +1154,39 @@ def test_flash_wgmma_at_d64(dev, sq, sk, causal, h, kh):
             torch.bfloat16)
     q, k, v = rnd(2, h, sq, 64), rnd(2, kh, sk, 64), rnd(2, kh, sk, 64)
     assert flash_attention.flash_variant(q.dtype, 64) == "wgmma"
+    before = flash_attention.variant_launches["wgmma"]
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    again = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.variant_launches["wgmma"] == before + 2
+    k2, v2 = (t.repeat_interleave(h // kh, dim=1) for t in (k, v))
+    r = flash_attention.flash_bf16_check(
+        got, again, flash_attention.flash_attention_ref(
+            q.float(), k2.float(), v2.float(), causal=causal),
+        flash_attention.flash_bf16_tol(q, k2, v2, causal=causal))
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("h,kh", [(5, 1), (8, 1), (4, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (100, 100), (128, 128),
+                                   (300, 777), (777, 300), (2000, 2000)])
+def test_flash_wgmma_at_d128(dev, sq, sk, causal, h, kh):
+    """The D=128 wgmma instance (two consumer warpgroups taking turns at the
+    tensor cores, Q.K^T issued before the previous tile's softmax ends, a
+    persistent grid of min(items, SMs) blocks), B=2: fewer items than SMs
+    (B*H*ceil(Sq/128) from 2 to 48) and a count that is no multiple of 132
+    (256 items at Sq=2000, H=8), ragged Sq with the second warpgroup's rows
+    past Sq (1, 300, 777) and inside it (100, 2000), Sk != Sq both ways,
+    GQA 5:1 and 8:1 and H = Kh, causal and not; held by flash_bf16_check
+    (within tolerance, mean signed error within 0.1 ulp, two launches
+    bitwise equal)."""
+    gen = torch.Generator(device=dev).manual_seed(sq + 5 * sk + h)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, k, v = rnd(2, h, sq, 128), rnd(2, kh, sk, 128), rnd(2, kh, sk, 128)
+    assert flash_attention.flash_variant(q.dtype, 128) == "wgmma"
     before = flash_attention.variant_launches["wgmma"]
     got = flash_attention.flash_attention(q, k, v, causal=causal)
     again = flash_attention.flash_attention(q, k, v, causal=causal)

@@ -90,6 +90,7 @@ class TestImportIsolation:
 
     @pytest.mark.parametrize("script", ["gnn_fault_check",
                                         "flash_fault_check",
+                                        "flash_design_probe",
                                         "gat_phase_probe",
                                         "sg_softmax_probe",
                                         "tier_precision_probe",
@@ -104,6 +105,7 @@ class TestImportIsolation:
         bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
         for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
                   *(ROOT / "scripts").glob("*_fault_check.py"),
+                  ROOT / "scripts" / "flash_design_probe.py",
                   ROOT / "scripts" / "gat_phase_probe.py",
                   ROOT / "scripts" / "sg_softmax_probe.py",
                   ROOT / "scripts" / "tier_precision_probe.py",

@@ -207,3 +207,22 @@ class TestOps:
         fused_gnn.launches = 3
         ops.reset_launch_counts()
         assert set(ops.launch_counts().values()) == {0}
+
+    def test_caller_launches_count_only_launches(self):
+        """A CPU call names its caller yet launches nothing, so counts
+        nothing; a reset empties the counts by caller."""
+        ops.reset_launch_counts()
+        rng = np.random.default_rng(6)
+        src = torch.from_numpy(rng.integers(0, 16, (2, 40), dtype=np.int32))
+        dst = torch.from_numpy(rng.integers(0, 16, (2, 40), dtype=np.int32))
+        w = torch.from_numpy(rng.random((2, 40), dtype=np.float32))
+        h = torch.from_numpy(rng.standard_normal((2, 16, 8),
+                                                 dtype=np.float32))
+        assert torch.equal(
+            scatter_gather.scatter_gather_aggregate(src, dst, w, h,
+                                                    caller="sums"),
+            ref.scatter_gather_aggregate_ref(src, dst, w, h))
+        assert scatter_gather.caller_launches == {}
+        scatter_gather.caller_launches["sums"] = 3
+        ops.reset_launch_counts()
+        assert scatter_gather.caller_launches == {}

@@ -12,12 +12,13 @@ bf16, emulated in plain PyTorch on the CPU, where the kernels cannot run.
     reference's bf16 tolerance (rtol = atol = 2e-2), and to the port's
     plain version's fp32 result within one bf16 ulp (``bf16_reading``, the
     check the kernel meets on the card).
-(b) ``flash_attention``'s D=64 ``wgmma`` instance: the online softmax over
-    128-key tiles with P rounded to bf16 before P.V, where O is rescaled
-    after the previous tile's P.V is added (O = (O + P_{j-1} V_{j-1})
-    alpha_j), not before it as the D=128 instances do. Both orders pass
-    ``flash_bf16_check`` against the fp32 plain version on the shapes of
-    tests/test_torch_flash.py.
+(b) ``flash_attention``'s D=64 and D=128 ``wgmma`` kernels: the online
+    softmax over 128-key tiles with P rounded to bf16 before P.V, where O
+    is rescaled after the previous tile's P.V is added (O = (O + P_{j-1}
+    V_{j-1}) alpha_j), not before it as the (192, 128) template does. Both
+    orders pass ``flash_bf16_check`` against the fp32 plain version on the
+    shapes of tests/test_torch_flash.py at head widths 64 and 128, and on
+    two grouped-query shapes at 128.
 """
 import numpy as np
 import pytest
@@ -149,7 +150,7 @@ def emulate_online(q, k, v, causal, rescale_after, round_p=True):
     for P.V (unless not ``round_p``), l summed from the unrounded p.
     ``rescale_after``: O = (O + P_{j-1} V_{j-1}) alpha_j, the last tile's
     P.V added at the end (the D=64 instance); else O = O alpha_j + P_j V_j
-    (the D=128 instances)."""
+    (the (192, 128) template)."""
     B, H, Sq, D = q.shape
     G = H // k.shape[1]
     kf = k.float().repeat_interleave(G, dim=1)
@@ -195,15 +196,30 @@ FLASH_SHAPES = [  # b, h, kh, sq, sk, causal, score scale
     (1, 2, 2, 128, 300, False, 0.1),         # nearly uniform
     (1, 3, 3, 1500, 1500, False, 1.0),       # whisper's encoder length
 ]
+GQA_128 = [  # grouped-query shapes at D=128 (8:1 and 5:1)
+    (1, 8, 1, 300, 300, True, 1.0),
+    (1, 5, 1, 200, 260, False, 1.0),
+]
+
+
+def _shape_id(shape):
+    return "-".join(map(str, shape))
+
+
+# D=64 keeps the ids the cases had before the head width was a parameter
+FLASH_CASES = (
+    [pytest.param(*c, 64, id=_shape_id(c)) for c in FLASH_SHAPES]
+    + [pytest.param(*c, 128, id="d128-" + _shape_id(c))
+       for c in FLASH_SHAPES + GQA_128])
 
 
 @pytest.mark.parametrize("rescale_after", [True, False])
-@pytest.mark.parametrize("b,h,kh,sq,sk,causal,scale", FLASH_SHAPES)
+@pytest.mark.parametrize("b,h,kh,sq,sk,causal,scale,d", FLASH_CASES)
 def test_both_orders_pass_the_flash_check(b, h, kh, sq, sk, causal, scale,
-                                          rescale_after):
+                                          d, rescale_after):
     rng = np.random.default_rng(sq + sk)
-    q = rng.standard_normal((b, h, sq, 64)) * scale
-    k, v = (rng.standard_normal((b, kh, sk, 64)) for _ in range(2))
+    q = rng.standard_normal((b, h, sq, d)) * scale
+    k, v = (rng.standard_normal((b, kh, sk, d)) for _ in range(2))
     q, k, v = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
                for a in (q, k, v))
     out = emulate_online(q, k, v, causal, rescale_after)
