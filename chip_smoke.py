@@ -38,8 +38,11 @@
    beside the least time the card could take (bytes over 3.35 TB/s or
    operations over the peak for their type, whichever is larger: 67
    TFLOP/s fp32, 989 TFLOP/s bf16; the fused layer's three tf32 products
-   of each multiply-add at 494.7 TFLOP/s), and requires the fused layer at
-   Fin=512 to be no slower than the ``baddbmm`` chain.
+   of each multiply-add at 494.7 TFLOP/s). The fused layer's five fp32
+   rows are timed in turns with the ``baddbmm`` chain (``turns``: 5
+   rounds, through the host and in a CUDA graph), each required no slower
+   than the chain both ways; the wrapper's host time a call at Fin=512
+   (``host_us``) is printed, as the scatter-gather's.
 4. Holds ``flash_attention``'s two kernels against their plain version.
    The CUDA-core kernel (fp32, and bf16 at a head dim the wgmma kernel does
    not take): fp32 at rtol = atol = 2e-5 on the shapes of
@@ -793,8 +796,9 @@ def fused_rows(x):
 def fused_checks(x):
     """Every check of ``fused_gnn_layer`` against its plain version:
     [(name, ok, text)]. The serving rows (each launched twice: bitwise
-    equal, and all on the tf32x3 kernel), the CPU tests' edge cases and
-    block_f invariance."""
+    equal, and all on the tf32x3 kernel), the CPU tests' edge cases,
+    block_f invariance and the kept weight splits
+    (``fused_split_checks``)."""
     out = []
     for tag, args, kw in fused_rows(x):
         before = fused_kernels.variant_launches["tf32x3"]
@@ -825,6 +829,34 @@ def fused_checks(x):
     torch.cuda.synchronize()
     same = bool(torch.equal(b128, b256))
     out.append(("fused block_f 128 == 256", same, f"bitwise {same}"))
+    out += fused_split_checks(x)
+    return out
+
+
+def fused_split_checks(x):
+    """The tf32x3 kernel's kept weight splits (``weight_split``) are never
+    stale: a weight updated in place, and a new weight at a freed weight's
+    address with the same shape and ``_version``, each give the plain
+    version's result on the new values. [(name, ok, text)]"""
+    out = []
+    w = x["wn512"].clone()
+    args = (x["adj"], x["feats"], w, None, x["b"], x["mask"])
+    before = fused_gnn_layer(*args)
+    w.mul_(-0.5)                                    # _version 0 -> 1
+    got = fused_gnn_layer(*args)
+    ok, text, _ = reading(got, fused_gnn_layer_ref(*args))
+    moved = not bool(torch.equal(got, before))
+    out.append(("fused weight updated in place", ok and moved,
+                f"{text}, output changed {moved}"))
+    ptr = w.data_ptr()
+    del args, w, got, before
+    w = torch.empty_like(x["wn512"])
+    w.copy_(x["ws512"])                             # _version 1, as above
+    args = (x["adj"], x["feats"], w, None, x["b"], x["mask"])
+    ok, text, _ = reading(fused_gnn_layer(*args),
+                          fused_gnn_layer_ref(*args))
+    out.append(("fused new weight at a freed weight's address", ok,
+                f"{text}, same address {w.data_ptr() == ptr}"))
     return out
 
 
@@ -1053,6 +1085,25 @@ def fused_bound(args):
     return bound_ms(c["hbm_bytes"], 3 * c["flops"], PEAK_TF32_FLOPS)
 
 
+def fused_library(args, kw):
+    """One chain of PyTorch calls that computes a fused row's function in
+    h's dtype: the ``baddbmm`` chain (H.Wn by matmul, A.HW + b and H.Ws by
+    baddbmm, then the activation and the mask)."""
+    adj, h, wn, ws, b, m = args
+    act = ACTS[kw.get("act", "relu")]
+    a = adj.to(h.dtype) if adj is not None else None
+
+    def fn():
+        if wn is None:
+            acc = torch.baddbmm(b, h, ws.expand(h.shape[0], -1, -1))
+        else:
+            acc = torch.baddbmm(b, a, torch.matmul(h, wn))
+            if ws is not None:
+                acc = torch.baddbmm(acc, h, ws.expand(h.shape[0], -1, -1))
+        return act(acc) * m[..., None].to(h.dtype)
+    return fn
+
+
 def kernel_phase(x, dev, label):
     """Checks and times every kernel at the serving shapes of ``x``
     (``gnn_inputs``); returns {kernel: record} for the JSON line."""
@@ -1064,31 +1115,38 @@ def kernel_phase(x, dev, label):
     for tag, args, kw in fused_rows(x):
         err = closeness(fused_gnn_layer(*args, **kw),
                         fused_gnn_layer_ref(*args, **kw), KERNEL_TOL)[0]
-        ms = cuda_ms(lambda: fused_gnn_layer(*args, **kw))
         plain = cuda_ms(lambda: fused_gnn_layer_ref(*args, **kw))
-        adj, h, wn, ws, b, m = args
-        act = ACTS[kw.get("act", "relu")]
-
-        def library():
-            if wn is None:
-                acc = torch.baddbmm(b, h, ws.expand(C, -1, -1))
-            else:
-                acc = torch.baddbmm(b, adj, torch.matmul(h, wn))
-                if ws is not None:
-                    acc = torch.baddbmm(acc, h, ws.expand(C, -1, -1))
-            return act(acc) * m[..., None]
-        lib = cuda_ms(library)
+        t = turns({"kernel": lambda: fused_gnn_layer(*args, **kw),
+                   "baddbmm": fused_library(args, kw)}, iters=200)
+        (ms, dev_ms), (lib, lib_dev) = (
+            (statistics.median(t[n]["host"]), statistics.median(t[n]["graph"]))
+            for n in ("kernel", "baddbmm"))
         bnd, by = fused_bound(args)
-        print(f"  fused {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"library {lib:.4f} ms, bound {bnd:.4f} ms ({by}) [{label}]",
-              flush=True)
-        rows.append((tag, err, ms, plain, lib, bnd, by))
-    tag, err, ms, plain, lib, bnd, by = rows[0]     # gcn layer 0
-    check(ms <= lib, f"fused {tag}: the kernel ({ms:.4f} ms) is slower than "
-                     f"the baddbmm chain ({lib:.4f} ms)")
-    rec["fused_gnn_layer"] = dict(shape=tag, max_abs_err=err, ms=ms,
-                                  plain_ms=plain, bound_ms=bnd,
-                                  bound_by=by, library_ms=lib)
+        print(f"  fused {tag}: medians [min-max] of 5 rounds in turns, ms "
+              f"through the host / in a CUDA graph: kernel "
+              f"{spread(t['kernel']['host'])} / "
+              f"{spread(t['kernel']['graph'])}, baddbmm chain "
+              f"{spread(t['baddbmm']['host'])} / "
+              f"{spread(t['baddbmm']['graph'])}; kernel / chain "
+              f"{ms / lib:.3f} / {dev_ms / lib_dev:.3f}; plain {plain:.4f} "
+              f"ms, bound {bnd:.4f} ms ({by}) [{label}]", flush=True)
+        rows.append(dict(shape=tag, max_abs_err=err, ms=ms, graph_ms=dev_ms,
+                         plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=lib, library_graph_ms=lib_dev))
+    for r in rows:
+        check(r["ms"] <= r["library_ms"] and r["graph_ms"]
+              <= r["library_graph_ms"],
+              f"fused {r['shape']}: the kernel ({r['ms']:.4f} / "
+              f"{r['graph_ms']:.4f} ms) is slower than the baddbmm chain "
+              f"({r['library_ms']:.4f} / {r['library_graph_ms']:.4f} ms)")
+    tag, args, kw = fused_rows(x)[0]                # gcn layer 0
+    us = host_us(lambda: fused_gnn_layer(*args, **kw))
+    split = cuda_ms(lambda: fused_kernels.tf32_split(args[2]))
+    print(f"  fused {tag}: the wrapper's host time {us:.2f} us a call; "
+          f"the weight's split (once a weight, tf32_split) {split:.4f} ms "
+          f"[{label}]", flush=True)
+    rec["fused_gnn_layer"] = dict(rows[0], host_us=us, split_ms=split,
+                                  rows=rows[1:])
 
     print("[kernels] scatter_gather_aggregate", flush=True)
     run_checks(sg_checks(x))
@@ -1464,20 +1522,9 @@ def variant_phase(graph, targets, x, dev, label):
         else:
             err = closeness(got, ref(*args, **kw), KERNEL_TOL)[0]
         if kernel == "fused_gnn_layer":
-            adj, h, wn, ws, b, m = args
             act = ACTS[kw.get("act", "relu")]
-            a16 = adj.to(h.dtype) if adj is not None else None
-
-            def library():
-                if wn is None:
-                    acc = torch.baddbmm(b, h, ws.expand(h.shape[0], -1, -1))
-                else:
-                    acc = torch.baddbmm(b, a16, torch.matmul(h, wn))
-                    if ws is not None:
-                        acc = torch.baddbmm(acc, h,
-                                            ws.expand(h.shape[0], -1, -1))
-                return act(acc) * m[..., None].to(h.dtype)
-            t = turns({"kernel": lambda: fn(*args, **kw), "bf16": library,
+            t = turns({"kernel": lambda: fn(*args, **kw),
+                       "bf16": fused_library(args, kw),
                        "fp32": fused_bf16_library_fp32(args, act)},
                       iters=200)
             ms, lib, lib32 = (statistics.median(t[n]["host"])
@@ -1693,7 +1740,9 @@ def engine_phase(graph, targets, label):
     main_path = ops.launch_counts()
     variants = dict(fused_kernels.variant_launches)
     print(f"[engine] fused_gnn_layer launches by kernel over the six "
-          f"engines: {variants} [{label}]", flush=True)
+          f"engines: {variants}; by (kernel, Fin, form): "
+          f"{ {' '.join(map(str, k)): n for k, n in sorted(fused_kernels.form_launches.items())} } "
+          f"[{label}]", flush=True)
     check(variants == {"tf32x3": main_path["fused_gnn_layer"],
                        "wgmma_bf16": 0, "cuda_core": 0},
           f"fused_gnn_layer launches by kernel {variants}, expected all "

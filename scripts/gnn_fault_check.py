@@ -21,7 +21,9 @@ against the plain version at rtol = atol = 2e-5, every bf16 fused row
 within one bf16 ulp of the plain version's fp32 result and its mean
 signed error within 0.1 ulp, two launches bitwise equal, the fused layer
 on its tf32x3 (fp32) or wgmma_bf16 kernel and GAT on its slab kernel,
-block_f invariance, NaN from weight-0 edges and from z rows with inf or
+block_f invariance, the fused layer's kept weight splits after an
+in-place update and for a new weight at a freed weight's address, NaN
+from weight-0 edges and from z rows with inf or
 NaN behind a GAT weight of 0 where the plain version has it, 64 edges into
 one vertex, empty, dense and all -inf GAT rows, a subnormal GAT weight;
 the bucket kernel on the forced-sg batch at N=1024 (and its first 512
@@ -32,9 +34,12 @@ what sees a change of order alone.
 
 Prints each fault's prediction (written before its first run: which checks
 it fails), then one line per kernel with the checks it failed. Each bucket
-fault runs its checks in a process of its own (``--bucket-fault <so>``): a
-fault that makes the kernel write or read outside its buffers ends that
-process's CUDA context, and counts as caught, as chip_smoke.py would fail.
+fault, and each fused fault of ``APART``, runs its checks in a process of
+its own (``--fault <suite> <so>``): a fault that makes the kernel write or
+read outside its buffers ends that process's CUDA context, and counts as
+caught, as chip_smoke.py would fail (so does a process that does not end
+in 600 s). ``WRAPPER_FAULTS`` swap ``fused_gnn.weight_split`` for a faulty
+cache of the weight splits (no build) and run the fused suite.
 Exits 1 unless the unchanged kernels pass every check and every planted
 fault fails at least one; whether each fault failed exactly the predicted
 checks is printed beside it. The changes in ``NOT_GATING`` (``__expf`` for ``expf``,
@@ -58,10 +63,16 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, fused_gnn as fg  # noqa: E402
 
 FUSED_ROWS = [f"fused C=64 N=256 Fin={fin} Fout=256 {form}"
               for fin in (512, 256) for form in ("w_neigh", "+w_self")]
+FUSED_SELF = ["fused C=64 N=256 Fin=256 Fout=256 self-only"]
+FUSED_500 = ["fused unaligned f_in=500", "fused f_in=500 +w_self",
+             "fused self-only f_in=500"]
+# the kept weight splits' checks (chip_smoke.fused_split_checks)
+SPLIT_UPDATE = "fused weight updated in place"
+SPLIT_REUSE = "fused new weight at a freed weight's address"
 SG_ROWS = [f"sg C=64 N=256 F={f} " for f in (512, 256)]
 GAT_NAN = ["gat inf/NaN in z outside the structure",
            "gat inf in z behind a subnormal weight"]
@@ -127,16 +138,40 @@ FAULTS = {
         # (tests/test_torch_split.py); block_f and repeats stay bitwise.
         # The wgmma_bf16 kernel's A.HW runs the same three products: where
         # a row's sum cancels, 2^-11 of its terms is more than a bf16 ulp
-        FUSED_ROWS + ["fused C=64 N=256 Fin=256 Fout=256 self-only",
-                      "fused unaligned f_in=500", "fused f_in=500 +w_self",
-                      "fused self-only f_in=500"] + BF16_NEIGH),
+        FUSED_ROWS + FUSED_SELF + FUSED_500 + [SPLIT_UPDATE, SPLIT_REUSE]
+        + BF16_NEIGH),
     "fused: last k-tile of A.HW skipped": (
         "fused_gnn", "fused_gnn.cu",
         "const int kt2 = NEIGH ? (N + BK - 1) / BK : 0;",
         "const int kt2 = NEIGH ? (N + BK - 1) / BK - 1 : 0;",
         # A's columns 224-255 (N=256) or 32-63 (the f_in=500 cases, N=64)
         # are real vertices in most subgraphs; the self-only rows have no A
-        FUSED_ROWS + ["fused unaligned f_in=500", "fused f_in=500 +w_self"]),
+        FUSED_ROWS + FUSED_500[:2] + [SPLIT_UPDATE, SPLIT_REUSE]),
+    "fused: each k-tile's partial added twice": (
+        "fused_gnn", "fused_gnn.cu",
+        "    fence_frags(al[b]);\n  }\n#pragma unroll\n"
+        "  for (int mt = 0; mt < 2; ++mt)\n#pragma unroll\n"
+        "    for (int i = 0; i < 32; ++i) acc[mt][i] += p[mt][i];\n",
+        "    fence_frags(al[b]);\n  }\n#pragma unroll\n"
+        "  for (int mt = 0; mt < 2; ++mt)\n#pragma unroll\n"
+        "    for (int i = 0; i < 32; ++i) acc[mt][i] += p[mt][i] + p[mt][i];\n",
+        # every tf32x3 product doubles; the wgmma_bf16 kernel's A.HW runs
+        # the same tile product (its H.W does not); block_f and repeats
+        # stay bitwise
+        FUSED_ROWS + FUSED_SELF + FUSED_500 + [SPLIT_UPDATE, SPLIT_REUSE]
+        + BF16_NEIGH),
+    "fused: ring 1's full wait a phase off (consumers read unfilled stages)": (
+        "fused_apart", "fused_gnn.cu",
+        "    mbar_wait(full1(s), (kt / STAGES) & 1);\n"
+        "    const uint8_t* tile = sm + s * L::STAGE1;",
+        "    mbar_wait(full1(s), (kt / STAGES + 1) & 1);\n"
+        "    const uint8_t* tile = sm + s * L::STAGE1;",
+        # the consumers never wait for a stage's bytes: phase 1 reads what
+        # the stage held before (a race, so block_f and repeats may differ
+        # too); run apart, as the bucket faults, since a block can leave
+        # before its last loads land
+        FUSED_ROWS + FUSED_SELF + FUSED_500 + [SPLIT_UPDATE, SPLIT_REUSE]
+        + ["fused block_f 128 == 256"]),
     "sg: weight-0 repair removed": (
         "scatter_gather", "scatter_gather.cu",
         "      if (in && !live)\n",
@@ -266,8 +301,50 @@ NOT_GATING = {"gat: __expf for expf",
 
 
 # the library each suite of checks holds (the bucket kernel's own checks
-# hold scatter_gather.cu's bucket code)
-LIBRARY = {"bucket": "scatter_gather"}
+# hold scatter_gather.cu's bucket code; "fused_apart" is the fused suite
+# run in a process of its own)
+LIBRARY = {"bucket": "scatter_gather", "fused_apart": "fused_gnn"}
+APART = ("bucket", "fused_apart")
+
+
+def _keep_without_version():
+    """A weight-split cache that ignores ``_version``: an in-place update is
+    served the split of the old values."""
+    from repro_torch.kernels import fused_gnn as fg
+    kept = {}
+
+    def split(w, stream=None):
+        base = w if w._base is None else w._base
+        key = (id(base), w.data_ptr(), tuple(w.shape))
+        if key not in kept:
+            kept[key] = (base, fg.tf32_split(w))
+        return kept[key][1]
+    return split
+
+
+def _keep_by_address():
+    """A weight-split cache keyed by address, shape and ``_version`` with no
+    reference to the tensor: a new weight at a freed weight's address, at
+    the same ``_version``, is served the freed weight's split."""
+    from repro_torch.kernels import fused_gnn as fg
+    kept = {}
+
+    def split(w, stream=None):
+        key = (w.data_ptr(), tuple(w.shape), w._version)
+        if key not in kept:
+            kept[key] = fg.tf32_split(w)
+        return kept[key]
+    return split
+
+
+# faults of the fused wrapper's weight-split cache: name -> (the
+# replacement of fused_gnn.weight_split, the checks predicted to fail)
+WRAPPER_FAULTS = {
+    "fused wrapper: a stale split served after an in-place update": (
+        _keep_without_version, [SPLIT_UPDATE]),
+    "fused wrapper: splits keyed by address, shape and _version": (
+        _keep_by_address, [SPLIT_REUSE]),
+}
 
 
 def build_faults(tmp: Path):
@@ -320,24 +397,34 @@ def bucket_setup(dev):
                          + smoke.offline_chunk_checks(graph, chunk)[0])
 
 
-def bucket_fault(so: str) -> int:
-    """One faulty bucket library's checks, in a process of its own (a
-    fault that writes or reads outside its buffers ends the process's CUDA
-    context): prints them as one JSON line."""
-    x, checks = bucket_setup(torch.device("cuda"))
-    build._libs["scatter_gather"] = ctypes.CDLL(so)
-    got = checks(x)
+def fused_suite(x):
+    return smoke.fused_checks(x) + smoke.fused_bf16_checks(x)
+
+
+def fault_apart(suite: str, so: str) -> int:
+    """One faulty library's checks of ``suite`` (bucket or fused_apart), in
+    a process of its own (a fault that writes or reads outside its buffers
+    ends the process's CUDA context): prints them as one JSON line."""
+    x, bucket = bucket_setup(torch.device("cuda"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build._libs[LIBRARY[suite]] = ctypes.CDLL(so)
+    got = (bucket if suite == "bucket" else fused_suite)(x)
     print(json.dumps([[n, bool(ok), text] for n, ok, text in got]),
           flush=True)
     return 0
 
 
-def bucket_checks_apart(so: Path):
-    """``bucket_fault`` in a subprocess: its checks, or a failing check
-    "CUDA fault" where the process ended without them (chip_smoke.py would
-    fail there too)."""
-    p = subprocess.run([sys.executable, __file__, "--bucket-fault", str(so)],
-                       capture_output=True, text=True)
+def checks_apart(suite: str, so: Path, timeout: float = 600.0):
+    """``fault_apart`` in a subprocess: its checks, or a failing check
+    "CUDA fault" where the process ended without them or did not end in
+    ``timeout`` seconds (chip_smoke.py would fail there too)."""
+    try:
+        p = subprocess.run([sys.executable, __file__, "--fault", suite,
+                            str(so)], capture_output=True, text=True,
+                           timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return [("CUDA fault", False, f"the checks' process did not end in "
+                                      f"{timeout:.0f} s")]
     lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[[")]
     if p.returncode == 0 and lines:
         return [tuple(c) for c in json.loads(lines[-1])]
@@ -347,8 +434,8 @@ def bucket_checks_apart(so: Path):
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--bucket-fault":
-        return bucket_fault(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--fault":
+        return fault_apart(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("gnn_fault_check: no CUDA device", file=sys.stderr)
         return 1
@@ -357,11 +444,10 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for name, (*_, predicted) in FAULTS.items():
+    for name, (*_, predicted) in {**FAULTS, **WRAPPER_FAULTS}.items():
         print(f"[predicted] {name}: fails {predicted}", flush=True)
     x, bucket = bucket_setup(torch.device("cuda"))
-    run = {"fused_gnn": lambda x: smoke.fused_checks(x)
-           + smoke.fused_bf16_checks(x),
+    run = {"fused_gnn": fused_suite,
            "scatter_gather": smoke.sg_checks,
            "bucket": bucket,
            "gat_attention": smoke.gat_checks}
@@ -371,12 +457,21 @@ def main() -> int:
         clean = {k: failed(run[k](x), k, label, "unchanged kernel")
                  for k in run}
         caught, as_predicted = {}, {}
-        for name, lib in faults.items():
-            suite, *_, predicted = FAULTS[name]
-            kernel = LIBRARY.get(suite, suite)
-            if suite == "bucket":
-                checks = bucket_checks_apart(Path(lib._name))
+        for name, lib in [*faults.items(), *WRAPPER_FAULTS.items()]:
+            if name in WRAPPER_FAULTS:
+                suite, (make, predicted) = "fused_gnn", WRAPPER_FAULTS[name]
+                kept = fg.weight_split
+                fg.weight_split = make()
+                try:
+                    checks = run[suite](x)
+                finally:
+                    fg.weight_split = kept
+            elif FAULTS[name][0] in APART:
+                suite, *_, predicted = FAULTS[name]
+                checks = checks_apart(suite, Path(lib._name))
             else:
+                suite, *_, predicted = FAULTS[name]
+                kernel = LIBRARY.get(suite, suite)
                 build._libs[kernel] = lib
                 try:
                     checks = run[suite](x)

@@ -15,9 +15,9 @@
 // tf32x3 (N <= 256, Fin and, with Wn, N multiples of 4, h and A 16-byte
 // aligned): the tensor cores at about fp32 accuracy, one launch, HW never in
 // device memory. Bound: at the serving shape (C=64, N=256, Fin=512,
-// Fout=256, +Ws) the layer does 6.44 GFLOP on 67.6 MB; three tf32 products
-// each take 3 x 6.44 GFLOP / 494.7 TFLOP/s = 0.039 ms, above the bytes'
-// 0.020 ms, so it is bound by tensor-core operations.
+// Fout=256, w_neigh) the layer does 6.44 GFLOP on 67.7 MB; three tf32
+// products each take 3 x 6.44 GFLOP / 494.7 TFLOP/s = 0.039 ms, above the
+// bytes' 0.020 ms, so it is bound by tensor-core operations.
 //   Split: x = hi + lo with hi = tf32(x) (cvt.rna), lo = tf32(x - hi) (x - hi
 //   is exact in fp32); a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, the two small
 //   products issued first. What is dropped (a_lo.b_lo and the rounding of
@@ -27,33 +27,52 @@
 //   32-wide k-tile's 12 products go into a fresh partial (scale-d = 0),
 //   which the CUDA cores add into the layer's accumulators, rounded to
 //   nearest.
+//   The weights come split: the wrapper makes W^T's hi and lo once a weight
+//   (kernels/fused_gnn.py, weight_split; the same bits as tf32_rna below)
+//   as [2][Fout][Fin], K-major, the layout tf32 wgmma's B operand needs
+//   (tf32 has no transpose bit), so no block splits or transposes them.
 //   Grid: one block of 384 threads per (64 output columns, c). Warpgroup 0
-//   is the producer: one thread issues TMA loads (3-D tensor maps
-//   [C, rows, cols], 128-byte swizzle, boxes of 256 rows x 32 fp32; rows
-//   past N and columns past the end read as zeros, so a box never reads the
-//   next subgraph) of H's k-tiles and A[c]'s k-tiles; its 128 threads load
-//   each 32 x 64 k-tile of Wn and Ws, split it into hi and lo, and store it
-//   transposed (tf32 wgmma has no transpose bit: B must be K-major) into the
-//   same swizzled layout. Warpgroups 1 and 2 own 128 rows each (two m64
-//   tiles) and read their A operand (H, then A[c]) from the swizzled box
-//   into registers, split it there and issue wgmma m64n64k8 (A from
-//   registers, B from shared memory).
+//   is the producer: one thread issues every TMA load (3-D tensor maps,
+//   128-byte swizzle, boxes of 32 fp32 along k; rows past N and columns
+//   past the end read as zeros, so a box never reads the next subgraph): H's
+//   and A[c]'s k-tiles as [256][32] boxes, the W^T hi and lo k-tiles of the
+//   block's columns as [64][32] boxes. Warpgroups 1 and 2 own 128 rows each
+//   (two m64 tiles) and read their A operand (H, then A[c]) from the
+//   swizzled box into registers, split it there and issue wgmma m64n64k8
+//   (A from registers, B from shared memory): one wgmma group a k8 step, the
+//   next step's fragments read and split while it runs (a wait that leaves
+//   one group pending), so the pipe drains once a k-tile, where the
+//   partial is added.
 //   Phase 1: HW[:, tile] = H @ Wn[:, tile] and S = H @ Ws[:, tile] in two
-//   accumulators over ceil(Fin/32) k-tiles in a two-stage ring (H loaded
-//   once per block). Phase 2: HW leaves the registers as HW^T hi and lo
-//   (K-major, swizzled) in shared memory, and S += A[c] @ HW over
-//   ceil(N/32) k-tiles of A[c], prefetched into a ring of their own during
-//   phase 1. Epilogue: the accumulators go to shared memory (over ring 1,
+//   accumulators over ceil(Fin/32) k-tiles in a three-stage ring. Phase 2:
+//   HW leaves the registers as HW^T hi and lo (K-major, swizzled) in shared
+//   memory, and S += A[c] @ HW over ceil(N/32) k-tiles of A[c] in a ring of
+//   their own. Epilogue: the accumulators go to shared memory (over ring 1,
 //   row stride 68 floats), then + b, act, * mask, and out as whole 256-byte
 //   rows (storing from the fragments, 8-byte pieces of 8 rows at a time,
 //   took as long as phase 2).
-//   Shared memory (bytes): ring 1, two stages of { H box 32,768; Wn hi, Wn
-//   lo, Ws hi, Ws lo 8,192 each } = 131,072, reused after phase 1 for HW^T
-//   hi + lo (2 x 65,536); ring 2, two A[c] boxes, 65,536; 10 mbarriers; 1,024
-//   of alignment slack: 197,712 of the 232,448 a block may have.
+//   Where the time goes (scripts/fused_phase_probe.py, serving shape):
+//   ~1.26 us a k-tile of either phase with both consumers issuing; a k-tile
+//   reads ~176 KB of shared memory (TMA's writes, wgmma's B, the A
+//   fragments), about two thirds of what the SM's shared memory moves in
+//   that time, and the tensor cores run at about two thirds of their rate.
+//   Tried and dropped (scripts/fused_design_probe.py): clusters of 2 and 4
+//   blocks of one subgraph sharing each H and A[c] box by TMA multicast
+//   (1.7x and 3x slower), the consumers staggered by half a k-tile, the
+//   tensor maps prefetched (neither moved the time), a persistent grid
+//   whose producer loads the next item's first k-tiles under the epilogue
+//   (the output tile over ring 2; 7 % slower at Fin=512, with 48 bytes of
+//   spill in the w_neigh form).
+//   Shared memory (bytes): ring 1, three stages of { H box 32,768; W^T hi
+//   and lo 8,192 each, of Wn and of Ws } = 147,456 or 196,608; HW^T hi + lo
+//   (2 x 65,536) over its first 131,072 after phase 1 and ring 2, two A[c]
+//   boxes, right after them (over ring 1's last stage, loaded once phase 1
+//   has released it); 10 mbarriers; 1,024 of alignment slack: 197,712 of
+//   the 232,448 a block may have (self-only: 148,560).
 //   Registers: three pairs of m64n64 fp32 accumulators (HW, the output,
-//   a k-tile's partial: 192) and the split A fragments of two k-steps (32)
-//   in the consumers (setmaxnreg 232); the producer keeps 40.
+//   a k-tile's partial: 192) and two k8 steps' split A fragments (32) in
+//   the consumers (setmaxnreg 240); the producer keeps 24: exactly the
+//   168 x 384 the launch holds.
 //
 // wgmma_bf16 (bf16 at tf32x3's shapes, Fin and Fout multiples of 8, h and
 // the weights 16-byte aligned): tf32x3's pipeline with phase 1 in bf16.
@@ -272,17 +291,35 @@ constexpr int ROWS = 256;            // rows per block: all of N
 constexpr int BN = 64;               // output columns per block
 constexpr int BK = 32;               // k per stage: one 128-byte fp32 row
 constexpr int THREADS = 384;         // producer + 2 consumer warpgroups
-constexpr int KG = 2;                // k8 steps per wgmma group
+constexpr int STAGES = 3;            // ring 1's depth
+constexpr int WARPS = 8;             // consumer warps: one arrive each
 constexpr int TILE_A = ROWS * BK * 4;        // a box of H or A[c]: 32 KB
-constexpr int TILE_W = BN * BK * 4;          // a k-tile of W^T: 8 KB
-constexpr int STAGE1 = TILE_A + 4 * TILE_W;  // H box, Wn hi/lo, Ws hi/lo
+constexpr int TILE_W = BN * BK * 4;          // a k-tile of W^T hi or lo: 8 KB
 constexpr int HWT = ROWS * BN * 4;           // HW^T, hi or lo: 64 KB
-constexpr int RING2 = 2 * STAGE1;            // offset of the A[c] ring
-constexpr int BARS = RING2 + 2 * TILE_A;     // offset of the mbarriers
-constexpr int SMEM = 1024 + BARS + 8 * 10;
 constexpr int OT = BN + 4;                   // row stride of the output tile
-static_assert(2 * HWT <= RING2, "HW^T must fit in ring 1");
-static_assert(ROWS * OT * 4 <= RING2, "the output tile must fit in ring 1");
+constexpr int MAX_SMEM = 232448;             // what a block may have
+
+// One form's shared memory: ring 1 (STAGES x { H box; W^T hi, lo of Wn
+// and of Ws }); with Wn, HW^T hi and lo (phase 2's B) over ring 1's first
+// 128 KB and ring 2 (two A[c] boxes) right after them, over ring 1's last
+// stage where ring 1 is longer (three stages: ring 2 is loaded once phase 1
+// has released that stage); then the mbarriers. The output tile reuses the
+// space below ring 2.
+template <bool NEIGH, bool SELF>
+struct Layout {
+  static constexpr int STAGE1 = TILE_A + 2 * (NEIGH + SELF) * TILE_W;
+  static constexpr int RING1 = STAGES * STAGE1;
+  static constexpr int RING2 = 2 * HWT;
+  static constexpr bool OVER = NEIGH && RING1 > RING2;
+  static constexpr int END2 = NEIGH ? RING2 + 2 * TILE_A : 0;
+  static constexpr int BARS = RING1 > END2 ? RING1 : END2;
+  static constexpr int SMEM = 1024 + BARS + 8 * (2 * STAGES + 4);
+  static_assert(!OVER || (STAGES - 1) * STAGE1 <= RING2,
+                "ring 2 may lie over ring 1's last stage only");
+  static_assert(ROWS * OT * 4 <= (NEIGH ? RING2 : RING1),
+                "the output tile must fit below ring 2");
+  static_assert(SMEM <= MAX_SMEM, "more shared memory than a block has");
+};
 
 // Byte offset of element (r, k) in a [rows][32] fp32 tile with 128-byte
 // swizzle (the layout TMA writes and wgmma reads; the tile 1024-aligned).
@@ -290,59 +327,26 @@ __device__ __forceinline__ int swz(int r, int k) {
   return r * 128 + ((((k >> 2) ^ r) & 7) << 4) + (k & 3) * 4;
 }
 
-// The k-tile k0..k0+31 x n0..n0+63 of w [Fin, Fout] as W^T [64][32] tf32
-// hi and lo tiles (K-major, swizzled), zeros outside w. 128 threads; a warp
-// covers 8 k x 16 columns per step, so its stores hit 16 banks.
-__device__ __forceinline__ void stage_w(const float* __restrict__ w, int k0,
-                                        int n0, int Fin, int Fout, bool vec,
-                                        uint8_t* hi, uint8_t* lo, int tid) {
-  float4 v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = tid + 128 * i, wp = idx >> 5, ln = idx & 31;
-    const int k = 8 * (wp >> 2) + (ln >> 2);
-    const int n = 4 * (4 * (wp & 3) + (ln & 3));
-    v[i] = load4(w, k0 + k, n0 + n, Fin, Fout, Fout, vec);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = tid + 128 * i, wp = idx >> 5, ln = idx & 31;
-    const int k = 8 * (wp >> 2) + (ln >> 2);
-    const int n = 4 * (4 * (wp & 3) + (ln & 3));
-    const float x[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t h = tf32_rna(x[j]);
-      const int off = swz(n + j, k);
-      *reinterpret_cast<uint32_t*>(hi + off) = h;
-      *reinterpret_cast<uint32_t*>(lo + off) =
-          tf32_rna(x[j] - __uint_as_float(h));
-    }
-  }
-}
-
-// This thread's A fragments of k8 steps kk0..kk0+KG-1 for its two m64
-// tiles (rows r0 + 64 mt, + 8), read from a swizzled [256][32] box and split.
-__device__ __forceinline__ void load_split(const uint8_t* tile, int kk0,
+// This thread's A fragments of k8 step kk for its two m64 tiles (rows r0
+// + 64 mt, + 8), read from a swizzled [256][32] box and split.
+__device__ __forceinline__ void load_split(const uint8_t* tile, int kk,
                                            int r0, int t,
-                                           uint32_t (&hi)[KG][2][4],
-                                           uint32_t (&lo)[KG][2][4]) {
+                                           uint32_t (&hi)[2][4],
+                                           uint32_t (&lo)[2][4]) {
 #pragma unroll
-  for (int q = 0; q < KG; ++q)
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = r0 + 64 * mt, k = 8 * kk + t;
+    const float x[4] = {
+        *reinterpret_cast<const float*>(tile + swz(r, k)),
+        *reinterpret_cast<const float*>(tile + swz(r + 8, k)),
+        *reinterpret_cast<const float*>(tile + swz(r, k + 4)),
+        *reinterpret_cast<const float*>(tile + swz(r + 8, k + 4))};
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r = r0 + 64 * mt, k = 8 * (kk0 + q) + t;
-      const float x[4] = {
-          *reinterpret_cast<const float*>(tile + swz(r, k)),
-          *reinterpret_cast<const float*>(tile + swz(r + 8, k)),
-          *reinterpret_cast<const float*>(tile + swz(r, k + 4)),
-          *reinterpret_cast<const float*>(tile + swz(r + 8, k + 4))};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        hi[q][mt][e] = tf32_rna(x[e]);
-        lo[q][mt][e] = tf32_rna(x[e] - __uint_as_float(hi[q][mt][e]));
-      }
+    for (int e = 0; e < 4; ++e) {
+      hi[mt][e] = tf32_rna(x[e]);
+      lo[mt][e] = tf32_rna(x[e] - __uint_as_float(hi[mt][e]));
     }
+  }
 }
 
 // acc (+)= a . b in three tf32 products, the two small ones first (acc is
@@ -356,43 +360,53 @@ __device__ __forceinline__ void mma3(float (&acc)[32], const uint32_t (&ah)[4],
   wgmma_rs_m64n64k8_tf32(acc, ah, desc_sw128(b_hi, 16, 1024), 1);
 }
 
+// fence_regs for the fragments of both m64 tiles.
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[2][4]) {
+  fence_regs(f[0]);
+  fence_regs(f[1]);
+}
+
 // acc += the product of one k-tile: this thread's rows of the [256][32] A
 // box `tile` times B^T's k-tile (hi and lo at b_hi, b_lo). The tensor
 // cores sum the tile's 12 products into the partial p from zero; p is then
 // added to acc on the CUDA cores, rounded to nearest. So the truncating
 // sums of the tensor cores run over one tile's partial, never over the
-// whole of K, and the error stays near fp32's.
+// whole of K, and the error stays near fp32's. Each k8 step's products are
+// one wgmma group; the next step's fragments are read and split while it
+// runs (two fragment buffers, a wait that leaves one group pending), so
+// the warpgroup drains once a tile.
 __device__ __forceinline__ void tile_product(const uint8_t* tile,
                                              uint32_t b_hi, uint32_t b_lo,
                                              int r0, int t,
                                              float (&p)[2][32],
                                              float (&acc)[2][32]) {
+  uint32_t ah[2][2][4], al[2][2][4];              // [buffer][mt][4]
+  load_split(tile, 0, r0, t, ah[0], al[0]);
 #pragma unroll
-  for (int kk = 0; kk < BK / 8; kk += KG) {
-    uint32_t ah[KG][2][4], al[KG][2][4];
-    load_split(tile, kk, r0, t, ah, al);
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    const int cur = kk & 1;
     fence_regs(p[0]);
     fence_regs(p[1]);
     wgmma_fence();
 #pragma unroll
-    for (int q = 0; q < KG; ++q)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint32_t k8 = 32 * (kk + q);
-        mma3(p[mt], ah[q][mt], al[q][mt], b_hi + k8, b_lo + k8,
-             kk + q == 0);
-      }
+    for (int mt = 0; mt < 2; ++mt)
+      mma3(p[mt], ah[cur][mt], al[cur][mt], b_hi + 32 * kk, b_lo + 32 * kk,
+           kk == 0);
     wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(p[0]);
-    fence_regs(p[1]);
+    if (kk + 1 < BK / 8) {
+      wgmma_wait<1>();                            // step kk - 1 done
+      fence_frags(ah[cur ^ 1]);
+      fence_frags(al[cur ^ 1]);
+      load_split(tile, kk + 1, r0, t, ah[cur ^ 1], al[cur ^ 1]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(p[0]);
+  fence_regs(p[1]);
 #pragma unroll
-    for (int q = 0; q < KG; ++q)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        fence_regs(ah[q][mt]);
-        fence_regs(al[q][mt]);
-      }
+  for (int b = 0; b < 2; ++b) {
+    fence_frags(ah[b]);
+    fence_frags(al[b]);
   }
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -427,7 +441,10 @@ __device__ __forceinline__ void store_hwt(uint8_t* sm, const float (&an)[2][32],
 // The consumers' epilogue (256 threads): the output tile (this thread's
 // fragment `as`) goes to shared memory at sm ([256][OT] fp32, over ring 1,
 // which no one reads any more), then each thread takes 4 columns of every
-// 16th row: + b, act, * mask, one rounding to O, stored as whole rows.
+// 16th row: + b, act, * mask, one rounding to O, stored as whole rows. The
+// thread's 16 mask values and 4 bias values are loaded first, so that their
+// latency passes under the tile's trip through shared memory (loaded row
+// by row after it, they took 7.4 us of a 41 us block).
 template <typename O>
 __device__ __forceinline__ void epilogue(uint8_t* sm, const float (&as)[2][32],
                                          int r0, int t, int n0, int c, int N,
@@ -435,6 +452,22 @@ __device__ __forceinline__ void epilogue(uint8_t* sm, const float (&as)[2][32],
                                          const O* __restrict__ bias,
                                          const float* __restrict__ mask,
                                          O* __restrict__ out) {
+  constexpr int RPT = ROWS / 16;                  // rows a thread stores
+  const int cid = threadIdx.x - 128;              // 0 .. 255
+  const int q = cid % 16;                         // columns 4q .. 4q + 3
+  const int n = n0 + 4 * q;
+  float mk[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = cid / 16 + 16 * i;
+    mk[i] = mask == nullptr ? 1.0f
+                            : (r < N ? mask[(long long)c * N + r] : 0.0f);
+  }
+  float bb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (bias != nullptr)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bb[j] = n + j < Fout ? elem::to_f32(bias[n + j]) : 0.0f;
   float* ot = reinterpret_cast<float*>(sm);       // [256][OT] fp32
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -447,107 +480,120 @@ __device__ __forceinline__ void epilogue(uint8_t* sm, const float (&as)[2][32],
             make_float2(as[mt][4 * i + 2 * half],
                         as[mt][4 * i + 2 * half + 1]);
   bar_sync(1, 256);
-  const int cid = threadIdx.x - 128;              // 0 .. 255
-  const int q = cid % 16;                         // columns 4q .. 4q + 3
-  const int n = n0 + 4 * q;
-  float bb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (bias != nullptr)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bb[j] = n + j < Fout ? elem::to_f32(bias[n + j]) : 0.0f;
   const bool vec_o = (Fout & 3) == 0 && n + 3 < Fout &&
                      (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  for (int r = cid / 16; r < N; r += 16) {
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = cid / 16 + 16 * i;
+    if (r >= N) break;
     const float4 a4 = *reinterpret_cast<const float4*>(ot + r * OT + 4 * q);
-    const float m = mask != nullptr ? mask[(long long)c * N + r] : 1.0f;
     float v[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       v[j] += bb[j];
       if (act == ACT_RELU) v[j] = fmaxf(v[j], 0.0f);
       else if (act == ACT_ELU) v[j] = v[j] > 0.0f ? v[j] : expm1f(v[j]);
-      v[j] *= m;
+      v[j] *= mk[i];
     }
     elem::store4(out + ((long long)c * N + r) * Fout + n, Fout - n, vec_o,
                  v);
   }
 }
 
+// Grid: (column tiles, C). The weights come split: tm_wn / tm_ws map
+// [2][Fout][Fin] (W^T's tf32 hi, then lo, made once a weight by the
+// wrapper), so the producer's one thread loads them by TMA like H, and no
+// thread splits them.
 template <bool NEIGH, bool SELF>
 __global__ void __launch_bounds__(THREADS, 1) fused_tf32x3_kernel(
     const __grid_constant__ CUtensorMap tm_h,
     const __grid_constant__ CUtensorMap tm_a,
-    const float* __restrict__ wn, const float* __restrict__ ws,
+    const __grid_constant__ CUtensorMap tm_wn,
+    const __grid_constant__ CUtensorMap tm_ws,
     const float* __restrict__ bias, const float* __restrict__ mask,
-    float* __restrict__ out, int N, int Fin, int Fout, int act, int vec_w) {
+    float* __restrict__ out, int N, int Fin, int Fout, int act) {
+  using L = Layout<NEIGH, SELF>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t s0 = smem_u32(sm);
-  const uint32_t bar = s0 + BARS;
-  auto full_h = [&](int s) { return bar + 8 * s; };
-  auto full_w = [&](int s) { return bar + 8 * (2 + s); };
-  auto empty1 = [&](int s) { return bar + 8 * (4 + s); };
-  auto full_a = [&](int s) { return bar + 8 * (6 + s); };
-  auto empty_a = [&](int s) { return bar + 8 * (8 + s); };
+  const uint32_t bar = s0 + L::BARS;
+  auto full1 = [&](int s) { return bar + 8 * s; };
+  auto empty1 = [&](int s) { return bar + 8 * (STAGES + s); };
+  auto full_a = [&](int s) { return bar + 8 * (2 * STAGES + s); };
+  auto empty_a = [&](int s) { return bar + 8 * (2 * STAGES + 2 + s); };
   const int n0 = blockIdx.x * BN;
   const int c = blockIdx.y;
   const int kt1 = (Fin + BK - 1) / BK;
   const int kt2 = NEIGH ? (N + BK - 1) / BK : 0;
 
   if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full1(s), 1);
+      mbar_init(empty1(s), WARPS);                // every consumer warp
+    }
     for (int s = 0; s < 2; ++s) {
-      mbar_init(full_h(s), 1);
-      mbar_init(full_w(s), 128);                  // every producer thread
-      mbar_init(empty1(s), 2);                    // one per consumer
       mbar_init(full_a(s), 1);
-      mbar_init(empty_a(s), 2);
+      mbar_init(empty_a(s), WARPS);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {                        // producer warpgroup
-    regs_dealloc<40>();
-    const int tid = threadIdx.x;
-    if (tid == 0)
-      for (int j = 0; j < 2 && j < kt2; ++j) {
-        mbar_expect_tx(full_a(j), TILE_A);
-        tma_load_3d(s0 + RING2 + j * TILE_A, &tm_a, full_a(j), BK * j, 0, c);
-      }
-    for (int kt = 0; kt < kt1; ++kt) {
-      const int s = kt & 1;
-      if (kt >= 2) mbar_wait(empty1(s), ((kt >> 1) - 1) & 1);
-      uint8_t* st = sm + s * STAGE1;
-      if (tid == 0) {
-        mbar_expect_tx(full_h(s), TILE_A);
-        tma_load_3d(s0 + s * STAGE1, &tm_h, full_h(s), BK * kt, 0, c);
-      }
-      if (NEIGH)
-        stage_w(wn, BK * kt, n0, Fin, Fout, vec_w, st + TILE_A,
-                st + TILE_A + TILE_W, tid);
-      if (SELF)
-        stage_w(ws, BK * kt, n0, Fin, Fout, vec_w, st + TILE_A + 2 * TILE_W,
-                st + TILE_A + 3 * TILE_W, tid);
-      fence_proxy_async();
-      mbar_arrive(full_w(s));
-    }
-    if (tid == 0)
-      for (int j = 2; j < kt2; ++j) {
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      auto load1 = [&](int kt) {                  // one stage of ring 1
+        const int s = kt % STAGES;
+        const uint32_t st = s0 + s * L::STAGE1;
+        mbar_expect_tx(full1(s), L::STAGE1);
+        tma_load_3d(st, &tm_h, full1(s), BK * kt, 0, c);
+        uint32_t w = st + TILE_A;
+        if (NEIGH) {
+          tma_load_3d(w, &tm_wn, full1(s), BK * kt, n0, 0);
+          tma_load_3d(w + TILE_W, &tm_wn, full1(s), BK * kt, n0, 1);
+          w += 2 * TILE_W;
+        }
+        if (SELF) {
+          tma_load_3d(w, &tm_ws, full1(s), BK * kt, n0, 0);
+          tma_load_3d(w + TILE_W, &tm_ws, full1(s), BK * kt, n0, 1);
+        }
+      };
+      auto load_a = [&](int j) {                  // one box of A[c]
         const int s = j & 1;
-        mbar_wait(empty_a(s), ((j >> 1) - 1) & 1);
         mbar_expect_tx(full_a(s), TILE_A);
-        tma_load_3d(s0 + RING2 + s * TILE_A, &tm_a, full_a(s), BK * j, 0, c);
+        tma_load_3d(s0 + L::RING2 + s * TILE_A, &tm_a, full_a(s), BK * j,
+                    0, c);
+      };
+      for (int kt = 0; kt < STAGES && kt < kt1; ++kt) load1(kt);
+      if (!L::OVER)
+        for (int j = 0; j < 2 && j < kt2; ++j) load_a(j);
+      for (int kt = STAGES; kt < kt1; ++kt) {
+        mbar_wait(empty1(kt % STAGES), (kt / STAGES - 1) & 1);
+        load1(kt);
       }
+      if (L::OVER && kt2 > 0) {
+        // ring 2 lies over ring 1's last stage: wait until the consumers
+        // have released that stage's last k-tile of phase 1
+        const int uses = kt1 / STAGES;
+        if (uses > 0) mbar_wait(empty1(STAGES - 1), (uses - 1) & 1);
+        for (int j = 0; j < 2 && j < kt2; ++j) load_a(j);
+      }
+      for (int j = 2; j < kt2; ++j) {
+        mbar_wait(empty_a(j & 1), ((j >> 1) - 1) & 1);
+        load_a(j);
+      }
+    }
     return;
   }
 
   // consumer warpgroup cw owns rows 128 cw .. + 127: this thread's rows are
   // r0 + 64 mt and + 8, its columns 8 i + 2 t + {0, 1} of the tile
-  regs_alloc<232>();
+  regs_alloc<240>();
   const int cw = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128;
   const int t = tid % 4;
   const int r0 = 128 * cw + 16 * (tid / 32) + (tid % 32) / 4;
+  const bool lead = (tid & 31) == 0;              // arrives for its warp
   float an[2][32], as[2][32], p[2][32];           // HW, the output, a tile
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -555,16 +601,16 @@ __global__ void __launch_bounds__(THREADS, 1) fused_tf32x3_kernel(
     for (int i = 0; i < 32; ++i) an[mt][i] = as[mt][i] = 0.0f;
 
   for (int kt = 0; kt < kt1; ++kt) {
-    const int s = kt & 1;
-    const uint32_t phase = (kt >> 1) & 1;
-    mbar_wait(full_h(s), phase);
-    mbar_wait(full_w(s), phase);
-    const uint8_t* tile = sm + s * STAGE1;
-    const uint32_t w0 = s0 + s * STAGE1 + TILE_A;
-    if (NEIGH) tile_product(tile, w0, w0 + TILE_W, r0, t, p, an);
-    if (SELF)
-      tile_product(tile, w0 + 2 * TILE_W, w0 + 3 * TILE_W, r0, t, p, as);
-    if (tid == 0) mbar_arrive(empty1(s));         // release the stage
+    const int s = kt % STAGES;
+    mbar_wait(full1(s), (kt / STAGES) & 1);
+    const uint8_t* tile = sm + s * L::STAGE1;
+    uint32_t w = s0 + s * L::STAGE1 + TILE_A;
+    if (NEIGH) {
+      tile_product(tile, w, w + TILE_W, r0, t, p, an);
+      w += 2 * TILE_W;
+    }
+    if (SELF) tile_product(tile, w, w + TILE_W, r0, t, p, as);
+    if (lead) mbar_arrive(empty1(s));             // release the stage
   }
 
   if (NEIGH) {
@@ -577,9 +623,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_tf32x3_kernel(
     for (int j = 0; j < kt2; ++j) {
       const int s = j & 1;
       mbar_wait(full_a(s), (j >> 1) & 1);
-      tile_product(sm + RING2 + s * TILE_A, s0 + j * TILE_W,
+      tile_product(sm + L::RING2 + s * TILE_A, s0 + j * TILE_W,
                    s0 + HWT + j * TILE_W, r0, t, p, as);
-      if (tid == 0) mbar_arrive(empty_a(s));
+      if (lead) mbar_arrive(empty_a(s));
     }
   }
 
@@ -593,24 +639,31 @@ template <bool NEIGH, bool SELF>
 int launch(const float* adj, const float* h, const float* wn, const float* ws,
            const float* b, const float* mask, float* out, int C, int N,
            int Fin, int Fout, int act, cudaStream_t stream) {
-  CUtensorMap mh, ma;
-  int err = make_map_3d(&mh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, h, Fin, N, C,
-                        BK, ROWS);
+  using L = Layout<NEIGH, SELF>;
+  // the weights' maps are made once a split weight (this thread's cache)
+  static thread_local MapCache wmaps;
+  constexpr auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const float* w_any = NEIGH ? wn : ws;
+  CUtensorMap mh, ma, mwn, mws;
+  int err = make_map_3d(&mh, F32, 4, h, Fin, N, C, BK, ROWS);
   if (!err)
-    err = make_map_3d(&ma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                      NEIGH ? adj : h, NEIGH ? N : Fin, N, C, BK, ROWS);
+    err = make_map_3d(&ma, F32, 4, NEIGH ? adj : h, NEIGH ? N : Fin, N, C,
+                      BK, ROWS);
+  if (!err)
+    err = make_map_3d_cached(wmaps, &mwn, F32, 4, w_any, Fin, Fout, 2, BK,
+                             BN);
+  if (!err)
+    err = make_map_3d_cached(wmaps, &mws, F32, 4, SELF ? ws : w_any, Fin,
+                             Fout, 2, BK, BN);
   if (err) return err;
   auto kernel = fused_tf32x3_kernel<NEIGH, SELF>;
   static std::atomic<unsigned long long> limit_set{0};
-  err = smem_limit_once(reinterpret_cast<const void*>(kernel), SMEM,
+  err = smem_limit_once(reinterpret_cast<const void*>(kernel), L::SMEM,
                         limit_set);
   if (err) return err;
-  const float* w_any = NEIGH ? wn : ws;
-  const int vec_w = aligned16(w_any, Fout) && (!NEIGH || !SELF ||
-                                               aligned16(ws, Fout));
   const dim3 grid((Fout + BN - 1) / BN, C);
-  kernel<<<grid, THREADS, SMEM, stream>>>(mh, ma, wn, ws, b, mask, out, N,
-                                          Fin, Fout, act, vec_w);
+  kernel<<<grid, THREADS, L::SMEM, stream>>>(mh, ma, mwn, mws, b, mask, out,
+                                             N, Fin, Fout, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -849,11 +902,19 @@ extern "C" {
 // or the error of the launch (cudaError_t, or 10000 + CUresult where a
 // tensor map could not be made).
 
-// Shared memory of one tf32x3 block (the wrapper's table checks it).
-int fused_tf32x3_smem_bytes() { return tc::SMEM; }
+// Shared memory of the largest tf32x3 block (the wrapper's table checks
+// it).
+int fused_tf32x3_smem_bytes() {
+  constexpr int a = tc::Layout<true, false>::SMEM;
+  constexpr int b = tc::Layout<true, true>::SMEM;
+  constexpr int c = tc::Layout<false, true>::SMEM;
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
 
 // The tf32x3 kernel: N <= 256; Fin % 4 == 0 and h 16-byte aligned; with
-// w_neigh also N % 4 == 0 and adj 16-byte aligned.
+// w_neigh also N % 4 == 0 and adj 16-byte aligned. Here w_neigh and w_self
+// are the weights split: [2][Fout][Fin], W^T rounded to tf32 (hi), then
+// W^T - hi rounded to tf32 (lo), as cvt.rna.tf32.f32 gives them.
 int fused_gnn_layer_tf32x3(const float* adj, const float* h,
                            const float* w_neigh, const float* w_self,
                            const float* b, const float* mask, float* out,

@@ -13,7 +13,9 @@ shapes before launch:
   x = hi + lo, a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi; one launch a call,
   HW kept in shared memory as the TPU kernel keeps it in VMEM. Bound on an
   H100 at the serving shape: tensor-core operations (3 x 6.44 GFLOP over
-  494.7 TFLOP/s dense TF32).
+  494.7 TFLOP/s dense TF32). It takes each weight split (``weight_split``:
+  W^T's tf32 hi and lo, made once a weight and kept while the weight is
+  unchanged), so no thread block splits the weights again.
 - ``"wgmma_bf16"`` (bfloat16 at the same shapes, with Fin and Fout
   multiples of 8 and 16-byte aligned weights): the tf32x3 kernel's
   pipeline with H.W_neigh and H.W_self as bf16 ``wgmma`` products (exact in
@@ -33,12 +35,15 @@ fp32, the output rounded once).
 The wrapper takes the plain version for tensors on the CPU; for CUDA
 tensors it launches the chosen kernel or raises (it never switches to the
 other kernel after a failure). ``launches`` counts launches (one a call,
-whatever the passes), ``variant_launches`` each kernel's.
+whatever the passes), ``variant_launches`` each kernel's,
+``form_launches`` them by (kernel, Fin, form).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+import weakref
 
 import torch
 
@@ -59,9 +64,10 @@ TILE_N = 64
 BLOCK_F_CANDIDATES = (64, 128, 256, 512)
 VARIANTS = ("tf32x3", "wgmma_bf16", "cuda_core")
 TF32X3_MAX_N = 256          # the tensor-core kernels keep all N rows a block
-# shared memory of one block (bytes): tf32x3's fixed layout (two ring-1
-# stages of an H box and four W k-tiles, two A boxes, 10 mbarriers, 1,024
-# of alignment; the library's fused_tf32x3_smem_bytes must agree),
+# shared memory of one block (bytes): tf32x3's largest layout (three ring-1
+# stages of an H box and four W^T k-tiles, the last under two A boxes, 10
+# mbarriers, 1,024 of alignment; the library's fused_tf32x3_smem_bytes
+# must agree),
 # wgmma_bf16's (three ring-1 stages of a bf16 H box and two W k-tiles, two
 # A boxes, 10 mbarriers, 1,024; fused_bf16_smem_bytes), and cuda_core's two
 # stages of a 16 x 64 X tile and Y tile
@@ -69,7 +75,16 @@ SMEM_BYTES = {"tf32x3": 197_712, "wgmma_bf16": 214_096, "cuda_core": 16_384}
 
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
+# launches by (variant, Fin, form): "w_neigh", "+w_self" or "self-only"
+form_launches: dict = {}
 _count_lock = threading.Lock()
+
+# the tf32x3 kernel's split weights: (id of the weight's base tensor, data
+# pointer, shape, strides) -> (weak reference to that base, the weight's
+# _version when split, the split, the raw stream it was made on)
+_splits: dict = {}
+_splits_lock = threading.RLock()
+splits_made = 0     # splits weight_split has made (kept or not)
 
 
 def fused_variant(N: int, Fin: int, neigh: bool, aligned: bool = True,
@@ -106,6 +121,77 @@ def fused_gnn_layer_ref(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
     if mask is not None:
         out = out * mask[..., None].float()
     return out.to(h.dtype)
+
+
+def tf32_rna(x):
+    """fp32 ``x`` rounded to the nearest tf32 (10 mantissa bits, ties away
+    from zero) with the 13 low bits cleared: bit for bit what the kernels'
+    ``tf32_rna`` (``cvt.rna.tf32.f32``, then ``& 0xFFFFE000``) gives, for
+    every value but NaN, which stays NaN."""
+    bits = x.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x, r)
+
+
+def tf32_split(w):
+    """The tf32x3 kernel's operand for a weight ``w`` [Fin, Fout]: W^T's
+    tf32 hi and lo, [2, Fout, Fin] (K-major, as tf32 wgmma reads B):
+    hi = tf32(W^T), lo = tf32(W^T - hi) (the difference is exact in
+    fp32)."""
+    wt = w.t().contiguous()
+    hi = tf32_rna(wt)
+    return torch.stack((hi, tf32_rna(wt - hi)))
+
+
+def _drop_split(key, _ref):
+    with _splits_lock:
+        _splits.pop(key, None)
+
+
+def weight_split(w, stream=None):
+    """``tf32_split(w)``, made once a weight and kept while the weight is
+    unchanged: a later call with the same weight, or with a new view of the
+    same elements (the engine's inner layers index one stacked tensor
+    afresh every call), takes the kept split and launches nothing. The key
+    holds the weight's base tensor by a weak reference (an entry leaves
+    when its tensor is freed, and a new tensor at a freed tensor's address
+    is another object: it never matches) and its ``_version`` (an in-place
+    update, through any view, makes a new split). Inference tensors keep
+    no version: they are split on every call. A new split waits for its
+    stream once, so that any stream may read it; read on another stream,
+    it is recorded there, so that freeing it waits for that stream's work.
+    Under CUDA graph capture a kept split is read as it is (the graph reads
+    it on every replay: update the weight in place, and capture again),
+    and a missing one is made inside the graph and not kept. ``stream``:
+    the raw current stream of the weight's device, where the caller has
+    it."""
+    global splits_made
+    if w.is_inference():
+        splits_made += 1
+        return tf32_split(w)
+    cuda = w.is_cuda
+    if cuda and stream is None:
+        stream = torch._C._cuda_getCurrentRawStream(w.device.index)
+    base = w if w._base is None else w._base
+    key = (id(base), w.data_ptr(), w.shape, w.stride())
+    version = w._version
+    entry = _splits.get(key)
+    if entry is not None and entry[0]() is base and entry[1] == version:
+        if entry[3] != stream and not torch.cuda.is_current_stream_capturing():
+            entry[2].record_stream(torch.cuda.current_stream(w.device))
+        return entry[2]
+    capturing = cuda and torch.cuda.is_current_stream_capturing()
+    split = tf32_split(w)
+    splits_made += 1
+    if capturing:
+        return split
+    if cuda:
+        torch.cuda.current_stream(w.device).synchronize()
+    with _splits_lock:
+        _splits[key] = (weakref.ref(base, functools.partial(_drop_split,
+                                                            key)),
+                        version, split, stream)
+    return split
 
 
 _typed = None       # the library whose argument types are set
@@ -201,10 +287,15 @@ def fused_gnn_layer(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
         if t is not None)
     variant = fused_variant(N, Fin, neigh, aligned, bf16, Fout)
     lib = _lib()
+    idx = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
     out = torch.empty((C, N, Fout), dtype=dt, device=dev)
     if variant != "cuda_core":
         fn = lib.fused_gnn_layer_wgmma_bf16 if bf16 \
             else lib.fused_gnn_layer_tf32x3
+        if not bf16:        # the tf32x3 kernel reads the weights split
+            args[2:4] = [None if w is None else weight_split(w, stream)
+                         for w in args[2:4]]
         ptr = [t.data_ptr() if t is not None else None for t in (*args, out)]
         launch = lambda s: fn(  # noqa: E731
             *ptr, C, N, Fin, Fout, ACT_CODES[act], s)
@@ -217,15 +308,22 @@ def fused_gnn_layer(adj, h, w_neigh, w_self=None, b=None, mask=None, *,
         fn = lib.fused_gnn_layer_bf16 if bf16 else lib.fused_gnn_layer_f32
         launch = lambda s: fn(  # noqa: E731
             *ptr, C, N, Fin, Fout, col_block, ACT_CODES[act], s)
-    with torch.cuda.device(dev):
-        err = launch(torch.cuda.current_stream(dev).cuda_stream)
+    if idx == torch.cuda.current_device():
+        err = launch(stream)
+    else:
+        with torch.cuda.device(idx):
+            err = launch(stream)
     if err:
         raise RuntimeError(f"fused_gnn_layer: {variant} kernel launch failed "
                            f"(error {err})")
     global launches
+    form = ("+w_self" if w_self is not None else "w_neigh") if neigh \
+        else "self-only"
     with _count_lock:
         launches += 1
         variant_launches[variant] += 1
+        key = (variant, Fin, form)
+        form_launches[key] = form_launches.get(key, 0) + 1
     if op_analysis.active() is not None:
         c = fused_cost(adj, h, w_neigh, w_self, b, mask)
         if variant == "wgmma_bf16":

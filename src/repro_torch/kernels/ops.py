@@ -5,6 +5,7 @@ version for CPU tensors; ``impl="torch"`` programs call the plain versions
 (``kernels.ref``) directly. ``launch_counts`` / ``reset_launch_counts``
 read and zero the wrappers' launch counters (``flash_attention`` also
 counts each of its two kernels: ``flash_attention.variant_launches``; the
+fused layer its launches by kernel, Fin and form, ``form_launches``; the
 scatter-gather also its sort kernel's widths, ``width_launches``, and its
 launches by named caller, ``caller_launches``).
 """
@@ -36,6 +37,8 @@ def reset_launch_counts() -> None:
             m.launches = 0
             if hasattr(m, "variant_launches"):
                 m.variant_launches = dict.fromkeys(m.variant_launches, 0)
+            if hasattr(m, "form_launches"):
+                m.form_launches = {}
             if hasattr(m, "width_launches"):
                 m.width_launches = dict.fromkeys(m.width_launches, 0)
             if hasattr(m, "caller_launches"):

@@ -131,6 +131,57 @@ def test_fused_tf32x3_forms(dev, n, f_in, form):
     assert torch.equal(got, again) and torch.equal(got, wide)
 
 
+@pytest.mark.parametrize("form", ["neigh", "neigh+self", "self"])
+def test_fused_weight_splits_never_stale(dev, form):
+    """The tf32x3 kernel reads each weight split once (fused_gnn.
+    weight_split): the split made on the card is the CPU's bit for bit;
+    two launches and block_f 64 / 128 / 256 are bitwise equal; weights
+    given as views of one stacked tensor (as the engine's inner layers)
+    make no new split; an in-place update, and a new weight with the same
+    _version made right after the old one is freed (the caching allocator
+    may give it the freed address), give the plain version's result on
+    the new values."""
+    rng = np.random.default_rng(31)
+    adj, mask = _adj(rng, C, N)
+    h = rng.standard_normal((C, N, 512)).astype(np.float32) * mask[..., None]
+    w = (rng.standard_normal((2, 512, F_HID)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal(F_HID) * 0.1).astype(np.float32)
+    adj, mask, h, b = (torch.from_numpy(a).to(dev) for a in (adj, mask, h,
+                                                             b))
+    stack = torch.from_numpy(w).to(dev)
+
+    def args(ws):
+        wn, w_self = {"neigh": (ws[0], None), "neigh+self": (ws[0], ws[1]),
+                      "self": (None, ws[1])}[form]
+        return (None if wn is None else adj, h, wn, w_self, b, mask)
+    for i in range(2):
+        assert torch.equal(fused_gnn.weight_split(stack[i]).cpu(),
+                           fused_gnn.tf32_split(stack[i].cpu()))
+    got = fused_gnn.fused_gnn_layer(*args(stack), act="elu")
+    made = fused_gnn.splits_made
+    for bf in (64, 128, 256):
+        again = fused_gnn.fused_gnn_layer(*args(stack), act="elu",
+                                          block_f=bf)
+        assert torch.equal(got, again)
+    assert fused_gnn.splits_made == made
+    torch.testing.assert_close(
+        got, fused_gnn.fused_gnn_layer_ref(*args(stack), act="elu"), **TOL)
+    stack.mul_(-0.5)
+    moved = fused_gnn.fused_gnn_layer(*args(stack), act="elu")
+    torch.testing.assert_close(
+        moved, fused_gnn.fused_gnn_layer_ref(*args(stack), act="elu"),
+        **TOL)
+    assert not torch.equal(moved, got)
+    version = stack._version
+    del stack, got, again, moved
+    stack = torch.empty((2, 512, F_HID), device=dev)
+    stack.copy_(torch.from_numpy(w[::-1].copy()).to(dev))
+    assert stack._version == version
+    torch.testing.assert_close(
+        fused_gnn.fused_gnn_layer(*args(stack), act="elu"),
+        fused_gnn.fused_gnn_layer_ref(*args(stack), act="elu"), **TOL)
+
+
 @pytest.mark.parametrize("c,n,f_in,f_out,block_f", [
     (3, 37, 45, 48, 16), (2, 8, 16, 16, 256), (1, 70, 130, 200, 100)])
 def test_kernels_at_ragged_shapes(dev, c, n, f_in, f_out, block_f):

@@ -91,6 +91,9 @@ class TestImportIsolation:
     @pytest.mark.parametrize("script", ["gnn_fault_check",
                                         "flash_fault_check",
                                         "flash_design_probe",
+                                        "fused_parent_probe",
+                                        "fused_design_probe",
+                                        "fused_phase_probe",
                                         "gat_phase_probe",
                                         "sg_softmax_probe",
                                         "tier_precision_probe",
@@ -106,6 +109,7 @@ class TestImportIsolation:
         for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
                   *(ROOT / "scripts").glob("*_fault_check.py"),
                   ROOT / "scripts" / "flash_design_probe.py",
+                  *(ROOT / "scripts").glob("fused_*_probe.py"),
                   ROOT / "scripts" / "gat_phase_probe.py",
                   ROOT / "scripts" / "sg_softmax_probe.py",
                   ROOT / "scripts" / "tier_precision_probe.py",
