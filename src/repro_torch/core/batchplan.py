@@ -32,6 +32,7 @@ pipeline is bitwise-identical to the monolithic path by construction.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -233,6 +234,13 @@ class BuildStage(PlanStage):
         return plan
 
 
+def _pack_span(tracer, name: str):
+    """A child span of the pack station's (no span on an untraced batch,
+    nothing at all without a tracer)."""
+    return nullcontext() if tracer is None \
+        else tracer.span(name, track="pack")
+
+
 class PackStage(PlanStage):
     """Assemble the fixed-shape SubgraphBatch from the built rows, attach
     the feature-store payload, and account the transfer (what this
@@ -251,13 +259,18 @@ class PackStage(PlanStage):
         eng = self.engine
         src = eng._fsource
         n = eng.cfg.receptive_field
-        sb = assemble_batch(eng.graph, plan.targets, plan.node_lists,
-                            plan.rows, n, eng.e_pad,
-                            build_feats=src.needs_host_feats)
+        tr = eng.tracer
+        with _pack_span(tr, "pack.assemble"):
+            sb = assemble_batch(eng.graph, plan.targets, plan.node_lists,
+                                plan.rows, n, eng.e_pad,
+                                build_feats=src.needs_host_feats)
         plan.sb = sb
-        d = eng.device_batch(sb, include_feats=False)
-        payload, dedup = src.host_payload(
-            plan.node_lists, n, sb.feats if src.needs_host_feats else None)
+        with _pack_span(tr, "pack.device_batch"):
+            d = eng.device_batch(sb, include_feats=False)
+        with _pack_span(tr, "pack.payload"):
+            payload, dedup = src.host_payload(
+                plan.node_lists, n,
+                sb.feats if src.needs_host_feats else None)
         if dedup is not None:
             eng.last_dedup_ratio = dedup
         # transfer accounting: what this strategy ships vs. what the dense
@@ -277,7 +290,6 @@ class PackStage(PlanStage):
             shard_bytes=per_shard(payload) if per_shard else None,
             batch_edges=plan.n_edges)
         plan.device = d
-        tr = eng.tracer
         if tr is not None:           # annotate this batch's pack span
             tr.annotate(bytes_shipped=shipped, bytes_dense=dense)
         return plan

@@ -14,9 +14,11 @@ Shapes are fixed per (model, N, C), so one program serves every batch.
 device execution of batch i via core.scheduler (paper Fig. 7). The engine
 owns ONE persistent ``PipelineScheduler`` for its whole lifetime.
 
-Tracing (``ServingConfig.trace``) gives every sampled batch a span tree
-(stations, store gather, sampled calibration passes) and feeds the per-op
-calibration table; adaptive dispatch (``ServingConfig.dispatch``) picks
+Tracing (``ServingConfig.trace``, or ``attach_tracer`` on a running
+deployment) gives every sampled batch a span tree (stations, store gather,
+the copies' staging, on a card each layer's device time between CUDA
+events, sampled calibration passes) and feeds the per-op calibration
+table; adaptive dispatch (``ServingConfig.dispatch``) picks
 each batch's dense/sg mode vector from that table's measured p50s
 (core.dispatch) and serves it through a bounded cache of compiled
 variants. Both are off by default, and neither changes what a batch
@@ -100,16 +102,12 @@ class DecoupledEngine:
         config = config if config is not None else ServingConfig()
         self.config = config
         self.graph, self.cfg = graph, cfg
+        self.device = torch.device(config.device)
         # observability (off by default, zero-cost when off: every site
-        # downstream guards on ``tracer is None``)
-        if config.trace is not None:
-            from repro_torch.obs.calib import CalibrationTable
-            from repro_torch.obs.trace import Tracer
-            self.tracer = Tracer(config.trace)
-            self._calib = CalibrationTable()
-        else:
-            self.tracer = None
-            self._calib = None
+        # downstream guards on ``tracer is None``); ``attach_tracer`` turns
+        # it on, at the end of construction for ``config.trace`` or later
+        self.tracer = None
+        self._calib = None
         self._calib_count = 0
         # live telemetry plane (same contract: off by default, every
         # hot-path site guards on ``telemetry is None``)
@@ -125,7 +123,6 @@ class DecoupledEngine:
         # calibration / warm-up / autotune passes that raised (serving
         # went on; the reference swallows these)
         self.explore_failures = 0
-        self.device = torch.device(config.device)
         self.batch_size = config.batch_size
         self.num_threads = config.num_threads
         self.impl = config.impl
@@ -217,13 +214,6 @@ class DecoupledEngine:
             self.stages = [RemoteSelectBuildStage(
                 self, self._host_pool,
                 workers=config.rpc_concurrency), PackStage(self)]
-            if self.tracer is not None:
-                # ping-based clock-offset estimate per graph host, so
-                # their spans stitch onto this process's timeline
-                from repro_torch.distributed.rpc import \
-                    estimate_clock_offsets
-                self.tracer.clock_sync = estimate_clock_offsets(
-                    self._host_pool)
         else:
             self._host_pool = None
             self.nbr_cache = self._build_nbr_cache(store)
@@ -274,17 +264,49 @@ class DecoupledEngine:
             max_workers=1, thread_name_prefix="repin") \
             if self._repin_auto else None
         self.auto_repins = 0
+        self._attach_lock = threading.Lock()
         self.scheduler = PipelineScheduler(
             self.stages, self.run_device, depth=config.depth,
             max_inflight=config.max_inflight,
             on_batch=self._on_batch_done if self._repin_auto else None,
-            tracer=self.tracer, telemetry=self.telemetry)
+            telemetry=self.telemetry)
         if self.telemetry is not None:
             self._register_metrics()
         # graph-update streaming: cached neighborhoods / rows never serve
         # stale state
         if hasattr(graph, "register_listener"):
             graph.register_listener(self.invalidate)
+        if config.trace is not None:
+            self.attach_tracer(config.trace)
+
+    def attach_tracer(self, config=None):
+        """Turn tracing on in a running deployment (``config`` an
+        ``obs.TraceConfig``; None: its defaults) and return the engine's
+        tracer; the tracer already there, if any, stays and is returned.
+        Batches submitted before the attach stay untraced: each ticket
+        keeps the tracer that sampled it. There is no detach."""
+        with self._attach_lock:
+            if self.tracer is None:
+                from repro_torch.obs.calib import CalibrationTable
+                from repro_torch.obs.trace import TraceConfig, Tracer
+                tracer = Tracer(config or TraceConfig())
+                if self.device.type == "cuda":
+                    # the card's event timer tied to the tracer's clock
+                    tracer.anchor_gpu(self.device)
+                if self._host_pool is not None:
+                    # ping-based clock-offset estimate per graph host, so
+                    # their spans stitch onto this process's timeline
+                    from repro_torch.distributed.rpc import \
+                        estimate_clock_offsets
+                    tracer.clock_sync = estimate_clock_offsets(
+                        self._host_pool)
+                if self._calib is None:     # else adaptive dispatch's
+                    self._calib = CalibrationTable()
+                # the stages read the engine's; the scheduler samples
+                # each batch submitted from now on
+                self.tracer = tracer
+                self.scheduler.tracer = tracer
+            return self.tracer
 
     def _build_nbr_cache(self, policy: StorePolicy
                          ) -> Optional[NeighborhoodCache]:
@@ -488,6 +510,10 @@ class DecoupledEngine:
         db = dict(device_batch)
         src = self._fsource
         tr = self.tracer
+        # a traced batch's CUDA timing events (obs.Tracer.gpu_marker)
+        mark = None if tr is None else tr.gpu_marker(self.device)
+        if mark is not None:
+            mark("begin")
         if all(k in db for k in src.payload_keys):
             payload = {k: db.pop(k) for k in src.payload_keys}
             tg = time.perf_counter() if self._h_gather is not None \
@@ -505,8 +531,17 @@ class DecoupledEngine:
                 self._h_gather.record(time.perf_counter() - tg)
         else:       # externally built dense batch (e.g. device_batch())
             feats = to_device(db.pop("feats"), self.device)
-        batch = {k: to_device(v, self.device) for k, v in db.items()}
+        if tr is None:
+            batch = {k: to_device(v, self.device) for k, v in db.items()}
+        else:
+            # the pinned staging and the copies' enqueue (the copies run
+            # on the device after; gpu.input times them there)
+            with tr.span("h2d.stage", cat="copy"):
+                batch = {k: to_device(v, self.device)
+                         for k, v in db.items()}
         batch["feats"] = pad_feature_dim(feats, self.f_pad)
+        if mark is not None:
+            mark("input")
         with torch.inference_mode():
             if tr is not None and tr.config.calibrate_every \
                     and tr.current() is not None:
@@ -520,9 +555,11 @@ class DecoupledEngine:
                         self._explore(run_instrumented, self.program,
                                       self.params, batch, self.impl,
                                       self._calib)
+                    if mark is not None:
+                        mark("calibrate")
             if self.dispatch is not None and plan is not None \
                     and plan.n_edges is not None:
-                return self._dispatch_infer(plan, batch)
+                return self._dispatch_infer(plan, batch, mark)
             if self.config.dispatch is not None and self.dispatch is None:
                 # forced mode: the policy is inert, but the mode counters
                 # still tell the operator WHAT served and WHY ("forced")
@@ -531,7 +568,7 @@ class DecoupledEngine:
                                      {s: "forced"
                                       for s in self._static_assignment})
             emb, _ = execute(self.program, self.params, batch,
-                             impl=self.impl)
+                             impl=self.impl, mark=mark)
         return emb
 
     # -- per-batch adaptive dispatch ----------------------------------------
@@ -571,7 +608,8 @@ class DecoupledEngine:
         prog = respecialize(self.program, dict(assignment))
         return compile_program(prog, self.impl, dict(blocks) or None)
 
-    def _dispatch_infer(self, plan: BatchPlan, batch) -> torch.Tensor:
+    def _dispatch_infer(self, plan: BatchPlan, batch,
+                        mark=None) -> torch.Tensor:
         """The adaptive device step: consult the policy with THIS batch's
         measured density, run the warm-up/autotune exploration pass when
         scheduled (outputs discarded), then serve through the bounded
@@ -597,6 +635,8 @@ class DecoupledEngine:
             if pol.autotune_blocks and self.impl == "cuda":
                 self._explore(run_block_autotune, self.program, self.params,
                               batch, pol.table)
+            if mark is not None:
+                mark("explore")
         self._count_dispatch(dec.assignment, dec.site_sources)
         tr = self.tracer
         if tr is not None and tr.current() is not None:
@@ -612,7 +652,7 @@ class DecoupledEngine:
         fn = self._variants.get(
             variant_key(dec.assignment, dec.blocks),
             lambda: self._build_variant(dec.assignment, dec.blocks))
-        emb, _ = fn(self.params, batch)
+        emb, _ = fn(self.params, batch, mark=mark)
         return emb
 
     def dispatch_report(self) -> Optional[dict]:
@@ -697,12 +737,14 @@ class DecoupledEngine:
         return np.concatenate(
             [targets, np.repeat(targets[-1:], C - len(targets))])
 
-    def submit_chunk(self, targets, on_done=None) -> StreamTicket:
+    def submit_chunk(self, targets, on_done=None,
+                     on_traced=None) -> StreamTicket:
         """Streaming entry: enqueue ONE micro-batch (≤ C targets, tail is
         padded) on the persistent pipeline; returns a StreamTicket whose
-        result is the [C, f] embedding block."""
+        result is the [C, f] embedding block (``on_traced``: see
+        ``PipelineScheduler.submit``)."""
         return self.scheduler.submit(self.pad_targets(np.asarray(targets)),
-                                     on_done=on_done)
+                                     on_done=on_done, on_traced=on_traced)
 
     def infer(self, targets, overlap: bool = True) -> InferenceResult:
         """Mini-batch inference for arbitrary #targets (chunks of C)."""

@@ -891,25 +891,45 @@ def compile_steps(seq: Sequence[AckOp], impl: str,
 
 def _compile_section(seq: Sequence[AckOp], impl: str,
                      blocks: BlockSpec = None):
-    steps = [step for _, step in compile_steps(seq, impl, blocks)]
+    labeled = compile_steps(seq, impl, blocks)
+    steps = [step for _, step in labeled]
+    # the attention steps (scores, softmax and its tail) of a GAT layer:
+    # the first and last step indices a traced run brackets with marks
+    attn = [i for i, (ops, _) in enumerate(labeled)
+            if isinstance(ops[0], (AttentionScore, AttentionSoftmax))]
+    a0, a1 = (attn[0], attn[-1]) if attn else (-1, -1)
 
-    def apply(p, h, batch, h0=None):
+    def apply(p, h, batch, h0=None, mark=None):
         # "h0" is the propagation ENTRY state: the layer input for
         # layer0, the post-layer0 prediction (constant across the inner
         # layers) for inner layers — APPNP's teleport anchor
         regs = {"h": h, "h_in": h, "h0": h if h0 is None else h0}
-        for s in steps:
+        if mark is None:
+            for s in steps:
+                s(p, regs, batch)
+            return regs["h"]
+        for i, s in enumerate(steps):
+            if i == a0:
+                mark("attention.begin")
             s(p, regs, batch)
+            if i == a1:
+                mark("attention.end")
+        mark("layer")
         return regs["h"]
     return apply
 
 
 def compile_program(prog: AckProgram, impl: str = "cuda",
                     blocks: BlockSpec = None):
-    """Lower a specialized AckProgram once to ``run(params, batch) ->
-    (embeddings [C, f], final h [C, N, f])``: layer0, then the L-1 inner
-    layers (one per index ``l`` of the stacked ``params["layers"]``), then
-    the tail. A per-batch dispatch variant is one such callable."""
+    """Lower a specialized AckProgram once to ``run(params, batch,
+    mark=None) -> (embeddings [C, f], final h [C, N, f])``: layer0, then
+    the L-1 inner layers (one per index ``l`` of the stacked
+    ``params["layers"]``), then the tail. A per-batch dispatch variant is
+    one such callable. ``mark(label)``, where given, is called after each
+    layer ("layer"), around a layer's attention steps ("attention.begin",
+    "attention.end") and after the tail ("tail"): a traced batch's device
+    spans (``obs.Tracer.gpu_marker``). It only records; what runs is the
+    same."""
     if not prog.specialized:
         raise ValueError(
             "program has unspecialized mux ops — call specialize() first")
@@ -917,8 +937,8 @@ def compile_program(prog: AckProgram, impl: str = "cuda",
     apply_i = _compile_section(prog.inner, impl, blocks) \
         if prog.n_layers > 1 else None
 
-    def run(params, batch):
-        h = apply0(params["layer0"], batch["feats"], batch)
+    def run(params, batch, mark=None):
+        h = apply0(params["layer0"], batch["feats"], batch, mark=mark)
         if apply_i is not None:
             h0 = h                  # inner-entry prediction, teleport anchor
             layers = params["layers"]
@@ -929,7 +949,7 @@ def compile_program(prog: AckProgram, impl: str = "cuda",
                                  f"{prog.n_layers - 1}")
             for l in range(prog.n_layers - 1):
                 h = apply_i({k: v[l] for k, v in layers.items()}, h, batch,
-                            h0=h0)
+                            h0=h0, mark=mark)
         emb = h
         for op in prog.tail:
             if isinstance(op, Readout):
@@ -938,17 +958,20 @@ def compile_program(prog: AckProgram, impl: str = "cuda",
                 emb = emb @ params[op.w] + params[op.b]
             else:
                 raise TypeError(f"op {op!r} is not a tail op")
+        if mark is not None:
+            mark("tail")
         return emb, h
     return run
 
 
 def execute(prog: AckProgram, params, batch, impl: str = "cuda",
-            blocks: BlockSpec = None):
+            blocks: BlockSpec = None, mark=None):
     """Run a specialized AckProgram (``compile_program`` then one call).
     Returns ``(embeddings [C, f], final h [C, N, f])``; ``blocks`` carries
     autotuned kernel block sizes (see ``compile_steps``), None keeps the
-    kernels' defaults."""
-    return compile_program(prog, impl, blocks)(params, batch)
+    kernels' defaults; ``mark`` as ``compile_program``'s ``run`` takes
+    it."""
+    return compile_program(prog, impl, blocks)(params, batch, mark=mark)
 
 
 def lower_and_specialize(cfg, *, avg_edges: float = 0.0,

@@ -8,7 +8,9 @@ The PyTorch counterpart of ``repro.core.report_schema``: ``latency.*``,
 a dashboard reads both packages alike (``SCHEMA``, the reference's key
 map). ``trace`` and ``dispatch`` add one key the reference lacks,
 ``explore_failures``: the calibration, warm-up and autotune passes that
-raised, which the reference swallows.
+raised, which the reference swallows. ``trace`` adds one more on a card,
+``gpu_anchor_rtt_us``: the round trip that ties the ``gpu.*`` spans to
+the host's clock (``obs.Tracer.anchor_gpu``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ SCHEMA = {
     "trace": ("enabled", "sample_every", "ring_capacity", "flight_k",
               "calibrate_every", "tickets_traced", "spans",
               "spans_dropped", "remote_spans", "host", "hists",
-              "flight", "clock_sync", "calibration", "explore_failures"),
+              "flight", "clock_sync", "calibration", "explore_failures",
+              "gpu_anchor_rtt_us"),
     "precompute": ("enabled", "resident", "fresh", "hits", "misses",
                    "hit_rate", "demotions", "promotions",
                    "refresh_chunks", "refresh_backlog",

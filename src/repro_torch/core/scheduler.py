@@ -27,7 +27,11 @@ Tracing (``tracer=``, an ``obs.Tracer``): sampled tickets carry a
 ``_drain`` has waited on the batch's CUDA event (the wait serving does
 anyway: a trace adds no synchronize). Device spans of pipelined batches
 overlap on the dispatcher thread, so each takes the lane of its sequence
-number, as the reference's batch roots do.
+number, as the reference's batch roots do. ``dispatch.wait_host`` times
+the dispatcher's wait for the batch's host side: the device can only idle
+through it once the batch before has run. A ticket keeps the tracer that
+sampled it, so a tracer set on a running scheduler traces the batches
+submitted from then on.
 
 Telemetry (``telemetry=``, an ``obs.metrics.Telemetry``): every completed
 batch feeds its end-to-end latency and its stage split into the windowed
@@ -47,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.core.report_schema import scheduler_summary
+from repro_torch.obs.trace import now
 
 # per-batch raw-timing window: the newest RECENT_TIMES host/device times
 # are kept verbatim; older ones roll off (cumulative totals stay exact)
@@ -167,7 +172,7 @@ class StreamTicket:
 
     __slots__ = ("item", "seq", "on_done", "t_submit", "t_host", "t_device",
                  "stage_times", "output", "cuda_event", "error", "trace",
-                 "device_span", "_event", "_host_future")
+                 "tracer", "device_span", "_event", "_host_future")
 
     def __init__(self, item: Any, seq: int,
                  on_done: Optional[Callable] = None):
@@ -182,6 +187,7 @@ class StreamTicket:
         self.cuda_event = None       # recorded after the device step
         self.error: Optional[BaseException] = None
         self.trace = None            # obs.TraceContext when sampled
+        self.tracer = None           # ... and the obs.Tracer that sampled it
         self.device_span = None      # open "device" span until drained
         self._event = threading.Event()
         self._host_future = None
@@ -308,10 +314,9 @@ class PipelineScheduler:
     def _traced(self, name: str, ticket: StreamTicket, fn, *args):
         """Run one pipeline step, under a span when the ticket is traced
         (the untraced path is a single attribute test + call)."""
-        tr = self.tracer
-        if tr is None or ticket.trace is None:
+        if ticket.trace is None:
             return fn(*args)
-        with tr.span(name, ctx=ticket.trace, seq=ticket.seq):
+        with ticket.tracer.span(name, ctx=ticket.trace, seq=ticket.seq):
             return fn(*args)
 
     def _device_step(self, ticket: StreamTicket, host_batch):
@@ -319,9 +324,9 @@ class PipelineScheduler:
         stays open (closed in ``_complete``, after the drain) and is the
         current span meanwhile, so the engine's store-gather and
         calibration spans nest under it."""
-        tr = self.tracer
-        if tr is None or ticket.trace is None:
+        if ticket.trace is None:
             return self.device_fn(host_batch)
+        tr = ticket.tracer
         ticket.device_span = tr.open_span(
             "device", ctx=ticket.trace, seq=ticket.seq, tid=ticket.seq % 16)
         with tr.activate(ticket.device_span):
@@ -352,9 +357,12 @@ class PipelineScheduler:
                 (out, sum(ticket.stage_times.values())))
 
     # -- streaming interface -------------------------------------------------
-    def submit(self, item, on_done: Optional[Callable] = None
-               ) -> StreamTicket:
-        """Enqueue one micro-batch; blocks when max_inflight is reached."""
+    def submit(self, item, on_done: Optional[Callable] = None,
+               on_traced: Optional[Callable] = None) -> StreamTicket:
+        """Enqueue one micro-batch; blocks when max_inflight is reached.
+        ``on_traced(ticket)``, where given, runs on the caller's thread
+        once a sampled ticket has its trace context and before its first
+        stage starts: the caller's spans of the batch go in there."""
         self.start()
         self._slots.acquire()
         if self._closed:             # close() ran while we were blocked
@@ -366,15 +374,20 @@ class PipelineScheduler:
             if self._inflight == 0:
                 self._active_since = time.perf_counter()
             self._inflight += 1
-        if self.tracer is not None:
-            t.trace = self.tracer.maybe_trace(seq=t.seq)
+        tr = self.tracer
+        if tr is not None:
+            t.trace = tr.maybe_trace(seq=t.seq)
+            if t.trace is not None:
+                t.tracer = tr
+                if on_traced is not None:
+                    on_traced(t)
         try:
             t._host_future = Future()
             self._stage_pools[0].submit(self._stage_step, t, 0, t.item)
             self._order_q.put(t)
         except RuntimeError as e:    # pool shut down by a racing close()
             if t.trace is not None:
-                self.tracer.discard_ticket(t.trace)
+                t.tracer.discard_ticket(t.trace)
             with self._idle:
                 self._inflight -= 1
                 if self._inflight == 0:
@@ -455,11 +468,15 @@ class PipelineScheduler:
             self.stats.merge_stage_times(ticket.stage_times)
         if ticket.trace is not None:
             # the device span ends here, after the drain's wait on the
-            # batch's event; then the batch's tree closes before waiters
-            # wake, so a result() followed by export sees the full tree
-            self.tracer.close_span(ticket.device_span)
+            # batch's event (its gpu.* children resolve from events now
+            # reached; a failed batch's may never be); then the batch's
+            # tree closes before waiters wake, so a result() followed by
+            # export sees the full tree
+            if ticket.device_span is not None and ticket.error is not None:
+                ticket.device_span.marks = None
+            ticket.tracer.close_span(ticket.device_span)
             ticket.device_span = None
-            self.tracer.finish_ticket(
+            ticket.tracer.finish_ticket(
                 ticket.trace, error=ticket.error is not None,
                 t_host=round(ticket.t_host, 6),
                 t_device=round(ticket.t_device, 6))
@@ -506,7 +523,16 @@ class PipelineScheduler:
                 break
             td0 = time.perf_counter()
             try:
-                hb, t.t_host = t._host_future.result()
+                if t.trace is None:
+                    hb, t.t_host = t._host_future.result()
+                else:
+                    # the device can only idle through this wait once the
+                    # batch before has run
+                    tw = now()
+                    hb, t.t_host = t._host_future.result()
+                    t.tracer.record_span("dispatch.wait_host", t.trace, tw,
+                                         now(), track="dispatch",
+                                         seq=t.seq)
                 td0 = time.perf_counter()
                 t.output = self._device_step(t, hb)
                 t.cuda_event = record_event(t.output)

@@ -7,8 +7,10 @@ the hash covers the source, every ``csrc`` header it includes (``#include
 never loaded. ``build()`` starts one ``nvcc`` per missing library, all at once,
 and waits for every one of them; ``load(name)`` builds at first use and
 caches the handle for the process. A missing ``nvcc`` or a failed build
-raises. Nothing here runs at import: the CPU tests import every module of
-the package on machines without a compiler or a card.
+raises. ``stats()`` counts the libraries this process built and loaded,
+with the seconds that took. Nothing here runs at import: the CPU tests
+import every module of the package on machines without a compiler or a
+card.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -33,6 +36,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# this process's builds (nvcc runs: libraries, wall seconds of the build
+# calls that ran them) and loads (libraries, seconds in ctypes)
+_stats = {"built": 0, "built_s": 0.0, "loaded": 0, "loaded_s": 0.0}
+_stats_lock = threading.Lock()
+
+
+def stats() -> Dict[str, float]:
+    """``{"built", "built_s", "loaded", "loaded_s"}``: the libraries this
+    process compiled with ``nvcc`` and the wall seconds of the ``build``
+    calls that compiled them (the compilers run together), and the
+    libraries it loaded and the seconds the loads took."""
+    with _stats_lock:
+        return dict(_stats)
 
 
 def nvcc_path() -> str:
@@ -90,6 +106,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         return {}
     nvcc_path()                         # raises before anything starts
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs: List = []
     for n in todo:
         out = library_path(n)
@@ -106,6 +123,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             continue
         os.replace(tmp, out)            # atomic: readers never see a torn .so
         reports[n] = stdout + stderr
+    with _stats_lock:
+        _stats["built"] += len(reports)
+        _stats["built_s"] += time.perf_counter() - t0
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
@@ -117,7 +137,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
+            t0 = time.perf_counter()
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            with _stats_lock:
+                _stats["loaded"] += 1
+                _stats["loaded_s"] += time.perf_counter() - t0
         return lib
 
 

@@ -26,11 +26,12 @@ from repro_torch.obs.promexp import (MetricsHTTPServer, render_wire,
                                      validate_exposition)
 from repro_torch.obs.slo import SLObjective, SLOTracker, Watchdog
 from repro_torch.obs.trace import (SpanAllocator, TraceConfig, TraceContext,
-                                   Tracer, now, span_dict)
+                                   Tracer, from_perf_counter, now,
+                                   perf_counter_of, span_dict)
 
 __all__ = [
     "TraceConfig", "TraceContext", "Tracer", "SpanAllocator",
-    "span_dict", "now",
+    "span_dict", "now", "perf_counter_of", "from_perf_counter",
     "LogHistogram", "Reservoir", "hist_dict_quantile",
     "merge_hist_dicts",
     "FlightRecorder",

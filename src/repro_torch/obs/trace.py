@@ -16,15 +16,29 @@ module records what actually happened to individual batches:
   (distributed.rpc) stitches in the graph hosts' remote spans
   (``ingest_remote``) with a ping-based clock-offset correction
   (``clock_sync``);
+* the served path from request to device: the server's ``lane.form``
+  and ``lane.admit``, the dispatcher's ``dispatch.wait_host`` (timed
+  before the batch had a context, so recorded after the fact:
+  ``record_span``), Pack's parts (``pack.assemble``, ``pack.device_batch``,
+  ``pack.payload``) and ``h2d.stage``; on a card, a device span's CUDA
+  timing events (``gpu_marker``) become its ``gpu.input``, ``gpu.layer``
+  (arg ``l``), ``gpu.attention`` and ``gpu.tail`` children on track
+  "gpu", placed on this clock by an anchor event (``anchor_gpu``);
 * finished spans land in a bounded ring (export) and the K slowest
   batches keep their FULL span trees in a flight recorder (forensics);
 * per-span durations also feed fixed-memory ``LogHistogram``s, so the
   report surfaces exact-from-buckets p50/p90/p99 without unbounded
-  lists.
+  lists, and exact totals by name (``totals``: count, seconds, self
+  seconds) that the ring's evictions do not touch.
+
+``perf_counter_of`` maps a span time onto ``time.perf_counter()`` (the
+clock ``torch.profiler`` traces are tied to) and ``from_perf_counter``
+back.
 
 Tracing is **opt-in and zero-cost when off**: with
-``ServingConfig(trace=None)`` (the default) no tracer object exists and
-every instrumentation site is a single ``is None`` test; traced and
+``ServingConfig(trace=None)`` (the default) no tracer object exists until
+``DecoupledEngine.attach_tracer`` makes one, and every instrumentation
+site is a single ``is None`` test; traced and
 untraced runs produce bitwise-identical outputs because spans only
 *time* the existing calls — they never reorder or replace them.
 """
@@ -37,7 +51,7 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.hist import LogHistogram
@@ -48,11 +62,29 @@ from repro_torch.obs.hist import LogHistogram
 # across processes (after the ping-based offset correction).
 _T0_WALL = time.time()
 _T0_PERF = time.perf_counter()
+# the longest a GPU anchor serves before it is taken again: the card's
+# event timer and the host's clock drift apart (4.5 us a second on an H100)
+ANCHOR_S = 1.0
+# marks that end a device interval without a span of its own: the sampled
+# calibration and exploration passes, kept out of the next ``gpu.layer``
+SKIP_MARKS = frozenset({"calibrate", "explore"})
 
 
 def now() -> float:
     """Monotonic wall-clock seconds (see module anchor note)."""
     return _T0_WALL + (time.perf_counter() - _T0_PERF)
+
+
+def perf_counter_of(t: float) -> float:
+    """A span time (``now()``'s clock) as a ``time.perf_counter()``
+    reading, by the module's one anchor: exact, no clock is read."""
+    return _T0_PERF + (t - _T0_WALL)
+
+
+def from_perf_counter(p: float) -> float:
+    """A ``time.perf_counter()`` reading on ``now()``'s clock (the inverse
+    of ``perf_counter_of``): for spans timed with perf_counter stamps."""
+    return _T0_WALL + (p - _T0_PERF)
 
 
 @dataclass(frozen=True)
@@ -109,7 +141,7 @@ class _SpanHandle:
     """Mutable in-flight span; becomes an immutable dict when closed."""
 
     __slots__ = ("name", "cat", "trace_id", "span_id", "parent_id",
-                 "track", "t0", "args")
+                 "track", "t0", "args", "marks")
 
     def __init__(self, name, cat, trace_id, span_id, parent_id, track):
         self.name = name
@@ -120,6 +152,8 @@ class _SpanHandle:
         self.track = track
         self.t0 = now()
         self.args: Dict[str, Any] = {}
+        # (label, CUDA event) pairs of a device span (``Tracer.gpu_marker``)
+        self.marks: Optional[List[Tuple[str, Any]]] = None
 
     def annotate(self, **kw) -> None:
         self.args.update(kw)
@@ -188,6 +222,15 @@ class Tracer:
         self.remote_spans = 0
         self.flight = FlightRecorder(self.config.flight_k)
         self.hists: Dict[str, LogHistogram] = {}
+        # span name -> self seconds (``totals``), kept as each span closes
+        self._self_s: Dict[str, float] = {}
+        # span id -> (start, end) of its host children closed so far
+        self._kids: Dict[int, List[Tuple[float, float]]] = {}
+        # (CUDA event, its time on now()'s clock): places the device spans
+        # (``anchor_gpu``); the round trip bounds the placement's error
+        self._gpu_anchor: Optional[Tuple[Any, float]] = None
+        self._gpu_stream = None
+        self.gpu_anchor_rtt_us: Optional[float] = None
         # endpoint -> {"offset_s", "rtt_s"}: remote wall clock minus
         # local, estimated from ping round-trips (rpc.estimate_clock_
         # offsets); remote span timestamps subtract the offset
@@ -278,15 +321,19 @@ class Tracer:
             stack.pop()
 
     def close_span(self, h: Optional[_SpanHandle]) -> None:
-        """End a span now: record it and feed its name's histogram."""
+        """End a span now: record it and feed its name's histogram. A
+        device span's CUDA events (``gpu_marker``) become its ``gpu.*``
+        children first: close it only once its last event has been
+        reached."""
         if h is None:
             return
+        if h.marks:
+            self._resolve_marks(h)
         dur = now() - h.t0
         self._record(span_dict(
             name=h.name, cat=h.cat, trace_id=h.trace_id,
             span_id=h.span_id, parent_id=h.parent_id, t0=h.t0, dur=dur,
             host=self.host, track=h.track, args=h.args))
-        self.hist(h.name).record(dur)
 
     @contextmanager
     def span(self, name: str, *, ctx: Optional[TraceContext] = None,
@@ -317,14 +364,160 @@ class Tracer:
         finally:
             self.close_span(h)
 
-    def _record(self, sp: dict) -> None:
+    def record_span(self, name: str, ctx: Optional[TraceContext],
+                    t0: float, t1: float, *, cat: str = "stage",
+                    track: Optional[str] = None, **args) -> None:
+        """Record a span timed after the fact, [t0, t1] on ``now()``'s
+        clock, as a child of the batch's root: for intervals timed before
+        the batch had a context (the server's queue and admission). None
+        ``ctx`` (an untraced batch) records nothing."""
+        if ctx is None:
+            return
+        args["tid"] = threading.get_ident() & 0xFFFFFF
+        self._record(span_dict(
+            name=name, cat=cat, trace_id=ctx.trace_id,
+            span_id=self._ids.next_id(), parent_id=ctx.root_id, t0=t0,
+            dur=t1 - t0, host=self.host, track=track or name, args=args))
+
+    def _record(self, sp: dict, host_child: bool = True) -> None:
+        """Keep a finished span: its name's histogram and self time (net
+        of its host children closed so far), then its trace's tree or the
+        ring. A device span (``host_child=False``) is on another clock and
+        leaves its parent's self time alone."""
+        t0, dur = sp["t0"], sp["dur"]
         with self._lock:
             self.spans_recorded += 1
+            self._add_time(sp["name"], dur,
+                           self._self_time(sp["span_id"], t0, dur))
+            if host_child and sp["parent_id"] is not None:
+                self._kids.setdefault(sp["parent_id"], []).append(
+                    (t0, t0 + dur))
             live = self._live.get(sp["trace_id"])
             if live is not None:
                 live.append(sp)
             else:                       # ticket already finished (late
                 self._ring_append(sp)   # drain span) — straight to ring
+
+    def _add_time(self, name: str, dur: float, self_s: float) -> None:
+        """Feed a closed span's histogram and self time (under the lock,
+        so ``totals`` reads each name's count and sums together)."""
+        h = self.hists.get(name)
+        if h is None:
+            h = self.hists[name] = LogHistogram()
+        h.record(dur)
+        self._self_s[name] = self._self_s.get(name, 0.0) + self_s
+
+    def _self_time(self, span_id: int, t0: float, dur: float) -> float:
+        """``dur`` less the union of the span's closed host children,
+        clipped to its interval (children on other threads may overlap)."""
+        kids = self._kids.pop(span_id, None)
+        if not kids:
+            return dur
+        covered, reach, t1 = 0.0, t0, t0 + dur
+        for a, b in sorted(kids):
+            a, b = max(a, reach), min(b, t1)
+            if b > a:
+                covered += b - a
+                reach = b
+        return dur - covered
+
+    def totals(self) -> Dict[str, Tuple[int, float, float]]:
+        """``{name: (count, total s, self s)}`` over every span this
+        tracer timed so far (batch roots under "batch"; not the spans
+        stitched in from graph hosts): the histograms' exact count and
+        sum, whatever the ring evicted. Self time is a span's duration
+        less what its host child spans cover; ``gpu.*`` spans are
+        children on the device's clock and count toward no self time."""
+        with self._lock:
+            return {k: (h.count, h.total, self._self_s[k])
+                    for k, h in self.hists.items()}
+
+    # -- device spans --------------------------------------------------------
+    def anchor_gpu(self, device=None, tries: int = 3) -> None:
+        """Tie CUDA event times to ``now()``'s clock: record an event on an
+        idle side stream of ``device`` (work in flight on the serving
+        stream does not delay it) and wait for it, ``tries`` times; keep
+        the try with the shortest round trip, placed at its midpoint. The
+        round trip, ``gpu_anchor_rtt_us``, bounds how far a ``gpu.*`` span
+        may sit from where the device ran it, with the clocks' drift since
+        the anchor: device spans take a new one once it is ``ANCHOR_S``
+        old (None ``device``: the anchor's own)."""
+        import torch
+        if device is not None:
+            self._gpu_stream = torch.cuda.Stream(device)
+        stream = self._gpu_stream
+        best = None
+        for _ in range(tries):
+            ev = torch.cuda.Event(enable_timing=True)
+            t0 = now()
+            ev.record(stream)
+            ev.synchronize()
+            t1 = now()
+            if best is None or t1 - t0 < best[2] - best[1]:
+                best = (ev, t0, t1)
+        ev, t0, t1 = best
+        self._gpu_anchor = (ev, (t0 + t1) / 2)
+        self.gpu_anchor_rtt_us = (t1 - t0) * 1e6
+
+    def gpu_marker(self, device) -> Optional[Callable[[str], None]]:
+        """A ``mark(label)`` hook for the batch whose device span is this
+        thread's current span (``device`` a ``torch.device``): each call
+        records a CUDA timing event on the device's current stream. The
+        first mark opens; each later one
+        closes the interval since the previous and names it (``gpu.`` +
+        label, "layer" numbered by ``l``), but "attention.begin" /
+        "attention.end", which bracket a ``gpu.attention`` span inside
+        the layer, and ``SKIP_MARKS``, which close the interval unnamed.
+        None (mark nothing) off CUDA, before ``anchor_gpu``, or
+        when this thread runs no traced batch."""
+        h = self.current()
+        if h is None or self._gpu_anchor is None or device.type != "cuda":
+            return None
+        import torch
+        marks = h.marks = []
+        stream = torch.cuda.current_stream(device)
+
+        def mark(label: str) -> None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            marks.append((label, ev))
+        return mark
+
+    def _resolve_marks(self, h: _SpanHandle) -> None:
+        """A device span's events as its ``gpu.*`` children on ``now()``'s
+        clock: the first placed by the anchor (taken again first if it is
+        older than ``ANCHOR_S``, so the batch's events lie within about
+        the span's length of it), each later one by the elapsed time since
+        the one before (exact to the event timer)."""
+        marks, h.marks = h.marks, None
+        if now() - self._gpu_anchor[1] > ANCHOR_S:
+            self.anchor_gpu()
+        anchor, t_anchor = self._gpu_anchor
+        at = [t_anchor + anchor.elapsed_time(marks[0][1]) / 1e3]
+        for (_, a), (_, b) in zip(marks, marks[1:]):
+            at.append(at[-1] + a.elapsed_time(b) / 1e3)
+        layer, prev, attn = 0, at[0], None
+        for (label, _), t in zip(marks[1:], at[1:]):
+            if label == "attention.begin":
+                attn = t
+                continue
+            if label == "attention.end":
+                self._gpu_span("gpu.attention", h, attn, t, l=layer)
+                continue
+            if label == "layer":
+                self._gpu_span("gpu.layer", h, prev, t, l=layer)
+                layer += 1
+            elif label not in SKIP_MARKS:
+                self._gpu_span("gpu." + label, h, prev, t)
+            prev = t
+
+    def _gpu_span(self, name: str, h: _SpanHandle, t0: float, t1: float,
+                  **args) -> None:
+        self._record(span_dict(
+            name=name, cat="gpu", trace_id=h.trace_id,
+            span_id=self._ids.next_id(), parent_id=h.span_id, t0=t0,
+            dur=t1 - t0, host=self.host, track="gpu",
+            args=dict(args, tid=0)), host_child=False)
 
     def _ring_append(self, sp: dict) -> None:
         if len(self._ring) == self._ring.maxlen:
@@ -369,27 +562,24 @@ class Tracer:
                          args=dict(root_args, seq=ctx.seq, error=error,
                                    tid=ctx.seq % 16))
         with self._lock:
+            self._add_time("batch", dur,
+                           self._self_time(ctx.root_id, ctx.t_start, dur))
             tree = self._live.pop(ctx.trace_id, [])
             tree.append(root)
             for sp in tree:
                 self._ring_append(sp)
+                # a child that closed after its parent left an entry
+                self._kids.pop(sp["span_id"], None)
             self.spans_recorded += 1
-        self.hist("batch").record(dur)
         self.flight.offer(ctx.trace_id, dur, tree,
                           meta=dict(root_args, seq=ctx.seq, error=error))
 
     def discard_ticket(self, ctx: TraceContext) -> None:
         """Drop a context that never ran (submit raced a close)."""
         with self._lock:
-            self._live.pop(ctx.trace_id, None)
-
-    # -- metrics -------------------------------------------------------------
-    def hist(self, name: str) -> LogHistogram:
-        h = self.hists.get(name)
-        if h is None:
-            with self._lock:
-                h = self.hists.setdefault(name, LogHistogram())
-        return h
+            for sp in self._live.pop(ctx.trace_id, None) or ():
+                self._kids.pop(sp["span_id"], None)
+            self._kids.pop(ctx.root_id, None)
 
     # -- export --------------------------------------------------------------
     def export_spans(self) -> List[dict]:
@@ -416,6 +606,8 @@ class Tracer:
                  "spans_dropped": self.spans_dropped,
                  "remote_spans": self.remote_spans,
                  "host": self.host}
+        if self.gpu_anchor_rtt_us is not None:
+            d["gpu_anchor_rtt_us"] = round(self.gpu_anchor_rtt_us, 3)
         d["hists"] = {k: h.to_dict() for k, h in self.hists.items()}
         d["flight"] = self.flight.summary()
         if self.clock_sync:
@@ -425,4 +617,4 @@ class Tracer:
 
 
 __all__ = ["TraceConfig", "TraceContext", "Tracer", "SpanAllocator",
-           "span_dict", "now"]
+           "span_dict", "now", "perf_counter_of", "from_perf_counter"]

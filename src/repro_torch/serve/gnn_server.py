@@ -13,7 +13,9 @@ PyTorch counterpart of ``repro.serve.gnn_server``:
   name, batch up to C with a tail-latency deadline, and stream into the
   engine's persistent ``PipelineScheduler``;
 * per-model latency percentiles (p50/p90/p99) and the achieved host/device
-  overlap fraction are reported, per model and aggregate.
+  overlap fraction are reported, per model and aggregate, with each
+  lane's wait from enqueue to admission (``ServerStats.queue_wait_s``);
+  a traced batch gets its lane's ``lane.form`` and ``lane.admit`` spans.
 
 A lane's report carries its engine's ``shards``, ``rpc``, ``trace``,
 ``precompute``, ``telemetry`` and ``dispatch`` sections where the
@@ -28,7 +30,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -65,11 +67,16 @@ class ServerStats:
     """Per-lane latency state in O(1) memory: request and batch latencies
     stream into fixed-size ``LogHistogram``s (exact count/mean, quantiles
     within one ~2.2% bucket); ``recent`` keeps the newest 256 raw request
-    latencies verbatim."""
+    latencies verbatim. ``queue_wait_s`` sums, over the ``n_admitted``
+    requests the scheduler admitted, the wait from enqueue to admission
+    (the lane's queue, the batch forming, ``submit_chunk``'s wait for an
+    in-flight slot)."""
     hist: LogHistogram = field(default_factory=LogHistogram)
     batch_hist: LogHistogram = field(default_factory=LogHistogram)
     recent: Reservoir = field(default_factory=lambda: Reservoir(256))
     n_batches: int = 0
+    queue_wait_s: float = 0.0
+    n_admitted: int = 0
 
     def record(self, latency_s: float) -> None:
         self.hist.record(latency_s)
@@ -85,6 +92,8 @@ class ServerStats:
         for v in other.recent.values():
             self.recent.record(v)
         self.n_batches += other.n_batches
+        self.queue_wait_s += other.queue_wait_s
+        self.n_admitted += other.n_admitted
         return self
 
     @property
@@ -124,13 +133,16 @@ class _ModelLane:
             if engine.telemetry is not None else None
 
     # -- micro-batching ------------------------------------------------------
-    def _collect_batch(self) -> List[Request]:
+    def _collect_batch(self) -> Tuple[List[Request], float]:
+        """(the batch's requests, when the first was taken off the queue
+        on ``time.perf_counter``'s clock)."""
         c = self.engine.batch_size
         out: List[Request] = []
         try:
             out.append(self.q.get(timeout=0.05))
         except queue.Empty:
-            return out
+            return out, 0.0
+        t_first = time.perf_counter()
         deadline = out[0].t_enqueue + self.max_wait_s
         while len(out) < c:
             tmo = deadline - time.perf_counter()
@@ -147,20 +159,41 @@ class _ModelLane:
                 out.append(self.q.get(timeout=tmo))
             except queue.Empty:
                 break
-        return out
+        return out, t_first
 
     def _batch_loop(self):
+        stats = self.stats
         while not self._stop.is_set():
-            reqs = self._collect_batch()
+            reqs, t_first = self._collect_batch()
             if not reqs:
                 continue
+            t_formed = time.perf_counter()
             targets = np.array([r.target for r in reqs])
+            enqueued = sum(r.t_enqueue for r in reqs)
             t0 = time.perf_counter()
             # streams into the engine's one persistent pipeline; blocks
             # only when the scheduler's in-flight bound applies backpressure
             self.engine.submit_chunk(
                 targets,
-                on_done=lambda tk, rs=reqs, ts=t0: self._on_done(rs, ts, tk))
+                on_done=lambda tk, rs=reqs, ts=t0: self._on_done(rs, ts, tk),
+                on_traced=lambda tk, tf=t_first, tb=t_formed, ts=t0:
+                self._trace_lane(tk, tf, tb, ts))
+            stats.queue_wait_s += len(reqs) * time.perf_counter() - enqueued
+            stats.n_admitted += len(reqs)
+
+    def _trace_lane(self, ticket, t_first: float, t_formed: float,
+                    t_call: float) -> None:
+        """A traced batch's spans of the lane (perf_counter stamps):
+        ``lane.form`` from its first request off the queue to the batch
+        full or its deadline, ``lane.admit`` from the call to admission
+        (the in-flight slot taken)."""
+        from repro_torch.obs.trace import from_perf_counter, now
+        tr, ctx = ticket.tracer, ticket.trace
+        tr.record_span("lane.form", ctx, from_perf_counter(t_first),
+                       from_perf_counter(t_formed), track="lane",
+                       lane=self.name)
+        tr.record_span("lane.admit", ctx, from_perf_counter(t_call), now(),
+                       track="lane", lane=self.name)
 
     def _on_done(self, reqs: List[Request], t0: float, ticket):
         t1 = time.perf_counter()

@@ -32,7 +32,9 @@ against the plain path and the CPU, whisper's bf16 policy on the wgmma
 kernel, and one LM train step (whisper, and the MoE family's gather
 pair) on the card against the CPU. The launch analysis: each kernel's
 ``note_kernel`` record for one launch equals its ``*_cost``, and a GNN
-cell's impl="torch" count on the card equals its ``meta`` count. Skipped where no CUDA device is
+cell's impl="torch" count on the card equals its ``meta`` count. A traced
+engine's ``gpu.*`` layer spans lie inside each batch's device span, and it
+serves the untraced bits. Skipped where no CUDA device is
 present; on the GPU machine run
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
@@ -601,6 +603,55 @@ def test_server_round_trip_through_kernels(dev):
         np.testing.assert_allclose(np.stack([r.embedding for r in mine]),
                                    want, rtol=1e-4, atol=1e-5)
         eng.close()
+
+
+@pytest.mark.parametrize("kind,calibrate_every", [
+    ("gcn", 0), ("gat", 0), ("gcn", 1)])
+def test_traced_batches_time_each_layer_on_the_card(dev, kind,
+                                                    calibrate_every):
+    """An engine with its tracer attached serves the bits of an untraced
+    one; each traced batch gets L ``gpu.layer`` spans and one
+    ``gpu.tail`` (GAT: L ``gpu.attention``), inside its ``device`` span on
+    the host's clock within the anchor's round trip; a sampled calibration
+    pass adds no span of its own."""
+    from repro_torch.obs import TraceConfig
+    g = get_graph("flickr", scale=0.05, seed=0)
+    layers = 3
+    cfg = GNNConfig(kind=kind, n_layers=layers, receptive_field=128,
+                    f_in=g.feature_dim)
+    params = init_gnn(cfg, seed=0, device="cuda")
+    targets = zipf_traffic(g, 64, seed=1)
+    conf = ServingConfig(device="cuda", batch_size=16, num_threads=2)
+    with DecoupledEngine(g, cfg, params=params, config=conf) as eng:
+        want = eng.infer(targets).embeddings
+    with DecoupledEngine(g, cfg, params=params, config=conf) as eng:
+        tracer = eng.attach_tracer(
+            TraceConfig(calibrate_every=calibrate_every))
+        got = eng.infer(targets).embeddings
+        spans = tracer.export_spans()
+        rtt = eng.trace_report()["gpu_anchor_rtt_us"] * 1e-6
+    np.testing.assert_array_equal(want, got)
+    roots = [s for s in spans if s["name"] == "batch"]
+    assert len(roots) == len(targets) // 16
+    for root in roots:
+        mine = [s for s in spans if s["trace_id"] == root["trace_id"]]
+        dev_span = next(s for s in mine if s["name"] == "device")
+        gpu = [s for s in mine if s["name"].startswith("gpu.")]
+        names = [s["name"] for s in gpu]
+        assert set(names) <= {"gpu.input", "gpu.layer", "gpu.attention",
+                              "gpu.tail"}
+        assert names.count("gpu.tail") == names.count("gpu.input") == 1
+        assert sorted(s["args"]["l"] for s in gpu
+                      if s["name"] == "gpu.layer") == list(range(layers))
+        assert names.count("gpu.attention") == (layers if kind == "gat"
+                                                else 0)
+        assert all(s["dur"] >= 0 for s in gpu)
+        step = sum(s["dur"] for s in gpu if s["name"] != "gpu.attention")
+        assert step <= dev_span["dur"]
+        lo, hi = dev_span["t0"], dev_span["t0"] + dev_span["dur"]
+        for s in gpu:
+            assert s["parent_id"] == dev_span["span_id"]
+            assert lo - rtt <= s["t0"] and s["t0"] + s["dur"] <= hi + rtt
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [

@@ -99,7 +99,8 @@ class TestImportIsolation:
                                         "tier_precision_probe",
                                         "torch_metrics_smoke",
                                         "timing_probe",
-                                        "prefill_turns"])
+                                        "prefill_turns",
+                                        "tracer_cost"])
     def test_fault_checks_import_without_jax_or_repro(self, script):
         assert _loaded_after(f"sys.path.insert(0, {str(ROOT / 'scripts')!r})"
                              f"\nimport {script}") == []
@@ -115,7 +116,8 @@ class TestImportIsolation:
                   ROOT / "scripts" / "tier_precision_probe.py",
                   ROOT / "scripts" / "torch_metrics_smoke.py",
                   ROOT / "scripts" / "timing_probe.py",
-                  ROOT / "scripts" / "prefill_turns.py"]:
+                  ROOT / "scripts" / "prefill_turns.py",
+                  ROOT / "scripts" / "tracer_cost.py"]:
             for line in p.read_text().splitlines():
                 assert not bad.match(line), (p, line)
 
