@@ -32,7 +32,14 @@
    structural exp that underflows) and behind a subnormal weight: NaN
    exactly where the plain version puts it (the oracle's attn @ z). The
    checks are lists (``fused_checks``, ``sg_checks``, ``gat_checks``) that
-   scripts/gnn_fault_check.py runs on planted faults. Times each kernel,
+   scripts/gnn_fault_check.py runs on planted faults.
+   ``gat_attention_layer`` (the slab kernel's fused form: GAT's whole
+   attention step) against its plain PyTorch composition
+   (``gat_attention_layer_ref``) and against the unfused chain it replaces
+   (the score einsums, the structure, ``gat_attention``, the bias,
+   activation and row mask) at C=64 and C=512 (``gat_layer_checks``), and
+   timed in turns with that chain at both, the plain composition after
+   them (``gat_layer_row``). Times each kernel,
    its plain version and the one PyTorch library call that computes the
    same function (CUDA events, mean of many launches after warm-up)
    beside the least time the card could take (bytes over 3.35 TB/s or
@@ -66,7 +73,7 @@
    a seed; the kernels' launch counts are zeroed before and read after, and
    each must match the program's count per batch; every ``fused_gnn_layer``
    launch must be the tf32x3 kernel and every ``gat_attention`` launch the
-   slab kernel; gat/sg's scatter-gather launches, and no other engine's,
+   slab kernel, gat/dense's all fused (``fused_launches``); gat/sg's scatter-gather launches, and no other engine's,
    count under ``SG_SOFTMAX_SUMS`` (its softmax sums: the launches of that
    kernel row). Each engine's embeddings are compared with an impl="torch"
    engine on the same card and params (rtol 1e-4, atol 1e-5). Then one
@@ -341,7 +348,8 @@
    at ``ENGINE_TOL`` (GNN) and ``LM_TOL`` (phi3). The path must launch
    ``fused_gnn_layer``, ``gat_attention`` and ``flash_attention``.
 24. Prints the ``kernels`` JSON line (each kernel with its ``variants``:
-   the bucket scatter-gather, the offline chunk shape, the bf16 kernels
+   the bucket scatter-gather, the offline chunk shape, GAT's fused form at
+   C=64 (with the main path's launches of it) and C=512, the bf16 kernels
    and flash at the MLA, Jamba, whisper-encoder and pixtral shapes) and,
    last, the ``ok`` line.
 
@@ -377,8 +385,10 @@ from repro_torch.core.dse import (H100Spec, PlanViolation,  # noqa: E402
                                   plan_covers)
 from repro_torch.core.engine import DecoupledEngine  # noqa: E402
 from repro_torch.core.program import (Aggregate,  # noqa: E402
-                                      SG_SOFTMAX_SUMS,
+                                      SG_SOFTMAX_SUMS, AttentionScore,
                                       AttentionSoftmax, Transform,
+                                      _step_attention_score,
+                                      _step_attention_softmax,
                                       compile_steps, lower, mux_sites,
                                       required_adjacency, respecialize)
 from repro_torch.gnn import train as gnn_train  # noqa: E402
@@ -400,7 +410,8 @@ from repro_torch.kernels.fused_gnn import (ACTS,  # noqa: E402
                                            fused_cost, fused_gnn_layer,
                                            fused_gnn_layer_ref)
 from repro_torch.kernels.gat_attention import (  # noqa: E402
-    gat_attention, gat_attention_ref, gat_cost, gat_variant)
+    gat_attention, gat_attention_layer, gat_attention_layer_ref,
+    gat_attention_ref, gat_cost, gat_layer_cost, gat_variant)
 from repro_torch.kernels.ref import (BF16_BIAS_ULP,  # noqa: E402
                                      bf16_bias_ulp, bf16_reading)
 from repro_torch.kernels.scatter_gather import (  # noqa: E402
@@ -1070,6 +1081,109 @@ def gat_checks(x):
     return out
 
 
+def gat_layer_args(x, c):
+    """The fused step's inputs at C=``c`` (the serving batch's 64 subgraphs
+    repeated): ``gat_rows``' z, seed-3 normals for a_src and a_dst [4, 64],
+    the batch's adj_mean and mask, and the bias."""
+    gat_rows(x)
+    reps = c // C
+    tile = lambda t: torch.cat([t] * reps).contiguous()  # noqa: E731
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(2, HEADS, F_HID // HEADS, generator=gen).to(
+        x["mask"].device)
+    return (tile(x["gat"][0]), a[0].contiguous(), a[1].contiguous(),
+            tile(x["adj_mean"]), tile(x["mask"]), x["b"])
+
+
+def gat_chain(args, act="elu"):
+    """The unfused chain the fused launch replaces, as the program runs it
+    apart: the score einsums, the structure, ``gat_attention`` and the
+    bias, activation and row mask."""
+    z, a_src, a_dst, adj, mask, b = args
+    score = AttentionScore(n_heads=HEADS)
+    soft = AttentionSoftmax(n_heads=HEADS, act=act, mode="dense",
+                            b="b" if b is not None else None)
+    p, regs = {"a_src": a_src, "a_dst": a_dst, "b": b}, {"z": z}
+    batch = {"adj_mean": adj, "mask": mask}
+    _step_attention_score(score)(p, regs, batch)
+    _step_attention_softmax(soft, "cuda")(p, regs, batch)
+    return regs["h"]
+
+
+def gat_layer_checks(x):
+    """Every check of ``gat_attention_layer`` (the slab kernel's fused form)
+    on the card against its plain PyTorch composition
+    (``gat_attention_layer_ref``: the score einsums, the structure, a plain
+    softmax and einsum, the bias, activation and row mask) and against the
+    unfused chain (the same steps with ``gat_attention``): [(name, ok,
+    text)]. The serving batch at C=64 and C=512 with ELU and the bias, ReLU
+    without it and no activation, N=200, and inf and NaN in z (NaN exactly
+    where the plain version has it); each launched twice (bitwise equal,
+    counted as fused)."""
+    out = []
+
+    def held(name, args, act="elu"):
+        before = gat_kernels.fused_launches
+        got = gat_attention_layer(*args, n_heads=HEADS, act=act)
+        again = gat_attention_layer(*args, n_heads=HEADS, act=act)
+        ok, text = nan_reading(
+            got, gat_attention_layer_ref(*args, n_heads=HEADS, act=act))
+        ok_chain, text_chain = nan_reading(got, gat_chain(args, act))
+        same = bool(torch.equal(got.isnan(), again.isnan())
+                    and torch.equal(got.nan_to_num(), again.nan_to_num()))
+        on = gat_kernels.fused_launches == before + 2
+        out.append((name, ok and ok_chain and same and on,
+                    f"plain: {text}; chain: {text_chain}; repeat bitwise "
+                    f"{same}, fused {on}"))
+
+    args = gat_layer_args(x, C)
+    held(f"gat layer C={C} elu +b", args)
+    held(f"gat layer C={C} relu", (*args[:5], None), "relu")
+    held(f"gat layer C={C} none", args, "none")
+    held("gat layer C=512 elu +b", gat_layer_args(x, 512))
+    z, a_src, a_dst, adj, mask, b = args
+    held("gat layer C=8 N=200 elu +b",
+         (z[:8, :200].contiguous(), a_src, a_dst,
+          adj[:8, :200, :200].contiguous(), mask[:8, :200].contiguous(), b))
+    zb = z.clone()
+    zb[0, 7, 1] = float("inf")
+    zb[3, 100, 70] = float("nan")
+    zb[5, N - 1, 200] = float("-inf")
+    held("gat layer inf/NaN in z", (zb, a_src, a_dst, adj, mask, b))
+    return out
+
+
+def gat_layer_row(x, c, label):
+    """The fused launch timed in turns with the unfused chain at C=``c``,
+    and its plain PyTorch composition timed after them (``cuda_ms``): a
+    ``variants`` record of ``gat_attention`` (``variant`` "fused";
+    ``max_abs_err`` against the plain composition)."""
+    args = gat_layer_args(x, c)
+    fns = {"fused": lambda: gat_attention_layer(*args, n_heads=HEADS),
+           "chain": lambda: gat_chain(args)}
+    t = turns(fns)
+    plain_fn = lambda: gat_attention_layer_ref(  # noqa: E731
+        *args, n_heads=HEADS)
+    plain = cuda_ms(plain_fn)
+    got, want = fns["fused"](), plain_fn()
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max())
+    cost = gat_layer_cost(*args, n_heads=HEADS)
+    bnd, by = bound_ms(cost["hbm_bytes"], cost["flops"])
+    tag = f"fused step C={c} N={N} F={F_HID} heads={HEADS}"
+    print(f"  gat layer {tag}: fused {spread(t['fused']['host'])} / "
+          f"{spread(t['fused']['graph'])} ms (host / graph), unfused chain "
+          f"{spread(t['chain']['host'])} / {spread(t['chain']['graph'])} ms, "
+          f"plain {plain:.4f} ms (host), max_abs_err {err:.3e} against "
+          f"plain, bound {bnd:.4f} ms ({by}) [{label}]", flush=True)
+    return dict(variant="fused", shape=tag, max_abs_err=err,
+                ms=statistics.median(t["fused"]["host"]), plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None,
+                graph_ms=statistics.median(t["fused"]["graph"]),
+                chain_ms=statistics.median(t["chain"]["host"]),
+                chain_graph_ms=statistics.median(t["chain"]["graph"]))
+
+
 def run_checks(checks):
     for name, ok, text in checks:
         print(f"  {name}: {text} {'ok' if ok else 'FAIL'}", flush=True)
@@ -1208,6 +1322,10 @@ def kernel_phase(x, dev, label):
     rec["gat_attention"] = dict(shape=tag, variant=variant, max_abs_err=err,
                                 ms=ms, plain_ms=plain, bound_ms=bnd,
                                 bound_by=by, library_ms=None)
+    print("[kernels] gat_attention_layer (the fused form)", flush=True)
+    run_checks(gat_layer_checks(x))
+    rec["gat_attention_layer"] = [gat_layer_row(x, c, label)
+                                  for c in (C, 512)]
     return rec
 
 
@@ -1687,7 +1805,8 @@ def flash_phase(dev, label):
 
 def engine_phase(graph, targets, label):
     """Serves every (model, mode) through the kernels, then through plain
-    PyTorch, and compares. Returns the main path's launch counts."""
+    PyTorch, and compares. Returns the main path's launch counts, and its
+    gat_attention launches of the fused form (``gat_attention_fused``)."""
     outs, params = {}, {}
     ops.reset_launch_counts()
     for kind in ("gcn", "sage", "gat"):
@@ -1755,6 +1874,12 @@ def engine_phase(graph, targets, label):
     check(gat_split == {"slab": main_path["gat_attention"], "row": 0},
           f"gat_attention launches by kernel {gat_split}, expected all "
           f"{main_path['gat_attention']} on the slab kernel")
+    fused = (gat_kernels.fused_launches, gat_kernels.fused_fallbacks)
+    print(f"[engine] gat_attention fused launches, unfused attention steps: "
+          f"{fused} [{label}]", flush=True)
+    check(fused == (main_path["gat_attention"], 0),
+          f"gat/dense's attention steps: {fused} fused and unfused, "
+          f"expected all {main_path['gat_attention']} fused")
     sg_split = dict(sg_kernels.variant_launches)
     print(f"[engine] scatter_gather_aggregate launches by kernel over the six "
           f"engines: {sg_split} [{label}]", flush=True)
@@ -1779,7 +1904,7 @@ def engine_phase(graph, targets, label):
         check(ok, f"{kind}/{mode}: kernels disagree with plain PyTorch")
     check(ops.launch_counts() == main_path,
           "the impl='torch' engines launched a kernel")
-    return main_path
+    return dict(main_path, gat_attention_fused=fused[0])
 
 
 # -- phase 5b: the multi-model server ----------------------------------------
@@ -1929,22 +2054,22 @@ def program_launches(prog) -> dict:
     """Kernel launches of one batch through the specialized ``prog`` under
     impl="cuda", read off its step list: a fused group or a Transform
     without w_self is one fused launch, an sg Aggregate one scatter-gather,
-    a dense AttentionSoftmax one gat_attention, an sg one scatter-gather
-    (its segment sums)."""
+    a dense AttentionSoftmax (alone, or grouped with its scores) one
+    gat_attention, an sg one scatter-gather (its segment sums)."""
     out = dict.fromkeys(REPLACES, 0)
     for seq, times in ((prog.layer0, 1), (prog.inner, prog.n_layers - 1)):
         for ops_, _ in compile_steps(seq, "cuda"):
-            head = ops_[0]
-            if len(ops_) > 1 or (isinstance(head, Transform)
-                                 and head.w_self is None):
-                out["fused_gnn_layer"] += times
-            elif isinstance(head, Aggregate) and head.mode == "sg":
-                out["scatter_gather_aggregate"] += times
-            elif isinstance(head, AttentionSoftmax):
-                if head.mode == "dense":
+            head, last = ops_[0], ops_[-1]
+            if isinstance(last, AttentionSoftmax):
+                if last.mode == "dense":
                     out["gat_attention"] += times
                 else:
                     out["scatter_gather_aggregate"] += times
+            elif len(ops_) > 1 or (isinstance(head, Transform)
+                                   and head.w_self is None):
+                out["fused_gnn_layer"] += times
+            elif isinstance(head, Aggregate) and head.mode == "sg":
+                out["scatter_gather_aggregate"] += times
     return out
 
 
@@ -3061,9 +3186,9 @@ def telemetry_phase(graph, label):
         recorded[kind] = []
 
         def record(targets, on_done=None, eng=eng, log=recorded[kind],
-                   submit=eng.submit_chunk):
+                   submit=eng.submit_chunk, **kw):
             log.append(np.array(targets))
-            return submit(targets, on_done=on_done)
+            return submit(targets, on_done=on_done, **kw)
 
         eng.submit_chunk = record
     rng = np.random.default_rng(9)
@@ -4633,6 +4758,7 @@ def main() -> int:
     variants = variant_phase(graph, targets, x, dev, label)
     variants["scatter_gather_aggregate"][:0] = [
         dict(r, variant="sort") for r in rec.pop("softmax")]
+    variants["gat_attention"][:0] = rec.pop("gat_attention_layer")
     del x
     rec["flash_attention"] = flash_phase(dev, label)
     t0 = time.perf_counter()
@@ -4644,6 +4770,9 @@ def main() -> int:
         flash_row(dev, label, "Jamba", 1, 64, 8, LM_SEQ, 128, True, 2))
     variants["flash_attention"] += flash_audio_vlm_rows(dev, label)
     launches = engine_phase(graph, targets, label)
+    # the main path's gat_attention launches are all of the fused form
+    variants["gat_attention"][0]["launches"] = launches.pop(
+        "gat_attention_fused")
     # gat/sg's softmax sums, launched by the engine phase's gat/sg engine
     # alone (the counts were zeroed as the phase began)
     sg_softmax_sums = sg_kernels.caller_launches.get(SG_SOFTMAX_SUMS, 0)

@@ -2,6 +2,7 @@
 """Where the time of ``gat_attention``'s slab kernel goes, phase by phase.
 
     python3 scripts/gat_phase_probe.py [--structure batch|identity|empty|dense]
+                                        [--fused]
 
 Builds a copy of ``src/repro_torch/csrc/gat_attention.cu`` (in a temporary
 directory; the repository is not written) in which lane 0 of every warp of
@@ -9,13 +10,18 @@ the slab kernel reads the SM's cycle counter (``clock64``) at five points
 and the global timer (``%globaltimer``, ns) at the first and the last:
 
     0 start   1 this warp's structure rows packed   2 z landed (barrier)
-    3 non-finite scan done (barrier)   4 all of this warp's rows written
+    3 non-finite scan (and the fused form's scores) done (barrier)
+    4 all of this warp's rows written
 
 and launches it on the serving batch (C=64, N=256, F=256, 4 heads, the
 Flickr-sized graph's first engine batch, the inputs of ``chip_smoke.py``'s
 ``gat_rows``); ``--structure`` swaps the batch's structure for the identity
 (one entry a row), none, or every entry, to part the rows phase's time
-into what a row costs and what an entry costs. Prints the median and the
+into what a row costs and what an entry costs. ``--fused`` launches the
+fused form (``gat_attention_layer``: the structure from the batch's
+adj_mean and mask, the scores from the slab, the tail before the store) on
+``chip_smoke.py``'s ``gat_layer_args`` at C=64 instead (``--structure``
+does not apply). Prints the median and the
 largest of each phase over the blocks (a block's phase lasts from its first
 warp's start to its last warp's end), the kernel's span on the global
 timer, how many blocks were running at once, the kernel's device time from
@@ -106,7 +112,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--structure", default="batch",
                     choices=("batch", "identity", "empty", "dense"))
-    structure = ap.parse_args(argv).structure
+    ap.add_argument("--fused", action="store_true")
+    opts = ap.parse_args(argv)
+    structure = opts.structure
     if not torch.cuda.is_available():
         print("gat_phase_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -116,7 +124,13 @@ def main(argv=None) -> int:
     x = smoke.gnn_inputs(sb, torch.device("cuda"))
     tag, args = smoke.gat_rows(x)[0]
     heads = args[1].shape[-1]
-    if structure != "batch":
+    call = lambda: gat.gat_attention(*args, n_heads=heads)  # noqa: E731
+    if opts.fused:
+        args = smoke.gat_layer_args(x, smoke.C)
+        tag = f"{tag.split(' struct_nnz')[0]} fused"
+        call = lambda: gat.gat_attention_layer(  # noqa: E731
+            *args, n_heads=heads)
+    elif structure != "batch":
         st = args[3]
         eye = torch.eye(smoke.N, device=st.device).expand_as(st)
         st = {"identity": eye, "empty": torch.zeros_like(st),
@@ -124,16 +138,15 @@ def main(argv=None) -> int:
         args = (*args[:3], st)
         tag = f"{tag.split(' struct_nnz')[0]} structure={structure}"
     before = gat.variant_launches["slab"]
-    good = gat.gat_attention(*args, n_heads=heads)
+    good = call()
     if gat.variant_launches["slab"] != before + 1:
         raise RuntimeError(f"probe: the serving shape took another kernel "
                            f"than the slab kernel ({gat.variant_launches})")
-    ms = smoke.cuda_ms(lambda: gat.gat_attention(*args, n_heads=heads),
-                       iters=50)
+    ms = smoke.cuda_ms(call, iters=50)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
-            gat.gat_attention(*args, n_heads=heads)
+            call()
         torch.cuda.synchronize()
     device = {re.search(r"gat_\w+_kernel", e.key).group(0):
               e.self_device_time_total / e.count / 1e3
@@ -145,7 +158,7 @@ def main(argv=None) -> int:
         build._libs["gat_attention"] = lib
         try:
             for _ in range(3):
-                got = gat.gat_attention(*args, n_heads=heads)
+                got = call()
             torch.cuda.synchronize()
             blocks = smoke.C * heads          # one 64-column slice a head
             warps = slab_warps()
@@ -167,7 +180,8 @@ def main(argv=None) -> int:
         "staging (+ structure, if packed first) (start -> stamp 1)":
             s[:, :, 1].max(1) - first,
         "wait for z (-> barrier)": s[:, :, 2].max(1) - s[:, :, 1].max(1),
-        "non-finite scan": s[:, :, 3].max(1) - s[:, :, 2].max(1),
+        "non-finite scan (+ scores, fused)":
+            s[:, :, 3].max(1) - s[:, :, 2].max(1),
         "rows (barrier -> last warp done)": last - s[:, :, 3].max(1),
         "rows, the median warp": np.median(s[:, :, 4] - s[:, :, 3], 1),
         "whole block": last - first,

@@ -67,6 +67,28 @@
 //   Shared memory: 64 KB slab, N*N/8 bitmap, a list of N + 8 pairs a warp:
 //   111,888 bytes at N=256.
 //
+// The slab kernel's fused form (gat_slab_kernel<true>, the library's
+// gat_attention_layer_f32; kernels/gat_attention.py, gat_attention_layer) is
+// GAT's whole attention step, for a head of at most 64 columns (one slab a
+// head). In place of s_src, s_dst and struct it takes a_src and a_dst [H, fh],
+// adj [C,N,N], mask [C,N], the bias [F] (or none) and the activation:
+//   Scores: once the slab has landed, a half-warp a slab row takes the row's
+//   two dot products with the head's a_src and a_dst (lane g columns 4g ..
+//   4g + 3, then four xor-shuffle steps), in fp32, into the ssrc / sdst
+//   arrays.
+//   Structure: the bitmap packs (sign(adj[i,j]) + [i == j]) * mask[j] > 0, the
+//   plain path's structure (sign as (x > 0) - (x < 0), so NaN gives 0). The
+//   sum k = sign + [i == j] is -1, 0, 1 or 2, so the product is > 0 exactly
+//   when k > 0 and mask[j] > 0 or k < 0 and mask[j] < 0; each lane keeps
+//   those two signs of its eight mask columns as bits.
+//   Tail: act(acc + b[col]) * mask[i] before the store (ELU as expm1f where
+//   the value is not > 0, as PyTorch's; the row mask a multiply, so NaN
+//   stays NaN).
+// Reads: z, adj and mask once, as the plain form reads z and struct; the
+// list walk and its sums are the plain form's. The tail's bias and
+// activation are split over the two half-warps (two columns a lane), which
+// hold the same sums. a_src, a_dst and the bias are read 16 bytes at a time.
+//
 // "row" (the rest: N > 256, odd widths, unaligned tensors, and every bf16
 // call: the slab's cp.async staging and float4 list walk are fp32's). One
 // warp per destination row: its N scores live in shared memory, a block of
@@ -130,6 +152,7 @@ constexpr int SLAB_MAX_N = 256;        // two 16-byte loads a lane a row
 constexpr int ROWS = 4;                // structure rows a warp loads at once
 constexpr int GATHER = 4;              // list entries a half-warp reads a step
 constexpr int PAD = 2 * GATHER;        // lists are padded to whole steps
+constexpr int SCORE_ROWS = 4;          // row pairs a warp's score pass takes
 
 struct SlabLayout {                    // byte offsets into shared memory
   int slab, bits, ssrc, sdst, bad, flag, lst, bytes;
@@ -166,10 +189,50 @@ __device__ __forceinline__ void fma4(float4& acc, float a, float4 z) {
   acc.w = fmaf(a, z.w, acc.w);
 }
 
+enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_ELU = 2 };
+
+// The fused form's inputs beyond the plain form's (unused by the plain form).
+struct LayerArgs {
+  const float* a_src;                  // [H, fh]
+  const float* a_dst;                  // [H, fh]
+  const float* mask;                   // [C, N]
+  const float* bias;                   // [F], or null
+  int act;                             // Act
+};
+
+// PyTorch's activations: ELU (alpha 1) as expm1 where not > 0; ReLU keeps NaN.
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == ACT_ELU) return v > 0.0f ? v : expm1f(v);
+  if (act == ACT_RELU) return isnan(v) ? v : fmaxf(v, 0.0f);
+  return v;
+}
+
+// A structure nibble: four flags of one 16-byte load of row i at column j0.
+// The plain form: x > 0. The fused form: (sign(x) + [j == i]) * mask[j] > 0,
+// from mp / mn, the four columns' mask[j] > 0 / mask[j] < 0 bits: with k =
+// sign(x) + [j == i], k > 0 where x > 0 or on the diagonal where x is not
+// < 0, and k < 0 where x < 0 off the diagonal (NaN is neither > 0 nor < 0).
+template <bool FUSED>
+__device__ __forceinline__ uint32_t nibble(float4 x, int j0, int i,
+                                           uint32_t mp, uint32_t mn) {
+  const uint32_t pos = static_cast<uint32_t>(
+      (x.x > 0.0f) | (x.y > 0.0f) << 1 | (x.z > 0.0f) << 2 |
+      (x.w > 0.0f) << 3);
+  if (!FUSED) return pos;
+  const uint32_t neg = static_cast<uint32_t>(
+      (x.x < 0.0f) | (x.y < 0.0f) << 1 | (x.z < 0.0f) << 2 |
+      (x.w < 0.0f) << 3);
+  const uint32_t dk = static_cast<uint32_t>(i - j0);
+  const uint32_t diag = dk < 4u ? 1u << dk : 0u;
+  return (mp & (pos | (diag & ~neg))) | (mn & neg & ~diag);
+}
+
+template <bool FUSED>
 __global__ void __launch_bounds__(SLAB_THREADS, 2) gat_slab_kernel(
     const float* __restrict__ z, const float* __restrict__ s_src,
     const float* __restrict__ s_dst, const float* __restrict__ st,
-    float* __restrict__ out, int N, int F, int H, int slices, float slope) {
+    float* __restrict__ out, int N, int F, int H, int slices, float slope,
+    const LayerArgs la) {
   extern __shared__ __align__(16) uint8_t smem[];
   const SlabLayout L(N);
   float* slab = reinterpret_cast<float*>(smem + L.slab);
@@ -197,13 +260,15 @@ __global__ void __launch_bounds__(SLAB_THREADS, 2) gat_slab_kernel(
   }
   cp_async_commit();
   for (int t = threadIdx.x; t < W; t += SLAB_THREADS) slab[N * W + t] = 0.0f;
-  const float* ssc = s_src + (long long)c * N * H;
-  const float* sdc = s_dst + (long long)c * N * H;
-  for (int t = threadIdx.x; t < N * H; t += SLAB_THREADS) {
-    const float a = __ldg(ssc + t), b = __ldg(sdc + t);
-    if (t % H == hh) {
-      ssrc[t / H] = a;
-      sdst[t / H] = b;
+  if (!FUSED) {
+    const float* ssc = s_src + (long long)c * N * H;
+    const float* sdc = s_dst + (long long)c * N * H;
+    for (int t = threadIdx.x; t < N * H; t += SLAB_THREADS) {
+      const float a = __ldg(ssc + t), b = __ldg(sdc + t);
+      if (t % H == hh) {
+        ssrc[t / H] = a;
+        sdst[t / H] = b;
+      }
     }
   }
   for (int t = threadIdx.x; t < N; t += SLAB_THREADS)
@@ -213,6 +278,25 @@ __global__ void __launch_bounds__(SLAB_THREADS, 2) gat_slab_kernel(
   // the structure rows, packed into bitmaps
   const float* sp = st + (long long)c * N * N;
   const int n4 = N / 4;
+  // the fused form: the signs of mask[j] at this lane's eight columns, bit
+  // 4u + k for column 4 (lane + 32u) + k
+  uint32_t mpos = 0u, mneg = 0u;
+  if (FUSED) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int q = lane + 32 * u;
+      if (q < n4) {
+        const float4 m = __ldg(reinterpret_cast<const float4*>(
+                                   la.mask + (long long)c * N) + q);
+        const float e[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          mpos |= static_cast<uint32_t>(e[k] > 0.0f) << (4 * u + k);
+          mneg |= static_cast<uint32_t>(e[k] < 0.0f) << (4 * u + k);
+        }
+      }
+    }
+  }
   for (int i0 = warp; i0 < N; i0 += SLAB_WARPS * ROWS) {
     float4 v[ROWS][2];
 #pragma unroll
@@ -233,11 +317,10 @@ __global__ void __launch_bounds__(SLAB_THREADS, 2) gat_slab_kernel(
       if (i >= N) break;               // warp-uniform
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const float4 x = v[r][u];
-        uint32_t word = static_cast<uint32_t>(
-                            (x.x > 0.0f) | (x.y > 0.0f) << 1 |
-                            (x.z > 0.0f) << 2 | (x.w > 0.0f) << 3)
-                        << (4 * (lane & 7));
+        const uint32_t word0 = nibble<FUSED>(
+            v[r][u], 4 * (lane + 32 * u), i, (mpos >> (4 * u)) & 15u,
+            (mneg >> (4 * u)) & 15u);
+        uint32_t word = word0 << (4 * (lane & 7));
         word |= __shfl_xor_sync(FULL, word, 1);
         word |= __shfl_xor_sync(FULL, word, 2);
         word |= __shfl_xor_sync(FULL, word, 4);
@@ -263,6 +346,48 @@ __global__ void __launch_bounds__(SLAB_THREADS, 2) gat_slab_kernel(
           atomicOr(col < 32 ? &bad[r].x : &bad[r].y, 1u << (col % 32));
           *flag = 1;
         }
+    }
+  }
+  // the fused form's scores: a half-warp a slab row, lane g its columns
+  // 4g .. 4g + 3 (a float4), then four xor-shuffle steps; SCORE_ROWS row
+  // pairs at once, so their sums interleave. And lane k's row mask,
+  // mask[c, i] of this warp's row i = warp + 16 k.
+  float rmask = 0.0f;
+  if (FUSED) {
+    if (warp + SLAB_WARPS * lane < N)
+      rmask = __ldg(la.mask + (long long)c * N + warp + SLAB_WARPS * lane);
+    const int g = lane % 16, side = lane / 16;
+    const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 as = g < q4 ? __ldg(reinterpret_cast<const float4*>(
+                                   la.a_src + hh * fh) + g) : zero4;
+    const float4 ad = g < q4 ? __ldg(reinterpret_cast<const float4*>(
+                                   la.a_dst + hh * fh) + g) : zero4;
+    const float4* slab4 = reinterpret_cast<const float4*>(slab);
+    for (int r0 = warp; r0 < N; r0 += 2 * SLAB_WARPS * SCORE_ROWS) {
+      float sv[SCORE_ROWS], dv[SCORE_ROWS];
+#pragma unroll
+      for (int u = 0; u < SCORE_ROWS; ++u) {
+        const int r = min(r0 + SLAB_WARPS * (2 * u + side), N - 1);
+        const float4 x = g < q4 ? slab4[r * q4 + g] : zero4;
+        sv[u] = fmaf(as.w, x.w, fmaf(as.z, x.z, fmaf(as.y, x.y, as.x * x.x)));
+        dv[u] = fmaf(ad.w, x.w, fmaf(ad.z, x.z, fmaf(ad.y, x.y, ad.x * x.x)));
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < SCORE_ROWS; ++u) {
+          sv[u] += __shfl_xor_sync(FULL, sv[u], o);
+          dv[u] += __shfl_xor_sync(FULL, dv[u], o);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SCORE_ROWS; ++u) {
+        const int r = r0 + SLAB_WARPS * (2 * u + side);
+        if (g == 0 && r < N) {
+          ssrc[r] = sv[u];
+          sdst[r] = dv[u];
+        }
+      }
     }
   }
   __syncthreads();
@@ -368,7 +493,23 @@ __global__ void __launch_bounds__(SLAB_THREADS, 2) gat_slab_kernel(
       if (cols & 4u) acc.z = nan;
       if (cols & 8u) acc.w = nan;
     }
-    if (side == 0 && g < q4)
+    if (FUSED) {
+      // act(acc + b) * mask[i]; both halves hold the sums, so half-warp
+      // `side` takes columns 4g + 2 side and 4g + 2 side + 1 of them
+      const float rm = __shfl_sync(FULL, rmask, (i - warp) / SLAB_WARPS);
+      float2 v = side ? make_float2(acc.z, acc.w) : make_float2(acc.x, acc.y);
+      if (la.bias) {
+        const float2 b = __ldg(reinterpret_cast<const float2*>(
+                                   la.bias + col0) + 2 * gq + side);
+        v.x += b.x;
+        v.y += b.y;
+      }
+      v.x = activate(v.x, la.act) * rm;
+      v.y = activate(v.y, la.act) * rm;
+      if (g < q4)
+        *reinterpret_cast<float2*>(out + ((long long)c * N + i) * F + col0 +
+                                   4 * g + 2 * side) = v;
+    } else if (side == 0 && g < q4)
       *reinterpret_cast<float4*>(out + ((long long)c * N + i) * F + col0 +
                                  4 * g) = acc;
     __syncwarp();                      // lst is rewritten for the next row
@@ -481,13 +622,40 @@ int gat_attention_slab_f32(const float* z, const float* s_src,
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = SlabLayout(N).bytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      gat_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gat_slab_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slices = (fh + SLAB_COLS - 1) / SLAB_COLS;
   const dim3 grid(H * slices, C);
-  gat_slab_kernel<<<grid, SLAB_THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      z, s_src, s_dst, st, out, N, F, H, slices, slope);
+  gat_slab_kernel<false><<<grid, SLAB_THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      z, s_src, s_dst, st, out, N, F, H, slices, slope, LayerArgs{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused form: z [C,N,F], a_src/a_dst [H,F/H], adj [C,N,N], mask [C,N],
+// bias [F] or null, out [C,N,F]; act 0 none, 1 relu, 2 elu. Needs the slab
+// kernel's shapes with one slab a head (F/H <= 64) and every pointer on a
+// 16-byte boundary. Return cudaGetLastError.
+int gat_attention_layer_f32(const float* z, const float* a_src,
+                            const float* a_dst, const float* adj,
+                            const float* mask, const float* bias, float* out,
+                            int C, int N, int F, int H, float slope, int act,
+                            void* stream) {
+  const int fh = F / H;
+  if (N > SLAB_MAX_N || N % 4 || fh % 4 || fh > SLAB_COLS || act < ACT_NONE ||
+      act > ACT_ELU)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = SlabLayout(N).bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gat_slab_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, C);
+  gat_slab_kernel<true><<<grid, SLAB_THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      z, nullptr, nullptr, adj, out, N, F, H, 1, slope,
+      LayerArgs{a_src, a_dst, mask, bias, act});
   return static_cast<int>(cudaGetLastError());
 }
 

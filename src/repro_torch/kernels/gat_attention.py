@@ -33,6 +33,23 @@ The wrapper takes the plain version for tensors on the CPU; for CUDA
 tensors it launches the chosen kernel or raises (it never switches to the
 other kernel after a failure). ``launches`` counts launches,
 ``variant_launches`` each kernel's.
+
+``gat_attention_layer`` is GAT's whole attention step (``core/program.py``'s
+AttentionScore + dense AttentionSoftmax) in one launch of the slab kernel's
+fused form: from z, a_src and a_dst [heads, F/heads], adj [C,N,N] (the
+batch's ``adj_mean``), mask [C,N], the bias and the activation, the kernel
+takes each head's score terms from its staged slab, packs the structure
+``(sign(adj) + I) * mask[:, None, :] > 0`` bit for bit as the plain path
+builds it, and applies ``act(out + b) * mask[..., None]`` before its one
+store. It saves the plain path's passes over [C,N,N] and [C,N,F] and its
+two score GEMVs; it reads the same bytes as ``gat_attention`` (z, one
+[C,N,N] matrix, out). ``layer_fits`` gives the shapes it takes (fp32, a head
+of at most 64 columns in one slab, N <= 256, aligned), and ``launch_layer``
+launches it for a caller that has checked them; on the CPU the wrapper
+takes the plain composition ``gat_attention_layer_ref``. A fused
+launch counts in ``launches`` and ``variant_launches["slab"]`` and in
+``fused_launches``; ``fused_fallbacks`` counts the program's attention
+steps that ran unfused on the card because the shapes did not fit.
 """
 from __future__ import annotations
 
@@ -51,8 +68,12 @@ SLAB_MAX_N = 256            # two 16-byte structure loads a lane a row;
 
 _SLAB_COLS, _SLAB_WARPS, _PAD, _ROW_WARPS = 64, 16, 8, 8
 
+ACTS = ("none", "relu", "elu")          # the library's Act, in order
+
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
+fused_launches = 0
+fused_fallbacks = 0
 _count_lock = threading.Lock()
 
 
@@ -111,6 +132,9 @@ def _lib():
                lib.gat_attention_row_bf16):
         fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
+    lib.gat_attention_layer_f32.argtypes = [p] * 7 + [i] * 4 + [
+        ctypes.c_float, i, p]
+    lib.gat_attention_layer_f32.restype = i
     for fn in (lib.gat_slab_smem_bytes, lib.gat_row_smem_bytes):
         fn.argtypes = [i]
         fn.restype = i
@@ -206,3 +230,140 @@ def gat_cost(z, s_src, s_dst, struct, *, n_heads: int) -> dict:
         + z.element_size() * C * N * F
     return {"flops": 2.0 * nnz * F + 6.0 * C * n_heads * N * N,
             "hbm_bytes": moved}
+
+
+def layer_fits(z, a_src, a_dst, adj, mask, b, *, n_heads: int) -> bool:
+    """Whether ``gat_attention_layer`` launches its fused kernel for these
+    CUDA tensors: every input fp32 and contiguous, the slab kernel's shapes
+    with one slab a head (N <= 256, N and the head width multiples of 4, the
+    head width at most 64), and every input on a 16-byte boundary."""
+    C, N, F = z.shape
+    tensors = [t for t in (z, a_src, a_dst, adj, mask, b) if t is not None]
+    return (all(t.dtype == torch.float32 and t.is_contiguous()
+                and t.data_ptr() % 16 == 0 for t in tensors)
+            and gat_variant(N, F, n_heads, aligned=True) == "slab"
+            and F // n_heads <= _SLAB_COLS)
+
+
+def gat_attention_layer_ref(z, a_src, a_dst, adj, mask, b=None, *,
+                            n_heads, negative_slope=0.2, act="elu"):
+    """The plain composition the fused launch replaces, op for op as
+    ``core/program.py`` runs it under impl="cuda" on CPU tensors: the score
+    terms as two einsums, the structure ``(sign(adj) + I) * mask[:, None,
+    :]``, ``gat_attention_ref``, then ``act(out + b) * mask[..., None]``."""
+    C, N, F = z.shape
+    z4 = z.reshape(C, N, n_heads, F // n_heads)
+    s_src = torch.einsum("cnhf,hf->cnh", z4, a_src)
+    s_dst = torch.einsum("cnhf,hf->cnh", z4, a_dst)
+    eye = torch.eye(N, dtype=z.dtype, device=z.device)
+    struct = (torch.sign(adj) + eye) * mask[:, None, :]
+    out = gat_attention_ref(z, s_src.contiguous(), s_dst.contiguous(),
+                            struct, n_heads=n_heads,
+                            negative_slope=negative_slope)
+    out = out + b if b is not None else out
+    if act == "relu":
+        out = torch.relu(out)
+    elif act == "elu":
+        out = torch.nn.functional.elu(out)
+    return out * mask[..., None]
+
+
+def gat_attention_layer(z, a_src, a_dst, adj, mask, b=None, *,
+                        n_heads: int, negative_slope: float = 0.2,
+                        act: str = "elu"):
+    """GAT's attention step in one launch. z [C,N,F]; a_src/a_dst [heads,
+    F/heads]; adj [C,N,N] (the structure is (sign(adj) + I) * mask[j] > 0);
+    mask [C,N]; b [F] or None; act "none", "relu" or "elu". Returns
+    ``act(attention + b) * mask[..., None]`` [C,N,F]. CPU tensors take the
+    plain composition; CUDA tensors launch the fused kernel where
+    ``layer_fits`` holds and raise otherwise."""
+    if z.dim() != 3:
+        raise ValueError(f"gat_attention_layer: z must be [C,N,F], got "
+                         f"{tuple(z.shape)}")
+    C, N, F = z.shape
+    if n_heads < 1 or F % n_heads:
+        raise ValueError(f"gat_attention_layer: F={F} not divisible by "
+                         f"n_heads={n_heads}")
+    if act not in ACTS:
+        raise ValueError(f"gat_attention_layer: act={act!r}, expected one "
+                         f"of {ACTS}")
+    shapes = [("a_src", a_src, (n_heads, F // n_heads)),
+              ("a_dst", a_dst, (n_heads, F // n_heads)),
+              ("adj", adj, (C, N, N)), ("mask", mask, (C, N))]
+    if b is not None:
+        shapes.append(("b", b, (F,)))
+    for name, t, shape in shapes:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"gat_attention_layer: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    tensors = [z] + [t for _, t, _ in shapes]
+    dev = z.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("gat_attention_layer: inputs on different devices")
+    kw = dict(n_heads=n_heads, negative_slope=negative_slope, act=act)
+    if dev.type == "cpu":
+        return gat_attention_layer_ref(z, a_src, a_dst, adj, mask, b, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"gat_attention_layer: unsupported device {dev}")
+    if not layer_fits(z, a_src, a_dst, adj, mask, b, n_heads=n_heads):
+        raise ValueError(f"gat_attention_layer: the fused kernel does not "
+                         f"take z {tuple(z.shape)} {z.dtype} with "
+                         f"{n_heads} heads (layer_fits)")
+    return launch_layer(z, a_src, a_dst, adj, mask, b, **kw)
+
+
+def launch_layer(z, a_src, a_dst, adj, mask, b, *, n_heads: int,
+                 negative_slope: float, act: str):
+    """The fused launch alone, for CUDA tensors of the shapes
+    ``gat_attention_layer`` checks and that ``layer_fits`` takes: the
+    caller has checked them (``core/program.py``'s grouped step gates on
+    ``layer_fits`` once)."""
+    build.refuse_grad("gat_attention_layer", z, a_src, a_dst, adj, mask, b)
+    C, N, F = z.shape
+    dev = z.device
+    lib = _lib()
+    out = torch.empty((C, N, F), dtype=z.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gat_attention_layer_f32(
+            z.data_ptr(), a_src.data_ptr(), a_dst.data_ptr(), adj.data_ptr(),
+            mask.data_ptr(), b.data_ptr() if b is not None else None,
+            out.data_ptr(), C, N, F, n_heads, float(negative_slope),
+            ACTS.index(act), stream)
+    if err:
+        raise RuntimeError(f"gat_attention_layer: fused slab kernel launch "
+                           f"failed (cudaError {err})")
+    global launches, fused_launches
+    with _count_lock:
+        launches += 1
+        variant_launches["slab"] += 1
+        fused_launches += 1
+    if op_analysis.active() is not None:
+        c = gat_layer_cost(z, a_src, a_dst, adj, mask, b, n_heads=n_heads)
+        op_analysis.note_kernel("gat_attention", c["flops"],
+                                c["hbm_bytes"], torch.float32)
+    return out
+
+
+def note_fallback() -> None:
+    """Count one attention step that ran unfused on the card
+    (``fused_fallbacks``)."""
+    global fused_fallbacks
+    with _count_lock:
+        fused_fallbacks += 1
+
+
+def gat_layer_cost(z, a_src, a_dst, adj, mask, b=None, *,
+                   n_heads: int) -> dict:
+    """The fused step's operations and bytes: ``gat_cost``'s on this
+    structure, 4 F a row for the two score terms and 3 F a row for the
+    bias, activation and mask; z, a_src, a_dst, adj, mask and b read once
+    and the output written once."""
+    C, N, F = z.shape
+    eye = torch.eye(N, dtype=adj.dtype, device=adj.device)
+    nnz = int((((torch.sign(adj) + eye) * mask[:, None, :]) > 0).sum())
+    moved = sum(t.numel() * t.element_size()
+                for t in (z, a_src, a_dst, adj, mask, b) if t is not None) \
+        + z.element_size() * C * N * F
+    return {"flops": 2.0 * nnz * F + 6.0 * C * n_heads * N * N
+            + 7.0 * C * N * F, "hbm_bytes": moved}

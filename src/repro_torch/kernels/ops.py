@@ -7,7 +7,9 @@ read and zero the wrappers' launch counters (``flash_attention`` also
 counts each of its two kernels: ``flash_attention.variant_launches``; the
 fused layer its launches by kernel, Fin and form, ``form_launches``; the
 scatter-gather also its sort kernel's widths, ``width_launches``, and its
-launches by named caller, ``caller_launches``).
+launches by named caller, ``caller_launches``; the GAT kernel its fused
+form's launches, ``fused_launches``, and the attention steps that ran
+unfused on the card, ``fused_fallbacks``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import scatter_gather
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.fused_gnn import fused_gnn_layer  # noqa: F401
-from repro_torch.kernels.gat_attention import gat_attention  # noqa: F401
+from repro_torch.kernels.gat_attention import (  # noqa: F401
+    gat_attention, gat_attention_layer)
 from repro_torch.kernels.scatter_gather import \
     scatter_gather_aggregate  # noqa: F401
 
@@ -43,3 +46,5 @@ def reset_launch_counts() -> None:
                 m.width_launches = dict.fromkeys(m.width_launches, 0)
             if hasattr(m, "caller_launches"):
                 m.caller_launches = {}
+            if hasattr(m, "fused_launches"):
+                m.fused_launches = m.fused_fallbacks = 0

@@ -10,7 +10,8 @@ CPU.
     and agrees with them elsewhere at 2e-5; so do rows whose structural
     scores are all -inf (0, because the max also sees the masked entries'
     -1e30), empty rows (0) and fully dense rows.
-(b) A numpy model of the slab kernel's algorithm (``slab_model``): per
+(b) A numpy model of the slab kernel's algorithm (``slab_model``, in
+    ``gat_slab_model.py``): per
     (subgraph, head, slice of at most 64 columns) the structure as a bitmap,
     each row's structural columns as a list in ascending j, the max over the
     list seeded at -1e30 where the list is shorter than N, exp, one
@@ -35,8 +36,9 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.gat_attention import gat_attention as j_gat  # noqa: E402
 from repro_torch.kernels import gat_attention, ops  # noqa: E402
 
+from gat_slab_model import FAULTS, slab_model  # noqa: E402
+
 TOL = dict(rtol=2e-5, atol=2e-5)
-SLOPE = 0.2
 
 
 def _inputs(seed, c, n, f, heads, density=0.2):
@@ -146,50 +148,6 @@ def test_edge_rows(c, n, f, heads):
 
 
 # -- (b) the slab kernel's algorithm ------------------------------------------
-
-
-FAULTS = ("skip weight 0", "no NaN from rows outside", "drop last entry",
-          "max seeded at -inf")
-
-
-def slab_model(z, s_src, s_dst, struct, heads, fault=None):
-    """The slab kernel's arithmetic in numpy float32 (see the docstring)."""
-    C, N, F = z.shape
-    fh = F // heads
-    f32 = np.float32
-    out = np.zeros((C, N, F), f32)
-    for c in range(C):
-        bits = struct[c] > 0
-        for hh in range(heads):
-            for s0 in range(0, fh, 64):
-                cols = slice(hh * fh + s0, hh * fh + min(fh, s0 + 64))
-                slab = z[c, :, cols]
-                bad = ~np.isfinite(slab)
-                for i in range(N):
-                    lst = np.nonzero(bits[i])[0]          # ascending j
-                    acc = np.zeros(slab.shape[1], f32)
-                    if len(lst):
-                        e = s_dst[c, i, hh] + s_src[c, lst, hh]
-                        e = np.where(e >= 0, e, f32(SLOPE) * e)
-                        m = np.fmax.reduce(e)             # as fmaxf
-                        if len(lst) < N and fault != "max seeded at -inf":
-                            m = np.fmax(m, f32(-1e30))
-                        x = np.exp(e - m)
-                        inv = f32(1) / np.maximum(x.sum(dtype=f32),
-                                                  f32(1e-20))
-                        w = x * inv
-                        if fault == "drop last entry":
-                            lst, w = lst[:-1], w[:-1]
-                        if fault == "skip weight 0":
-                            lst, w = lst[w != 0], w[w != 0]
-                        halves = [np.zeros_like(acc), np.zeros_like(acc)]
-                        for k, (j, wk) in enumerate(zip(lst, w)):
-                            halves[k % 2] = halves[k % 2] + wk * slab[j]
-                        acc = halves[0] + halves[1]
-                    if fault != "no NaN from rows outside":
-                        acc[bad[~bits[i]].any(0)] = np.nan
-                    out[c, i, cols] = acc
-    return out
 
 
 @pytest.mark.parametrize("c,n,f,heads", SHAPES)
