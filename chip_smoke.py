@@ -25,7 +25,10 @@
    column and padding), on the sort kernel, bitwise equal over two
    launches and at every ``block_cols`` width; the sort kernel timed at
    each width at F 512, 256 and 68 beside its default (``sort_block_cols``,
-   which follows F). ``gat_attention``: the real structure at 4, 1, 2 and 8 heads (head
+   which follows F); and at the GraphSAGE cell's served shape (C=512,
+   F 512 and 256, a batch of the benchmark's graph planned by a sage/sg
+   engine: its edge slots follow its largest subgraph, mean weights),
+   against its plain version and timed beside ``index_add_``. ``gat_attention``: the real structure at 4, 1, 2 and 8 heads (head
    widths 64, 256, 128, 32), N=200 on the slab kernel and N=320 on the row
    kernel, each launched twice (bitwise equal, on the kernel named), and
    inf and NaN in z behind a weight of 0 (outside the structure, or a
@@ -384,6 +387,9 @@ from repro_torch.core.dispatch import DispatchConfig  # noqa: E402
 from repro_torch.core.dse import (H100Spec, PlanViolation,  # noqa: E402
                                   plan_covers)
 from repro_torch.core.engine import DecoupledEngine  # noqa: E402
+from repro_torch.core.ini import ini_batch  # noqa: E402
+from repro_torch.core.subgraph import (batch_from_node_lists,  # noqa: E402
+                                       default_edge_pad)
 from repro_torch.core.program import (Aggregate,  # noqa: E402
                                       SG_SOFTMAX_SUMS, AttentionScore,
                                       AttentionSoftmax, Transform,
@@ -578,13 +584,21 @@ TRAIN_LM = dict(arch="whisper-tiny", batch=8, seq=448, lr=1e-3, steps=30,
                 ckpt_every=10, fail_at=20, rtol=1e-4)
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, GRAD64_TOL = 2, 2048, 1e-12
 LM_TRAIN_DIR = ROOT / "build" / "chip_smoke_lm_train"
+# [kernels] the scatter-gather at the GraphSAGE cell's served shape: the
+# benchmark's graph (Flickr's vertices at avg_degree 5.75 from seed 5, mean
+# degree 10.02), a batch of C=512 Zipf targets planned by a sage/sg engine
+# at e_pad = N(N-1), whose edge slots follow its largest subgraph
+SERVED_C, SERVED_SEED = 512, 5
+SERVED_GRAPH = DatasetSpec("flickr", 89_250, 5.75, 500, 7)
 # kernel launches per batch at L=5 (the program's count, see README)
 EXPECTED = {
     ("gcn", "dense"): {"fused_gnn_layer": 5},
     ("sage", "dense"): {"fused_gnn_layer": 5},
     ("gat", "dense"): {"fused_gnn_layer": 5, "gat_attention": 5},
     ("gcn", "sg"): {"fused_gnn_layer": 5, "scatter_gather_aggregate": 5},
-    ("sage", "sg"): {"scatter_gather_aggregate": 5},
+    # the Transform [W_neigh; W_self] after an sg mean: one self-only
+    # tf32x3 launch on [z | h] a layer
+    ("sage", "sg"): {"fused_gnn_layer": 5, "scatter_gather_aggregate": 5},
     # the sg softmax's segment sums (denominator and numerator) run on the
     # scatter-gather kernel: one launch a layer
     ("gat", "sg"): {"fused_gnn_layer": 5, "scatter_gather_aggregate": 5},
@@ -1260,7 +1274,8 @@ def kernel_phase(x, dev, label):
           f"the weight's split (once a weight, tf32_split) {split:.4f} ms "
           f"[{label}]", flush=True)
     rec["fused_gnn_layer"] = dict(rows[0], host_us=us, split_ms=split,
-                                  rows=rows[1:])
+                                  rows=rows[1:],
+                                  served=fused_served_rows(dev, label))
 
     print("[kernels] scatter_gather_aggregate", flush=True)
     run_checks(sg_checks(x))
@@ -1293,13 +1308,15 @@ def kernel_phase(x, dev, label):
             f"[{label}]",
             flush=True)
     tag, err, ms, plain, lib, bnd, by = rows[0]     # layer-0 width
+    served = sg_served_rows(dev, label)
     args = sg_rows(x)[0][1]
     us = host_us(lambda: scatter_gather_aggregate(*args))
     print(f"  sg {tag}: the wrapper's host time {us:.2f} us a call "
           f"[{label}]", flush=True)
     rec["scatter_gather_aggregate"] = dict(
         shape=tag, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-        bound_by=by, library_ms=lib, block_cols_ms=by_cols, host_us=us)
+        bound_by=by, library_ms=lib, block_cols_ms=by_cols, host_us=us,
+        served=served)
     rec["softmax"] = [dict(shape=t, max_abs_err=e, ms=m, plain_ms=p,
                            bound_ms=b, bound_by=y, library_ms=l)
                       for t, e, m, p, l, b, y in rows[2:]]
@@ -1329,12 +1346,108 @@ def kernel_phase(x, dev, label):
     return rec
 
 
+def fused_served_rows(dev, label):
+    """The fused layer in the GraphSAGE cell's sg Transform form: one
+    self-only call on [z | h] with the weights stacked [W_neigh; W_self]
+    (``core.program.stack_self_weights``), at C=512, N=256, Fout=256 and
+    Fin 1024 (layer 0: f_in 500 padded to 512, twice) and 512 (the inner
+    layers). Each is checked against ``fused_gnn_layer_ref``, launched twice
+    (bitwise equal, both on tf32x3) and timed beside its plain version,
+    the ``baddbmm`` chain and its bound. Returns the rows for the JSON
+    line."""
+    gen = torch.Generator().manual_seed(1)
+    c, fo = SERVED_C, F_HID
+    mask = (torch.arange(N)[None, :]
+            < torch.randint(200, N + 1, (c, 1), generator=gen)).float()
+    mask = mask.to(dev)
+    b = (0.1 * torch.randn(fo, generator=gen)).to(dev)
+    rows = []
+    for part in (512, F_HID):
+        fin = 2 * part
+        x = torch.relu(torch.randn(c, N, fin, generator=gen)).to(dev) \
+            * mask[..., None]
+        w = torch.cat((dense_init(gen, (part, fo)),
+                       dense_init(gen, (part, fo)))).to(dev)
+        args = (None, x, None, w, b, mask)
+        tag = (f"C={c} N={N} Fin={fin} ([z | h], {part} each) Fout={fo} "
+               f"self-only, [W_neigh; W_self] (the sage cell's Transform)")
+        before = fused_kernels.variant_launches["tf32x3"]
+        got = fused_gnn_layer(*args)
+        again = fused_gnn_layer(*args)
+        tf32 = fused_kernels.variant_launches["tf32x3"] == before + 2
+        ok, text, err = reading(got, fused_gnn_layer_ref(*args))
+        same = bool(torch.equal(got, again))
+        check(ok and same and tf32, f"fused {tag}: {text}, repeat bitwise "
+              f"{same}, tf32x3 {tf32}")
+        del got, again
+        ms = cuda_ms(lambda: fused_gnn_layer(*args))
+        plain = cuda_ms(lambda: fused_gnn_layer_ref(*args), iters=5)
+        lib = cuda_ms(fused_library(args, {}), iters=5)
+        bnd, by = fused_bound(args)
+        print(f"  fused {tag}: kernel {ms:.4f} ms (tf32x3), plain "
+              f"{plain:.4f} ms, baddbmm chain {lib:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}), {100 * bnd / ms:.1f} % of it; {text}, "
+              f"repeat bitwise {same} [{label}]", flush=True)
+        rows.append(dict(shape=tag, variant="tf32x3", max_abs_err=err,
+                         ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bnd, bound_by=by))
+        del x, args
+    return rows
+
+
+def sg_served_rows(dev, label):
+    """The scatter-gather at the GraphSAGE cell's served shape (C=512,
+    N=256, F 512 and 256, the batch's edge slots, mean weights): checked
+    against its plain version (two launches bitwise equal) and timed beside
+    it, ``index_add_`` and its bound. Returns the rows for the JSON line."""
+    t0 = time.perf_counter()
+    graph = make_graph(SERVED_GRAPH, seed=SERVED_SEED)
+    targets = zipf_traffic(graph, SERVED_C, seed=0)
+    with DecoupledEngine(graph, GNNConfig(
+            kind="sage", n_layers=LAYERS, receptive_field=N, f_in=F_IN,
+            f_hidden=F_HID), config=ServingConfig(
+            device="cuda", batch_size=SERVED_C, mode="sg",
+            e_pad=N * (N - 1))) as eng:
+        sb = eng.plan(targets).sb
+    e, live = sb.edge_src.shape[1], int((sb.edge_w_mean != 0).sum())
+    print(f"[data] sage/sg batch C={SERVED_C} N={N}: edge slots {e}, real "
+          f"edges a subgraph mean {sb.n_edges.mean():.1f} max "
+          f"{sb.n_edges.max()}, in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    feats = t(np.pad(sb.feats, ((0, 0), (0, 0), (0, 512 - F_IN))))
+    src, dst, w = t(sb.edge_src), t(sb.edge_dst), t(sb.edge_w_mean)
+    rows = []
+    for f, h in ((512, feats), (F_HID, feats[..., :F_HID].contiguous())):
+        args = (src, dst, w, h)
+        tag = (f"C={SERVED_C} N={N} F={f} E={e} real_edges={live} "
+               f"(the sage cell's batch)")
+        got = scatter_gather_aggregate(*args)
+        ok, text, err = reading(got, scatter_gather_aggregate_ref(*args))
+        same = bool(torch.equal(got, scatter_gather_aggregate(*args)))
+        check(ok and same, f"sg {tag}: {text}, repeat bitwise {same}")
+        del got
+        ms = cuda_ms(lambda: scatter_gather_aggregate(*args))
+        plain = cuda_ms(lambda: scatter_gather_aggregate_ref(*args), iters=5)
+        lib = cuda_ms(sg_library(args), iters=5)
+        bnd, by = sg_bound(args)
+        variant = sg_kernels.sg_variant(N, e)
+        print(f"  sg {tag}: kernel {ms:.4f} ms ({variant}), plain "
+              f"{plain:.4f} ms, library (index_add_) {lib:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}); {text} [{label}]", flush=True)
+        rows.append(dict(shape=tag, variant=variant, max_abs_err=err, ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                         bound_by=by))
+    return rows
+
+
 # -- phase 3b: the scatter-gather's bucket kernel and the bf16 kernels -------
 
 
 def big_batch(graph, targets):
     """A forced-sg batch of the Flickr-sized graph at N=1024 and C=8, as the
-    engine plans it (its edge budget is default_edge_pad's 74,496 slots)."""
+    engine plans it (no budget set: its edge slots follow its largest
+    subgraph, default_edge_pad's 74,496 before)."""
     with DecoupledEngine(graph, GNNConfig(
             kind="gcn", n_layers=LAYERS, receptive_field=BIG_N, f_in=F_IN,
             f_hidden=F_HID), config=ServingConfig(
@@ -2053,7 +2166,8 @@ def repeatability_phase(graph, targets, label):
 def program_launches(prog) -> dict:
     """Kernel launches of one batch through the specialized ``prog`` under
     impl="cuda", read off its step list: a fused group or a Transform
-    without w_self is one fused launch, an sg Aggregate one scatter-gather,
+    (with w_self: on [z | h]) is one fused launch, an sg Aggregate one
+    scatter-gather,
     a dense AttentionSoftmax (alone, or grouped with its scores) one
     gat_attention, an sg one scatter-gather (its segment sums)."""
     out = dict.fromkeys(REPLACES, 0)
@@ -2065,8 +2179,7 @@ def program_launches(prog) -> dict:
                     out["gat_attention"] += times
                 else:
                     out["scatter_gather_aggregate"] += times
-            elif len(ops_) > 1 or (isinstance(head, Transform)
-                                   and head.w_self is None):
+            elif len(ops_) > 1 or isinstance(head, Transform):
                 out["fused_gnn_layer"] += times
             elif isinstance(head, Aggregate) and head.mode == "sg":
                 out["scatter_gather_aggregate"] += times
@@ -4500,13 +4613,15 @@ def serving_batch():
     print(f"[data] flickr V={graph.num_vertices} E={graph.num_edges} "
           f"f_in={graph.feature_dim} in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    with DecoupledEngine(graph, GNNConfig(
-            kind="gcn", n_layers=LAYERS, receptive_field=N, f_in=F_IN,
-            f_hidden=F_HID), config=ServingConfig(
-            device="cuda", batch_size=C, mode="sg")) as eng:
-        sb = eng.plan(targets[:C]).sb
-        e_pad = eng.e_pad
-    print(f"[data] batch C={C} N={N} e_pad={e_pad} mean real edges "
+    # both layouts of one batch (an engine's Pack makes only those its
+    # program reads), its edges in default_edge_pad's slots: the fixed
+    # shape the kernel rows have been timed at (Pack's layout follows each
+    # batch's largest subgraph instead; sg_served_rows times that)
+    sb = batch_from_node_lists(
+        graph, targets[:C], ini_batch(graph, targets[:C], N, 0.15, 1e-4, 8),
+        N, default_edge_pad(graph, N))
+    print(f"[data] batch C={C} N={N} e_pad={default_edge_pad(graph, N)} "
+          f"edge slots {sb.edge_src.shape[1]} mean real edges "
           f"{sb.n_edges.mean():.1f}", flush=True)
     return graph, targets, sb
 

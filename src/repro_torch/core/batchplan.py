@@ -39,7 +39,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.subgraph import (SubgraphBatch, SubgraphRows,
-                                 assemble_batch, build_subgraph_rows)
+                                       assemble_batch, build_subgraph_rows,
+                                       edge_slots)
 from repro_torch.store.nbr_cache import nbr_key
 
 
@@ -57,6 +58,10 @@ class BatchPlan:
     row_gen: Optional[int] = None     # row-cache epoch at Select time
     # Build
     rows: Optional[List[SubgraphRows]] = None
+    # the deployment's fixed edge layout (its e_pad): the rows' edge
+    # arrays hold their real edge count, and take this many slots on the
+    # wire (the layout a graph host's rows share with the reference's)
+    e_pad: Optional[int] = None
     build_hits: int = 0
     build_misses: int = 0
     # induced-subgraph density stats (mean over the batch's rows): the
@@ -188,7 +193,9 @@ class BuildStage(PlanStage):
     """Induced-subgraph construction: node lists -> per-target
     SubgraphRows, via the subgraph-row cache when the policy enables it.
     A cache hit skips the build entirely (the ROADMAP's subgraph-row
-    caching); hit/miss counts cover unique targets, like Select."""
+    caching); hit/miss counts cover unique targets, like Select. Rows hold
+    every edge, at their real edge count (Pack refuses a batch whose
+    subgraph is over the deployment's edge budget)."""
 
     name = "build"
 
@@ -200,11 +207,12 @@ class BuildStage(PlanStage):
             return plan
         eng = self.engine
         cfg = eng.cfg
-        n, e_pad = cfg.receptive_field, eng.e_pad
+        n = cfg.receptive_field
+        plan.e_pad = eng.e_pad
         targets = [int(t) for t in plan.targets]
         cache = eng.sg_cache
         if cache is None:
-            plan.rows = [build_subgraph_rows(eng.graph, nl[:n], n, e_pad)
+            plan.rows = [build_subgraph_rows(eng.graph, nl[:n], n)
                          for nl in plan.node_lists]
             _note_density(plan)
             return plan
@@ -214,10 +222,8 @@ class BuildStage(PlanStage):
         for t in dict.fromkeys(targets):          # unique, order-kept
             key = nbr_key(t, n, cfg.ppr_alpha, cfg.ppr_eps)
             rows = cache.get(key)
-            if rows is None or rows.adj.shape[0] != n \
-                    or rows.edge_src.shape[0] != e_pad:
-                rows = build_subgraph_rows(eng.graph, by_target[t][:n],
-                                           n, e_pad)
+            if rows is None or rows.adj.shape[0] != n:
+                rows = build_subgraph_rows(eng.graph, by_target[t][:n], n)
                 cache.put(key, rows, generation=plan.row_gen,
                           frontier=plan.frontiers.get(t))
             else:
@@ -260,10 +266,17 @@ class PackStage(PlanStage):
         src = eng._fsource
         n = eng.cfg.receptive_field
         tr = eng.tracer
+        # the batch's edge layout follows its largest subgraph (none where
+        # the program reads no edges; a subgraph over the edge budget is
+        # refused, EdgeBudgetError), its [C, N, N] adjacency is made only
+        # where the program reads it
+        slots = edge_slots([r.n_edges for r in plan.rows],
+                           eng.config.e_pad) if eng.needs_edges else 0
         with _pack_span(tr, "pack.assemble"):
             sb = assemble_batch(eng.graph, plan.targets, plan.node_lists,
-                                plan.rows, n, eng.e_pad,
-                                build_feats=src.needs_host_feats)
+                                plan.rows, n, slots,
+                                build_feats=src.needs_host_feats,
+                                dense=bool(eng.adj_keys))
         plan.sb = sb
         with _pack_span(tr, "pack.device_batch"):
             d = eng.device_batch(sb, include_feats=False)
@@ -288,7 +301,9 @@ class PackStage(PlanStage):
             build_hits=plan.build_hits, build_misses=plan.build_misses,
             dedup_ratio=dedup,
             shard_bytes=per_shard(payload) if per_shard else None,
-            batch_edges=plan.n_edges)
+            batch_edges=plan.n_edges,
+            edges=int(sb.n_edges.sum()) if slots else 0,
+            edge_slots=sb.edge_src.size)
         plan.device = d
         if tr is not None:           # annotate this batch's pack span
             tr.annotate(bytes_shipped=shipped, bytes_dense=dense)

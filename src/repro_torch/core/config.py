@@ -58,7 +58,7 @@ class ServingConfig:
     mode: str = "auto"                 # per-op mux: auto | dense | sg
     impl: str = "cuda"                 # kernel substrate: torch | cuda
     seed: int = 0                      # param init when params=None
-    e_pad: Optional[int] = None        # edge budget; None = derive
+    e_pad: Optional[int] = None        # edge budget; None = none (layout derived)
     # store
     store: StorePolicy = field(default_factory=StorePolicy)
     # host pipeline

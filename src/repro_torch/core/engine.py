@@ -68,7 +68,7 @@ from repro_torch.core.config import ServingConfig
 from repro_torch.core.program import (ProgramDecision, compile_program,
                                       execute, input_width_params, lower,
                                       required_adjacency, respecialize,
-                                      specialize)
+                                      specialize, stack_self_weights)
 from repro_torch.core.scheduler import (PipelineScheduler, SchedulerStats,
                                         StreamTicket)
 from repro_torch.core.subgraph import SubgraphBatch, default_edge_pad
@@ -131,6 +131,10 @@ class DecoupledEngine:
         self.store_policy = store
         self.last_dedup_ratio = None
         n = cfg.receptive_field
+        # the edge layout the DSE plans for and graph hosts' rows cross the
+        # wire in; the edge budget is config.e_pad alone (None: none), and
+        # Pack lays each batch out in its largest subgraph's edges
+        # (core.subgraph.edge_slots)
         self.e_pad = config.e_pad or default_edge_pad(graph, n)
         avg_edges = min(self.e_pad, n * float(graph.degrees.mean()))
         # compile the model through the lowering registry, then set each
@@ -199,6 +203,8 @@ class DecoupledEngine:
             for k in input_width_params(self.program):
                 l0[k] = torch.nn.functional.pad(l0[k], (0, 0, 0, pad))
             self.params = dict(params, layer0=l0)
+        if self.impl == "cuda":
+            self.params = stack_self_weights(self.program, self.params)
         self._fsource = build_feature_source(graph, store, self.f_pad,
                                              self.device)
         if config.remote:
@@ -217,15 +223,15 @@ class DecoupledEngine:
         else:
             self._host_pool = None
             self.nbr_cache = self._build_nbr_cache(store)
-            # Build-stage subgraph-row cache, byte-bounded by default (one
-            # entry is ~2N^2 floats + the edge arrays)
+            # Build-stage subgraph-row cache: an explicit entry cap, or
+            # bounded by bytes by default, each entry counted at what it
+            # holds (~2N^2 floats + its edge arrays at the real edge count)
             if store.cache_subgraph_rows:
                 cap = store.subgraph_capacity
-                if cap is None:
-                    entry = 2 * n * n * 4 + 2 * n * 4 + 4 * self.e_pad * 4
-                    cap = max(1, min(store.nbr_capacity,
-                                     store.subgraph_budget_bytes // entry))
-                self.sg_cache = SubgraphRowCache(cap)
+                self.sg_cache = SubgraphRowCache(
+                    store.nbr_capacity if cap is None else cap,
+                    max_bytes=store.subgraph_budget_bytes if cap is None
+                    else None)
             else:
                 self.sg_cache = None
             # the host side as an explicit staged pipeline (Select ->

@@ -8,9 +8,9 @@ counterpart of the reference's ``"xla"``) or through the package's CUDA
 kernels (``impl="cuda"``, the counterpart of ``"pallas"``): under
 ``"cuda"`` a dense Aggregate[+Residual]+Transform group is peephole-fused
 into ONE ``kernels.ops.fused_gnn_layer`` call, every standalone Transform
-without ``w_self`` runs the same kernel, sg Aggregates run the
-scatter-gather kernel, an AttentionScore + dense AttentionSoftmax pair runs
-as ONE launch of the GAT kernel's fused form (``kernels.ops.
+runs the same kernel (one with ``w_self`` on [src | h_in] through the two
+weights stacked, ``stack_self_weights``), sg Aggregates run the scatter-gather kernel, an
+AttentionScore + dense AttentionSoftmax pair runs as ONE launch of the GAT kernel's fused form (``kernels.ops.
 gat_attention_layer``) where its shapes fit and a lone dense
 AttentionSoftmax runs the GAT kernel; everything else is plain PyTorch on
 both impls, as it is outside Pallas in the reference.
@@ -666,6 +666,33 @@ def _step_residual(op: Residual):
     return step
 
 
+def stacked_key(op: Transform) -> str:
+    """The params key of a ``w_self`` Transform's two weights stacked
+    [w; w_self] (``stack_self_weights``)."""
+    return f"{op.w}+{op.w_self}"
+
+
+def stack_self_weights(prog: AckProgram, params):
+    """``params`` with each ``w_self`` Transform's weights also stacked,
+    [w; w_self] along the input rows, under ``stacked_key`` in its layer's
+    dict (the stacked ``layers`` along their rows too): under impl="cuda"
+    such a Transform is one self-only call of the fused kernel on
+    [src | h_in]. The engine stacks them once, when it places its
+    parameters; a program run on params without them stacks them on each
+    call."""
+    out = dict(params)
+    for name, seq in (("layer0", prog.layer0), ("layers", prog.inner)):
+        ops = [op for op in seq if isinstance(op, Transform) and op.w_self]
+        if ops and name in params:
+            layer = dict(params[name])
+            with torch.no_grad():
+                for op in ops:
+                    layer[stacked_key(op)] = torch.cat(
+                        (layer[op.w], layer[op.w_self]), dim=-2)
+            out[name] = layer
+    return out
+
+
 def _step_transform(op: Transform, impl: str, blocks: BlockSpec = None):
     from repro_torch.kernels import ops as kops
     bkw = _block_kw(blocks, "block_f")
@@ -680,6 +707,21 @@ def _step_transform(op: Transform, impl: str, blocks: BlockSpec = None):
             h = regs[op.src]
             regs[op.out] = kops.fused_gnn_layer(
                 None, h, None, p[op.w], p[op.b] if op.b else None,
+                batch["mask"], act=op.act, **bkw)
+        return step
+
+    if impl == "cuda":
+        # a transform with w_self (GraphSAGE after an sg Aggregate) as one
+        # self-only call of the fused kernel: [src | h_in] through the
+        # stacked weights [w; w_self] (stack_self_weights), so the kernel
+        # sums src W + h_in W_self + b
+        key = stacked_key(op)
+
+        def step(p, regs, batch):
+            x = torch.cat((regs[op.src], regs["h_in"]), dim=-1)
+            w = p[key] if key in p else torch.cat((p[op.w], p[op.w_self]))
+            regs[op.out] = kops.fused_gnn_layer(
+                None, x, None, w, p[op.b] if op.b else None,
                 batch["mask"], act=op.act, **bkw)
         return step
 
@@ -958,6 +1000,10 @@ def _compile_section(seq: Sequence[AckOp], impl: str,
     attn = [i for i, (ops, _) in enumerate(labeled)
             if isinstance(ops[0], (AttentionScore, AttentionSoftmax))]
     a0, a1 = (attn[0], attn[-1]) if attn else (-1, -1)
+    # the sg Aggregate steps, each bracketed alone (gpu.aggregate)
+    sg = {i for i, (ops, _) in enumerate(labeled)
+          if len(ops) == 1 and isinstance(ops[0], Aggregate)
+          and ops[0].mode == "sg"}
 
     def apply(p, h, batch, h0=None, mark=None):
         # "h0" is the propagation ENTRY state: the layer input for
@@ -971,7 +1017,11 @@ def _compile_section(seq: Sequence[AckOp], impl: str,
         for i, s in enumerate(steps):
             if i == a0:
                 mark("attention.begin")
+            if i in sg:
+                mark("aggregate.begin")
             s(p, regs, batch)
+            if i in sg:
+                mark("aggregate.end")
             if i == a1:
                 mark("attention.end")
         mark("layer")
@@ -987,7 +1037,8 @@ def compile_program(prog: AckProgram, impl: str = "cuda",
     ``params["layers"]``), then the tail. A per-batch dispatch variant is
     one such callable. ``mark(label)``, where given, is called after each
     layer ("layer"), around a layer's attention steps ("attention.begin",
-    "attention.end") and after the tail ("tail"): a traced batch's device
+    "attention.end"), around each sg Aggregate ("aggregate.begin",
+    "aggregate.end") and after the tail ("tail"): a traced batch's device
     spans (``obs.Tracer.gpu_marker``). It only records; what runs is the
     same."""
     if not prog.specialized:

@@ -93,6 +93,9 @@ class SchedulerStats:
     last_dedup_ratio: Optional[float] = None
     batch_edges_total: float = 0.0
     n_density: int = 0
+    # sg-mode edge layouts shipped: real edges and the slots they took
+    edges_shipped: int = 0
+    edge_slots_shipped: int = 0
     # sharded feature store only: cumulative host->device bytes PER SHARD
     # (empty for unsharded deployments)
     shard_bytes: List[int] = field(default_factory=list)
@@ -403,11 +406,13 @@ class PipelineScheduler:
                           build_misses: int = 0,
                           dedup_ratio: Optional[float] = None,
                           shard_bytes: Optional[Sequence[int]] = None,
-                          batch_edges: Optional[float] = None):
+                          batch_edges: Optional[float] = None,
+                          edges: int = 0, edge_slots: int = 0):
         """Accumulate transfer/cache counters for one prepared batch (safe
         from the stage worker threads and from run()'s serial path).
         ``shard_bytes`` (one entry per feature-store shard) accumulates
-        elementwise."""
+        elementwise; ``edges`` / ``edge_slots``: the real edges of the
+        batch's edge layout and the slots it took."""
         with self._lock:
             s = self.stats
             s.bytes_shipped += int(bytes_shipped)
@@ -416,6 +421,8 @@ class PipelineScheduler:
             s.cache_misses += int(cache_misses)
             s.build_hits += int(build_hits)
             s.build_misses += int(build_misses)
+            s.edges_shipped += int(edges)
+            s.edge_slots_shipped += int(edge_slots)
             if dedup_ratio is not None:
                 s.last_dedup_ratio = float(dedup_ratio)
             if batch_edges is not None:

@@ -190,7 +190,7 @@ class GraphHostService:
             self._h_select.record(t1 - t0)
             self._h_build.record(t2 - t1)
         result = {"node_lists": wire.node_lists_to_wire(plan.node_lists),
-                  "rows": wire.rows_to_wire(plan.rows),
+                  "rows": wire.rows_to_wire(plan.rows, plan.e_pad),
                   "nbr_hits": plan.nbr_hits,
                   "nbr_misses": plan.nbr_misses,
                   "build_hits": plan.build_hits,

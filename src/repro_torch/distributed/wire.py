@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import json
 import struct
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -207,24 +207,41 @@ def node_lists_from_wire(d: dict) -> List[np.ndarray]:
 _ROW_FIELDS = ("adj", "adj_mean", "mask", "edge_src", "edge_dst",
                "edge_w", "self_w", "edge_w_mean")
 _ROW_SCALARS = ("n_vertices", "n_edges", "edges_dropped")
+_EDGE_FIELDS = ("edge_src", "edge_dst", "edge_w", "edge_w_mean")
 
 
-def rows_to_wire(rows: Sequence) -> dict:
+def rows_to_wire(rows: Sequence, e_pad: Optional[int] = None) -> dict:
     """Stack C per-target ``SubgraphRows`` into [C, ...] arrays (fixed
-    shapes — the decoupling property — make the stack exact)."""
+    shapes — the decoupling property — make the stack exact). Each row's
+    edge arrays take ``e_pad`` slots (the deployment's fixed layout, which
+    both packages' hosts ship), or the longest row's where that is more."""
+    from repro_torch.core.subgraph import edge_layout
+    slots = max([int(e_pad or 0)] + [r.n_edges for r in rows])
+    edges = dict(zip(_EDGE_FIELDS, edge_layout(
+        rows, rows[0].adj.shape[0], slots)))
     d: Dict[str, np.ndarray] = {
-        f: np.stack([getattr(r, f) for r in rows]) for f in _ROW_FIELDS}
+        f: edges[f] if f in edges else np.stack([getattr(r, f)
+                                                 for r in rows])
+        for f in _ROW_FIELDS}
     for f in _ROW_SCALARS:
         d[f] = np.asarray([getattr(r, f) for r in rows], dtype=np.int64)
     return d
 
 
 def rows_from_wire(d: dict) -> List:
-    from repro_torch.core.subgraph import SubgraphRows
+    """The rows of ``rows_to_wire``, each edge array at its real edge
+    count (as Build makes them). A row that a graph host cut
+    (``edges_dropped`` > 0: a reference host's budget) is refused, as Build
+    refuses a subgraph over its budget: ``EdgeBudgetError``, counted in
+    ``core.subgraph.edges_refused`` and ``subgraphs_refused``."""
+    from repro_torch.core.subgraph import SubgraphRows, check_edge_budget
     c = d["adj"].shape[0]
     out = []
     for i in range(c):
-        kw = {f: np.ascontiguousarray(d[f][i]) for f in _ROW_FIELDS}
+        e = int(d["n_edges"][i])
+        check_edge_budget(e + int(d["edges_dropped"][i]), e)
+        kw = {f: np.ascontiguousarray(d[f][i][:e] if f in _EDGE_FIELDS
+                                      else d[f][i]) for f in _ROW_FIELDS}
         kw.update({f: int(d[f][i]) for f in _ROW_SCALARS})
         out.append(SubgraphRows(**kw).freeze())
     return out
@@ -254,7 +271,7 @@ def plan_to_wire(plan) -> dict:
             "targets": np.asarray(keys, dtype=np.int64),
             **node_lists_to_wire([plan.frontiers[t] for t in keys])}
     if plan.rows is not None:
-        d["rows"] = rows_to_wire(plan.rows)
+        d["rows"] = rows_to_wire(plan.rows, plan.e_pad)
     if plan.device is not None:
         d["device"] = {k: np.asarray(v) for k, v in plan.device.items()}
     return d

@@ -6,8 +6,9 @@ version for CPU tensors; ``impl="torch"`` programs call the plain versions
 read and zero the wrappers' launch counters (``flash_attention`` also
 counts each of its two kernels: ``flash_attention.variant_launches``; the
 fused layer its launches by kernel, Fin and form, ``form_launches``; the
-scatter-gather also its sort kernel's widths, ``width_launches``, and its
-launches by named caller, ``caller_launches``; the GAT kernel its fused
+scatter-gather also its sort kernel's widths, ``width_launches``, its
+launches by named caller, ``caller_launches``, and by shape,
+``shape_launches``; the GAT kernel its fused
 form's launches, ``fused_launches``, and the attention steps that ran
 unfused on the card, ``fused_fallbacks``).
 """
@@ -46,5 +47,7 @@ def reset_launch_counts() -> None:
                 m.width_launches = dict.fromkeys(m.width_launches, 0)
             if hasattr(m, "caller_launches"):
                 m.caller_launches = {}
+            if hasattr(m, "shape_launches"):
+                m.shape_launches = {}
             if hasattr(m, "fused_launches"):
                 m.fused_launches = m.fused_fallbacks = 0

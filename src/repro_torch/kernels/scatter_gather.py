@@ -39,8 +39,9 @@ skipped.
 The wrapper takes the plain version for tensors on the CPU; for CUDA
 tensors it launches the chosen kernel or raises. ``launches`` counts
 launches (one a call), ``variant_launches`` each kernel's,
-``width_launches`` the sort kernel's by columns a block and
-``caller_launches`` those of calls that name a ``caller``.
+``width_launches`` the sort kernel's by columns a block,
+``caller_launches`` those of calls that name a ``caller`` and
+``shape_launches`` them by (variant, C, N, E, F).
 """
 from __future__ import annotations
 
@@ -67,6 +68,8 @@ launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
 width_launches = dict.fromkeys(BLOCK_COLS_CANDIDATES, 0)
 caller_launches: dict = {}
+# launches by (variant, C, N, E, F): the shapes a roofline prices
+shape_launches: dict = {}
 _count_lock = threading.Lock()
 
 
@@ -265,6 +268,8 @@ def scatter_gather_aggregate(src, dst, w, h, block_cols=None, n_out=None,
             width_launches[block_cols] += 1
         if caller is not None:
             caller_launches[caller] = caller_launches.get(caller, 0) + 1
+        key = (variant, C, N, E, F)
+        shape_launches[key] = shape_launches.get(key, 0) + 1
     if op_analysis.active() is not None:
         c = sg_cost(src, dst, w, h, n_out)
         op_analysis.note_kernel("scatter_gather_aggregate", c["flops"],

@@ -10,6 +10,17 @@ has been happening lately". Enable with
 ``ServingConfig(telemetry=TelemetryConfig())``; both are off by default
 and zero-cost when off (every instrumentation site is one ``is None``
 test), and instrumented runs are bitwise equal to bare ones.
+
+On a card a traced batch's device time is cut by CUDA events into
+``gpu.input``, ``gpu.layer`` (arg ``l``), ``gpu.attention`` (GAT's
+attention steps), ``gpu.aggregate`` (each sg Aggregate, the
+scatter-gather launch) and ``gpu.tail`` spans (``Tracer.gpu_marker``).
+Counted always, outside this package: the edges of each sg batch's layout
+and the slots it took (``SchedulerStats.edges_shipped`` /
+``edge_slots_shipped``), the subgraphs refused over their edge budget and
+their edges (``core.subgraph.subgraphs_refused`` / ``edges_refused``: no
+edge is ever cut) and the scatter-gather's launches by (variant, C, N, E,
+F) (``kernels.scatter_gather.shape_launches``).
 """
 from repro_torch.obs.calib import CalibrationTable, run_instrumented
 from repro_torch.obs.events import EventRing

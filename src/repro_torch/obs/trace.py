@@ -22,7 +22,8 @@ module records what actually happened to individual batches:
   ``record_span``), Pack's parts (``pack.assemble``, ``pack.device_batch``,
   ``pack.payload``) and ``h2d.stage``; on a card, a device span's CUDA
   timing events (``gpu_marker``) become its ``gpu.input``, ``gpu.layer``
-  (arg ``l``), ``gpu.attention`` and ``gpu.tail`` children on track
+  (arg ``l``), ``gpu.attention``, ``gpu.aggregate`` (each sg Aggregate)
+  and ``gpu.tail`` children on track
   "gpu", placed on this clock by an anchor event (``anchor_gpu``);
 * finished spans land in a bounded ring (export) and the K slowest
   batches keep their FULL span trees in a flight recorder (forensics);
@@ -466,8 +467,9 @@ class Tracer:
         first mark opens; each later one
         closes the interval since the previous and names it (``gpu.`` +
         label, "layer" numbered by ``l``), but "attention.begin" /
-        "attention.end", which bracket a ``gpu.attention`` span inside
-        the layer, and ``SKIP_MARKS``, which close the interval unnamed.
+        "attention.end" and "aggregate.begin" / "aggregate.end", which
+        bracket a ``gpu.attention`` / ``gpu.aggregate`` span inside the
+        layer, and ``SKIP_MARKS``, which close the interval unnamed.
         None (mark nothing) off CUDA, before ``anchor_gpu``, or
         when this thread runs no traced batch."""
         h = self.current()
@@ -496,13 +498,15 @@ class Tracer:
         at = [t_anchor + anchor.elapsed_time(marks[0][1]) / 1e3]
         for (_, a), (_, b) in zip(marks, marks[1:]):
             at.append(at[-1] + a.elapsed_time(b) / 1e3)
-        layer, prev, attn = 0, at[0], None
+        layer, prev, opened = 0, at[0], {}
         for (label, _), t in zip(marks[1:], at[1:]):
-            if label == "attention.begin":
-                attn = t
+            part, _, edge = label.partition(".")
+            if part in ("attention", "aggregate") and edge == "begin":
+                opened[part] = t
                 continue
-            if label == "attention.end":
-                self._gpu_span("gpu.attention", h, attn, t, l=layer)
+            if part in ("attention", "aggregate") and edge == "end":
+                self._gpu_span("gpu." + part, h, opened.pop(part), t,
+                               l=layer)
                 continue
             if label == "layer":
                 self._gpu_span("gpu.layer", h, prev, t, l=layer)

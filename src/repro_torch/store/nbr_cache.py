@@ -13,7 +13,9 @@ cache under exactly that key:
     entry with the SAME generation/frontier-exact invalidation.
 
 Entries for targets in the pinned hot set never evict; everything else is
-LRU over ``capacity`` entries. ``invalidate(vertices)`` drops every cached
+LRU over ``capacity`` entries and, where ``max_bytes`` is set, over that
+many bytes of cached values (a row counts the bytes it holds: its edge
+arrays at their real edge count). ``invalidate(vertices)`` drops every cached
 entry whose push FRONTIER (the full touched set, cached alongside the
 value) contains an updated vertex — a graph update at v changes the PPR of
 any target whose push reached v, even when v fell below that target's
@@ -59,10 +61,15 @@ class FrontierCache:
     no frontier)."""
 
     def __init__(self, capacity: int = 4096,
-                 pinned_targets: Optional[Iterable[int]] = None):
+                 pinned_targets: Optional[Iterable[int]] = None,
+                 max_bytes: Optional[int] = None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
+        if max_bytes is not None and max_bytes < 1:
+            raise ValueError("max_bytes must be >= 1")
         self.capacity = capacity
+        self.max_bytes = max_bytes
+        self.nbytes = 0                       # bytes of the cached values
         self._pin_ids = frozenset(
             int(t) for t in (() if pinned_targets is None
                              else pinned_targets))
@@ -84,6 +91,14 @@ class FrontierCache:
         """Vertex ids invalidation scans when an entry has NO frontier
         (the pre-frontier approximation); None = always drop."""
         return None
+
+    def _weigh(self, value: Any) -> int:
+        """Bytes a value counts against ``max_bytes`` (0: not counted)."""
+        return 0
+
+    def _drop(self, ent) -> None:
+        """Account an entry leaving the cache (called under the lock)."""
+        self.nbytes -= self._weigh(ent[0])
 
     # -- core ----------------------------------------------------------------
     def get(self, key: Key) -> Optional[Any]:
@@ -125,13 +140,19 @@ class FrontierCache:
         with self._lock:
             if generation is not None and generation != self._gen:
                 return
-            if key[0] in self._pin_ids:
-                self._pinned[key] = ent
+            store = self._pinned if key[0] in self._pin_ids else self._lru
+            old = store.get(key)
+            if old is not None:
+                self._drop(old)
+            store[key] = ent
+            self.nbytes += self._weigh(value)
+            if store is self._pinned:
                 return
-            self._lru[key] = ent
             self._lru.move_to_end(key)
-            while len(self._lru) > self.capacity:
-                self._lru.popitem(last=False)
+            while self._lru and (len(self._lru) > self.capacity or (
+                    self.max_bytes is not None
+                    and self.nbytes > self.max_bytes)):
+                self._drop(self._lru.popitem(last=False)[1])
                 self.evictions += 1
 
     def invalidate(self, vertices) -> int:
@@ -170,6 +191,7 @@ class FrontierCache:
                 # replaced the entry while we scanned — keep that one
                 if store.get(k) is ent:
                     del store[k]
+                    self._drop(ent)
                     dropped += 1
             self.invalidations += dropped
         return dropped
@@ -179,6 +201,7 @@ class FrontierCache:
             self._gen += 1
             self._pinned.clear()
             self._lru.clear()
+            self.nbytes = 0
 
     @property
     def generation(self) -> int:
@@ -242,6 +265,9 @@ class SubgraphRowCache(FrontierCache):
 
     def _freeze(self, rows):
         return rows.freeze()
+
+    def _weigh(self, rows) -> int:
+        return rows.nbytes
 
     def _footprint(self, rows) -> Optional[np.ndarray]:
         return None      # no node list stored: drop conservatively

@@ -68,9 +68,10 @@ class StorePolicy:
     # Build-stage subgraph-row cache: "auto" follows nbr_cache (rows are
     # cached whenever neighborhoods are), "on"/"off" force it
     subgraph_rows: str = "auto"
-    # explicit entry cap; None = derive from the byte budget below (one
-    # entry is ~2N^2 floats + edge arrays — far heavier than a node list,
-    # so the default bound is bytes, capped at nbr_capacity entries)
+    # explicit entry cap; None = bounded by the byte budget below, each
+    # entry counted at its bytes (~2N^2 floats + its edge arrays at the
+    # real edge count: far heavier than a node list), and at nbr_capacity
+    # entries
     subgraph_capacity: Optional[int] = None
     subgraph_budget_bytes: int = 256 << 20
     # automatic residency rebalance (resident/sharded features): repin

@@ -302,7 +302,8 @@ class TestBlockAutotune:
         cfg = make_cfg(graph)
         params = init_gnn(cfg, 0, device="cpu")
         prog, _ = tprog.lower_and_specialize(cfg, force="dense")
-        sb = build_batch(graph, [1, 2], N, e_pad=64, num_threads=1)
+        sb = build_batch(graph, [1, 2], N, e_pad=N * (N - 1),
+                         num_threads=1)
         with DecoupledEngine(graph, cfg, params=params,
                              config=conf(mode="sg", impl="torch")) as eng:
             batch = eng.device_batch(sb)        # features f_in wide
